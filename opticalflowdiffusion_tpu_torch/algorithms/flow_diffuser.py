@@ -4,8 +4,11 @@ Given frame 1 as the conditioning, the flagship (``target='joint'``)
 denoises to the forward-warped frame and its flow together: the UNet
 predicts a flow and the conditioning is splatted by it (``UnetWithWarp``).
 Ported for serving: ``UnetWithWarp``, ``FlowDiffuser.__init__``,
-``preprocess(aug=False)`` and ``sample``.  Training (losses, augmentation,
-optimizer) and the latent mode come with later slices.
+``preprocess(aug=False)`` and ``sample`` (``cfg.sampler`` passes through to
+the schedule, so 'dpmpp' selects DPM-Solver++(2M); H and W come from the
+conditioning, so one model serves 128x128 and 448x1024).  Training
+(losses, augmentation, optimizer) and the latent mode come with later
+slices.
 """
 
 from __future__ import annotations

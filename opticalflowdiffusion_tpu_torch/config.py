@@ -10,7 +10,7 @@ algorithm's image size.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,7 +46,24 @@ class FlowDiffuserConfig:
     precision: str = "bf16"
 
 
+@dataclasses.dataclass(frozen=True)
+class ServingConfig:
+    """Native-resolution serving of the flagship: the JAX ``bench.py`` rows
+    ``sintel_native_ddim50_frames_per_sec`` (b2), ``..._b8_frames_per_sec``
+    and ``sintel_native_dpmpp20_frames_per_sec`` (b2), with the 128-trained
+    flagship's weights on the 1024x436 Sintel frame padded to 448x1024 (the
+    UNet needs sides divisible by 8).  The port draws the conditioning from
+    its artificial dataset rendered square at the larger side and cropped."""
+
+    height: int = 448
+    width: int = 1024
+    # (sampler, denoise steps, batch) of each served run
+    runs: Tuple[Tuple[str, int, int], ...] = (("ddim", 50, 2), ("ddim", 50, 8), ("dpmpp", 20, 2))
+
+
 FLAGSHIP = FlowDiffuserConfig()
 FLAGSHIP_DATA = ArtificialDataConfig()
+NATIVE = ServingConfig()
 
-__all__ = ["ArtificialDataConfig", "FlowDiffuserConfig", "FLAGSHIP", "FLAGSHIP_DATA"]
+__all__ = ["ArtificialDataConfig", "FlowDiffuserConfig", "ServingConfig", "FLAGSHIP",
+           "FLAGSHIP_DATA", "NATIVE"]

@@ -29,7 +29,17 @@ LA_OUT = Kernel(
     "opticalflowdiffusion_tpu_torch/kernels/linear_attention.cu",
     "opticalflowdiffusion_tpu/ops/attention_fused.py:189",
 )
-KERNELS = (LA_CTX, LA_OUT)
+FLASH = Kernel(
+    "flash_attention",
+    "opticalflowdiffusion_tpu_torch/kernels/flash_attention.cu",
+    "opticalflowdiffusion_tpu/ops/flash_attention.py:62",
+)
+SPLAT = Kernel(
+    "splat_linear_unn",
+    "opticalflowdiffusion_tpu_torch/kernels/splat.cu",
+    "opticalflowdiffusion_tpu/ops/splat.py:176",
+)
+KERNELS = (LA_CTX, LA_OUT, FLASH, SPLAT)
 
 
 def reset_counts() -> None:
@@ -37,4 +47,4 @@ def reset_counts() -> None:
         k.launches = 0
 
 
-__all__ = ["Kernel", "KERNELS", "LA_CTX", "LA_OUT", "reset_counts"]
+__all__ = ["Kernel", "KERNELS", "FLASH", "LA_CTX", "LA_OUT", "SPLAT", "reset_counts"]

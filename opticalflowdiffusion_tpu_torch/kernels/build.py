@@ -27,7 +27,7 @@ from typing import Dict
 
 KERNEL_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR / "_build"
-SOURCES = ("linear_attention",)
+SOURCES = ("linear_attention", "flash_attention", "splat")
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

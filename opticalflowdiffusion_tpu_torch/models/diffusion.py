@@ -9,9 +9,9 @@ frameworks the same random numbers.
 
 Ported for the serving path: the three beta schedules, ``make_schedule``,
 ``extract``, the ``predict_*`` functions, ``q_posterior``,
-``model_predictions``, ``p_sample_loop``, ``ddim_sample`` and ``sample``
-with ``noise_space='image'``.  DPM-Solver++ and the flow-noise forward
-process are not ported yet and raise.
+``model_predictions``, ``p_sample_loop``, ``ddim_sample``, ``dpmpp_sample``
+and ``sample`` with ``noise_space='image'``.  The flow-noise forward process
+is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -98,10 +98,21 @@ def make_schedule(
 ) -> Schedule:
     if objective not in ("pred_noise", "pred_x0", "pred_v"):
         raise ValueError(f"unknown objective {objective!r}")
+    if sampler not in ("auto", "ancestral", "ddim", "dpmpp"):
+        raise ValueError(f"unknown sampler {sampler!r}")
+    if sampler == "dpmpp" and noise_space != "image":
+        raise NotImplementedError(
+            "sampler='dpmpp' integrates the additive-noise probability-flow ODE; "
+            "the permutation-warp forward process (noise_space='flow') has no "
+            "such ODE: use the ancestral sampler"
+        )
+    if sampler == "dpmpp" and int(sampling_timesteps or timesteps) < 2:
+        raise ValueError(
+            "sampler='dpmpp' requires sampling_timesteps >= 2 "
+            "(use sampler='ddim' for single-step sampling)"
+        )
     if noise_space != "image":
         raise NotImplementedError("noise_space='flow' is not ported yet")
-    if sampler not in ("auto", "ancestral", "ddim"):
-        raise NotImplementedError(f"sampler {sampler!r} is not ported yet")
     betas = _SCHEDULES[beta_schedule](timesteps)
     alphas = 1.0 - betas
     ac = np.cumprod(alphas)
@@ -233,14 +244,27 @@ def p_sample_loop(sched: Schedule, model_fn: ModelFn, shape: Sequence[int],
     return torch.stack(traj, dim=1)
 
 
-def ddim_times(T: int, S: int) -> List[int]:
-    """The DDIM grid ``linspace(-1, T-1, S+1)`` truncated to integers,
-    exactly: ``-1 + floor(T*i/S)``.  The JAX package computes it in float32,
-    where the points that are exact integers can land one ulp low and
-    truncate to the integer below, depending on how XLA compiles the
-    expression.  For the flagship (T=1000, S=50) and the tested grids the two
-    agree."""
-    return [(T * i) // S - 1 for i in range(S + 1)]
+def linspace_int(start: float, stop: float, num: int) -> List[int]:
+    """``jnp.linspace(start, stop, num).astype(jnp.int32)`` as the JAX
+    package computes it, bit for bit.  XLA evaluates the linspace in float32
+    as ``r = 1/div``, ``c = stop*r``, ``a = start*(1 - i*r)`` and
+    ``a + i*c`` with one rounding (a fused multiply-add), ends on ``stop``
+    exactly, and the cast truncates towards zero.  Where a point is an exact
+    integer in real arithmetic it can land one ulp low and truncate to the
+    integer below (T=1000: S=55 gives 198 where ``1000*11/55 - 1`` is 199),
+    so the exact-integer formula is not the JAX grid."""
+    f32 = np.float32
+    if num == 1:
+        return [int(np.trunc(f32(start)))]
+    div = num - 1
+    i = np.arange(div, dtype=np.float32)
+    r = f32(1.0) / f32(div)
+    c = f32(f32(stop) * r)
+    a = f32(start) * (f32(1.0) - i * r)
+    # i*c is exact in float64 and the sum is rounded to float32 once
+    out = (a.astype(np.float64) + i.astype(np.float64) * np.float64(c)).astype(np.float32)
+    out = np.append(out, f32(stop))
+    return [int(v) for v in np.trunc(out)]
 
 
 def ddim_sample(sched: Schedule, model_fn: ModelFn, shape: Sequence[int],
@@ -251,7 +275,7 @@ def ddim_sample(sched: Schedule, model_fn: ModelFn, shape: Sequence[int],
     flagship) no noise is drawn.  ``return_every=k`` returns (B, K, ...)
     with x_T, every k-th state and always the final one."""
     T, S, eta = sched.num_timesteps, sched.sampling_timesteps, sched.ddim_sampling_eta
-    times = ddim_times(T, S)[::-1]
+    times = linspace_int(-1, T - 1, S + 1)[::-1]
     img = _randn(shape, generator, device) if x_T is None else x_T.float()
     traj: List[torch.Tensor] = [img]
     ac = sched.alphas_cumprod
@@ -281,12 +305,68 @@ def ddim_sample(sched: Schedule, model_fn: ModelFn, shape: Sequence[int],
     return torch.stack([traj[k] for k in idx], dim=1)
 
 
+def dpmpp_sample(sched: Schedule, model_fn: ModelFn, shape: Sequence[int],
+                 external_cond=None, generator: Optional[torch.Generator] = None,
+                 x_T=None, noises=None, return_every: Optional[int] = None,
+                 device="cuda"):
+    """DPM-Solver++(2M) over ``sched.sampling_timesteps`` model calls (JAX
+    ``dpmpp_sample``): a second-order multistep integrator of the
+    probability-flow ODE in data-prediction space on the trailing grid
+    ``linspace(0, T-1, S)`` (last call at t = 0), first order on the first
+    and the final step; the final state is the last x0.  Deterministic: only
+    x_T is drawn (``noises`` is ignored).  The step coefficients are float32
+    scalars computed on the host from the schedule, as JAX computes them in
+    float32.  ``return_every=k`` returns (B, K, ...) as ``ddim_sample``."""
+    del noises
+    T, S = sched.num_timesteps, sched.sampling_timesteps
+    times = linspace_int(0, T - 1, S)[::-1] + [-1]
+    img = _randn(shape, generator, device) if x_T is None else x_T.float()
+    traj: List[torch.Tensor] = [img]
+    ac = sched.alphas_cumprod.detach().cpu()
+
+    def lam(t):
+        a = ac[t]
+        return 0.5 * (torch.log(a) - torch.log1p(-a))
+
+    prev_x0, prev_lam = None, None
+    for t, t_next in zip(times[:-1], times[1:]):
+        bt = torch.full((shape[0],), t, dtype=torch.long, device=img.device)
+        _, x0 = model_predictions(sched, model_fn, img, bt, clip_x_start=True,
+                                  external_cond=external_cond)
+        lam_t = lam(t)
+        if t_next < 0:
+            img = x0
+        else:
+            h = lam(t_next) - lam_t
+            alpha_next = torch.sqrt(ac[t_next])
+            sigma_t = torch.sqrt(1.0 - ac[t])
+            sigma_next = torch.sqrt(1.0 - ac[t_next])
+            d = x0
+            if prev_x0 is not None:
+                # 2M correction: D = x0 + (x0 - prev_x0) / (2 r), r = h_prev / h
+                r = (lam_t - prev_lam) / torch.where(h == 0, torch.ones_like(h), h)
+                d = x0 + (x0 - prev_x0) / float(torch.clamp(2.0 * r, min=1e-6))
+            img = (float(sigma_next / sigma_t) * img
+                   - float(alpha_next * torch.expm1(-h)) * d)
+        prev_x0, prev_lam = x0, lam_t
+        traj.append(img)
+    if return_every is None:
+        return img
+    idx = list(range(0, S + 1, max(1, int(return_every))))
+    if idx[-1] != S:
+        idx.append(S)
+    return torch.stack([traj[k] for k in idx], dim=1)
+
+
 def sample(sched: Schedule, model_fn: ModelFn, shape: Sequence[int], external_cond=None,
            generator: Optional[torch.Generator] = None, x_T=None, noises=None,
            return_every: Optional[int] = None, device="cuda"):
-    """DDIM when ``sampling_timesteps < T`` (or ``sampler='ddim'``), the
-    ancestral loop otherwise."""
-    if sched.sampler == "ddim" or (sched.sampler == "auto" and sched.is_ddim_sampling):
+    """DPM-Solver++(2M) for ``sampler='dpmpp'``; DDIM when
+    ``sampling_timesteps < T`` (or ``sampler='ddim'``); the ancestral loop
+    otherwise."""
+    if sched.sampler == "dpmpp":
+        fn = dpmpp_sample
+    elif sched.sampler == "ddim" or (sched.sampler == "auto" and sched.is_ddim_sampling):
         fn = ddim_sample
     else:
         fn = p_sample_loop
@@ -297,5 +377,6 @@ def sample(sched: Schedule, model_fn: ModelFn, shape: Sequence[int], external_co
 __all__ = [
     "Schedule", "make_schedule", "extract", "model_predictions", "q_posterior",
     "predict_start_from_noise", "predict_noise_from_start", "predict_v",
-    "predict_start_from_v", "p_sample_loop", "ddim_sample", "ddim_times", "sample",
+    "predict_start_from_v", "p_sample_loop", "ddim_sample", "dpmpp_sample",
+    "linspace_int", "sample",
 ]

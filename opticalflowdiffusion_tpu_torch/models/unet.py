@@ -195,11 +195,12 @@ class Attention(nn.Module):
     def forward(self, x):
         B, C, H, W = x.shape
         qkv = self.to_qkv(x).reshape(B, 3, self.heads, self.dim_head, H * W)
-        qkv = qkv.permute(1, 0, 4, 2, 3)                       # (3, B, N, h, d)
-        q, k, v = qkv[0], qkv[1], qkv[2]
-        q = q * self.dim_head ** -0.5
+        # q, k, v as (B, N, h, d) views of the (B, h, d, N) slices, the layout
+        # the flash kernel reads without a copy; q is scaled in that layout
+        q = (qkv[:, 0] * self.dim_head ** -0.5).permute(0, 3, 1, 2)
+        k, v = qkv[:, 1].permute(0, 3, 1, 2), qkv[:, 2].permute(0, 3, 1, 2)
         out = attention_middle(q, k, v)                        # (B, N, h, d)
-        out = out.reshape(B, H * W, -1).transpose(1, 2).reshape(B, -1, H, W)
+        out = out.permute(0, 2, 3, 1).reshape(B, -1, H, W)
         return self.to_out(out)
 
 

@@ -1,9 +1,11 @@
 """Where the time of one UNet eval of the flagship goes on the card.
 
-    python -m opticalflowdiffusion_tpu_torch.profile_step [--steps 10] [--seed 0]
+    python -m opticalflowdiffusion_tpu_torch.profile_step [--steps 10] [--seed 0] \
+        [--batch 8] [--height 128 --width 128]
 
-Builds the flagship as ``sample.py`` does (128x128, batch 8, bf16, weights
-from ``--seed``), warms up, times ``--steps`` UnetWithWarp evals with the
+Builds the flagship as ``sample.py`` does (bf16, weights from ``--seed``) on
+a batch of ``--batch`` at ``--height`` x ``--width`` (default 128x128 b8;
+448x1024 is native Sintel), warms up, times ``--steps`` UnetWithWarp evals with the
 host clock around synchronised runs, then traces the same evals with
 ``torch.profiler``.  Prints one JSON line: wall ms per eval, device-busy ms
 per eval (the union of the traced kernels' intervals), the device's idle
@@ -21,13 +23,15 @@ import time
 import torch
 
 from .algorithms.base import to_batch
-from .sample import build
+from .sample import batch_items, build
 
 KINDS = (
     ("linear_attention", ("la_ctx_kernel", "la_out_kernel")),
+    ("flash_attention", ("flash_bf16_kernel", "flash_f32_kernel")),
+    ("splat", ("splat_max_kernel", "splat_scatter_kernel", "splat_finish_kernel")),
     ("conv", ("conv", "cudnn", "xmma", "implicit", "winograd", "fprop", "dgrad")),
     ("gemm", ("gemm", "cutlass", "matmul")),
-    ("splat_index", ("index", "scatter")),
+    ("index", ("index", "scatter", "gather")),
     ("reduction", ("reduce", "norm")),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
 )
@@ -54,15 +58,15 @@ def busy_us(intervals) -> float:
     return total
 
 
-def run(steps: int, seed: int) -> dict:
+def run(steps: int, seed: int, batch: int = 8, height: int = 128, width: int = 128) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step needs a CUDA device")
-    algo, data = build(seed, "cuda")
-    _, cond, _ = algo.preprocess(to_batch([data[i] for i in range(8)], algo.device))
+    algo, _ = build(seed, "cuda")
+    items = batch_items(seed, batch, height, width)
+    _, cond, _ = algo.preprocess(to_batch(items, algo.device))
     g = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.randn(8, algo.channels, algo.image_size, algo.image_size,
-                    generator=g, device="cuda")
-    t = torch.full((8,), 500, dtype=torch.long, device="cuda")
+    x = torch.randn(batch, algo.channels, height, width, generator=g, device="cuda")
+    t = torch.full((batch,), 500, dtype=torch.long, device="cuda")
 
     def evals():
         with torch.no_grad():
@@ -90,6 +94,7 @@ def run(steps: int, seed: int) -> dict:
     busy_ms = busy_us(spans) / 1e3 / steps if spans else None
     return {
         "device": torch.cuda.get_device_name(0),
+        "batch": batch, "height": height, "width": width,
         "evals": steps,
         "wall_ms_per_eval": wall_ms,
         "device_busy_ms_per_eval": busy_ms,
@@ -104,8 +109,12 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--height", type=int, default=128)
+    ap.add_argument("--width", type=int, default=128)
     args = ap.parse_args(argv)
-    print(json.dumps(run(args.steps, args.seed)), flush=True)
+    print(json.dumps(run(args.steps, args.seed, args.batch, args.height, args.width)),
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
-"""Port vs JAX: schedule tables, the DDIM time grid, a DDIM-5 trajectory and
-a 4-step ancestral trajectory of the flagship's UnetWithWarp (unet_dim 8 at
-16x16), step by step.  Both frameworks get the same initial and per-step
+"""Port vs JAX: schedule tables, the DDIM and DPM++ time grids, a DDIM-5
+trajectory, a 4-step ancestral trajectory of the flagship's UnetWithWarp
+(unet_dim 8 at 16x16) and a DPM++(2M)-5 trajectory at 16x32, step by step.  Both frameworks get the same initial and per-step
 noise: the test draws it from JAX's key stream and hands it to the port."""
 
 import jax
@@ -66,10 +66,30 @@ def test_schedule_tables(objective):
                                       err_msg=f)
 
 
-@pytest.mark.parametrize("T,S_", [(1000, 50), (1000, 250), (1000, 1000), (20, 5), (100, 10)])
+def _grid_cases():
+    """(T, S): the earlier five pairs, the two where the exact-integer grid
+    is off by one (1000, 55) and (1000, 82), and for each T a stride over
+    2..T."""
+    cases = [(1000, 50), (1000, 250), (1000, 1000), (20, 5), (100, 10), (1000, 55), (1000, 82)]
+    for T in (20, 100, 250, 1000, 2000):
+        cases += [(T, s) for s in range(2, T + 1, max(1, T // 6)) if (T, s) not in cases]
+    return cases
+
+
+@pytest.mark.parametrize("T,S_", _grid_cases())
 def test_ddim_times_match_jax(T, S_):
+    """The DDIM grid (JAX ``ddim_sample``) and the DPM++ grid (JAX
+    ``dpmpp_sample``) equal JAX's float32 ``linspace`` truncated to int32."""
     want = np.asarray(jnp.linspace(-1, T - 1, S_ + 1).astype(jnp.int32))
-    assert dm.ddim_times(T, S_) == want.tolist()
+    assert dm.linspace_int(-1, T - 1, S_ + 1) == want.tolist()
+    want = np.asarray(jnp.linspace(0, T - 1, S_).astype(jnp.int32))
+    assert dm.linspace_int(0, T - 1, S_) == want.tolist()
+
+
+def test_grid_differs_from_exact_integers():
+    """The two named pairs are where JAX's grid is not ``T*i//S - 1``."""
+    assert dm.linspace_int(-1, 999, 56)[11] == 198 != 1000 * 11 // 55 - 1
+    assert dm.linspace_int(-1, 999, 83)[41] == 498 != 1000 * 41 // 82 - 1
 
 
 def _compare_traj(got, want):
@@ -123,6 +143,86 @@ def test_ancestral4_trajectory(models):
                                x_T=_nchw(x_T), noises=noises, return_every=1, device="cpu")
     assert got.shape == (B, 5, 5, S, S)
     _compare_traj(got, np.asarray(want))
+
+
+@pytest.fixture(scope="module")
+def models_wide():
+    """As ``models``, on a non-square 16x32 conditioning."""
+    net = init_weights(Unet(DIM, out_dim=2, channels=9), torch.Generator().manual_seed(5))
+    tree = {"model": itc.unet_params_from_torch(
+        {k: v.numpy() for k, v in net.state_dict().items()})}
+    jmod = JUnetWithWarp(flow_max=20.0, dim=3, channels=9, full_output=True,
+                         zero_init=False, unet_dim=DIM)
+    mod = UnetWithWarp(flow_max=20.0, dim=3, channels=9, full_output=True,
+                       zero_init=False, unet_dim=DIM).eval()
+    mod.load_state_dict(flow_diffuser_state_dict(tree), strict=True)
+
+    def jfn(x, cond, t, sc=None):
+        return jmod.apply({"params": tree}, x, cond, t, sc)
+
+    cond = np.random.default_rng(6).uniform(-1, 1, (B, S, 2 * S, 3)).astype(np.float32)
+    return jfn, mod, cond
+
+
+def test_dpmpp_trajectory(models_wide):
+    """DPM-Solver++(2M), 5 steps on the trailing grid of T = 20, on a
+    non-square 16x32 input: the port's sampler and UnetWithWarp against
+    JAX's ``dpmpp_sample`` after every step, from JAX's initial noise.
+
+    Each of the port's model calls is fed JAX's state of that step (the
+    port's solver carries its own state, x0 history and coefficients).  A
+    free-running comparison cannot hold any pin here: the random UNet's flow
+    (x20 before the splat) amplifies float rounding about 4x per step, so
+    that JAX's own sampler, run once inside its scan and once with the model
+    called eagerly, differs by 2e-5 after one step and 1e-2 after five."""
+    jfn, mod, cond = models_wide
+    shape = (B, S, 2 * S, 5)
+    jsched = jdm.make_schedule(timesteps=20, sampling_timesteps=5, min_snr_loss_weight=True,
+                               sampler="dpmpp")
+    key = jax.random.PRNGKey(13)
+    want, _ = jdm.dpmpp_sample(jsched, jfn, key, shape, external_cond=jnp.asarray(cond),
+                               return_every=1)
+    want = np.asarray(want)
+    states = iter(_nchw(want[:, k]) for k in range(want.shape[1]))
+
+    def forced(x, c, t):
+        return mod(next(states), c, t)
+
+    sched = dm.make_schedule(timesteps=20, sampling_timesteps=5, min_snr_loss_weight=True,
+                             sampler="dpmpp", device="cpu")
+    with torch.no_grad():
+        got = dm.sample(sched, forced, (B, 5, S, 2 * S), external_cond=_nchw(cond),
+                        x_T=_nchw(want[:, 0]), return_every=1, device="cpu")
+    assert got.shape == (B, 6, 5, S, 2 * S)
+    _compare_traj(got, want)
+
+
+def test_dpmpp_solver_free_running():
+    """The solver alone, free running: port and JAX on a smooth model
+    (x0 = tanh(0.7 x + t / 100)) agree to float32 rounding at every step."""
+    shape = (B, 4, 8, 5)
+    jsched = jdm.make_schedule(timesteps=20, sampling_timesteps=5, sampler="dpmpp")
+    key = jax.random.PRNGKey(14)
+    want, _ = jdm.dpmpp_sample(
+        jsched, lambda x, c, t, sc=None: jnp.tanh(0.7 * x + 0.01 * t[:, None, None, None]),
+        key, shape, return_every=1)
+    want = np.asarray(want)
+    sched = dm.make_schedule(timesteps=20, sampling_timesteps=5, sampler="dpmpp", device="cpu")
+    got = dm.dpmpp_sample(sched, lambda x, c, t: torch.tanh(0.7 * x + 0.01 * t[:, None, None, None]),
+                          (B, 5, 4, 8), x_T=_nchw(want[:, 0]), return_every=1, device="cpu")
+    np.testing.assert_allclose(got.permute(0, 1, 3, 4, 2).numpy(), want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("kwargs,err", [
+    (dict(noise_space="flow"), NotImplementedError),
+    (dict(sampling_timesteps=1), ValueError),
+])
+def test_dpmpp_guards(kwargs, err):
+    """The two guards of JAX's ``make_schedule`` for sampler='dpmpp'."""
+    with pytest.raises(err):
+        jdm.make_schedule(timesteps=20, sampler="dpmpp", **kwargs)
+    with pytest.raises(err):
+        dm.make_schedule(timesteps=20, sampler="dpmpp", device="cpu", **kwargs)
 
 
 @pytest.mark.parametrize("objective", ["pred_x0", "pred_noise", "pred_v"])

@@ -14,6 +14,7 @@ import torch
 from opticalflowdiffusion_tpu.algorithms.flow_diffuser import FlowDiffuser as JFlowDiffuser
 from opticalflowdiffusion_tpu.config import compose
 from opticalflowdiffusion_tpu.data.artificial import ArtificialDataset as JArtificial
+from opticalflowdiffusion_tpu.models import diffusion as jdm
 from opticalflowdiffusion_tpu.utils import import_torch_ckpt as itc
 from opticalflowdiffusion_tpu_torch import profile_step
 from opticalflowdiffusion_tpu_torch import sample as sample_entry
@@ -61,13 +62,16 @@ def test_pair_batch_and_to_batch():
     assert pair_batch((img, tgt, flow))[2] is flow
 
 
-def _pair(sampling_timesteps=None):
+def _pair(sampling_timesteps=None, sampler="auto"):
     cfg = dataclasses.replace(FLAGSHIP, image_size=S, unet_dim=8, zero_init=False,
-                              precision="float32", sampling_timesteps=sampling_timesteps)
+                              precision="float32", sampling_timesteps=sampling_timesteps,
+                              sampler=sampler)
     algo = FlowDiffuser(cfg, device="cpu", generator=torch.Generator().manual_seed(6))
     extra = ["+algorithm.unet_dim=8"]
     if sampling_timesteps:
         extra.append(f"algorithm.sampling_timesteps={sampling_timesteps}")
+    if sampler != "auto":
+        extra.append(f"+algorithm.sampler={sampler}")
     jalgo = JFlowDiffuser(_jax_cfg(*extra).algorithm)
     sd = {k[len("model."):]: v.numpy() for k, v in algo.module.state_dict().items()}
     params = {"model": itc.unet_params_from_torch(sd)}
@@ -108,6 +112,44 @@ def test_flow_diffuser_sample_ddim_matches_jax():
     assert np.isfinite(np.asarray(want_flow)).all()
 
 
+def test_flow_diffuser_sample_dpmpp_non_square_matches_jax():
+    """The serving slice at a small size: conditioning rendered square and
+    cropped to 16x32 as the native path does, DPM++(2M)-3 through
+    ``FlowDiffuser.sample`` (sampler='dpmpp' passes through to the
+    schedule), port vs JAX on bridged weights from JAX's initial noise.
+    Each port model call is fed JAX's state of that step: free running, the
+    random UNet's flow (x20 before the splat) amplifies float rounding
+    beyond any pin within a few steps (``test_dpmpp_trajectory``)."""
+    algo, jalgo, params = _pair(sampling_timesteps=3, sampler="dpmpp")
+    items = sample_entry.batch_items(5, 2, S, 2 * S)
+    assert items[0][0].shape == (S, 2 * S, 3)
+    _, cond, _ = algo.preprocess(to_batch(items, "cpu"))
+    jcond = jnp.asarray(cond.permute(0, 2, 3, 1).numpy())
+    assert algo.sched.sampler == jalgo.sched.sampler == "dpmpp"
+    traj, _ = jdm.dpmpp_sample(jalgo.sched, jalgo._model_fn(params), jax.random.PRNGKey(8),
+                               (2, S, 2 * S, 5), external_cond=jcond, return_every=1)
+    traj = np.asarray(traj)
+    want = traj[:, -1]                      # the joint state: image (3) + flow (2)
+    states = iter(torch.from_numpy(traj[:, k]).permute(0, 3, 1, 2).contiguous()
+                  for k in range(traj.shape[1]))
+    algo.model_fn = lambda x, c, t: algo.module(next(states), c, t)
+    got_img, got_flow = algo.sample(
+        cond, x_T=torch.from_numpy(traj[:, 0]).permute(0, 3, 1, 2).contiguous())
+    got = torch.cat([got_img, got_flow], dim=1).permute(0, 2, 3, 1).numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    ok = np.isfinite(want)
+    np.testing.assert_allclose(got[ok], want[ok], rtol=1e-4, atol=2e-4)
+    assert np.isfinite(want[..., 3:]).all()
+
+
+def test_sample_entry_point_native_options_on_cpu():
+    out = sample_entry.run(2, 0, "cpu", sampling_timesteps=3, unet_dim=8, sampler="dpmpp",
+                           height=S, width=2 * S)
+    assert out["samples_shape"] == [2, 3, S, 2 * S] and out["flow_shape"] == [2, 2, S, 2 * S]
+    assert out["sampler"] == "dpmpp" and out["denoise_steps"] == 3
+    assert out["finite_values_finite"] and out["frames_per_s"] > 0
+
+
 def test_sample_entry_point_runs_on_cpu():
     out = sample_entry.run(2, 0, "cpu", sampling_timesteps=2, image_size=S, unet_dim=8)
     assert out["samples_shape"] == [2, 3, S, S] and out["flow_shape"] == [2, 2, S, S]
@@ -119,4 +161,6 @@ def test_profile_helpers():
     assert profile_step.busy_us([(0, 10), (5, 12), (20, 25)]) == 17
     assert profile_step.kind_of("void la_ctx_kernel<float>(...)") == "linear_attention"
     assert profile_step.kind_of("sm90_xmma_fprop_implicit_gemm_bf16") == "conv"
-    assert profile_step.kind_of("indexFuncLargeIndex") == "splat_index"
+    assert profile_step.kind_of("indexFuncLargeIndex") == "index"
+    assert profile_step.kind_of("flash_bf16_kernel(...)") == "flash_attention"
+    assert profile_step.kind_of("void splat_scatter_kernel<float>(...)") == "splat"

@@ -1,4 +1,5 @@
-"""The CUDA kernels of the fused linear-attention block and their wrappers.
+"""The CUDA kernels of the fused linear-attention block and of the splat, and
+their wrappers.
 
 Imports torch and the port only (no JAX), so that it also runs on the card:
 
@@ -15,6 +16,7 @@ import torch
 
 from opticalflowdiffusion_tpu_torch import kernels
 from opticalflowdiffusion_tpu_torch.ops import attention_fused as paf
+from opticalflowdiffusion_tpu_torch.ops import splat as psplat_
 
 
 @pytest.fixture
@@ -125,3 +127,25 @@ def test_kernel_path_refuses_gradients(cuda_device):
     tp = tuple(t.to(cuda_device) for t in tp)
     with pytest.raises(RuntimeError):
         paf.fused_linear_attention_block(xt, *tp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_splat_kernel_deterministic_on_card(cuda_device, dtype):
+    """Two launches give the same bits, and the kernel agrees with
+    ``splat_raw`` to float32 rounding of the sums (one rounding to bf16 for
+    bf16), on a 96x160 map with colliding targets and an inf flow."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = (2 * torch.rand(2, 3, 96, 160, generator=g, device=cuda_device) - 1).to(dtype)
+    metric = (torch.rand(2, 1, 96, 160, generator=g, device=cuda_device) > 0.1).to(dtype)
+    flow = 4 * torch.randn(2, 2, 96, 160, generator=g, device=cuda_device)
+    flow[0, 0, 5, 7] = float("inf")
+    n0 = kernels.SPLAT.launches
+    a = psplat_.splat_linear_unn(x, flow, metric)
+    b = psplat_.splat_linear_unn(x, flow, metric)
+    want = psplat_.splat_raw(torch.cat([x * metric, metric], dim=1), flow).float()
+    torch.cuda.synchronize()
+    assert kernels.SPLAT.launches == n0 + 2
+    assert torch.equal(a, b)
+    rel = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    assert float((a.float() - want).abs().max()) <= rel * float(want.abs().max()) + 1e-6

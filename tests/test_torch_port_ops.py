@@ -1,14 +1,18 @@
 """Port vs JAX: forward warp (with its NaN holes), splat, conv and the
-bottleneck attention middle.  Images are NHWC in JAX and NCHW in the port."""
+bottleneck attention middle; and the splat kernel's wrapper on the CPU
+(the kernel itself: test_torch_port_kernels.py).  Images are NHWC in JAX
+and NCHW in the port."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
 
-from opticalflowdiffusion_tpu.ops import conv_pallas, flash_attention, warp
+from opticalflowdiffusion_tpu.ops import conv_pallas, flash_attention, splat, warp
+from opticalflowdiffusion_tpu_torch import kernels
 from opticalflowdiffusion_tpu_torch.ops import conv as pconv
 from opticalflowdiffusion_tpu_torch.ops import flash_attention as pflash
+from opticalflowdiffusion_tpu_torch.ops import splat as psplat
 from opticalflowdiffusion_tpu_torch.ops import warp as pwarp
 
 
@@ -86,3 +90,32 @@ def test_attention_middle(dtype):
     # (values < 1 here, so one ulp is below 2^-8)
     tol = 1e-5 if dtype == "float32" else 2.0 ** -8
     np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_splat_raw_non_square(dtype):
+    """The plain splat against JAX's ``splat_raw`` on a 12x20 map (W != H),
+    with targets off the image and a non-finite one."""
+    img, flow = _warp_inputs(4, H=12, W=20, C=4)
+    img = np.nan_to_num(img)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    want = np.asarray(splat.splat_raw(jnp.asarray(img, jd), jnp.asarray(flow))
+                      .astype(jnp.float32))
+    got = psplat.splat_raw(_nchw(img).to(td), _nchw(flow))
+    assert got.dtype == td
+    # f32 sums of a few terms in another order; bf16: one rounding of that sum
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == "float32" else dict(rtol=2.0 ** -7, atol=1e-6)
+    np.testing.assert_allclose(_nhwc(got), want, **tol)
+
+
+def test_softsplat_cpu_is_plain_and_launches_nothing():
+    img, flow = _warp_inputs(5, H=12, W=20, C=3)
+    x, fl = _nchw(np.nan_to_num(img)), _nchw(flow)
+    metric = torch.ones(2, 1, 12, 20)
+    before = [k.launches for k in kernels.KERNELS]
+    got = psplat.softsplat(x, fl, metric)
+    assert [k.launches for k in kernels.KERNELS] == before
+    np.testing.assert_array_equal(
+        got.numpy(), psplat.splat_raw(torch.cat([x * metric, metric], dim=1), fl).numpy())
+    with pytest.raises(ValueError):
+        psplat.splat_linear_unn(x, fl, metric)
