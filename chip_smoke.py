@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Budget: under 10 minutes on one H100, the kernel build included (one plain
-``nvcc`` call per source, all started together; seconds each).  Every line
+``nvcc`` call per source, all started together; seconds each).  A run takes
+about two minutes on an H100.  Every line
 it prints is one JSON object, flushed as it goes, apart from the card's
 ``nvidia-smi`` line.  Phases:
 
@@ -22,7 +23,14 @@ it prints is one JSON object, flushed as it goes, apart from the card's
      ``flash_plain`` and the composition, beside one PyTorch
      ``scaled_dot_product_attention`` call (a yardstick only);
    - the splat at 128x128 b8 and 448x1024 b2: against ``splat_raw`` and two
-     launches bit for bit.
+     launches bit for bit;
+   - the three backward passes of the linear-attention block at every
+     (N, C) of a 128x128 b16 train step that takes them (N >= 1024: five
+     shapes, six launches a pass), bf16 and f32 x, against
+     ``bwd_q_plain``, ``bwd_kv1_plain`` and ``bwd_kv2_plain``;
+   - the splat backward at scales 1, 2, 4, 8 and 16 at 128x128 b16 and at
+     scale 1 at 448x1024 b2, against ``splat_bwd_raw``, and the hole mask
+     of the tiny-weight construction at 448x1024 against the plain path's.
 4. slice: the flagship FlowDiffuser (UNet width 64, bf16, weights from a
    seed, output conv not zeroed).  At 128x128 on a batch of 8 from the
    artificial dataset: one UnetWithWarp forward with the kernels against
@@ -38,7 +46,21 @@ it prints is one JSON object, flushed as it goes, apart from the card's
    hole, and with random weights the predicted flow moves from step to step.
    The checks are on shapes, the finite flow and the finiteness of every
    non-NaN value.
-5. the kernels line, 6. the result line.
+5. train: the flagship trained at 128x128 b16 (random weights from a seed,
+   output conv not zeroed, a standard-normal batch from numpy seed 0, as
+   the JAX ``bench.py`` train row): one step with every kernel against the
+   same step with every plain version (loss and per-leaf gradients); one
+   count window of 8 steps (augment, loss, backward, clip, Adam) whose
+   launches must be 8x a step's (6 per backward pass, 5 splat backward, 10
+   splat forward); train samples/s over the last 6 of them after 2
+   warm-ups, synchronised, host clock.  Then ``train.py``'s run with the
+   real flagship config: 3 steps, a validation (DDIM-10) and a checkpoint,
+   continued to 5 steps; a fresh run restored from the step-3 checkpoint
+   must hold the saved step, parameters, optimizer state and generator bit
+   for bit, and ``train.py --resume`` must give the uninterrupted run's
+   losses at steps 4 and 5 within the run-to-run spread of a second
+   restored run (cuDNN's backward is not bit-deterministic).
+6. the kernels line, 7. the result line.
 
 Any failure raises and exits non-zero without the result line; so does a
 run without a CUDA device or without the port's package beside this file.
@@ -46,22 +68,33 @@ run without a CUDA device or without the port's package beside this file.
 
 import concurrent.futures
 import contextlib
+import copy
+import dataclasses
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
+import numpy as np
 import torch
 
 from opticalflowdiffusion_tpu_torch import kernels
+from opticalflowdiffusion_tpu_torch import train as train_entry
 from opticalflowdiffusion_tpu_torch.algorithms.base import to_batch
-from opticalflowdiffusion_tpu_torch.config import NATIVE
+from opticalflowdiffusion_tpu_torch.algorithms.flow_diffuser import FlowDiffuser
+from opticalflowdiffusion_tpu_torch.config import FLAGSHIP, NATIVE
 from opticalflowdiffusion_tpu_torch.kernels import build as kbuild
 from opticalflowdiffusion_tpu_torch.models import unet as unet_mod
 from opticalflowdiffusion_tpu_torch.ops import attention_fused as af
 from opticalflowdiffusion_tpu_torch.ops import flash_attention as fa
 from opticalflowdiffusion_tpu_torch.ops import splat as sp
-from opticalflowdiffusion_tpu_torch.ops import warp as warp_mod
+from opticalflowdiffusion_tpu_torch.experiments.base import to_device
+from opticalflowdiffusion_tpu_torch.parallel.train import (
+    TrainState, make_optimizer, make_train_step,
+)
 from opticalflowdiffusion_tpu_torch.sample import batch_items
 from opticalflowdiffusion_tpu_torch.sample import build as build_flagship
 
@@ -80,6 +113,16 @@ FLASH_CASES = ((2, 7168, torch.bfloat16), (2, 7168, torch.float32),
                (8, 7168, torch.bfloat16), (1, 2100, torch.bfloat16))
 # splat cases: (B, H, W)
 SPLAT_CASES = ((8, 128, 128), (2, 448, 1024))
+# training at 128x128 b16: the (N, C) of the blocks that take the backward
+# kernels (N >= 1024), with counts per step; the two N = 256 blocks take the
+# composition's backward
+TRAIN_B = 16
+TRAIN_SHAPES = ((16384, 64, 2), (4096, 64, 1), (4096, 128, 1), (1024, 128, 1), (1024, 256, 1))
+TRAIN_EXPECTED = {"linear_attention_ctx": 8, "linear_attention_out": 8,
+                  "linear_attention_bwd_q": 6, "linear_attention_bwd_kv1": 6,
+                  "linear_attention_bwd_kv2": 6, "flash_attention": 0, "splat_fwd": 10,
+                  "splat_bwd": 5}
+TRAIN_WARMUP, TRAIN_TIMED = 2, 6
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM, bf16 tensor, f32;
 # SFU exponentials per clock per SM, and the SMs
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -106,6 +149,19 @@ TOL_FLASH_COMP = {torch.float32: 5e-5, torch.bfloat16: 2.0 ** -6}
 # terms in another order (and the kernel's 2^-40-fine fixed point); bf16 one
 # rounding of that sum to bf16
 TOL_SPLAT = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+# backward passes vs their plain versions (the same bf16 operands, f32 sums
+# in another order), relative to each output's largest value; a bf16 dx may
+# differ by one bf16 ulp where the two f32 values round apart
+TOL_BWD = 1e-3 + 2.0 ** -7
+# one train step with every kernel vs the same step with every plain
+# version: (loss, all gradients as one vector) relative errors, per compute
+# precision.  The two share their bf16 operands; their f32 sums run in
+# another order, which flips a few bf16 roundings downstream, and those
+# carry through the backward of ~60 layers; the plain splat's float
+# atomics (index_add_) also change its last bits from run to run (measured
+# on an H100 over three runs: bf16 loss 4.9e-5-1.7e-4 and gradients
+# 3.1e-3-3.6e-3; f32 1.7e-5-1.1e-4 and 7.1e-4-8.7e-4).
+TOL_TRAIN = {"bf16": (1e-3, 2e-2), "float32": (1e-3, 5e-3)}
 
 
 def emit(obj):
@@ -356,30 +412,31 @@ def splat_inputs(Bn, H, W, dtype, seed):
 
 
 def splat_phase():
-    """The splat against splat_raw; two launches bit for bit.  Returns the
+    """The forward splat kernel against splat_raw on the values the warp
+    builds ([x * metric, metric]); two launches bit for bit.  Returns the
     native b2 bf16 row and the largest error."""
     out = None
     worst = 0.0
     for i, (Bn, H, W) in enumerate(SPLAT_CASES):
         for dtype in (torch.bfloat16, torch.float32):
             x, metric, flow = splat_inputs(Bn, H, W, dtype, 400 + i)
-            plain = lambda: sp.splat_raw(torch.cat([x * metric, metric], dim=1), flow)
-            a = sp.splat_linear_unn(x, flow, metric)
-            b_ = sp.splat_linear_unn(x, flow, metric)
-            want = plain()
+            v = torch.cat([x * metric, metric], dim=1)
+            a, _ = sp.splat_fwd(v, flow)
+            b_, _ = sp.splat_fwd(v, flow)
+            want = sp.splat_raw(v, flow)
             torch.cuda.synchronize()
             same = bool(torch.equal(a, b_))
             e = err(a, want)
             scale = float(want.float().abs().max())
-            times = {"ms": cuda_ms(lambda: sp.splat_linear_unn(x, flow, metric)),
-                     "plain_ms": cuda_ms(plain)}
+            times = {"ms": cuda_ms(lambda: sp.splat_fwd(v, flow)),
+                     "plain_ms": cuda_ms(lambda: sp.splat_raw(v, flow))}
             xb = x.element_size()
             nbytes = Bn * H * W * (3 * xb + xb + 2 * 4 + 4 * xb)
             bound = 1e3 * nbytes / HBM_BPS
             row = dict(B=Bn, H=H, W=W, dtype=str(dtype).split(".")[1], bitwise_same=same,
                        max_abs=e[0], mean_abs=e[1], scale=scale, bound_ms=bound,
                        bound_by="bytes", **{k: round(t, 5) for k, t in times.items()})
-            phase("kernel_vs_plain", kernel="splat_linear_unn", **row)
+            phase("kernel_vs_plain", kernel="splat_fwd", **row)
             check(same, f"splat kernel not deterministic at {Bn, H, W, dtype}")
             check(e[0] <= TOL_SPLAT[dtype] * scale,
                   f"splat kernel disagrees with splat_raw at {Bn, H, W, dtype}: {e}")
@@ -389,24 +446,216 @@ def splat_phase():
     return out, worst
 
 
+def bwd_bound_ms(kernel, Bn, C, N, xbytes):
+    """(bytes ms, operations ms) of one backward launch on (Bn, C, N): x and
+    dy (and dxq) read once, dx written once, weights once; operations per
+    position: the bf16 tensor-core products and the f32 ones on CUDA cores
+    (each over its unit's peak, the larger of the two)."""
+    P = Bn * N
+    io = {"bwd_q": 3, "bwd_kv1": 1, "bwd_kv2": 3}[kernel]
+    nbytes = io * P * C * xbytes + 3 * 128 * C * 2 + Bn * 4096 * 4 + 2 * 128 * C * 4
+    bf16_macs = {"bwd_q": 4 * 128 * C + 4096, "bwd_kv1": 256 * C, "bwd_kv2": 512 * C}[kernel]
+    f32_macs = {"bwd_q": 256 * C + 8192, "bwd_kv1": 4096, "bwd_kv2": 256 * C + 8192}[kernel]
+    t_ops = max(2 * P * bf16_macs / BF16_FLOPS, 2 * P * f32_macs / F32_FLOPS)
+    return 1e3 * nbytes / HBM_BPS, 1e3 * t_ops
+
+
+def la_bwd_phase(Bn=TRAIN_B, shapes=TRAIN_SHAPES, iters=10):
+    """The three backward kernels against their plain versions at every
+    (N, C) of a 128x128 b16 train step that takes them, bf16 and f32 x.
+    Errors relative to each output's largest value; times per train step
+    (bf16 x, the main path's dtype) summed over the shapes."""
+    names = ("bwd_q", "bwd_kv1", "bwd_kv2")
+    stats = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound": 0.0, "bytes_ms": 0.0,
+                 "ops_ms": 0.0} for k in names}
+    for i, (N, C, count) in enumerate(shapes):
+        for dtype in (torch.bfloat16, torch.float32):
+            x, (g_pre, w_qkv, w_out, b_out, g_post) = block_inputs(Bn, C, N, dtype, 600 + i)
+            g = torch.Generator(device="cuda").manual_seed(700 + i)
+            dy = torch.randn(Bn, C, N, generator=g, device="cuda").to(dtype)
+            w16 = w_qkv.to(torch.bfloat16)
+            w_q, w_kv = w16[:128].contiguous(), w16[128:].contiguous()
+            wo = w_out.to(torch.bfloat16).contiguous()
+            with torch.no_grad():
+                c, m, s_ = af.linear_attention_ctx(x, g_pre, w_kv)
+                args_q = (x, dy, g_pre, w_q, c, wo, b_out, g_post)
+                want_q = af.bwd_q_plain(*args_q)
+                dctx, dxq = want_q[1], want_q[0]
+                want_s = af.bwd_kv1_plain(x, g_pre, w_kv, m, s_, dctx)
+                args_kv2 = (x, g_pre, w_kv, m, s_, dctx, want_s, dxq)
+                want_kv = af.bwd_kv2_plain(*args_kv2)
+                got = {"bwd_q": af.linear_attention_bwd_q(*args_q),
+                       "bwd_kv1": (af.linear_attention_bwd_kv1(x, g_pre, w_kv, m, s_, dctx),),
+                       "bwd_kv2": af.linear_attention_bwd_kv2(*args_kv2)}
+                torch.cuda.synchronize()
+                want = {"bwd_q": want_q, "bwd_kv1": (want_s,), "bwd_kv2": want_kv}
+                errs = {k: max(err(a, b)[0] / max(float(b.float().abs().max()), 1e-30)
+                               for a, b in zip(got[k], want[k])) for k in names}
+                del got, want, want_q, want_kv
+                fast = dtype == torch.bfloat16
+                times = {}
+                if fast:
+                    times = {
+                        "bwd_q_ms": cuda_ms(lambda: af.linear_attention_bwd_q(*args_q), iters),
+                        "bwd_q_plain_ms": cuda_ms(lambda: af.bwd_q_plain(*args_q), 3, 1),
+                        "bwd_kv1_ms": cuda_ms(lambda: af.linear_attention_bwd_kv1(
+                            x, g_pre, w_kv, m, s_, dctx), iters),
+                        "bwd_kv1_plain_ms": cuda_ms(lambda: af.bwd_kv1_plain(
+                            x, g_pre, w_kv, m, s_, dctx), 3, 1),
+                        "bwd_kv2_ms": cuda_ms(lambda: af.linear_attention_bwd_kv2(*args_kv2),
+                                              iters),
+                        "bwd_kv2_plain_ms": cuda_ms(lambda: af.bwd_kv2_plain(*args_kv2), 3, 1),
+                    }
+            bounds = {k: bwd_bound_ms(k, Bn, C, N, x.element_size()) for k in names}
+            phase("kernel_vs_plain", kernel="linear_attention_bwd", N=N, C=C, B=Bn,
+                  dtype=str(dtype).split(".")[1], **{f"{k}_max_rel": errs[k] for k in names},
+                  **{f"{k}_bound_ms": max(bounds[k]) for k in names},
+                  **{k: round(v, 5) for k, v in times.items()})
+            for k in names:
+                check(errs[k] <= TOL_BWD, f"{k} kernel disagrees at N={N} C={C} {dtype}: "
+                      f"{errs[k]}")
+                stats[k]["err"] = max(stats[k]["err"], errs[k])
+                if fast:
+                    stats[k]["ms"] += count * times[f"{k}_ms"]
+                    stats[k]["plain_ms"] += count * times[f"{k}_plain_ms"]
+                    stats[k]["bound"] += count * max(bounds[k])
+                    stats[k]["bytes_ms"] += count * bounds[k][0]
+                    stats[k]["ops_ms"] += count * bounds[k][1]
+            del x, dy, c, m, s_, args_q, args_kv2
+    for st in stats.values():
+        st["bound_by"] = "bytes" if st["bytes_ms"] >= st["ops_ms"] else "operations"
+    phase("linear_attention_bwd_per_step", B=Bn,
+          **{f"{k}_{f}": v for k, st in stats.items() for f, v in st.items()})
+    return stats
+
+
+def splat_bwd_phase():
+    """The splat backward kernel against splat_bwd_raw at every scale of a
+    128x128 b16 train step (bf16 and f32 values) and at scale 1 at 448x1024
+    b2; and the tiny-weight hole-mask construction at 448x1024.  Returns the
+    per-step sums (bf16 at scale 1 as the UNet's warp, f32 at the pyramid
+    scales as the loss) and the largest error."""
+    per_step = {"ms": 0.0, "plain_ms": 0.0, "bound": 0.0}
+    worst = 0.0
+    cases = [(TRAIN_B, 128, 128, sc) for sc in (1, 2, 4, 8, 16)] + [(2, 448, 1024, 1)]
+    for i, (Bn, H, W, scale) in enumerate(cases):
+        for dtype in (torch.bfloat16, torch.float32):
+            g = torch.Generator(device="cuda").manual_seed(800 + i)
+            v = (2 * torch.rand(Bn, 4, H, W, generator=g, device="cuda") - 1).to(dtype)
+            flow = 4 * torch.randn(Bn, 2, H, W, generator=g, device="cuda")
+            flow[0, 0, 0, 0] = float("inf")
+            cot = torch.randn(Bn, 4, H // scale, W // scale, generator=g, device="cuda")
+            d_inp, d_flow = sp.splat_bwd(v, flow, cot, scale)
+            w_inp, w_flow = sp.splat_bwd_raw(v, flow, cot, scale)
+            torch.cuda.synchronize()
+            e_in = err(d_inp, w_inp)[0] / max(float(w_inp.float().abs().max()), 1e-30)
+            e_fl = err(d_flow, w_flow)[0] / max(float(w_flow.abs().max()), 1e-30)
+            times = {"ms": cuda_ms(lambda: sp.splat_bwd(v, flow, cot, scale)),
+                     "plain_ms": cuda_ms(lambda: sp.splat_bwd_raw(v, flow, cot, scale), 5, 1)}
+            xb = v.element_size()
+            nbytes = Bn * H * W * (2 * 4 * xb + 2 * 2 * 4) + cot.numel() * 4
+            bound = 1e3 * nbytes / HBM_BPS
+            phase("kernel_vs_plain", kernel="splat_bwd", B=Bn, H=H, W=W, scale=scale,
+                  dtype=str(dtype).split(".")[1], d_inp_max_rel=e_in, d_flow_max_rel=e_fl,
+                  bound_ms=bound, **{k: round(t, 5) for k, t in times.items()})
+            check(e_in <= TOL_SPLAT[dtype] and e_fl <= TOL_SPLAT[torch.float32],
+                  f"splat_bwd disagrees at {Bn, H, W, scale, dtype}: {e_in} {e_fl}")
+            worst = max(worst, e_in, e_fl)
+            if H == 128 and dtype == (torch.bfloat16 if scale == 1 else torch.float32):
+                for k in ("ms", "plain_ms"):
+                    per_step[k] += times[k]
+                per_step["bound"] += bound
+            del v, flow, cot, d_inp, d_flow, w_inp, w_flow
+    H, W = NATIVE.height, NATIVE.width
+    flow = torch.zeros(1, 2, H, W, device="cuda")
+    flow[:, 0] = 1e6                       # every source off the image ...
+    flow[0, 0, :, 0] = 1e-20               # ... but column 0, by 1e-20 px
+    inp = torch.ones(1, 4, H, W, device="cuda")
+    _, mask = sp.splat_fwd(inp, flow)
+    want = sp.splat_raw(inp, flow)[:, -1:] > 0
+    torch.cuda.synchronize()
+    phase("splat_hole_mask", H=H, W=W, kernel_targets=int(mask.sum()),
+          plain_targets=int(want.sum()), equal=bool(torch.equal(mask, want)))
+    check(torch.equal(mask, want) and int(want.sum()) == 2 * H,
+          "the splat's hole mask differs from the plain path's on the tiny-weight case")
+    phase("splat_bwd_per_step", B=TRAIN_B, **per_step)
+    return per_step, worst
+
+
+class _PlainSplat(torch.autograd.Function):
+    """The splat through its plain versions on the card (this script's
+    reference runs only): splat_raw forward, splat_bwd_raw backward."""
+
+    @staticmethod
+    def forward(ctx, inp, flow, scale, ox, oy):
+        out = sp.splat_raw(inp, flow, scale, (ox, oy))
+        ctx.save_for_backward(inp, flow)
+        ctx.geom = (scale, (ox, oy))
+        mask = out[:, -1:] > 0
+        ctx.mark_non_differentiable(mask)
+        return out, mask
+
+    @staticmethod
+    def backward(ctx, g, _):
+        inp, flow = ctx.saved_tensors
+        d_inp, d_flow = sp.splat_bwd_raw(inp, flow, g, *ctx.geom)
+        return d_inp, d_flow, None, None, None
+
+
+class _PlainPasses(torch.autograd.Function):
+    """The linear-attention block through the plain versions of its five
+    kernels (forward: ctx_plain, out_plain; backward at N >= 1024:
+    bwd_q_plain, bwd_kv1_plain, bwd_kv2_plain; below, the composition's
+    autograd, as the kernel path dispatches)."""
+
+    @staticmethod
+    def forward(ctx, x, g_pre, w_qkv, w_out, b_out, g_post):
+        w16 = w_qkv.to(torch.bfloat16)
+        c, m, s_ = af.ctx_plain(x, g_pre.float(), w16[128:])
+        y = af.out_plain(x, g_pre.float(), w16[:128], c, w_out.to(torch.bfloat16),
+                         b_out.float(), g_post.float())
+        ctx.save_for_backward(x, g_pre, w_qkv, w_out, b_out, g_post, c, m, s_)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, g_pre, w_qkv, w_out, b_out, g_post, c, m, s_ = ctx.saved_tensors
+        params = (g_pre, w_qkv, w_out, b_out, g_post)
+        if x.shape[2] < af.BWD_MIN_N:
+            leaves = [t.detach().requires_grad_() for t in (x, *params)]
+            with torch.enable_grad():
+                y = af.block_plain(*leaves)
+            return torch.autograd.grad(y, leaves, dy)
+        w16 = w_qkv.to(torch.bfloat16)
+        w_q, w_kv = w16[:128], w16[128:]
+        dxq, dctx, dw_q, dw_out, db_out, dg_q, dg_post = af.bwd_q_plain(
+            x, dy.to(x.dtype), g_pre.float(), w_q, c, w_out.to(torch.bfloat16),
+            b_out.float(), g_post.float())
+        sdot = af.bwd_kv1_plain(x, g_pre.float(), w_kv, m, s_, dctx)
+        dx, dw_kv, dg_kv = af.bwd_kv2_plain(x, g_pre.float(), w_kv, m, s_, dctx, sdot, dxq)
+        return dx, dg_q + dg_kv, torch.cat([dw_q, dw_kv]), dw_out, db_out, dg_post
+
+
 @contextlib.contextmanager
 def plain_versions(attention=True, flash=False, splat=False):
     """Route the UNet through the plain versions of the kernels (the
-    reference forward of this script only)."""
-    saved = (unet_mod.fused_linear_attention_block, unet_mod.attention_middle,
-             warp_mod.softsplat)
-    if attention:
+    reference runs of this script only).  ``attention``: True for the
+    composition ``block_plain``, "passes" for the plain versions of the
+    five kernels."""
+    saved = (unet_mod.fused_linear_attention_block, unet_mod.attention_middle, sp.splat)
+    if attention == "passes":
+        unet_mod.fused_linear_attention_block = lambda x, *a: _PlainPasses.apply(x, *a[:5])
+    elif attention:
         unet_mod.fused_linear_attention_block = lambda x, *a: af.block_plain(x, *a)
     if flash:
         unet_mod.attention_middle = fa.flash_plain
     if splat:
-        warp_mod.softsplat = lambda inp, flow, metric: sp.splat_raw(
-            torch.cat([inp * metric, metric], dim=1), flow)
+        sp.splat = lambda inp, flow, scale=1, offset=(0, 0): _PlainSplat.apply(
+            inp, flow, int(scale), int(offset[0]), int(offset[1]))
     try:
         yield
     finally:
-        (unet_mod.fused_linear_attention_block, unet_mod.attention_middle,
-         warp_mod.softsplat) = saved
+        unet_mod.fused_linear_attention_block, unet_mod.attention_middle, sp.splat = saved
 
 
 def forward_vs_plain(algo, cond, label, **plain):
@@ -459,8 +708,9 @@ def sample_path(name, algo, items, native):
         "finite_values_finite": bool(torch.isfinite(samples[finite]).all()
                                      and torch.isfinite(flow).all()),
     }
-    expected = {"linear_attention_ctx": 8 * steps, "linear_attention_out": 8 * steps,
-                "flash_attention": steps if native else 0, "splat_linear_unn": steps + 1}
+    expected = {k.name: 0 for k in kernels.KERNELS}
+    expected.update({"linear_attention_ctx": 8 * steps, "linear_attention_out": 8 * steps,
+                     "flash_attention": steps if native else 0, "splat_fwd": steps + 1})
     phase("sample_" + name, launches=launches, expected_launches=expected, **res)
     check(res["samples_shape"] == [Bn, 3, H, W] and res["flow_shape"] == [Bn, 2, H, W],
           f"{name}: wrong output shapes")
@@ -513,15 +763,172 @@ def slice_phase():
     return totals
 
 
+def train_batch(seed=0, B=TRAIN_B, S=128):
+    """A standard-normal (img, tgt, flow) batch from numpy, as the JAX
+    bench.py train row draws it."""
+    rng = np.random.default_rng(seed)
+    arrays = (rng.standard_normal((B, S, S, 3)), rng.standard_normal((B, S, S, 3)),
+              rng.standard_normal((B, S, S, 2)))
+    return to_device(tuple(a.astype(np.float32) for a in arrays), "cuda")
+
+
+def step_grads(algo, batch, seed):
+    """Loss and per-parameter gradients of one train step's loss (augment,
+    pyramid loss, backward), with the generator from ``seed``."""
+    algo.module.zero_grad(set_to_none=True)
+    loss, _ = algo.loss_fn(batch, torch.Generator(device="cuda").manual_seed(seed))
+    loss.backward()
+    torch.cuda.synchronize()
+    loss = loss.detach()
+    grads = {k: p.grad.detach().clone() for k, p in algo.module.named_parameters()}
+    algo.module.zero_grad(set_to_none=True)
+    return float(loss), grads
+
+
+def train_losses(out_dir):
+    """{step: train/loss} of a run's metrics.jsonl."""
+    recs = [json.loads(x) for x in (Path(out_dir) / "metrics.jsonl").read_text().splitlines()]
+    return {r["step"]: r["train/loss"] for r in recs if "train/loss" in r}
+
+
+def step_vs_plain(precision, batch):
+    """One train step's loss and gradients (the flagship at 128x128 b16,
+    weights from the seed) with every kernel against the same step with
+    every plain version: the same weights, batch and draws."""
+    cfg = dataclasses.replace(FLAGSHIP, zero_init=False, precision=precision)
+    algo = FlowDiffuser(cfg, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    algo.module.train()
+    loss_k, g_k = step_grads(algo, batch, 11)
+    with plain_versions(attention="passes", splat=True):
+        loss_p, g_p = step_grads(algo, batch, 11)
+    rel = {k: float((g_k[k] - g_p[k]).norm()) / float(g_p[k].norm())
+           for k in g_p if float(g_p[k].norm()) > 0}
+    worst = max(rel, key=rel.get)
+    total = float(torch.sqrt(sum((g_k[k] - g_p[k]).square().sum() for k in g_p))
+                  / torch.sqrt(sum(g.square().sum() for g in g_p.values())))
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    phase("train_step_vs_plain", precision=precision, loss=loss_k, plain_loss=loss_p,
+          loss_rel=loss_rel, grad_leaves=len(rel), grad_global_rel=total,
+          grad_worst_leaf=worst, grad_worst_rel=rel[worst],
+          grad_median_rel=float(np.median(list(rel.values()))))
+    check(np.isfinite(loss_k) and all(torch.isfinite(g).all() for g in g_k.values()),
+          f"train step ({precision}): non-finite loss or gradient")
+    tol_loss, tol_grad = TOL_TRAIN[precision]
+    check(loss_rel <= tol_loss and total <= tol_grad,
+          f"train step ({precision}) with kernels disagrees with the plain versions: "
+          f"loss {loss_rel}, gradients {total}")
+
+
+def train_phase():
+    """The train step at 128x128 b16: kernels vs plain versions, launch
+    counts, samples/s; then the entry point's run, checkpoint and resume.
+    Returns the launches of the counted window."""
+    t = time.perf_counter()
+    algo, _ = build_flagship(SEED, "cuda")          # bf16, output conv not zeroed
+    cfg = algo.cfg
+    state = TrainState(algo.module, make_optimizer(algo.module.parameters(), cfg.lr,
+                                                   cfg.weight_decay, 100.0))
+    step = make_train_step(algo.loss_fn)
+    batch = train_batch()
+    algo.module.train()
+    phase("train_build", seconds=round(time.perf_counter() - t, 2), batch=TRAIN_B,
+          image_size=cfg.image_size, lr=cfg.lr, weight_decay=cfg.weight_decay, clip=100.0)
+
+    for precision in ("bf16", "float32"):
+        step_vs_plain(precision, batch)
+
+    # one count window: warm-up steps, then the timed ones
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    for _ in range(TRAIN_WARMUP):
+        metrics = step(state, batch, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_TIMED):
+        metrics = step(state, batch, gen)
+    torch.cuda.synchronize()
+    sec = (time.perf_counter() - t0) / TRAIN_TIMED
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    n = TRAIN_WARMUP + TRAIN_TIMED
+    expected = {k: n * v for k, v in TRAIN_EXPECTED.items()}
+    phase("train_steps", steps=n, timed=TRAIN_TIMED, ms_per_step=1e3 * sec,
+          train_samples_per_s=TRAIN_B / sec, loss=float(metrics["train/loss"]),
+          launches=launches, expected_launches=expected,
+          max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    check(launches == expected, f"train launches {launches}, expected {expected}")
+    check(np.isfinite(float(metrics["train/loss"])), "train loss not finite")
+    del algo, state, step, batch
+
+    # the entry point: 3 steps, validation, checkpoint; continued to 5
+    root = Path(tempfile.mkdtemp(prefix="ofd_train_smoke_"))
+    try:
+        kw = dict(sampling_timesteps=10, log_every=1)
+        first = train_entry.build(3, out=str(root / "a"), ckpt_every=3, **kw)
+        first.train()
+        first_val = dict(first.last_val)
+        check(first.ckpt.steps() == [3] and first_val.get("step") == 3 and "val/epe" in first_val,
+              "train.py run: no checkpoint or validation at step 3")
+        saved = ({k: v.clone() for k, v in first.state.module.state_dict().items()},
+                 copy.deepcopy(first.state.optimizer.state_dict()),
+                 first.generator.get_state().clone())
+        first.cfg = dataclasses.replace(first.cfg, max_steps=5, check_interval=5)
+        first.train()
+        uninterrupted = train_losses(root / "a")
+        for name in ("b", "c"):
+            shutil.copytree(root / "a" / "checkpoints" / "3", root / name / "checkpoints" / "3")
+        restored = train_entry.build(5, out=str(root / "b"), **kw)
+        step_r = restored.restore()
+        same = (step_r == 3
+                and all(torch.equal(v, saved[0][k])
+                        for k, v in restored.state.module.state_dict().items())
+                and all(torch.equal(v.cpu(), saved[1]["state"][i][name].cpu())
+                        for i, st in restored.state.optimizer.state_dict()["state"].items()
+                        for name, v in st.items())
+                and torch.equal(restored.generator.get_state(), saved[2]))
+        restored.train()
+        resumed = train_entry.run(5, resume=True, out=str(root / "c"), **kw)
+        resumed_losses = train_losses(root / "c")
+        again = train_losses(root / "b")
+        spread = max(abs(again[s_] - resumed_losses[s_]) for s_ in (4, 5))
+        gap = max(abs(uninterrupted[s_] - resumed_losses[s_]) for s_ in (4, 5))
+        phase("train_entry_point", first_val=first_val, restored_step=step_r,
+              restored_bit_for_bit=same, resumed=resumed,
+              losses_uninterrupted=[uninterrupted[4], uninterrupted[5]],
+              losses_resumed=[resumed_losses[4], resumed_losses[5]],
+              losses_second_resume=[again[4], again[5]], resume_gap=gap,
+              run_to_run_spread=spread)
+        check(same, "the restored step, parameters, optimizer state or generator differ "
+              "from the saved ones")
+        check(resumed["start_step"] == 3 and resumed["step"] == 5
+              and resumed["checkpoints"] == [3, 5], "train.py --resume did not continue")
+        check(uninterrupted[4] == resumed_losses[4],
+              "the first resumed step's loss differs from the uninterrupted run's")
+        check(gap <= max(4 * spread, 1e-4 * abs(uninterrupted[5])),
+              f"resumed losses {resumed_losses} vs uninterrupted {uninterrupted}: "
+              f"gap {gap}, spread {spread}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def main():
     smi = device_phase()
     build_phase()
     la128 = la_phase(B, SHAPES, "128x128")
     la_native = la_phase(NATIVE_B, NATIVE_SHAPES, "448x1024", iters=10)
+    la_bwd = la_bwd_phase()
     flash_row, flash_err = flash_phase()
     splat_row, splat_err = splat_phase()
+    splat_bwd_row, splat_bwd_err = splat_bwd_phase()
     launches = slice_phase()
+    for k, n in train_phase().items():
+        launches[k] += n
+    phase("launch_counts_all_paths", launches=launches)
     per_la = f"one 448x1024 b{NATIVE_B} UNet eval (8 launches, bf16 x)"
+    per_step = f"one 128x128 b{TRAIN_B} train step (6 launches, bf16 x)"
+    bwd = {kernels.LA_BWD_Q: "bwd_q", kernels.LA_BWD_KV1: "bwd_kv1",
+           kernels.LA_BWD_KV2: "bwd_kv2"}
     rows = []
     for k in kernels.KERNELS:
         if k is kernels.FLASH:
@@ -534,11 +941,22 @@ def main():
             vals = dict(max_abs_err=splat_err, ms=r["ms"], plain_ms=r["plain_ms"],
                         bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
                         per=f"one launch at 448x1024 b{NATIVE_B} bf16 (3 + 1 channels)")
+        elif k is kernels.SPLAT_BWD:
+            r = splat_bwd_row
+            vals = dict(max_abs_err=splat_bwd_err, ms=r["ms"], plain_ms=r["plain_ms"],
+                        bound_ms=r["bound"], bound_by="bytes", library_ms=None,
+                        per=f"one 128x128 b{TRAIN_B} train step (5 launches: scale 1 bf16, "
+                            "scales 2-16 f32)")
+        elif k in bwd:
+            st = la_bwd[bwd[k]]
+            vals = dict(max_abs_err=st["err"], ms=st["ms"], plain_ms=st["plain_ms"],
+                        bound_ms=st["bound"], bound_by=st["bound_by"], library_ms=None,
+                        per=per_step)
         else:
             key = "ctx" if k is kernels.LA_CTX else "out"
-            s, s128 = la_native[key], la128[key]
-            vals = dict(max_abs_err=max(s["err"], s128["err"]), ms=s["ms"],
-                        plain_ms=s["plain_ms"], bound_ms=s["bound"], bound_by=s["bound_by"],
+            st, s128 = la_native[key], la128[key]
+            vals = dict(max_abs_err=max(st["err"], s128["err"]), ms=st["ms"],
+                        plain_ms=st["plain_ms"], bound_ms=st["bound"], bound_by=st["bound_by"],
                         library_ms=None, per=per_la)
         rows.append({"name": k.name, "route": k.route, "source": k.source,
                      "replaces": k.replaces, "launches": launches[k.name], **vals})

@@ -1,10 +1,10 @@
-"""Flagship configuration as a dataclass (no YAML parsing).
+"""Flagship configuration as dataclasses (no YAML parsing).
 
 The values are those that the JAX package composes for
 ``experiment=matrix_flow algorithm=flow_diffuser dataset=artificial``
 (``config/configurations/{algorithm/flow_diffuser.yaml,
-dataset/artificial.yaml, config.yaml}``), with the dataset drawn at the
-algorithm's image size.
+dataset/artificial.yaml, experiment/{matrix_flow,base}.yaml, config.yaml}``),
+with the dataset drawn at the algorithm's image size.
 """
 
 from __future__ import annotations
@@ -44,6 +44,28 @@ class FlowDiffuserConfig:
     zero_init: bool = True
     unet_dim: int = 64
     precision: str = "bf16"
+    lr: float = 1e-5
+    weight_decay: float = 1e-6
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainingConfig:
+    """``experiment/matrix_flow.yaml`` over ``experiment/base.yaml``: the
+    training batch, gradient clipping, step budget (``max_steps`` -1 runs
+    until stopped), validation cadence and size, checkpoint cadence,
+    microbatches, and the train-metric cadence (``runtime.log_every``).
+    The training batches are shuffled and the validation ones are not."""
+
+    batch_size: int = 16
+    clipping: Optional[float] = 100.0
+    max_steps: int = -1
+    accumulate_grad_batches: int = 1
+    check_interval: int = 100
+    limit_batch: int = 1
+    val_batch_size: int = 8
+    every_n_train_steps: int = 5000
+    log_every: int = 50
+    seed: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,7 +85,8 @@ class ServingConfig:
 
 FLAGSHIP = FlowDiffuserConfig()
 FLAGSHIP_DATA = ArtificialDataConfig()
+MATRIX_FLOW = TrainingConfig()
 NATIVE = ServingConfig()
 
-__all__ = ["ArtificialDataConfig", "FlowDiffuserConfig", "ServingConfig", "FLAGSHIP",
-           "FLAGSHIP_DATA", "NATIVE"]
+__all__ = ["ArtificialDataConfig", "FlowDiffuserConfig", "ServingConfig", "TrainingConfig",
+           "FLAGSHIP", "FLAGSHIP_DATA", "MATRIX_FLOW", "NATIVE"]

@@ -34,12 +34,32 @@ FLASH = Kernel(
     "opticalflowdiffusion_tpu_torch/kernels/flash_attention.cu",
     "opticalflowdiffusion_tpu/ops/flash_attention.py:62",
 )
+LA_BWD_Q = Kernel(
+    "linear_attention_bwd_q",
+    "opticalflowdiffusion_tpu_torch/kernels/linear_attention.cu",
+    "opticalflowdiffusion_tpu/ops/attention_fused.py:303",
+)
+LA_BWD_KV1 = Kernel(
+    "linear_attention_bwd_kv1",
+    "opticalflowdiffusion_tpu_torch/kernels/linear_attention.cu",
+    "opticalflowdiffusion_tpu/ops/attention_fused.py:434",
+)
+LA_BWD_KV2 = Kernel(
+    "linear_attention_bwd_kv2",
+    "opticalflowdiffusion_tpu_torch/kernels/linear_attention.cu",
+    "opticalflowdiffusion_tpu/ops/attention_fused.py:459",
+)
 SPLAT = Kernel(
-    "splat_linear_unn",
+    "splat_fwd",
     "opticalflowdiffusion_tpu_torch/kernels/splat.cu",
     "opticalflowdiffusion_tpu/ops/splat.py:176",
 )
-KERNELS = (LA_CTX, LA_OUT, FLASH, SPLAT)
+SPLAT_BWD = Kernel(
+    "splat_bwd",
+    "opticalflowdiffusion_tpu_torch/kernels/splat.cu",
+    "opticalflowdiffusion_tpu/ops/splat.py:521",
+)
+KERNELS = (LA_CTX, LA_OUT, LA_BWD_Q, LA_BWD_KV1, LA_BWD_KV2, FLASH, SPLAT, SPLAT_BWD)
 
 
 def reset_counts() -> None:
@@ -47,4 +67,5 @@ def reset_counts() -> None:
         k.launches = 0
 
 
-__all__ = ["Kernel", "KERNELS", "FLASH", "LA_CTX", "LA_OUT", "SPLAT", "reset_counts"]
+__all__ = ["Kernel", "KERNELS", "FLASH", "LA_BWD_KV1", "LA_BWD_KV2", "LA_BWD_Q", "LA_CTX",
+           "LA_OUT", "SPLAT", "SPLAT_BWD", "reset_counts"]

@@ -1,10 +1,11 @@
-// Fused pre-LN linear-attention block, forward, for Hopper (sm_90a).
+// Fused pre-LN linear-attention block, forward and backward, for Hopper (sm_90a).
 //
 //   y = x + postLN(W_out @ middle(W_qkv @ preLN(x)) + b_out)
 //
 // on x of shape (B, C, N) (a flattened NCHW map), heads * dim_head = 4 * 32.
-// Replaces the two Pallas TPU kernels of the JAX package's
-// ops/attention_fused.py::_fused_block_pallas:
+// Replaces the two forward Pallas TPU kernels of the JAX package's
+// ops/attention_fused.py::_fused_block_pallas (the three backward ones:
+// "backward" below):
 //
 //   la_ctx_kernel  <- _ctx_kernel (pass A): preLN -> k, v -> k-softmax over N
 //                     with an online max -> ctx = softmax_N(k)^T v per head,
@@ -64,6 +65,10 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
 __device__ __forceinline__ void put(bf16* p, float v) { *p = __float2bfloat16(v); }
+__device__ __forceinline__ float round_to(float v, float) { return v; }
+__device__ __forceinline__ float round_to(float v, bf16) {
+  return __bfloat162float(__float2bfloat16(v));
+}
 
 __host__ __device__ constexpr size_t align128(size_t v) { return (v + 127) & ~size_t(127); }
 
@@ -389,6 +394,610 @@ la_out_kernel(const TX* __restrict__ x, const float* __restrict__ g_pre,
   }
 }
 
+// ------------------------------------------------------------------ backward
+//
+// The block's backward, recompute-based like the TPU's (nothing but ctx, m
+// and s is saved from the forward):
+//
+//   la_bwd_q_kernel    <- _bwd_q_kernel (pass B'): recompute preLN -> q ->
+//                         softmax -> attn -> W_out -> postLN, run the chain
+//                         backward: dx_q (with the residual dy), dW_out,
+//                         db_out, dW_q, the gain gradients and dctx.
+//   la_bwd_kv1_kernel  <- _bwd_kv1_kernel (pass A'1): recompute k' = exp(k -
+//                         m) / s and sum the k-softmax coupling sdot = sum_n
+//                         k' * dk', dk' = (v / N) headmask(dctx)^T.
+//   la_bwd_kv2_kernel  <- _bwd_kv2_kernel (pass A'2): dk = k' (dk' - sdot),
+//                         dv = k' headmask(dctx) / N, dW_kv, the pre-LN gain
+//                         gradient and dx = dx_q + dx_kv.
+//
+// Numerics follow the TPU kernels: the products that they take on operands
+// cast to the compute dtype (the projections, attn, o, dattn and dln) are
+// bf16 WMMA with f32 accumulation; those they take on f32 operands (dctx,
+// dq', dk', dv and the weight gradients) are f32 on CUDA cores; the
+// LayerNorm and softmax backwards are f32.
+//
+// Sequential grid -> parallel grid.  The TPU carries dW, the gain gradients,
+// dctx and sdot across its sequential grid.  Here a CTA of grid (P, B) walks
+// the tiles p, p + P, ... of batch element b and keeps its partial sums:
+// dctx in registers, the gain gradients in shared memory, the weight
+// gradients in shared memory where they fit (C = 64) and otherwise in the
+// CTA's own slot of the global scratch (L2-resident).  It ends by writing one
+// record; la_reduce_kernel then sums the records in a fixed order, so the
+// results are the same bits on every run (no float atomics).  sdot must be
+// complete for a batch element before pass A'2 forms any dk, which is why the
+// passes are separate launches.
+//
+// Bound on the H100: pass B' does 2 * (2 * 128 * C + 128 * 32 * 2) bf16 and
+// ~2 * (2 * 128 * C + 2 * 4096) f32 operations per position, pass A'2
+// 2 * 2 * 256 * C bf16 and ~2 * (256 * C + 2 * 4096) f32, pass A'1 2 * 256 * C
+// bf16 and 2 * 4096 f32; at these widths the f32 work (CUDA cores, 67
+// TFLOP/s) is the bound, above the bytes (x, dy read once, dx written once).
+// The weight-gradient update reads its operands from shared memory and
+// adds into the partial once per tile of 32 positions; nothing uses TMA or
+// wgmma yet.
+
+constexpr int LDK2 = 2 * HD + 8;  // [T][2HD] f32/bf16 rows
+
+// Sum over the WARPS channel groups of per-lane (position) partials a, b:
+// out_a[t] = sum / C, out_b[t] = sum / C.
+__device__ void mean_over_warps(float a, float b, int C, float* red, float* out_a,
+                                float* out_b) {
+  const int t = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  red[warp * T + t] = a;
+  red[(WARPS + warp) * T + t] = b;
+  __syncthreads();
+  if (warp == 0) {
+    float sa = 0.f, sb = 0.f;
+    for (int w = 0; w < WARPS; ++w) {
+      sa += red[w * T + t];
+      sb += red[(WARPS + w) * T + t];
+    }
+    out_a[t] = sa / C;
+    out_b[t] = sb / C;
+  }
+  __syncthreads();
+}
+
+// acc[r * S + s] += sum_t A(t, r) * B(t, s) over the T positions of a tile,
+// f32.  The 256 threads form 16 x 16 and each takes a 4 x 4 micro-tile of
+// every 64 x 64 block of the R x S output.
+template <typename FA, typename FB>
+__device__ void wgrad_update(float* acc, int R, int S, const FA& A, const FB& B) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  for (int rb = 0; rb < R; rb += 64)
+    for (int sb = 0; sb < S; sb += 64) {
+      float sum[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) sum[i][k] = 0.f;
+      for (int t = 0; t < T; ++t) {
+        float a[4], bv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = rb + ty + 16 * i;
+          a[i] = r < R ? A(t, r) : 0.f;
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int s = sb + tx + 16 * k;
+          bv[k] = s < S ? B(t, s) : 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) sum[i][k] = fmaf(a[i], bv[k], sum[i][k]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int r = rb + ty + 16 * i, s = sb + tx + 16 * k;
+          if (r < R && s < S) acc[(size_t)r * S + s] += sum[i][k];
+        }
+    }
+}
+
+// out (T x ncols) f32 row-major = A (T x K) @ W (K x ncols), A bf16 row-major
+// in shared memory (leading dim lda), W bf16 row-major in global memory
+// (leading dim ncols); stored column-major [col][t] with leading dim LDT.
+__device__ void mm_rows_to_cols(const bf16* A, int lda, const bf16* __restrict__ W, int K,
+                                int ncols, float* out) {
+  const int warp = threadIdx.x >> 5;
+  for (int ct = warp; ct < ncols / 16; ct += WARPS) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[T / 16];
+    for (int i = 0; i < T / 16; ++i) wmma::fill_fragment(acc[i], 0.f);
+    for (int k = 0; k < K; k += 16) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
+      wmma::load_matrix_sync(fb, W + (size_t)k * ncols + ct * 16, ncols);
+      for (int i = 0; i < T / 16; ++i) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+        wmma::load_matrix_sync(fa, A + i * 16 * lda + k, lda);
+        wmma::mma_sync(acc[i], fa, fb, acc[i]);
+      }
+    }
+    for (int i = 0; i < T / 16; ++i)
+      wmma::store_matrix_sync(out + ct * 16 * LDT + i * 16, acc[i], LDT, wmma::mem_col_major);
+  }
+}
+
+// LayerNorm backward into x and the gain gradient, given dln[c][t] (f32,
+// [C][LDT]) and the statistics of x in stat (mean, rstd): dg_acc[c] +=
+// sum_t dln * xhat, dx = rstd (dln g - mean(dln g) - xhat mean(dln g xhat)),
+// written as put(dx, extra(c, t) + dx) for the valid positions.
+template <typename TX, typename Extra>
+__device__ void ln_backward(const XSrc<TX>& src, const float* dln, const float* __restrict__ g,
+                            int C, int nvalid, const float* stat, float* red, float* m12,
+                            float* dg_acc, TX* dx, int N, const Extra& extra) {
+  const int t = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool ok = t < nvalid;
+  const float mean = stat[t], rstd = stat[T + t];
+  float s1 = 0.f, s2 = 0.f;
+  for (int c = warp; c < C; c += WARPS) {
+    const float xh = ok ? (src(c, t) - mean) * rstd : 0.f;
+    const float d = ok ? dln[c * LDT + t] : 0.f;
+    const float gsum = warp_sum(d * xh);
+    if (t == 0) dg_acc[c] += gsum;
+    const float dg = d * g[c];
+    s1 += dg;
+    s2 += dg * xh;
+  }
+  mean_over_warps(s1, s2, C, red, m12, m12 + T);
+  if (ok) {
+    const float m1 = m12[t], m2 = m12[T + t];
+    for (int c = warp; c < C; c += WARPS) {
+      const float xh = (src(c, t) - mean) * rstd;
+      const float dg = dln[c * LDT + t] * g[c];
+      put(dx + (size_t)c * N + t, extra(c, t, (dg - m1 - xh * m2) * rstd));
+    }
+  }
+}
+
+// Per-CTA record of pass B': dW_out (C, HD) | dW_q (HD, C) | db_out | dg_pre |
+// dg_post (C each) | dctx (NH, DH, DH).
+__host__ __device__ inline size_t bwdq_record(int C) {
+  return (size_t)2 * C * HD + 3 * C + NH * DH * DH;
+}
+
+__host__ __device__ inline size_t bwdq_smem(int C, bool acc_smem) {
+  return align128((size_t)C * LDT * sizeof(bf16)) +        // lnS
+         align128((size_t)T * LDQ * sizeof(float)) +       // qS: q, sq, dq
+         align128((size_t)T * LDQ * sizeof(bf16)) +        // qpB: q', then dq
+         align128((size_t)NH * DH * DH * sizeof(bf16)) +   // ctxB = bf16(ctx / N)
+         align128((size_t)NH * DH * DH * sizeof(float)) +  // ctxT = ctx / N, [h][e][d]
+         align128((size_t)T * LDQ * sizeof(float)) +       // attnS: attn, dattn
+         align128((size_t)T * LDQ * sizeof(bf16)) +        // attnB
+         align128((size_t)C * LDT * sizeof(float)) +       // oS: o, do, dln
+         align128((size_t)C * LDT * sizeof(bf16)) +        // doB
+         align128((size_t)(2 * WARPS * T + 6 * T + 3 * C) * sizeof(float)) +
+         (acc_smem ? (size_t)2 * C * HD * sizeof(float) : 0);
+}
+
+// Pass B'.  grid (P, B).  x, dy (B, C, N) in TX; ctx (B, NH, DH, DH) from
+// pass A; dxq (B, C, N) in TX; part (B * P, bwdq_record(C)) f32 scratch.
+template <typename TX>
+__global__ void __launch_bounds__(THREADS, 1)
+la_bwd_q_kernel(const TX* __restrict__ x, const TX* __restrict__ dy,
+                const float* __restrict__ g_pre, const bf16* __restrict__ w_q,
+                const float* __restrict__ ctx, const bf16* __restrict__ w_out,
+                const float* __restrict__ b_out, const float* __restrict__ g_post,
+                TX* __restrict__ dxq, float* __restrict__ part, int acc_smem, int C,
+                int N) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  size_t off = 0;
+  auto carve = [&](size_t bytes) {
+    unsigned char* p = smem + off;
+    off += align128(bytes);
+    return p;
+  };
+  bf16* lnS = reinterpret_cast<bf16*>(carve((size_t)C * LDT * sizeof(bf16)));
+  float* qS = reinterpret_cast<float*>(carve((size_t)T * LDQ * sizeof(float)));
+  bf16* qpB = reinterpret_cast<bf16*>(carve((size_t)T * LDQ * sizeof(bf16)));
+  bf16* ctxB = reinterpret_cast<bf16*>(carve((size_t)NH * DH * DH * sizeof(bf16)));
+  float* ctxT = reinterpret_cast<float*>(carve((size_t)NH * DH * DH * sizeof(float)));
+  float* attnS = reinterpret_cast<float*>(carve((size_t)T * LDQ * sizeof(float)));
+  bf16* attnB = reinterpret_cast<bf16*>(carve((size_t)T * LDQ * sizeof(bf16)));
+  float* oS = reinterpret_cast<float*>(carve((size_t)C * LDT * sizeof(float)));
+  bf16* doB = reinterpret_cast<bf16*>(carve((size_t)C * LDT * sizeof(bf16)));
+  float* red = reinterpret_cast<float*>(
+      carve((size_t)(2 * WARPS * T + 6 * T + 3 * C) * sizeof(float)));
+  float* stat = red + 2 * WARPS * T;  // mean_x, rstd_x | mean_o, rstd_o | m1, m2
+  float* dbout = stat + 6 * T;
+  float* dgpre = dbout + C;
+  float* dgpost = dgpre + C;
+
+  const int b = blockIdx.y, p = blockIdx.x, P = gridDim.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ntiles = (N + T - 1) / T;
+  float* rec = part + ((size_t)b * P + p) * bwdq_record(C);
+  float* dW_out = acc_smem ? reinterpret_cast<float*>(smem + off) : rec;  // (C, HD)
+  float* dW_q = dW_out + (size_t)C * HD;                                  // (HD, C)
+
+  for (int i = tid; i < 2 * C * HD; i += THREADS) dW_out[i] = 0.f;
+  for (int i = tid; i < 3 * C; i += THREADS) dbout[i] = 0.f;
+  for (int i = tid; i < NH * DH * DH; i += THREADS) {
+    const float cn = __fdiv_rn(ctx[(size_t)b * NH * DH * DH + i], (float)N);
+    ctxB[i] = __float2bfloat16(cn);
+    const int h = i / (DH * DH), d = (i / DH) % DH, e = i % DH;
+    ctxT[h * DH * DH + e * DH + d] = cn;
+  }
+  // dctx entries of this thread: head h, row d, columns e0 .. e0 + 15
+  const int h_ = tid / 64, d_ = (tid % 64) / 2, e0 = (tid % 2) * 16;
+  float dctx[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) dctx[i] = 0.f;
+  __syncthreads();
+
+  for (int tile = p; tile < ntiles; tile += P) {
+    const int n0 = tile * T;
+    const int nvalid = min(T, N - n0);
+    const bool ok = lane < nvalid;
+    XSrc<TX> src{x + (size_t)b * C * N + n0, N};
+    XSrc<TX> dsrc{dy + (size_t)b * C * N + n0, N};
+
+    // ---- recompute the q path (as la_out_kernel)
+    pre_ln(src, g_pre, C, nvalid, lnS, red, stat);
+    project(lnS, w_q, C, HD, qS, LDQ);
+    __syncthreads();
+    for (int r = warp; r < T * NH; r += WARPS) {
+      const int t = r / NH, hh = r % NH;
+      const float v = qS[t * LDQ + hh * DH + lane];
+      const float e = expf(v - warp_max(v));
+      const float sq = e / warp_sum(e);
+      qS[t * LDQ + hh * DH + lane] = sq;
+      qpB[t * LDQ + hh * DH + lane] = __float2bfloat16(sq * Q_SCALE);
+    }
+    __syncthreads();
+    constexpr int TILES_PER_HEAD = (T / 16) * (DH / 16);
+    for (int tl = warp; tl < NH * TILES_PER_HEAD; tl += WARPS) {
+      const int hh = tl / TILES_PER_HEAD, rem = tl % TILES_PER_HEAD;
+      const int i = rem / (DH / 16), j = rem % (DH / 16);
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> fc;
+      wmma::fill_fragment(fc, 0.f);
+      for (int k = 0; k < DH; k += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
+        wmma::load_matrix_sync(fa, qpB + i * 16 * LDQ + hh * DH + k, LDQ);
+        wmma::load_matrix_sync(fb, ctxB + hh * DH * DH + k * DH + j * 16, DH);
+        wmma::mma_sync(fc, fa, fb, fc);
+      }
+      wmma::store_matrix_sync(attnS + i * 16 * LDQ + hh * DH + j * 16, fc, LDQ,
+                              wmma::mem_row_major);
+    }
+    __syncthreads();
+    for (int i = tid; i < T * HD; i += THREADS) {
+      const int t = i / HD, j = i % HD;
+      attnB[t * LDQ + j] = __float2bfloat16(attnS[t * LDQ + j]);
+    }
+    __syncthreads();
+    // o[c][t] = attn @ W_out^T (oS column-major, as la_out_kernel)
+    for (int jt = warp; jt < C / 16; jt += WARPS) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[T / 16];
+      for (int i = 0; i < T / 16; ++i) wmma::fill_fragment(acc[i], 0.f);
+      for (int k = 0; k < HD; k += 16) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
+        wmma::load_matrix_sync(fb, w_out + (size_t)jt * 16 * HD + k, HD);
+        for (int i = 0; i < T / 16; ++i) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+          wmma::load_matrix_sync(fa, attnB + i * 16 * LDQ + k, LDQ);
+          wmma::mma_sync(acc[i], fa, fb, acc[i]);
+        }
+      }
+      for (int i = 0; i < T / 16; ++i)
+        wmma::store_matrix_sync(oS + jt * 16 * LDT + i * 16, acc[i], LDT,
+                                wmma::mem_col_major);
+    }
+    __syncthreads();
+    OSrc osrc{oS, b_out};
+    ln_stats(osrc, C, nvalid, red, stat + 2 * T);
+
+    // ---- postLN backward: dg_post, do = LN_bwd(dy * g_post), db_out
+    {
+      const float mo = stat[2 * T + lane], ro = stat[3 * T + lane];
+      float s1 = 0.f, s2 = 0.f;
+      for (int c = warp; c < C; c += WARPS) {
+        const float d = ok ? dsrc(c, lane) : 0.f;
+        const float oh = (osrc(c, lane) - mo) * ro;
+        const float gsum = warp_sum(d * oh);
+        if (lane == 0) dgpost[c] += gsum;
+        const float dg = d * g_post[c];
+        s1 += dg;
+        s2 += dg * oh;
+      }
+      mean_over_warps(s1, s2, C, red, stat + 4 * T, stat + 5 * T);
+      const float m1 = stat[4 * T + lane], m2 = stat[5 * T + lane];
+      for (int c = warp; c < C; c += WARPS) {
+        const float d = ok ? dsrc(c, lane) : 0.f;
+        const float oh = (osrc(c, lane) - mo) * ro;
+        const float dov = ok ? (d * g_post[c] - m1 - oh * m2) * ro : 0.f;
+        oS[c * LDT + lane] = dov;
+        doB[c * LDT + lane] = __float2bfloat16(dov);
+        const float dsum = warp_sum(dov);
+        if (lane == 0) dbout[c] += dsum;
+      }
+    }
+    __syncthreads();
+    // dW_out[c][j] += sum_t do[c][t] attn[t][j]
+    wgrad_update(dW_out, C, HD, [&](int t, int c) { return oS[c * LDT + t]; },
+                 [&](int t, int j) { return attnS[t * LDQ + j]; });
+    __syncthreads();
+    // dattn[t][j] = sum_c do[c][t] W_out[c][j]  -> attnS
+    for (int jt = warp; jt < HD / 16; jt += WARPS) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[T / 16];
+      for (int i = 0; i < T / 16; ++i) wmma::fill_fragment(acc[i], 0.f);
+      for (int k = 0; k < C; k += 16) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
+        wmma::load_matrix_sync(fb, w_out + (size_t)k * HD + jt * 16, HD);
+        for (int i = 0; i < T / 16; ++i) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
+          wmma::load_matrix_sync(fa, doB + k * LDT + i * 16, LDT);
+          wmma::mma_sync(acc[i], fa, fb, acc[i]);
+        }
+      }
+      for (int i = 0; i < T / 16; ++i)
+        wmma::store_matrix_sync(attnS + i * 16 * LDQ + jt * 16, acc[i], LDQ,
+                                wmma::mem_row_major);
+    }
+    __syncthreads();
+    // dctx[h][d][e] += sum_t q'[t][h, d] dattn[t][h, e]   (q' = sq * scale, f32)
+    for (int t = 0; t < T; ++t) {
+      const float qp = qS[t * LDQ + h_ * DH + d_] * Q_SCALE;
+      const float* da = attnS + t * LDQ + h_ * DH + e0;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) dctx[i] = fmaf(qp, da[i], dctx[i]);
+    }
+    __syncthreads();
+    // q-softmax backward: dq' = dattn ctxn^T; dq = sq (dq' s - sum_d sq dq' s)
+    for (int r = warp; r < T * NH; r += WARPS) {
+      const int t = r / NH, hh = r % NH;
+      const float* da = attnS + t * LDQ + hh * DH;
+      const float* ct = ctxT + hh * DH * DH + lane;
+      float dqp = 0.f;
+      for (int e = 0; e < DH; ++e) dqp = fmaf(da[e], ct[e * DH], dqp);
+      const float tt = dqp * Q_SCALE;
+      const float sq = qS[t * LDQ + hh * DH + lane];
+      const float rd = warp_sum(sq * tt);
+      const float dq = sq * (tt - rd);
+      qS[t * LDQ + hh * DH + lane] = dq;
+      qpB[t * LDQ + hh * DH + lane] = __float2bfloat16(dq);
+    }
+    __syncthreads();
+    // dW_q[j][c] += sum_t dq[t][j] ln[c][t]
+    wgrad_update(dW_q, HD, C, [&](int t, int j) { return qS[t * LDQ + j]; },
+                 [&](int t, int c) { return __bfloat162float(lnS[c * LDT + t]); });
+    // dln[c][t] = sum_j dq[t][j] W_q[j][c]  -> oS
+    mm_rows_to_cols(qpB, LDQ, w_q, HD, C, oS);
+    __syncthreads();
+    ln_backward(src, oS, g_pre, C, nvalid, stat, red, stat + 4 * T, dgpre,
+                dxq + (size_t)b * C * N + n0, N,
+                [&](int c, int t, float v) { return dsrc(c, t) + v; });
+    __syncthreads();
+  }
+
+  // ---- this CTA's record
+  if (acc_smem)
+    for (int i = tid; i < 2 * C * HD; i += THREADS) rec[i] = dW_out[i];
+  for (int i = tid; i < 3 * C; i += THREADS) rec[2 * C * HD + i] = dbout[i];
+  float* rc = rec + 2 * C * HD + 3 * C + h_ * DH * DH + d_ * DH + e0;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) rc[i] = dctx[i];
+}
+
+__host__ __device__ inline size_t kv_common_smem(int C) {
+  return align128((size_t)C * LDT * sizeof(bf16)) +        // lnS
+         align128((size_t)T * LDK2 * sizeof(float)) +      // kvS: k -> k', v
+         align128((size_t)NH * DH * DH * sizeof(float)) +  // dctxT [h][e][d]
+         align128((size_t)(2 * WARPS * T + 6 * T + 4 * HD) * sizeof(float));
+}
+
+// The A' passes' recompute of one tile: preLN, then [k | v] into kvS.
+template <typename TX>
+__device__ void kv_recompute(const XSrc<TX>& src, const float* __restrict__ g_pre,
+                             const bf16* __restrict__ w_kv, int C, int nvalid, bf16* lnS,
+                             float* kvS, float* red, float* stat) {
+  pre_ln(src, g_pre, C, nvalid, lnS, red, stat);
+  project(lnS, w_kv, C, 2 * HD, kvS, LDK2);
+  __syncthreads();
+}
+
+// For row (t, h) and lane d: k' and dk' = sum_e (v[t][h, e] / N) dctx[h][d][e].
+__device__ __forceinline__ void kprime_dkprime(const float* kvS, const float* dctxT,
+                                               const float* ms, int t, int hh, bool valid,
+                                               float n_f, float& kp, float& dkp) {
+  const int lane = threadIdx.x & 31, c = hh * DH + lane;
+  kp = valid ? __fdiv_rn(expf(kvS[t * LDK2 + c] - ms[c]), ms[HD + c]) : 0.f;
+  const float* vrow = kvS + t * LDK2 + HD + hh * DH;
+  const float* ct = dctxT + hh * DH * DH + lane;
+  float acc = 0.f;
+  if (valid)
+    for (int e = 0; e < DH; ++e) acc = fmaf(__fdiv_rn(vrow[e], n_f), ct[e * DH], acc);
+  dkp = acc;
+}
+
+// Pass A'1.  grid (P, B).  m, s (B, HD) from pass A, dctx (B, NH, DH, DH)
+// from pass B'; part (B * P, HD) f32: this CTA's sum of k' dk' per channel.
+template <typename TX>
+__global__ void __launch_bounds__(THREADS)
+la_bwd_kv1_kernel(const TX* __restrict__ x, const float* __restrict__ g_pre,
+                  const bf16* __restrict__ w_kv, const float* __restrict__ m,
+                  const float* __restrict__ s, const float* __restrict__ dctx,
+                  float* __restrict__ part, int C, int N) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  size_t off = 0;
+  auto carve = [&](size_t bytes) {
+    unsigned char* p = smem + off;
+    off += align128(bytes);
+    return p;
+  };
+  bf16* lnS = reinterpret_cast<bf16*>(carve((size_t)C * LDT * sizeof(bf16)));
+  float* kvS = reinterpret_cast<float*>(carve((size_t)T * LDK2 * sizeof(float)));
+  float* dctxT = reinterpret_cast<float*>(carve((size_t)NH * DH * DH * sizeof(float)));
+  float* red = reinterpret_cast<float*>(
+      carve((size_t)(2 * WARPS * T + 6 * T + 4 * HD) * sizeof(float)));
+  float* stat = red + 2 * WARPS * T;
+  float* ms = stat + 6 * T;  // m | s
+  float* sd = ms + 2 * HD;   // per-warp partials of sdot
+
+  const int b = blockIdx.y, p = blockIdx.x, P = gridDim.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ntiles = (N + T - 1) / T;
+  for (int i = tid; i < NH * DH * DH; i += THREADS) {
+    const int h = i / (DH * DH), d = (i / DH) % DH, e = i % DH;
+    dctxT[h * DH * DH + e * DH + d] = dctx[(size_t)b * NH * DH * DH + i];
+  }
+  for (int i = tid; i < HD; i += THREADS) {
+    ms[i] = m[(size_t)b * HD + i];
+    ms[HD + i] = s[(size_t)b * HD + i];
+  }
+  __syncthreads();
+  // warp w handles the rows (t, h) with h = w % NH: one channel per lane
+  const int hh = warp % NH;
+  float sdot = 0.f;
+  for (int tile = p; tile < ntiles; tile += P) {
+    const int n0 = tile * T;
+    const int nvalid = min(T, N - n0);
+    XSrc<TX> src{x + (size_t)b * C * N + n0, N};
+    kv_recompute(src, g_pre, w_kv, C, nvalid, lnS, kvS, red, stat);
+    for (int t = warp / NH; t < T; t += WARPS / NH) {
+      float kp, dkp;
+      kprime_dkprime(kvS, dctxT, ms, t, hh, t < nvalid, (float)N, kp, dkp);
+      sdot = fmaf(kp, dkp, sdot);
+    }
+    __syncthreads();
+  }
+  sd[warp * DH + lane] = sdot;
+  __syncthreads();
+  if (tid < HD) {
+    const int h = tid / DH, d = tid % DH;
+    float v = 0.f;
+    for (int w = h; w < WARPS; w += NH) v += sd[w * DH + d];
+    part[((size_t)b * P + p) * HD + tid] = v;
+  }
+}
+
+// Per-CTA record of pass A'2: dW_kv (2HD, C) | dg_pre (C).
+__host__ __device__ inline size_t kv2_record(int C) { return (size_t)2 * HD * C + C; }
+
+__host__ __device__ inline size_t kv2_smem(int C, bool acc_smem) {
+  return kv_common_smem(C) +
+         align128((size_t)T * LDK2 * sizeof(float)) +      // dkvS
+         align128((size_t)T * LDK2 * sizeof(bf16)) +       // dkvB
+         align128((size_t)NH * DH * DH * sizeof(float)) +  // dctxF [h][d][e]
+         align128((size_t)C * LDT * sizeof(float)) +       // dlnS
+         align128((size_t)(HD + C) * sizeof(float)) +      // sdot | dg_pre
+         (acc_smem ? (size_t)2 * HD * C * sizeof(float) : 0);
+}
+
+// Pass A'2.  grid (P, B).  sdot (B, HD) complete; dxq (B, C, N) from pass
+// B'; writes dx = dxq + dx_kv (B, C, N) in TX; part (B * P, kv2_record(C)).
+template <typename TX>
+__global__ void __launch_bounds__(THREADS, 1)
+la_bwd_kv2_kernel(const TX* __restrict__ x, const float* __restrict__ g_pre,
+                  const bf16* __restrict__ w_kv, const float* __restrict__ m,
+                  const float* __restrict__ s, const float* __restrict__ dctx,
+                  const float* __restrict__ sdot, const TX* __restrict__ dxq,
+                  TX* __restrict__ dx, float* __restrict__ part, int acc_smem, int C, int N) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  size_t off = 0;
+  auto carve = [&](size_t bytes) {
+    unsigned char* p = smem + off;
+    off += align128(bytes);
+    return p;
+  };
+  bf16* lnS = reinterpret_cast<bf16*>(carve((size_t)C * LDT * sizeof(bf16)));
+  float* kvS = reinterpret_cast<float*>(carve((size_t)T * LDK2 * sizeof(float)));
+  float* dctxT = reinterpret_cast<float*>(carve((size_t)NH * DH * DH * sizeof(float)));
+  float* red = reinterpret_cast<float*>(
+      carve((size_t)(2 * WARPS * T + 6 * T + 4 * HD) * sizeof(float)));
+  float* dkvS = reinterpret_cast<float*>(carve((size_t)T * LDK2 * sizeof(float)));
+  bf16* dkvB = reinterpret_cast<bf16*>(carve((size_t)T * LDK2 * sizeof(bf16)));
+  float* dctxF = reinterpret_cast<float*>(carve((size_t)NH * DH * DH * sizeof(float)));
+  float* dlnS = reinterpret_cast<float*>(carve((size_t)C * LDT * sizeof(float)));
+  float* sdS = reinterpret_cast<float*>(carve((size_t)(HD + C) * sizeof(float)));
+  float* dgpre = sdS + HD;
+  float* stat = red + 2 * WARPS * T;
+  float* ms = stat + 6 * T;
+
+  const int b = blockIdx.y, p = blockIdx.x, P = gridDim.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ntiles = (N + T - 1) / T;
+  const float n_f = (float)N;
+  float* rec = part + ((size_t)b * P + p) * kv2_record(C);
+  float* dW_kv = acc_smem ? reinterpret_cast<float*>(smem + off) : rec;  // (2HD, C)
+
+  for (int i = tid; i < 2 * HD * C; i += THREADS) dW_kv[i] = 0.f;
+  for (int i = tid; i < C; i += THREADS) dgpre[i] = 0.f;
+  for (int i = tid; i < NH * DH * DH; i += THREADS) {
+    const int h = i / (DH * DH), d = (i / DH) % DH, e = i % DH;
+    const float v = dctx[(size_t)b * NH * DH * DH + i];
+    dctxT[h * DH * DH + e * DH + d] = v;
+    dctxF[i] = v;
+  }
+  for (int i = tid; i < HD; i += THREADS) {
+    ms[i] = m[(size_t)b * HD + i];
+    ms[HD + i] = s[(size_t)b * HD + i];
+    sdS[i] = sdot[(size_t)b * HD + i];
+  }
+  __syncthreads();
+
+  for (int tile = p; tile < ntiles; tile += P) {
+    const int n0 = tile * T;
+    const int nvalid = min(T, N - n0);
+    XSrc<TX> src{x + (size_t)b * C * N + n0, N};
+    XSrc<TX> qsrc{dxq + (size_t)b * C * N + n0, N};
+    kv_recompute(src, g_pre, w_kv, C, nvalid, lnS, kvS, red, stat);
+    for (int r = warp; r < T * NH; r += WARPS) {
+      const int t = r / NH, hh = r % NH, c = hh * DH + lane;
+      float kp, dkp;
+      kprime_dkprime(kvS, dctxT, ms, t, hh, t < nvalid, n_f, kp, dkp);
+      dkvS[t * LDK2 + c] = kp * (dkp - sdS[c]);
+      __syncwarp();
+      kvS[t * LDK2 + c] = kp;  // the row's k' for dv (this warp's own row)
+      __syncwarp();
+      const float* kprow = kvS + t * LDK2 + hh * DH;
+      const float* cf = dctxF + hh * DH * DH + lane;
+      float dv = 0.f;
+      for (int d = 0; d < DH; ++d) dv = fmaf(kprow[d], cf[d * DH], dv);
+      dkvS[t * LDK2 + HD + c] = __fdiv_rn(dv, n_f);
+    }
+    __syncthreads();
+    for (int i = tid; i < T * 2 * HD; i += THREADS) {
+      const int t = i / (2 * HD), j = i % (2 * HD);
+      dkvB[t * LDK2 + j] = __float2bfloat16(dkvS[t * LDK2 + j]);
+    }
+    __syncthreads();
+    // dW_kv[j][c] += sum_t dkv[t][j] ln[c][t]
+    wgrad_update(dW_kv, 2 * HD, C, [&](int t, int j) { return dkvS[t * LDK2 + j]; },
+                 [&](int t, int c) { return __bfloat162float(lnS[c * LDT + t]); });
+    // dln[c][t] = sum_j dkv[t][j] W_kv[j][c]
+    mm_rows_to_cols(dkvB, LDK2, w_kv, 2 * HD, C, dlnS);
+    __syncthreads();
+    ln_backward(src, dlnS, g_pre, C, nvalid, stat, red, stat + 4 * T, dgpre,
+                dx + (size_t)b * C * N + n0, N, [&](int c, int t, float v) {
+                  return qsrc(c, t) + round_to(v, TX());
+                });
+    __syncthreads();
+  }
+
+  if (acc_smem)
+    for (int i = tid; i < 2 * HD * C; i += THREADS) rec[i] = dW_kv[i];
+  for (int i = tid; i < C; i += THREADS) rec[2 * HD * C + i] = dgpre[i];
+}
+
+// out[s * M + i] = sum_{p < P} part[(s * P + p) * rec + off + i], in order of p.
+// grid (ceil(M / THREADS), S).
+__global__ void __launch_bounds__(THREADS)
+la_reduce_kernel(const float* __restrict__ part, size_t rec, size_t off, int P, int M,
+                 float* __restrict__ out) {
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  if (i >= M) return;
+  const int sg = blockIdx.y;
+  const float* src = part + (size_t)sg * P * rec + off + i;
+  float v = 0.f;
+  for (int q = 0; q < P; ++q) v += src[(size_t)q * rec];
+  out[(size_t)sg * M + i] = v;
+}
+
 template <typename TX>
 int launch_ctx(const void* x, const float* g_pre, const bf16* w_kv, float* part,
                int* counter, float* ctx, float* m, float* s, int B, int C, int N,
@@ -414,6 +1023,78 @@ int launch_out(const void* x, const float* g_pre, const bf16* w_q, const float* 
       static_cast<const TX*>(x), g_pre, w_q, ctx, w_out, b_out, g_post,
       static_cast<TX*>(y), C, N);
   return (int)cudaGetLastError();
+}
+
+
+// the largest dynamic shared memory a block may opt in to on this device
+int max_smem(int device) {
+  int v = 0;
+  cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  return v;
+}
+
+template <typename K>
+int set_smem(K kernel, size_t bytes) {
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)bytes);
+}
+
+int reduce_records(const float* part, size_t rec, size_t off, int P, int M, int S, float* out,
+           cudaStream_t st) {
+  la_reduce_kernel<<<dim3((M + THREADS - 1) / THREADS, S), THREADS, 0, st>>>(part, rec, off, P,
+                                                                           M, out);
+  return (int)cudaGetLastError();
+}
+
+template <typename TX>
+int launch_bwd_q(const void* x, const void* dy, const float* g_pre, const bf16* w_q,
+                 const float* ctx, const bf16* w_out, const float* b_out,
+                 const float* g_post, void* dxq, float* part, float* out_w, float* dctx,
+                 int B, int C, int N, int P, int device, cudaStream_t st) {
+  const int acc_smem = bwdq_smem(C, true) <= (size_t)max_smem(device);
+  const size_t smem = bwdq_smem(C, acc_smem);
+  int err = set_smem(la_bwd_q_kernel<TX>, smem);
+  if (err) return err;
+  la_bwd_q_kernel<TX><<<dim3(P, B), THREADS, smem, st>>>(
+      static_cast<const TX*>(x), static_cast<const TX*>(dy), g_pre, w_q, ctx, w_out, b_out,
+      g_post, static_cast<TX*>(dxq), part, acc_smem, C, N);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  const size_t rec = bwdq_record(C), mw = (size_t)2 * C * HD + 3 * C;
+  err = reduce_records(part, rec, 0, B * P, (int)mw, 1, out_w, st);
+  if (err) return err;
+  return reduce_records(part, rec, mw, P, NH * DH * DH, B, dctx, st);
+}
+
+template <typename TX>
+int launch_bwd_kv1(const void* x, const float* g_pre, const bf16* w_kv, const float* m,
+                   const float* s, const float* dctx, float* part, float* sdot, int B, int C,
+                   int N, int P, cudaStream_t st) {
+  const size_t smem = kv_common_smem(C);
+  int err = set_smem(la_bwd_kv1_kernel<TX>, smem);
+  if (err) return err;
+  la_bwd_kv1_kernel<TX><<<dim3(P, B), THREADS, smem, st>>>(
+      static_cast<const TX*>(x), g_pre, w_kv, m, s, dctx, part, C, N);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  return reduce_records(part, HD, 0, P, HD, B, sdot, st);
+}
+
+template <typename TX>
+int launch_bwd_kv2(const void* x, const float* g_pre, const bf16* w_kv, const float* m,
+                   const float* s, const float* dctx, const float* sdot, const void* dxq,
+                   void* dx, float* part, float* out_w, int B, int C, int N, int P, int device,
+                   cudaStream_t st) {
+  const int acc_smem = kv2_smem(C, true) <= (size_t)max_smem(device);
+  const size_t smem = kv2_smem(C, acc_smem);
+  int err = set_smem(la_bwd_kv2_kernel<TX>, smem);
+  if (err) return err;
+  la_bwd_kv2_kernel<TX><<<dim3(P, B), THREADS, smem, st>>>(
+      static_cast<const TX*>(x), g_pre, w_kv, m, s, dctx, sdot, static_cast<const TX*>(dxq),
+      static_cast<TX*>(dx), part, acc_smem, C, N);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  return reduce_records(part, kv2_record(C), 0, B * P, (int)kv2_record(C), 1, out_w, st);
 }
 
 }  // namespace
@@ -446,6 +1127,57 @@ int ofd_la_out(const void* x, int x_bf16, const float* g_pre, const void* w_q,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return x_bf16 ? launch_out<bf16>(x, g_pre, wq, ctx, wo, b_out, g_post, y, B, C, N, st)
                 : launch_out<float>(x, g_pre, wq, ctx, wo, b_out, g_post, y, B, C, N, st);
+}
+
+// The backward launchers.  Each runs its pass over grid (P, B) and then sums
+// the per-CTA records in a fixed order.  Scratch part: (B * P, record) f32
+// with record = ofd_la_bwd_record(pass, C) (pass 0: B', 1: A'1, 2: A'2).
+// Outputs are f32 unless they are dx: out_w of B' is dW_out (C, HD) | dW_q
+// (HD, C) | db_out | dg_pre | dg_post, with dctx (B, NH, DH, DH); A'1 gives
+// sdot (B, HD); out_w of A'2 is dW_kv (2HD, C) | dg_pre.  dxq (B' output,
+// with the residual dy) and dx = dxq + dx_kv (A'2 output) are in x's dtype.
+long long ofd_la_bwd_record(int pass, int C) {
+  return pass == 0 ? (long long)bwdq_record(C) : pass == 1 ? HD : (long long)kv2_record(C);
+}
+
+int ofd_la_bwd_q(const void* x, const void* dy, int x_bf16, const float* g_pre,
+                 const void* w_q, const float* ctx, const void* w_out, const float* b_out,
+                 const float* g_post, void* dxq, float* part, float* out_w, float* dctx, int B,
+                 int C, int N, int P, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const bf16* wq = static_cast<const bf16*>(w_q);
+  const bf16* wo = static_cast<const bf16*>(w_out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return x_bf16 ? launch_bwd_q<bf16>(x, dy, g_pre, wq, ctx, wo, b_out, g_post, dxq, part,
+                                     out_w, dctx, B, C, N, P, device, st)
+                : launch_bwd_q<float>(x, dy, g_pre, wq, ctx, wo, b_out, g_post, dxq, part,
+                                      out_w, dctx, B, C, N, P, device, st);
+}
+
+int ofd_la_bwd_kv1(const void* x, int x_bf16, const float* g_pre, const void* w_kv,
+                   const float* m, const float* s, const float* dctx, float* part,
+                   float* sdot, int B, int C, int N, int P, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const bf16* w = static_cast<const bf16*>(w_kv);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return x_bf16 ? launch_bwd_kv1<bf16>(x, g_pre, w, m, s, dctx, part, sdot, B, C, N, P, st)
+                : launch_bwd_kv1<float>(x, g_pre, w, m, s, dctx, part, sdot, B, C, N, P, st);
+}
+
+int ofd_la_bwd_kv2(const void* x, int x_bf16, const float* g_pre, const void* w_kv,
+                   const float* m, const float* s, const float* dctx, const float* sdot,
+                   const void* dxq, void* dx, float* part, float* out_w, int B, int C, int N,
+                   int P, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const bf16* w = static_cast<const bf16*>(w_kv);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return x_bf16 ? launch_bwd_kv2<bf16>(x, g_pre, w, m, s, dctx, sdot, dxq, dx, part, out_w,
+                                       B, C, N, P, device, st)
+                : launch_bwd_kv2<float>(x, g_pre, w, m, s, dctx, sdot, dxq, dx, part, out_w,
+                                        B, C, N, P, device, st);
 }
 
 const char* ofd_cuda_error_string(int err) {

@@ -7,21 +7,24 @@ initial noise and per-step noise from a ``torch.Generator`` unless the caller
 passes them (``x_T``, ``noises``), which is how the tests feed both
 frameworks the same random numbers.
 
-Ported for the serving path: the three beta schedules, ``make_schedule``,
-``extract``, the ``predict_*`` functions, ``q_posterior``,
-``model_predictions``, ``p_sample_loop``, ``ddim_sample``, ``dpmpp_sample``
-and ``sample`` with ``noise_space='image'``.  The flow-noise forward process
-is not ported yet and raises.
+Ported: the three beta schedules, ``make_schedule``, ``extract``, the
+``predict_*`` functions, ``q_posterior``, ``model_predictions``, the
+training losses ``q_sample``, ``pyramid_loss`` and ``p_losses``, and the
+samplers ``p_sample_loop``, ``ddim_sample``, ``dpmpp_sample`` and ``sample``,
+all with ``noise_space='image'``.  The flow-noise forward process is not
+ported yet and raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..ops.warp import nan_mse_stats
 
 ModelFn = Callable[..., torch.Tensor]
 
@@ -208,6 +211,61 @@ def model_predictions(sched: Schedule, model_fn: ModelFn, x, t,
     return pred_noise, x_start
 
 
+def q_sample(sched: Schedule, x_start, t, noise):
+    """The forward process x_t = sqrt(a_t) x_0 + sqrt(1 - a_t) noise."""
+    nd = x_start.dim()
+    return (extract(sched.sqrt_alphas_cumprod, t, nd) * x_start
+            + extract(sched.sqrt_one_minus_alphas_cumprod, t, nd) * noise)
+
+
+def pyramid_loss(image_out, target, flow_tgt=None, external_cond=None, flow_out=None,
+                 warp_fn: Optional[Callable] = None, levels: Tuple[int, ...] = (1, 2, 4, 8, 16),
+                 flow_loss_weight: float = 0.0):
+    """The reference ``_loss``: a NaN-aware MSE of the image at level 1 and,
+    with a flow target, at every other level the model-flow warp of the
+    conditioning against the target splatted by a zero flow (both at
+    ``scale=level``), scaled by ``level**4``; one mean over the (sum, count)
+    pairs of all terms."""
+    total_sum, total_cnt = nan_mse_stats(image_out, target)
+    if flow_tgt is not None:
+        for level in levels:
+            if level == 1:
+                continue
+            warped = warp_fn(external_cond, flow_out, scale=level)
+            tgt_ds = warp_fn(target, torch.zeros_like(flow_out), scale=level)
+            s, n = nan_mse_stats(warped, tgt_ds)
+            total_sum = total_sum + s * (level ** 4)
+            total_cnt = total_cnt + n
+        if flow_loss_weight > 0.0 and flow_out is not None:
+            s, n = nan_mse_stats(flow_out, flow_tgt)
+            total_sum = total_sum + s * flow_loss_weight
+            total_cnt = total_cnt + n
+    return total_sum / torch.clamp(total_cnt, min=1)
+
+
+def p_losses(sched: Schedule, model_fn: ModelFn, x_start, t, noise, external_cond=None,
+             warp_fn: Optional[Callable] = None, image_channels: int = 3,
+             model_out_override=None, flow_loss_weight: float = 0.0):
+    """The training loss of one batch at timesteps ``t`` (B,) with the
+    forward-process ``noise`` (the caller draws both; JAX draws them from
+    its key unless given).  For the joint target (image + flow channels) the
+    pyramid loss of the image and the flow; ``model_out_override`` replaces
+    the model's output (the validation's ideal loss)."""
+    x = q_sample(sched, x_start, t, noise)
+    model_out = model_fn(x, external_cond, t) if model_out_override is None else model_out_override
+    if sched.objective == "pred_noise":
+        target = noise
+    elif sched.objective == "pred_x0":
+        target = x_start
+    else:
+        target = predict_v(sched, x_start, t, noise)
+    if target.shape[1] == image_channels + 2:      # joint target (image + flow)
+        c = image_channels
+        return pyramid_loss(model_out[:, :c], target[:, :c], target[:, c:], external_cond,
+                            model_out[:, c:], warp_fn, flow_loss_weight=flow_loss_weight)
+    return pyramid_loss(model_out, target)
+
+
 def _randn(shape, generator, device) -> torch.Tensor:
     return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
 
@@ -376,7 +434,8 @@ def sample(sched: Schedule, model_fn: ModelFn, shape: Sequence[int], external_co
 
 __all__ = [
     "Schedule", "make_schedule", "extract", "model_predictions", "q_posterior",
-    "predict_start_from_noise", "predict_noise_from_start", "predict_v",
+    "predict_start_from_noise", "predict_noise_from_start", "predict_v", "p_losses",
+    "pyramid_loss", "q_sample",
     "predict_start_from_v", "p_sample_loop", "ddim_sample", "dpmpp_sample",
     "linspace_int", "sample",
 ]

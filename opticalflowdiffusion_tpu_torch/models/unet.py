@@ -8,8 +8,11 @@ Module and parameter names follow the reference PyTorch UNet
 run in the module's compute ``dtype`` with the JAX package's casts:
 normalisation statistics in float32, the UNet output in float32.
 
-Only what the flagship FlowDiffuser runs is ported: sinusoidal time
-embedding, no self-conditioning, no learned variance.
+The same module serves and trains: nothing on its path runs under
+``torch.no_grad``, and its linear-attention blocks are differentiable on the
+card (``ops/attention_fused.py``).  Only what the flagship FlowDiffuser runs
+is ported: sinusoidal time embedding, no self-conditioning, no learned
+variance.
 """
 
 from __future__ import annotations

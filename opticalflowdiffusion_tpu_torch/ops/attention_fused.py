@@ -11,10 +11,18 @@ torch layout: ``w_qkv`` (3*heads*dim, C), ``w_out`` (C, heads*dim).
   compute dtype, LayerNorms and softmaxes in float32.
 * :func:`fused_linear_attention_block` runs the two CUDA kernels of
   ``kernels/linear_attention.cu`` (context pass, output pass) on a CUDA
-  tensor, and :func:`block_plain` in ``x.dtype`` on a CPU tensor.  There is
-  no other switch and no fallback: a kernel that cannot be built or launched
-  raises.  Like the TPU kernels, the CUDA kernels use bf16 matmul operands
-  with float32 accumulation even when ``x`` is float32.
+  tensor.  When a gradient is asked for it does so inside a
+  ``torch.autograd.Function`` that saves ``(ctx, m, s)`` and whose backward
+  runs the three backward kernels (pass B', A'1, A'2) when N >= 1024, and
+  below that autograd of :func:`block_plain` recomputed (JAX's
+  ``_fwd``/``_bwd`` dispatch).  On a CPU tensor it is :func:`block_plain`.
+  There is no other switch and no fallback: a kernel that cannot be built
+  or launched raises.  Like the TPU kernels, the CUDA kernels use bf16
+  matmul operands with float32 accumulation even when ``x`` is float32.
+* ``ctx_plain``, ``out_plain``, ``bwd_q_plain``, ``bwd_kv1_plain`` and
+  ``bwd_kv2_plain`` are the plain versions of the five kernels, with the
+  kernels' roundings (``compute_dtype``); with float32 they are the TPU
+  passes in float32.
 """
 
 from __future__ import annotations
@@ -23,19 +31,28 @@ import ctypes
 
 import torch
 
-from ..kernels import LA_CTX, LA_OUT
+from ..kernels import LA_BWD_KV1, LA_BWD_KV2, LA_BWD_Q, LA_CTX, LA_OUT
 
 EPS = 1e-5
 HEAD_DIM = 32
 HIDDEN = 128  # heads * dim_head, the only width the kernels take
+HEADS = HIDDEN // HEAD_DIM
+Q_SCALE = HEAD_DIM ** -0.5
+# JAX's _fwd runs the fused backward at N >= 1024 and the composition's VJP below
+BWD_MIN_N = 1024
+
+
+def _ln_fwd(xt):
+    """(xhat, rstd) of the bias-free LayerNorm over the last axis, float32."""
+    x32 = xt.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(x32.var(dim=-1, unbiased=False, keepdim=True) + EPS)
+    return (x32 - mean) * rstd, rstd
 
 
 def ln32(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Bias-free LayerNorm over the last axis, in float32 (JAX ``_ln32``)."""
-    x32 = x.float()
-    mean = x32.mean(dim=-1, keepdim=True)
-    var = x32.var(dim=-1, unbiased=False, keepdim=True)
-    return (x32 - mean) * torch.rsqrt(var + EPS) * g
+    return _ln_fwd(x)[0] * g
 
 
 def linear_attention_middle(qkv: torch.Tensor, heads: int, dim: int) -> torch.Tensor:
@@ -102,6 +119,87 @@ def out_plain(x, g_pre, w_q, ctx, w_out, b_out, g_post, compute_dtype=torch.bflo
     return y.to(x.dtype).transpose(1, 2)
 
 
+def _ln_bwd_dx(dout_g, xhat, rstd):
+    """dx of xhat * g given dout_g = dout * g (JAX ``_ln_bwd_dx``)."""
+    m1 = dout_g.mean(dim=-1, keepdim=True)
+    m2 = (dout_g * xhat).mean(dim=-1, keepdim=True)
+    return (dout_g - m1 - xhat * m2) * rstd
+
+
+def _heads(t):
+    """(B, N, HIDDEN) -> (B, N, heads, dim)."""
+    return t.view(*t.shape[:-1], HEADS, HEAD_DIM)
+
+
+def bwd_q_plain(x, dy, g_pre, w_q, ctx, w_out, b_out, g_post, compute_dtype=torch.bfloat16):
+    """Plain version of pass B' (JAX ``_bwd_q_kernel``) on x, dy (B, C, N):
+    (dxq (B, C, N) in x.dtype with the residual dy, dctx (B, heads, 32, 32)
+    = the cotangent of ctx / N, dW_q (128, C), dW_out (C, 128), db_out,
+    dg_pre (the q path's part), dg_post), float32 but dxq.  The products
+    that JAX takes on ``compute_dtype`` operands round them so; the others
+    (dctx, dq', the weight gradients) are float32."""
+    B, C, N = x.shape
+    cdt = compute_dtype
+    xhat, rstd = _ln_fwd(x.transpose(1, 2))
+    dyt = dy.transpose(1, 2).float()
+    ln = (xhat * g_pre).to(cdt).float()
+    sq = torch.softmax(_heads(_mm(ln, w_q, cdt)), dim=-1)
+    qp = sq * Q_SCALE
+    ctxn = ctx.float() / N
+    attn = torch.einsum("bnhd,bhde->bnhe", qp.to(cdt).float(), ctxn.to(cdt).float())
+    attn = attn.reshape(B, N, HIDDEN)
+    ohat, rstd_o = _ln_fwd(_mm(attn, w_out, cdt) + b_out)
+    dg_post = (dyt * ohat).sum(dim=(0, 1))
+    do = _ln_bwd_dx(dyt * g_post, ohat, rstd_o)
+    db_out = do.sum(dim=(0, 1))
+    dw_out = torch.einsum("bnc,bnj->cj", do, attn)
+    dattn = _heads(do.to(cdt).float() @ w_out.to(cdt).float())
+    dctx = torch.einsum("bnhd,bnhe->bhde", qp, dattn)
+    t = torch.einsum("bnhe,bhde->bnhd", dattn, ctxn) * Q_SCALE
+    dq = (sq * (t - (sq * t).sum(dim=-1, keepdim=True))).reshape(B, N, HIDDEN)
+    dw_q = torch.einsum("bnj,bnc->jc", dq, ln)
+    dln = dq.to(cdt).float() @ w_q.to(cdt).float()
+    dg_pre = (dln * xhat).sum(dim=(0, 1))
+    dxq = (dyt + _ln_bwd_dx(dln * g_pre, xhat, rstd)).to(x.dtype).transpose(1, 2)
+    return dxq, dctx, dw_q, dw_out, db_out, dg_pre, dg_post
+
+
+def _kv_recompute(x, g_pre, w_kv, m, s, cdt):
+    """The A' passes' recompute: (xhat, rstd, ln, k' (B, N, heads, dim), v)."""
+    xhat, rstd = _ln_fwd(x.transpose(1, 2))
+    ln = (xhat * g_pre).to(cdt).float()
+    kv = _mm(ln, w_kv, cdt)
+    kp = torch.exp(kv[..., :HIDDEN] - m[:, None]) / s[:, None]
+    return xhat, rstd, ln, _heads(kp), _heads(kv[..., HIDDEN:])
+
+
+def bwd_kv1_plain(x, g_pre, w_kv, m, s, dctx, compute_dtype=torch.bfloat16):
+    """Plain version of pass A'1 (JAX ``_bwd_kv1_kernel``): sdot (B, 128) =
+    sum_n k' dk' with dk' = (v / N) dctx^T per head."""
+    N = x.shape[2]
+    _, _, _, kp, v = _kv_recompute(x, g_pre, w_kv, m, s, compute_dtype)
+    dkp = torch.einsum("bnhe,bhde->bnhd", v / N, dctx)
+    return (kp * dkp).sum(dim=1).reshape(x.shape[0], HIDDEN)
+
+
+def bwd_kv2_plain(x, g_pre, w_kv, m, s, dctx, sdot, dxq, compute_dtype=torch.bfloat16):
+    """Plain version of pass A'2 (JAX ``_bwd_kv2_kernel``) and the sum of the
+    two dx: (dx = dxq + dx_kv (B, C, N) in x.dtype, dW_kv (256, C), dg_pre
+    (the k/v path's part))."""
+    B, C, N = x.shape
+    cdt = compute_dtype
+    xhat, rstd, ln, kp, v = _kv_recompute(x, g_pre, w_kv, m, s, cdt)
+    dkp = torch.einsum("bnhe,bhde->bnhd", v / N, dctx)
+    dk = kp * (dkp - _heads(sdot)[:, None])
+    dv = torch.einsum("bnhd,bhde->bnhe", kp, dctx) / N
+    dkv = torch.cat([dk.reshape(B, N, HIDDEN), dv.reshape(B, N, HIDDEN)], dim=-1)
+    dw_kv = torch.einsum("bnj,bnc->jc", dkv, ln)
+    dln = dkv.to(cdt).float() @ w_kv.to(cdt).float()
+    dg_pre = (dln * xhat).sum(dim=(0, 1))
+    dxkv = _ln_bwd_dx(dln * g_pre, xhat, rstd).to(x.dtype).transpose(1, 2)
+    return (dxq.float() + dxkv.float()).to(x.dtype), dw_kv, dg_pre
+
+
 # ------------------------------------------------------------ CUDA kernels
 def _lib():
     from ..kernels import build
@@ -115,6 +213,16 @@ def _lib():
         lib.ofd_la_out.argtypes = [vp, i, vp, vp, vp, vp, vp, vp, vp,
                                    i, i, i, i, vp]
         lib.ofd_la_out.restype = i
+        lib.ofd_la_bwd_record.argtypes = [i, i]
+        lib.ofd_la_bwd_record.restype = ctypes.c_longlong
+        lib.ofd_la_bwd_q.argtypes = [vp, vp, i, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+                                     i, i, i, i, i, vp]
+        lib.ofd_la_bwd_q.restype = i
+        lib.ofd_la_bwd_kv1.argtypes = [vp, i, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp]
+        lib.ofd_la_bwd_kv1.restype = i
+        lib.ofd_la_bwd_kv2.argtypes = [vp, i, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+                                       i, i, i, i, i, vp]
+        lib.ofd_la_bwd_kv2.restype = i
         lib.ofd_cuda_error_string.argtypes = [i]
         lib.ofd_cuda_error_string.restype = ctypes.c_char_p
         lib._ofd_typed = True
@@ -207,33 +315,185 @@ def linear_attention_out(x, g_pre, w_q, ctx, w_out, b_out, g_post):
     return y
 
 
+MAX_BWD_C = 256  # the backward kernels' shared-memory tiles hold C <= 256
+
+
+def _bwd_partitions(B: int, ntiles: int, device) -> int:
+    """CTAs per batch element for the backward passes: one wave over the SMs
+    (a CTA fills an SM's shared memory)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(ntiles, sms // B))
+
+
+def _check_bwd_x(x):
+    B, C, N = _check_x(x)
+    if C > MAX_BWD_C:
+        raise ValueError(f"the backward kernels take C <= {MAX_BWD_C}, got C={C}")
+    return B, C, N
+
+
+def _part(lib, which, B, P, C, device):
+    return torch.empty(B * P * lib.ofd_la_bwd_record(which, C), device=device)
+
+
+def linear_attention_bwd_q(x, dy, g_pre, w_q, ctx, w_out, b_out, g_post):
+    """Pass B' kernel: (dxq, dctx, dW_q, dW_out, db_out, dg_pre, dg_post) as
+    :func:`bwd_q_plain`.  ``w_q`` (128, C) and ``w_out`` (C, 128) in bf16."""
+    B, C, N = _check_bwd_x(x)
+    dev = x.device
+    _check("dy", dy, (B, C, N), x.dtype, dev)
+    _check("g_pre", g_pre, (C,), torch.float32, dev)
+    _check("w_q", w_q, (HIDDEN, C), torch.bfloat16, dev)
+    _check("ctx", ctx, (B, HEADS, HEAD_DIM, HEAD_DIM), torch.float32, dev)
+    _check("w_out", w_out, (C, HIDDEN), torch.bfloat16, dev)
+    _check("b_out", b_out, (C,), torch.float32, dev)
+    _check("g_post", g_post, (C,), torch.float32, dev)
+    lib = _lib()
+    P = _bwd_partitions(B, -(-N // 32), dev)
+    part = _part(lib, 0, B, P, C, dev)
+    dxq = torch.empty_like(x)
+    out_w = torch.empty(2 * C * HIDDEN + 3 * C, device=dev)
+    dctx = torch.empty(B, HEADS, HEAD_DIM, HEAD_DIM, device=dev)
+    err = lib.ofd_la_bwd_q(
+        x.data_ptr(), dy.data_ptr(), int(x.dtype == torch.bfloat16), g_pre.data_ptr(),
+        w_q.data_ptr(), ctx.data_ptr(), w_out.data_ptr(), b_out.data_ptr(), g_post.data_ptr(),
+        dxq.data_ptr(), part.data_ptr(), out_w.data_ptr(), dctx.data_ptr(), B, C, N, P,
+        dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(lib, err, LA_BWD_Q.name)
+    LA_BWD_Q.launches += 1
+    dw_out, dw_q, rest = out_w.split([C * HIDDEN, C * HIDDEN, 3 * C])
+    db_out, dg_pre, dg_post = rest.split(C)
+    return (dxq, dctx, dw_q.view(HIDDEN, C), dw_out.view(C, HIDDEN), db_out, dg_pre,
+            dg_post)
+
+
+def linear_attention_bwd_kv1(x, g_pre, w_kv, m, s, dctx):
+    """Pass A'1 kernel: sdot (B, 128) as :func:`bwd_kv1_plain`."""
+    B, C, N = _check_bwd_x(x)
+    dev = x.device
+    _check("g_pre", g_pre, (C,), torch.float32, dev)
+    _check("w_kv", w_kv, (2 * HIDDEN, C), torch.bfloat16, dev)
+    for name, t in (("m", m), ("s", s)):
+        _check(name, t, (B, HIDDEN), torch.float32, dev)
+    _check("dctx", dctx, (B, HEADS, HEAD_DIM, HEAD_DIM), torch.float32, dev)
+    lib = _lib()
+    P = _bwd_partitions(B, -(-N // 32), dev)
+    part = _part(lib, 1, B, P, C, dev)
+    sdot = torch.empty(B, HIDDEN, device=dev)
+    err = lib.ofd_la_bwd_kv1(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), g_pre.data_ptr(), w_kv.data_ptr(),
+        m.data_ptr(), s.data_ptr(), dctx.data_ptr(), part.data_ptr(), sdot.data_ptr(),
+        B, C, N, P, dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(lib, err, LA_BWD_KV1.name)
+    LA_BWD_KV1.launches += 1
+    return sdot
+
+
+def linear_attention_bwd_kv2(x, g_pre, w_kv, m, s, dctx, sdot, dxq):
+    """Pass A'2 kernel: (dx = dxq + dx_kv, dW_kv (256, C), dg_pre) as
+    :func:`bwd_kv2_plain`."""
+    B, C, N = _check_bwd_x(x)
+    dev = x.device
+    _check("g_pre", g_pre, (C,), torch.float32, dev)
+    _check("w_kv", w_kv, (2 * HIDDEN, C), torch.bfloat16, dev)
+    for name, t in (("m", m), ("s", s), ("sdot", sdot)):
+        _check(name, t, (B, HIDDEN), torch.float32, dev)
+    _check("dctx", dctx, (B, HEADS, HEAD_DIM, HEAD_DIM), torch.float32, dev)
+    _check("dxq", dxq, (B, C, N), x.dtype, dev)
+    lib = _lib()
+    P = _bwd_partitions(B, -(-N // 32), dev)
+    part = _part(lib, 2, B, P, C, dev)
+    dx = torch.empty_like(x)
+    out_w = torch.empty(2 * HIDDEN * C + C, device=dev)
+    err = lib.ofd_la_bwd_kv2(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), g_pre.data_ptr(), w_kv.data_ptr(),
+        m.data_ptr(), s.data_ptr(), dctx.data_ptr(), sdot.data_ptr(), dxq.data_ptr(),
+        dx.data_ptr(), part.data_ptr(), out_w.data_ptr(), B, C, N, P, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(lib, err, LA_BWD_KV2.name)
+    LA_BWD_KV2.launches += 1
+    dw_kv, dg_pre = out_w.split([2 * HIDDEN * C, C])
+    return dx, dw_kv.view(2 * HIDDEN, C), dg_pre
+
+
+def fused_block_bwd(x, dy, g_pre, w_qkv, w_out, b_out, g_post, ctx, m, s):
+    """The three backward kernels in order (JAX ``_fused_block_bwd_pallas``):
+    gradients of (x, g_pre, w_qkv, w_out, b_out, g_post), float32 but dx."""
+    w16 = w_qkv.to(torch.bfloat16).contiguous()
+    w_q, w_kv = w16[:HIDDEN], w16[HIDDEN:]
+    g32 = g_pre.float().contiguous()
+    dxq, dctx, dw_q, dw_out, db_out, dg_pre_q, dg_post = linear_attention_bwd_q(
+        x, dy.to(x.dtype).contiguous(), g32, w_q, ctx,
+        w_out.to(torch.bfloat16).contiguous(), b_out.float().contiguous(),
+        g_post.float().contiguous())
+    sdot = linear_attention_bwd_kv1(x, g32, w_kv, m, s, dctx)
+    dx, dw_kv, dg_pre_kv = linear_attention_bwd_kv2(x, g32, w_kv, m, s, dctx, sdot, dxq)
+    return dx, dg_pre_q + dg_pre_kv, torch.cat([dw_q, dw_kv]), dw_out, db_out, dg_post
+
+
+def _forward(x, g_pre, w_qkv, w_out, b_out, g_post):
+    """The two forward kernels: (y, ctx, m, s)."""
+    w16 = w_qkv.to(torch.bfloat16).contiguous()
+    g_pre32 = g_pre.float().contiguous()
+    c, m, s = linear_attention_ctx(x, g_pre32, w16[HIDDEN:])
+    y = linear_attention_out(
+        x, g_pre32, w16[:HIDDEN], c, w_out.to(torch.bfloat16).contiguous(),
+        b_out.float().contiguous(), g_post.float().contiguous(),
+    )
+    return y, c, m, s
+
+
+class _FusedBlock(torch.autograd.Function):
+    """The block on the CUDA kernels with a gradient, with JAX's
+    forward/backward dispatch: the backward kernels at N >= 1024, the
+    composition's autograd below."""
+
+    @staticmethod
+    def forward(ctx, x, g_pre, w_qkv, w_out, b_out, g_post):
+        fused_bwd = x.shape[2] >= BWD_MIN_N
+        if fused_bwd and x.shape[1] > MAX_BWD_C:
+            raise ValueError(f"the backward kernels take C <= {MAX_BWD_C}, got C={x.shape[1]}")
+        y, c, m, s = _forward(x, g_pre, w_qkv, w_out, b_out, g_post)
+        saved = (c, m, s) if fused_bwd else ()
+        ctx.save_for_backward(x, g_pre, w_qkv, w_out, b_out, g_post, *saved)
+        ctx.fused_bwd = fused_bwd
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, *params = ctx.saved_tensors[:6]
+        if ctx.fused_bwd:
+            grads = fused_block_bwd(x, dy, *params, *ctx.saved_tensors[6:])
+            return tuple(g.to(t.dtype) for g, t in zip(grads, (x, *params)))
+        inputs = [t.detach().requires_grad_() for t in (x, *params)]
+        with torch.enable_grad():
+            y = block_plain(*inputs)
+        return torch.autograd.grad(y, inputs, dy)
+
+
 def fused_linear_attention_block(x, g_pre, w_qkv, w_out, b_out, g_post,
                                  heads: int = 4, dim: int = HEAD_DIM) -> torch.Tensor:
     """y = x + postLN(W_out @ middle(W_qkv @ preLN(x)) + b) on x (B, C, N).
 
-    CUDA tensors go through the two kernels, CPU tensors through
-    :func:`block_plain`.  Forward only: the backward kernels come with
-    training, so a request for a gradient on the kernel path raises.
-    """
+    CUDA tensors go through the forward kernels, and when a gradient is
+    asked for through the backward ones too (at N >= 1024 they take C <=
+    256 and refuse a wider block); CPU tensors through :func:`block_plain`."""
     if x.device.type == "cpu":
         return block_plain(x, g_pre, w_qkv, w_out, b_out, g_post, heads, dim)
     if heads * dim != HIDDEN or dim != HEAD_DIM:
         raise ValueError(f"the kernels take 4 heads of 32, got {heads} of {dim}")
-    params = (g_pre, w_qkv, w_out, b_out, g_post)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *params)):
-        raise RuntimeError(
-            "the linear-attention kernels are forward only; run under torch.no_grad()"
-        )
-    w_qkv16 = w_qkv.to(torch.bfloat16).contiguous()
-    g_pre32 = g_pre.float().contiguous()
-    ctx, _, _ = linear_attention_ctx(x, g_pre32, w_qkv16[HIDDEN:])
-    return linear_attention_out(
-        x, g_pre32, w_qkv16[:HIDDEN], ctx, w_out.to(torch.bfloat16).contiguous(),
-        b_out.float().contiguous(), g_post.float().contiguous(),
-    )
+    args = (x, g_pre, w_qkv, w_out, b_out, g_post)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _FusedBlock.apply(*args)
+    return _forward(*args)[0]
 
 
 __all__ = [
-    "block_plain", "fused_linear_attention_block", "linear_attention_ctx",
-    "linear_attention_out", "linear_attention_middle", "ln32",
+    "block_plain", "bwd_kv1_plain", "bwd_kv2_plain", "bwd_q_plain", "ctx_plain",
+    "fused_block_bwd", "fused_linear_attention_block", "linear_attention_bwd_kv1",
+    "linear_attention_bwd_kv2", "linear_attention_bwd_q", "linear_attention_ctx",
+    "linear_attention_middle", "linear_attention_out", "ln32", "out_plain",
 ]

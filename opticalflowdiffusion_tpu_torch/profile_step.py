@@ -1,15 +1,18 @@
-"""Where the time of one UNet eval of the flagship goes on the card.
+"""Where the time of one UNet eval, or one train step, of the flagship goes on the card.
 
     python -m opticalflowdiffusion_tpu_torch.profile_step [--steps 10] [--seed 0] \
-        [--batch 8] [--height 128 --width 128]
+        [--batch 8] [--height 128 --width 128] [--train]
 
 Builds the flagship as ``sample.py`` does (bf16, weights from ``--seed``) on
 a batch of ``--batch`` at ``--height`` x ``--width`` (default 128x128 b8;
 448x1024 is native Sintel), warms up, times ``--steps`` UnetWithWarp evals with the
 host clock around synchronised runs, then traces the same evals with
-``torch.profiler``.  Prints one JSON line: wall ms per eval, device-busy ms
-per eval (the union of the traced kernels' intervals), the device's idle
-share, the kernel count per eval, kernel time per eval grouped by kind,
+``torch.profiler``.  With ``--train`` the unit is one train step instead
+(augment, pyramid loss, backward, clip, Adam; default batch 16, on a
+standard-normal batch from numpy seed ``--seed`` as the JAX ``bench.py``
+train row).  Prints one JSON line: wall ms per unit, device-busy ms per
+unit (the union of the traced kernels' intervals), the device's idle
+share, the kernel count per unit, kernel time per unit grouped by kind,
 and the slowest kernels.  Needs a CUDA device.
 """
 
@@ -20,16 +23,23 @@ import collections
 import json
 import time
 
+import numpy as np
 import torch
 
 from .algorithms.base import to_batch
+from .config import MATRIX_FLOW
+from .experiments.base import to_device
+from .parallel.train import TrainState, make_optimizer, make_train_step
 from .sample import batch_items, build
 
 KINDS = (
+    ("linear_attention_bwd", ("la_bwd_", "la_reduce_kernel")),
     ("linear_attention", ("la_ctx_kernel", "la_out_kernel")),
     ("flash_attention", ("flash_bf16_kernel", "flash_f32_kernel")),
+    ("splat_bwd", ("splat_bwd_kernel",)),
     ("splat", ("splat_max_kernel", "splat_scatter_kernel", "splat_finish_kernel")),
-    ("conv", ("conv", "cudnn", "xmma", "implicit", "winograd", "fprop", "dgrad")),
+    ("optimizer", ("multi_tensor", "foreach", "adam")),
+    ("conv", ("conv", "cudnn", "xmma", "implicit", "winograd", "fprop", "dgrad", "wgrad")),
     ("gemm", ("gemm", "cutlass", "matmul")),
     ("index", ("index", "scatter", "gather")),
     ("reduction", ("reduce", "norm")),
@@ -58,7 +68,41 @@ def busy_us(intervals) -> float:
     return total
 
 
+def _profile(work, steps: int, unit: str) -> dict:
+    """Time ``work`` (``steps`` units, ending synchronised) on the host clock
+    after a warm-up, then trace it; the profile's numbers per ``unit``."""
+    work()                                    # warm-up (cuDNN, kernel build)
+    t0 = time.perf_counter()
+    work()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        work()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = [(e.time_range.start, e.time_range.end) for e in kernels]
+    by_kind = collections.Counter()
+    by_name = collections.Counter()
+    for e in kernels:
+        us = e.time_range.elapsed_us()
+        by_kind[kind_of(e.name)] += us
+        by_name[e.name[:80]] += us
+    busy_ms = busy_us(spans) / 1e3 / steps if spans else None
+    return {
+        "device": torch.cuda.get_device_name(0),
+        f"{unit}s": steps,
+        f"wall_ms_per_{unit}": wall_ms,
+        f"device_busy_ms_per_{unit}": busy_ms,
+        "idle_share": None if busy_ms is None else max(0.0, 1.0 - busy_ms / wall_ms),
+        f"kernels_per_{unit}": len(kernels) / steps,
+        f"kernel_ms_per_{unit}_by_kind": {k: v / 1e3 / steps for k, v in by_kind.most_common()},
+        f"top_kernels_ms_per_{unit}": {k: v / 1e3 / steps for k, v in by_name.most_common(12)},
+    }
+
+
 def run(steps: int, seed: int, batch: int = 8, height: int = 128, width: int = 128) -> dict:
+    """The profile of ``steps`` UnetWithWarp evals."""
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step needs a CUDA device")
     algo, _ = build(seed, "cuda")
@@ -74,47 +118,50 @@ def run(steps: int, seed: int, batch: int = 8, height: int = 128, width: int = 1
                 algo.module(x, cond, t)
         torch.cuda.synchronize()
 
-    evals()                                   # warm-up (cuDNN, kernel build)
-    t0 = time.perf_counter()
-    evals()
-    wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    return {"batch": batch, "height": height, "width": width, **_profile(evals, steps, "eval")}
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        evals()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    spans = [(e.time_range.start, e.time_range.end) for e in kernels]
-    by_kind = collections.Counter()
-    by_name = collections.Counter()
-    for e in kernels:
-        us = e.time_range.elapsed_us()
-        by_kind[kind_of(e.name)] += us
-        by_name[e.name[:80]] += us
-    busy_ms = busy_us(spans) / 1e3 / steps if spans else None
-    return {
-        "device": torch.cuda.get_device_name(0),
-        "batch": batch, "height": height, "width": width,
-        "evals": steps,
-        "wall_ms_per_eval": wall_ms,
-        "device_busy_ms_per_eval": busy_ms,
-        "idle_share": None if busy_ms is None else max(0.0, 1.0 - busy_ms / wall_ms),
-        "kernels_per_eval": len(kernels) / steps,
-        "kernel_ms_per_eval_by_kind": {k: v / 1e3 / steps for k, v in by_kind.most_common()},
-        "top_kernels_ms_per_eval": {k: v / 1e3 / steps for k, v in by_name.most_common(12)},
-    }
+
+def run_train(steps: int, seed: int, batch: int = 16, height: int = 128,
+              width: int = 128) -> dict:
+    """The profile of ``steps`` train steps (the flagship's optimizer)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_step needs a CUDA device")
+    algo, _ = build(seed, "cuda")
+    cfg = algo.cfg
+    state = TrainState(algo.module, make_optimizer(algo.module.parameters(), cfg.lr,
+                                                   cfg.weight_decay, MATRIX_FLOW.clipping))
+    step = make_train_step(algo.loss_fn)
+    rng = np.random.default_rng(seed)
+    data = to_device(tuple(rng.standard_normal((batch, height, width, c)).astype(np.float32)
+                           for c in (3, 3, 2)), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    algo.module.train()
+
+    def train_steps():
+        for _ in range(steps):
+            step(state, data, gen)
+        torch.cuda.synchronize()
+
+    out = _profile(train_steps, steps, "step")
+    return {"batch": batch, "height": height, "width": width,
+            "train_samples_per_s": batch * 1e3 / out["wall_ms_per_step"], **out}
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=None, help="default 8, and 16 with --train")
     ap.add_argument("--height", type=int, default=128)
     ap.add_argument("--width", type=int, default=128)
+    ap.add_argument("--train", action="store_true", help="profile train steps")
     args = ap.parse_args(argv)
-    print(json.dumps(run(args.steps, args.seed, args.batch, args.height, args.width)),
-          flush=True)
+    if args.train:
+        out = run_train(args.steps, args.seed, args.batch or MATRIX_FLOW.batch_size,
+                        args.height, args.width)
+    else:
+        out = run(args.steps, args.seed, args.batch or 8, args.height, args.width)
+    print(json.dumps(out), flush=True)
 
 
 if __name__ == "__main__":

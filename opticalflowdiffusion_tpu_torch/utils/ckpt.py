@@ -1,0 +1,83 @@
+"""Step checkpoints in the port's own format (the JAX package uses orbax).
+
+One directory per step, ``<dir>/<step>/state.pt``: a ``torch.save`` of the
+module's state_dict, the optimizer's state, the step and the training
+generator's state.  A checkpoint is written to a temporary name and renamed,
+so a directory that exists is complete.  ``every_n_train_steps`` sets the
+cadence and the newest ``MAX_TO_KEEP`` are kept.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+FILE = "state.pt"
+MAX_TO_KEEP = 3
+
+
+class CheckpointManager:
+    def __init__(self, directory, every_n_train_steps: int = 5000):
+        self.directory = Path(directory).absolute()
+        self.every_n = int(every_n_train_steps)
+
+    def steps(self):
+        if not self.directory.is_dir():
+            return []
+        return sorted(int(p.name) for p in self.directory.iterdir()
+                      if p.name.isdigit() and (p / FILE).exists())
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.steps()
+        return steps[-1] if steps else None
+
+    def save(self, state, generator: torch.Generator) -> Path:
+        """Write the checkpoint of ``state`` (a ``TrainState``) at its step."""
+        step = int(state.step)
+        final = self.directory / str(step)
+        tmp = self.directory / f".tmp-{step}"
+        shutil.rmtree(tmp, ignore_errors=True)
+        tmp.mkdir(parents=True)
+        torch.save({
+            "step": step,
+            "module": state.module.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "generator": generator.get_state(),
+        }, tmp / FILE)
+        shutil.rmtree(final, ignore_errors=True)
+        os.replace(tmp, final)
+        for old in self.steps()[:-MAX_TO_KEEP]:
+            shutil.rmtree(self.directory / str(old), ignore_errors=True)
+        return final
+
+    def maybe_save(self, state, generator: torch.Generator, force: bool = False) -> bool:
+        step = int(state.step)
+        if not force and (self.every_n <= 0 or step == 0 or step % self.every_n != 0):
+            return False
+        if step in self.steps():
+            return False
+        self.save(state, generator)
+        return True
+
+    def restore(self, state, generator: torch.Generator, step: Optional[int] = None) -> int:
+        """Load the checkpoint of ``step`` (default: the newest) into
+        ``state`` and ``generator``, bit for bit; returns the step."""
+        step = self.latest_step() if step is None else int(step)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {self.directory}")
+        # loaded on the host: load_state_dict copies the module's tensors onto
+        # its device and moves Adam's moments to the parameters' device, while
+        # Adam's step counts stay on the host where it keeps them
+        ck = torch.load(self.directory / str(step) / FILE, map_location="cpu", weights_only=True)
+        state.module.load_state_dict(ck["module"])
+        state.optimizer.load_state_dict(ck["optimizer"])
+        state.step = int(ck["step"])
+        generator.set_state(ck["generator"])
+        return state.step
+
+
+__all__ = ["CheckpointManager"]

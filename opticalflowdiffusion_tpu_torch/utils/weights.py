@@ -1,119 +1,154 @@
-"""Weight bridge: a flax UNet parameter tree (as numpy) -> a torch state_dict.
+"""Weight bridge between a flax UNet parameter tree (as numpy) and a torch
+state_dict, both ways.
 
-The inverse of the per-block tables of the JAX package's
-``utils/import_torch_ckpt.py``: the state_dict uses the reference PyTorch
-UNet's keys, which are also the keys of ``models/unet.py`` here.  Conv
-kernels go from HWIO to OIHW, dense kernels are transposed, and the
+The state_dict uses the reference PyTorch UNet's keys, which are also the
+keys of ``models/unet.py`` here, so the JAX->port direction is the inverse
+of the per-block tables of the JAX package's ``utils/import_torch_ckpt.py``.
+Conv kernels go from HWIO to OIHW, dense kernels are transposed, and the
 Downsample 1x1 conv's input channels go from the JAX order (dy, dx, c) back
-to the pixel-unshuffle order (c, dy, dx).
+to the pixel-unshuffle order (c, dy, dx).  Every leaf maps to one key by a
+pure re-layout, so the same table maps gradients, and :func:`jax_layout`
+takes a port state_dict (or its gradients) back to the JAX tree, leaf by
+leaf.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence
+from typing import Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
 
 Tree = Mapping[str, object]
+Row = Tuple[Tuple[str, ...], str, str]  # (path in the flax tree, state_dict key, kind)
 
 
-def _f32(a) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32)))
-
-
-def _conv(sd: Dict, p: Tree, key: str) -> None:
-    sd[key + ".weight"] = _f32(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
-    if "bias" in p:
-        sd[key + ".bias"] = _f32(p["bias"])
-
-
-def _dense(sd: Dict, p: Tree, key: str) -> None:
-    sd[key + ".weight"] = _f32(np.asarray(p["kernel"]).T)
-    sd[key + ".bias"] = _f32(p["bias"])
-
-
-def _gain(g) -> torch.Tensor:
-    return _f32(np.asarray(g).reshape(1, -1, 1, 1))
-
-
-def _resnet_block(sd: Dict, p: Tree, key: str) -> None:
-    for flax_name, name in (("Block_0", "block1"), ("Block_1", "block2")):
-        _conv(sd, p[flax_name]["WSConv_0"], f"{key}.{name}.proj")
-        gn = p[flax_name]["GroupNorm_0"]
-        sd[f"{key}.{name}.norm.weight"] = _f32(gn["scale"])
-        sd[f"{key}.{name}.norm.bias"] = _f32(gn["bias"])
-    if "Dense_0" in p:
-        _dense(sd, p["Dense_0"], key + ".mlp.1")
-    if "Conv_0" in p:
-        _conv(sd, p["Conv_0"], key + ".res_conv")
-
-
-def _linear_attention_block(sd: Dict, p: Tree, key: str) -> None:
-    sd[key + ".fn.norm.g"] = _gain(p["prenorm_g"])
-    sd[key + ".fn.fn.to_qkv.weight"] = _f32(np.asarray(p["qkv_kernel"]).T[:, :, None, None])
-    sd[key + ".fn.fn.to_out.0.weight"] = _f32(np.asarray(p["out_kernel"]).T[:, :, None, None])
-    sd[key + ".fn.fn.to_out.0.bias"] = _f32(p["out_bias"])
-    sd[key + ".fn.fn.to_out.1.g"] = _gain(p["postnorm_g"])
-
-
-def _mid_attention(sd: Dict, params: Tree, key: str) -> None:
-    sd[key + ".fn.norm.g"] = _gain(params["PreNormResidual_0"]["ChanLayerNorm_0"]["g"])
-    _conv(sd, params["Attention_0"]["Conv_0"], key + ".fn.fn.to_qkv")
-    _conv(sd, params["Attention_0"]["Conv_1"], key + ".fn.fn.to_out")
-
-
-def _downsample(sd: Dict, p: Tree, key: str) -> None:
-    w = np.asarray(p["Conv_0"]["kernel"])[0, 0].T          # (O, 4C), JAX order
-    four_c = w.shape[1]
+def _down_perm(four_c: int) -> np.ndarray:
+    """Port input channel (c, dy, dx) of each JAX input channel (dy, dx, c)."""
     C = four_c // 4
     idx = np.arange(four_c)
     p1, p2, c = idx // (2 * C), (idx // C) % 2, idx % C
-    out = np.empty_like(w)
-    out[:, c * 4 + p1 * 2 + p2] = w
-    sd[key + ".1.weight"] = _f32(out[:, :, None, None])
-    sd[key + ".1.bias"] = _f32(p["Conv_0"]["bias"])
+    return c * 4 + p1 * 2 + p2
+
+
+def _to_port(kind: str, a: np.ndarray) -> np.ndarray:
+    if kind == "conv":
+        return a.transpose(3, 2, 0, 1)
+    if kind == "dense":
+        return a.T
+    if kind == "gain":
+        return a.reshape(1, -1, 1, 1)
+    if kind == "kernel1x1":
+        return a.T[:, :, None, None]
+    if kind == "down":
+        w = a[0, 0].T                                   # (O, 4C), JAX order
+        out = np.empty_like(w)
+        out[:, _down_perm(w.shape[1])] = w
+        return out[:, :, None, None]
+    return a
+
+
+def _to_jax(kind: str, a: np.ndarray, shape) -> np.ndarray:
+    if kind == "conv":
+        a = a.transpose(2, 3, 1, 0)
+    elif kind == "dense":
+        a = a.T
+    elif kind == "kernel1x1":
+        a = a[:, :, 0, 0].T
+    elif kind == "down":
+        w = a[:, :, 0, 0]
+        a = w[:, _down_perm(w.shape[1])].T[None, None]
+    return a.reshape(shape)
+
+
+def _table(params: Tree, dim_mults: Sequence[int]) -> List[Row]:
+    rows: List[Row] = []
+
+    def conv(path, key):
+        rows.append((path + ("kernel",), key + ".weight", "conv"))
+        if "bias" in _get(params, path):
+            rows.append((path + ("bias",), key + ".bias", "vec"))
+
+    def dense(path, key):
+        rows.append((path + ("kernel",), key + ".weight", "dense"))
+        rows.append((path + ("bias",), key + ".bias", "vec"))
+
+    def resnet_block(name, key):
+        p = params[name]
+        for flax_name, sub in (("Block_0", "block1"), ("Block_1", "block2")):
+            conv((name, flax_name, "WSConv_0"), f"{key}.{sub}.proj")
+            rows.append(((name, flax_name, "GroupNorm_0", "scale"), f"{key}.{sub}.norm.weight",
+                         "vec"))
+            rows.append(((name, flax_name, "GroupNorm_0", "bias"), f"{key}.{sub}.norm.bias",
+                         "vec"))
+        if "Dense_0" in p:
+            dense((name, "Dense_0"), key + ".mlp.1")
+        if "Conv_0" in p:
+            conv((name, "Conv_0"), key + ".res_conv")
+
+    def linear_attention_block(name, key):
+        rows.extend([
+            ((name, "prenorm_g"), key + ".fn.norm.g", "gain"),
+            ((name, "qkv_kernel"), key + ".fn.fn.to_qkv.weight", "kernel1x1"),
+            ((name, "out_kernel"), key + ".fn.fn.to_out.0.weight", "kernel1x1"),
+            ((name, "out_bias"), key + ".fn.fn.to_out.0.bias", "vec"),
+            ((name, "postnorm_g"), key + ".fn.fn.to_out.1.g", "gain"),
+        ])
+
+    R = len(dim_mults)
+    conv(("Conv_0",), "init_conv")
+    dense(("Dense_0",), "time_mlp.1")
+    dense(("Dense_1",), "time_mlp.3")
+    rb, lab, cv = 0, 0, 1
+    for i in range(R):
+        for j in range(2):
+            resnet_block(f"ResnetBlock_{rb}", f"downs.{i}.{j}")
+            rb += 1
+        linear_attention_block(f"LinearAttentionBlock_{lab}", f"downs.{i}.2")
+        lab += 1
+        if i < R - 1:
+            rows.append(((f"Downsample_{i}", "Conv_0", "kernel"), f"downs.{i}.3.1.weight", "down"))
+            rows.append(((f"Downsample_{i}", "Conv_0", "bias"), f"downs.{i}.3.1.bias", "vec"))
+        else:
+            conv((f"Conv_{cv}",), f"downs.{i}.3")
+            cv += 1
+    resnet_block(f"ResnetBlock_{rb}", "mid_block1")
+    rb += 1
+    rows.append((("PreNormResidual_0", "ChanLayerNorm_0", "g"), "mid_attn.fn.norm.g", "gain"))
+    conv(("Attention_0", "Conv_0"), "mid_attn.fn.fn.to_qkv")
+    conv(("Attention_0", "Conv_1"), "mid_attn.fn.fn.to_out")
+    resnet_block(f"ResnetBlock_{rb}", "mid_block2")
+    rb += 1
+    for j in range(R):
+        for k in range(2):
+            resnet_block(f"ResnetBlock_{rb}", f"ups.{j}.{k}")
+            rb += 1
+        linear_attention_block(f"LinearAttentionBlock_{lab}", f"ups.{j}.2")
+        lab += 1
+        if j < R - 1:
+            conv((f"Upsample_{j}", "Conv_0"), f"ups.{j}.3.1")
+        else:
+            conv((f"Conv_{cv}",), f"ups.{j}.3")
+            cv += 1
+    resnet_block(f"ResnetBlock_{rb}", "final_res_block")
+    conv((f"Conv_{cv}",), "final_conv")
+    return rows
+
+
+def _get(tree: Tree, path: Tuple[str, ...]):
+    for k in path:
+        tree = tree[k]
+    return tree
 
 
 def params_from_jax(params: Tree, prefix: str = "",
                     dim_mults: Sequence[int] = (1, 2, 4, 8)) -> Dict[str, torch.Tensor]:
     """State_dict of ``models/unet.py::Unet`` from the JAX ``Unet`` params."""
-    R = len(dim_mults)
-    sd: Dict[str, torch.Tensor] = {}
-    _conv(sd, params["Conv_0"], "init_conv")
-    _dense(sd, params["Dense_0"], "time_mlp.1")
-    _dense(sd, params["Dense_1"], "time_mlp.3")
-    rb, lab, conv = 0, 0, 1
-    for i in range(R):
-        for j in range(2):
-            _resnet_block(sd, params[f"ResnetBlock_{rb}"], f"downs.{i}.{j}")
-            rb += 1
-        _linear_attention_block(sd, params[f"LinearAttentionBlock_{lab}"], f"downs.{i}.2")
-        lab += 1
-        if i < R - 1:
-            _downsample(sd, params[f"Downsample_{i}"], f"downs.{i}.3")
-        else:
-            _conv(sd, params[f"Conv_{conv}"], f"downs.{i}.3")
-            conv += 1
-    _resnet_block(sd, params[f"ResnetBlock_{rb}"], "mid_block1")
-    rb += 1
-    _mid_attention(sd, params, "mid_attn")
-    _resnet_block(sd, params[f"ResnetBlock_{rb}"], "mid_block2")
-    rb += 1
-    for j in range(R):
-        for k in range(2):
-            _resnet_block(sd, params[f"ResnetBlock_{rb}"], f"ups.{j}.{k}")
-            rb += 1
-        _linear_attention_block(sd, params[f"LinearAttentionBlock_{lab}"], f"ups.{j}.2")
-        lab += 1
-        if j < R - 1:
-            _conv(sd, params[f"Upsample_{j}"]["Conv_0"], f"ups.{j}.3.1")
-        else:
-            _conv(sd, params[f"Conv_{conv}"], f"ups.{j}.3")
-            conv += 1
-    _resnet_block(sd, params[f"ResnetBlock_{rb}"], "final_res_block")
-    _conv(sd, params[f"Conv_{conv}"], "final_conv")
-    return {prefix + k: v for k, v in sd.items()}
+    return {
+        prefix + key: torch.from_numpy(np.ascontiguousarray(
+            _to_port(kind, np.asarray(_get(params, path), np.float32))))
+        for path, key, kind in _table(params, dim_mults)
+    }
 
 
 def flow_diffuser_state_dict(params: Tree) -> Dict[str, torch.Tensor]:
@@ -122,4 +157,19 @@ def flow_diffuser_state_dict(params: Tree) -> Dict[str, torch.Tensor]:
     return params_from_jax(params["model"], prefix="model.")
 
 
-__all__ = ["params_from_jax", "flow_diffuser_state_dict"]
+def jax_layout(sd: Mapping[str, torch.Tensor], template: Tree, prefix: str = "model.",
+               dim_mults: Sequence[int] = (1, 2, 4, 8)) -> Dict:
+    """The JAX ``Unet`` tree of ``template`` (names and shapes) holding the
+    values of the port state_dict ``sd`` (parameters or their gradients),
+    as float32 numpy arrays."""
+    out: Dict = {}
+    for path, key, kind in _table(template, dim_mults):
+        a = sd[prefix + key].detach().float().cpu().numpy()
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = _to_jax(kind, a, np.shape(_get(template, path)))
+    return out
+
+
+__all__ = ["flow_diffuser_state_dict", "jax_layout", "params_from_jax"]

@@ -8,8 +8,9 @@ torch-layout weights; JAX takes (B, N, C).  The kernels themselves are
 checked on the card by tests/test_torch_port_kernels.py and chip_smoke.py.
 """
 
-import numpy as np
+import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
@@ -140,3 +141,65 @@ def test_attention_branch_matches_jax(B, N, C):
     assert np.abs(got - pal_f32).max() <= 1e-4 * scale
     # bf16 operands, rounded at other points (measured <= 0.6% of the branch)
     assert np.abs(got_bf16 - pal_bf16).max() <= 2e-2 * scale
+
+
+_GRADS = ("dx", "dg_pre", "dw_qkv", "dw_out", "db_out", "dg_post")
+
+
+def _port_grads_jax_layout(dx, dg_pre, dw_qkv, dw_out, db_out, dg_post):
+    """Port-layout gradients (x (B, C, N), torch-layout weights) as JAX's."""
+    return (_to_jax_layout(dx), dg_pre.numpy(), dw_qkv.t().numpy(), dw_out.t().numpy(),
+            db_out.numpy(), dg_post.numpy())
+
+
+def test_backward_plain_passes_match_pallas_bwd():
+    """The plain versions of the three backward kernels (pass B', A'1, A'2),
+    composed, against ``_fused_block_bwd_pallas`` in interpret mode with f32
+    compute, at the shape and tolerances of
+    tests/test_attention_pallas.py::test_fused_block_bwd_pallas_matches_xla_grad
+    (B=2, N=200 pads the blocks, C=64)."""
+    B, N, C = 2, 200, 64
+    x, p = _inputs(11, B, N, C)
+    dy = np.random.default_rng(12).standard_normal((B, N, C)).astype(np.float32)
+    xj, pj = jnp.asarray(x), tuple(map(jnp.asarray, p))
+    with pltpu.force_tpu_interpret_mode():
+        _, (ctx, m, s) = af._fused_block_pallas(xj, *pj, 4, 32, block_n=128,
+                                                compute_dtype=jnp.float32)
+        want = af._fused_block_bwd_pallas(xj, *pj, ctx, m, s, jnp.asarray(dy), 4, 32,
+                                          compute_dtype=jnp.float32)
+    xt, (g_pre, w_qkv, w_out, b_out, g_post) = _port_args(x, p)
+    dyt = torch.from_numpy(dy).transpose(1, 2).contiguous()
+    f32 = torch.float32
+    w_q, w_kv = w_qkv[:128], w_qkv[128:]
+    ctx_p, m_p, s_p = paf.ctx_plain(xt, g_pre, w_kv, f32)
+    dxq, dctx, dw_q, dw_out, db_out, dg_q, dg_post = paf.bwd_q_plain(
+        xt, dyt, g_pre, w_q, ctx_p, w_out, b_out, g_post, f32)
+    sdot = paf.bwd_kv1_plain(xt, g_pre, w_kv, m_p, s_p, dctx, f32)
+    dx, dw_kv, dg_kv = paf.bwd_kv2_plain(xt, g_pre, w_kv, m_p, s_p, dctx, sdot, dxq, f32)
+    got = _port_grads_jax_layout(dx, dg_q + dg_kv, torch.cat([dw_q, dw_kv]), dw_out,
+                                 db_out, dg_post)
+    for name, a, b in zip(_GRADS, got, want):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a, b, rtol=5e-3, atol=2e-4 * np.abs(b).max(),
+                                   err_msg=name)
+    # the per-head context cotangent is what the TPU's pass B' accumulates
+    assert dctx.shape == (B, 4, 32, 32) and sdot.shape == (B, 128)
+
+
+@pytest.mark.parametrize("B,N,C", [(2, 200, 64), (1, 48, 32)])
+def test_block_autograd_on_cpu_matches_jax_vjp(B, N, C):
+    """Autograd of the port's ``fused_linear_attention_block`` on a CPU tensor
+    (``block_plain``) against ``jax.vjp`` of ``_block_xla``, f32: summation
+    order only (the pin of tests/test_attention_pallas.py's custom-VJP test)."""
+    x, p = _inputs(13, B, N, C)
+    dy = np.random.default_rng(14).standard_normal((B, N, C)).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: af._block_xla(*a, 4, 32, compute_dtype=jnp.float32),
+                     jnp.asarray(x), *map(jnp.asarray, p))
+    want = vjp(jnp.asarray(dy))
+    xt, tp = _port_args(x, p)
+    leaves = [t.clone().requires_grad_() for t in (xt, *tp)]
+    y = paf.fused_linear_attention_block(*leaves)
+    y.backward(torch.from_numpy(dy).transpose(1, 2))
+    got = _port_grads_jax_layout(*(t.grad for t in leaves))
+    for name, a, b in zip(_GRADS, got, want):
+        np.testing.assert_allclose(a, np.asarray(b), rtol=1e-4, atol=1e-6, err_msg=name)

@@ -1,5 +1,5 @@
-"""The CUDA kernels of the fused linear-attention block and of the splat, and
-their wrappers.
+"""The CUDA kernels of the fused linear-attention block (forward and
+backward) and of the splat (forward and backward), and their wrappers.
 
 Imports torch and the port only (no JAX), so that it also runs on the card:
 
@@ -122,11 +122,126 @@ def test_each_pass_matches_its_plain_version_on_card(cuda_device, dtype):
 
 @pytest.mark.cuda
 def test_kernel_path_refuses_gradients(cuda_device):
-    xt, tp = _inputs(8, 1, 64, 64)
+    """A gradient through the kernels at N >= 1024 needs the backward
+    kernels, which take C <= 256: a wider block refuses it when the forward
+    runs; below N = 1024 the backward is the composition's and any C goes."""
+    xt, tp = _inputs(8, 1, 1024, 512)
     xt = xt.to(cuda_device).requires_grad_()
     tp = tuple(t.to(cuda_device) for t in tp)
-    with pytest.raises(RuntimeError):
+    with pytest.raises(ValueError):
         paf.fused_linear_attention_block(xt, *tp)
+    xs, ts = _inputs(8, 1, 64, 512)
+    xs = xs.to(cuda_device).requires_grad_()
+    paf.fused_linear_attention_block(xs, *(t.to(cuda_device) for t in ts)).sum().backward()
+    assert xs.grad is not None and torch.isfinite(xs.grad).all()
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).abs().max()) / max(float(b.float().abs().max()), 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,C", [(2, 1000, 64), (2, 1024, 256), (1, 2100, 128)])
+def test_backward_kernels_match_plain_on_card(cuda_device, dtype, B, N, C):
+    """Pass B', A'1 and A'2 against bwd_q_plain, bwd_kv1_plain and
+    bwd_kv2_plain with the same bf16 operands: f32 sums in another order,
+    within 1e-3 of each output's largest value (measured <= 3e-4 on an
+    H100); each launch counted once; two launches give the same bits."""
+    dev = cuda_device
+    xt, (g_pre, w_qkv, w_out, b_out, g_post) = _inputs(9, B, N, C)
+    x = xt.to(dev, dtype)
+    dy = torch.randn(B, C, N, generator=torch.Generator().manual_seed(1)).to(dev, dtype)
+    g_pre, b_out, g_post = (t.to(dev) for t in (g_pre, b_out, g_post))
+    w16 = w_qkv.to(dev, torch.bfloat16)
+    w_q, w_kv = w16[:128].contiguous(), w16[128:].contiguous()
+    wo = w_out.to(dev, torch.bfloat16).contiguous()
+    ctx, m, s = paf.linear_attention_ctx(x, g_pre, w_kv)
+    n0 = [k.launches for k in (kernels.LA_BWD_Q, kernels.LA_BWD_KV1, kernels.LA_BWD_KV2)]
+    got_q = paf.linear_attention_bwd_q(x, dy, g_pre, w_q, ctx, wo, b_out, g_post)
+    want_q = paf.bwd_q_plain(x, dy, g_pre, w_q, ctx, wo, b_out, g_post)
+    dctx = want_q[1]
+    got_s = paf.linear_attention_bwd_kv1(x, g_pre, w_kv, m, s, dctx)
+    want_s = paf.bwd_kv1_plain(x, g_pre, w_kv, m, s, dctx)
+    got_kv = paf.linear_attention_bwd_kv2(x, g_pre, w_kv, m, s, dctx, want_s, want_q[0])
+    want_kv = paf.bwd_kv2_plain(x, g_pre, w_kv, m, s, dctx, want_s, want_q[0])
+    again = paf.linear_attention_bwd_q(x, dy, g_pre, w_q, ctx, wo, b_out, g_post)
+    torch.cuda.synchronize()
+    assert [k.launches for k in (kernels.LA_BWD_Q, kernels.LA_BWD_KV1, kernels.LA_BWD_KV2)] \
+        == [n0[0] + 2, n0[1] + 1, n0[2] + 1]
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0      # dx rounded to bf16
+    for i, (a, b) in enumerate(zip(got_q, want_q)):
+        assert _rel(a, b) <= 1e-3 + (ulp if i == 0 else 0.0), i
+    assert _rel(got_s, want_s) <= 1e-3
+    for i, (a, b) in enumerate(zip(got_kv, want_kv)):
+        assert _rel(a, b) <= 1e-3 + (ulp if i == 0 else 0.0), i
+    assert all(torch.equal(a, b) for a, b in zip(got_q, again))
+
+
+@pytest.mark.cuda
+def test_block_gradients_through_kernels_match_plain_on_card(cuda_device):
+    """Autograd of the block on the card at N = 1024 (the backward kernels)
+    against autograd of block_plain, f32 x: the kernels round the matmul
+    operands to bf16 as the TPU's do, so 5% of each gradient's scale."""
+    dev = cuda_device
+    xt, tp = _inputs(10, 2, 1024, 64)
+    leaves = [t.to(dev).requires_grad_() for t in (xt, *tp)]
+    ref = [t.detach().clone().requires_grad_() for t in leaves]
+    dy = torch.randn(2, 64, 1024, generator=torch.Generator().manual_seed(2)).to(dev)
+    n0 = kernels.LA_BWD_KV2.launches
+    paf.fused_linear_attention_block(*leaves).backward(dy)
+    paf.block_plain(*ref).backward(dy)
+    torch.cuda.synchronize()
+    assert kernels.LA_BWD_KV2.launches == n0 + 1
+    for a, b in zip(leaves, ref):
+        assert _rel(a.grad, b.grad) <= 5e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scale,offset", [(1, (0, 0)), (2, (1, 0)), (4, (0, 0)), (16, (0, 0))])
+def test_splat_kernels_match_plain_on_card(cuda_device, dtype, scale, offset):
+    """The forward kernel at a scale and offset against splat_raw (and its
+    hole mask against sum > 0), the backward kernel against splat_bwd_raw:
+    both gather the same f32 products in the same order, so to f32
+    rounding; each launch counted."""
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(scale)
+    inp = (2 * torch.rand(2, 4, 64, 96, generator=g, device=dev) - 1).to(dtype)
+    flow = 4 * torch.randn(2, 2, 64, 96, generator=g, device=dev)
+    flow[0, 0, 3, 5] = float("inf")
+    n_f, n_b = kernels.SPLAT.launches, kernels.SPLAT_BWD.launches
+    out, mask = psplat_.splat_fwd(inp, flow, scale, offset)
+    want = psplat_.splat_raw(inp, flow, scale, offset)
+    cot = torch.randn(out.shape, generator=g, device=dev)
+    d_inp, d_flow = psplat_.splat_bwd(inp, flow, cot, scale, offset)
+    w_inp, w_flow = psplat_.splat_bwd_raw(inp, flow, cot, scale, offset)
+    torch.cuda.synchronize()
+    assert (kernels.SPLAT.launches, kernels.SPLAT_BWD.launches) == (n_f + 1, n_b + 1)
+    rel = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    assert _rel(out, want) <= rel
+    assert torch.equal(mask, want[:, -1:] > 0)
+    assert _rel(d_inp, w_inp) <= rel and _rel(d_flow, w_flow) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_splat_hole_mask_keeps_tiny_weights_on_card(cuda_device):
+    """At 448x1024, column 0 moves by 1e-20 px and every other source off
+    the image: column 1 receives only weights of 1e-20, far below the
+    kernel's fixed-point resolution.  Its hole mask must still be the plain
+    path's sum > 0, and so must the warp's NaN holes."""
+    dev = cuda_device
+    H, W = 448, 1024
+    flow = torch.zeros(1, 2, H, W, device=dev)
+    flow[:, 0] = 1e6
+    flow[0, 0, :, 0] = 1e-20
+    inp = torch.ones(1, 4, H, W, device=dev)
+    _, mask = psplat_.splat_fwd(inp, flow)
+    want = psplat_.splat_raw(inp, flow)[:, -1:] > 0
+    assert torch.equal(mask, want) and int(want.sum()) == 2 * H
+    from opticalflowdiffusion_tpu_torch.ops import warp as pwarp_
+    holes = torch.isnan(pwarp_.warp_forward_flow(inp[:, :3], flow))
+    assert torch.equal(holes[:, :1], ~want)
 
 
 @pytest.mark.cuda
@@ -141,9 +256,10 @@ def test_splat_kernel_deterministic_on_card(cuda_device, dtype):
     flow = 4 * torch.randn(2, 2, 96, 160, generator=g, device=cuda_device)
     flow[0, 0, 5, 7] = float("inf")
     n0 = kernels.SPLAT.launches
-    a = psplat_.splat_linear_unn(x, flow, metric)
-    b = psplat_.splat_linear_unn(x, flow, metric)
-    want = psplat_.splat_raw(torch.cat([x * metric, metric], dim=1), flow).float()
+    v = torch.cat([x * metric, metric], dim=1)
+    a, _ = psplat_.splat_fwd(v, flow)
+    b, _ = psplat_.splat_fwd(v, flow)
+    want = psplat_.splat_raw(v, flow).float()
     torch.cuda.synchronize()
     assert kernels.SPLAT.launches == n0 + 2
     assert torch.equal(a, b)

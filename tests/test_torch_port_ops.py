@@ -118,4 +118,4 @@ def test_softsplat_cpu_is_plain_and_launches_nothing():
     np.testing.assert_array_equal(
         got.numpy(), psplat.splat_raw(torch.cat([x * metric, metric], dim=1), fl).numpy())
     with pytest.raises(ValueError):
-        psplat.splat_linear_unn(x, fl, metric)
+        psplat.splat_fwd(torch.cat([x * metric, metric], dim=1), fl)
