@@ -4,7 +4,7 @@
 
 Budget: under 10 minutes on one H100, the kernel build included (one plain
 ``nvcc`` call per source, all started together; seconds each).  A run takes
-about two minutes on an H100.  Every line
+about three minutes on an H100.  Every line
 it prints is one JSON object, flushed as it goes, apart from the card's
 ``nvidia-smi`` line.  Phases:
 
@@ -30,7 +30,14 @@ it prints is one JSON object, flushed as it goes, apart from the card's
      ``bwd_q_plain``, ``bwd_kv1_plain`` and ``bwd_kv2_plain``;
    - the splat backward at scales 1, 2, 4, 8 and 16 at 128x128 b16 and at
      scale 1 at 448x1024 b2, against ``splat_bwd_raw``, and the hole mask
-     of the tiny-weight construction at 448x1024 against the plain path's.
+     of the tiny-weight construction at 448x1024 against the plain path's;
+   - the two conv kernels (``conv_rows``, ``conv_fold``) against
+     ``conv2d_same_plain`` (and ``conv_fold`` with its prologue against
+     ``conv2d_same_gn_plain``) at the level-0 3x3 64->64 and the 7x7 stem
+     at 448x1024 b2, the widest conv (768->512) at 56x128 b2 and the level-0
+     conv at 128x128 b8, bf16 and f32 (TF32 off for the f32 plain version);
+     two launches bit for bit; one ``F.conv2d`` (cuDNN) call on the same
+     NCHW tensors as the yardstick.
 4. slice: the flagship FlowDiffuser (UNet width 64, bf16, weights from a
    seed, output conv not zeroed).  At 128x128 on a batch of 8 from the
    artificial dataset: one UnetWithWarp forward with the kernels against
@@ -39,7 +46,12 @@ it prints is one JSON object, flushed as it goes, apart from the card's
    rendered at 1024 and cropped to 448 rows): one UnetWithWarp forward at
    b2 with all kernels against the same forward with all plain versions;
    then DDIM-50 at b2 and b8 and DPM++(2M)-20 at b2, each after a warm-up
-   UNet eval.  Each sampling path is one count window: the launch counts
+   UNet eval.  Under the opt-in conv backends (``ops/conv.py``): one native
+   b2 UnetWithWarp forward under ``fold`` with every kernel against the
+   same forward with every plain version (one under ``rows`` at 128x128);
+   DDIM-50 at 128x128 b8 under ``fold`` and ``rows`` and at native b2 under
+   ``fold``, their rates printed beside the cuDNN paths'.  Each sampling
+   path is one count window: the launch counts
    are set to 0, the batch is preprocessed (a splat) and sampled, and each
    kernel's count is checked against what that path must launch.  The
    samples keep the NaN holes of the splat: a hole in the state stays a
@@ -59,7 +71,11 @@ it prints is one JSON object, flushed as it goes, apart from the card's
    must hold the saved step, parameters, optimizer state and generator bit
    for bit, and ``train.py --resume`` must give the uninterrupted run's
    losses at steps 4 and 5 within the run-to-run spread of a second
-   restored run (cuDNN's backward is not bit-deterministic).
+   restored run (cuDNN's backward is not bit-deterministic).  Under
+   ``fold``: one step with every kernel against the same step with every
+   plain version (bf16, and f32 with TF32 off on both sides), and a count
+   window of 8 steps whose launches add 87 ``conv_fold`` a step (44 forward,
+   43 dgrad), its samples/s printed beside the cuDNN window's.
 6. the kernels line, 7. the result line.
 
 Any failure raises and exits non-zero without the result line; so does a
@@ -89,6 +105,7 @@ from opticalflowdiffusion_tpu_torch.config import FLAGSHIP, NATIVE
 from opticalflowdiffusion_tpu_torch.kernels import build as kbuild
 from opticalflowdiffusion_tpu_torch.models import unet as unet_mod
 from opticalflowdiffusion_tpu_torch.ops import attention_fused as af
+from opticalflowdiffusion_tpu_torch.ops import conv as pc
 from opticalflowdiffusion_tpu_torch.ops import flash_attention as fa
 from opticalflowdiffusion_tpu_torch.ops import splat as sp
 from opticalflowdiffusion_tpu_torch.experiments.base import to_device
@@ -123,6 +140,23 @@ TRAIN_EXPECTED = {"linear_attention_ctx": 8, "linear_attention_out": 8,
                   "linear_attention_bwd_kv2": 6, "flash_attention": 0, "splat_fwd": 10,
                   "splat_bwd": 5}
 TRAIN_WARMUP, TRAIN_TIMED = 2, 6
+# conv cases (B, Cin, H, W, Cout, k, with the prologue): the level-0 3x3
+# 64->64 and the 7x7 stem (Cin None: the UnetWithWarp's channels) at
+# 448x1024 b2, the widest conv (768->512) at 56x128 b2, the level-0 conv at
+# 128x128 b8; the prologue at the first and the last
+CONV_CASES = ((NATIVE_B, 64, 448, 1024, 64, 3, True), (NATIVE_B, None, 448, 1024, 64, 7, False),
+              (NATIVE_B, 768, 56, 128, 512, 3, False), (B, 64, 128, 128, 64, 3, True))
+# conv kernel launches per UNet eval (tests/test_torch_port_conv.py pins them
+# from the model): under fold all 44 spatial convs, 19 of them (each
+# ResnetBlock's second) with the prologue; under rows the 25 others (those
+# 19 run the plain gn-conv through cuDNN).  A train step adds one dgrad
+# launch for every spatial conv but the stem.
+CONV_PER_EVAL = {"fold": 44, "rows": 25}
+CONV_DGRAD_PER_STEP = 43
+# conv kernels vs their plain versions, relative to the output's largest
+# |value|: f32 sums in another order (plain with TF32 off); bf16 the same
+# bf16 operands and f32 sums, the output rounded once to bf16 (one ulp)
+TOL_CONV = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM, bf16 tensor, f32;
 # SFU exponentials per clock per SM, and the SMs
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -582,6 +616,116 @@ def splat_bwd_phase():
     return per_step, worst
 
 
+def conv_bound_ms(Bn, Cin, H, W, Cout, k, dtype, prologue):
+    """(bytes ms, operations ms) of one conv launch: x read and the output
+    written once, the weights once (and a, b); 2 Bn H W Cin Cout k^2 FLOPs
+    on the bf16 tensor cores (f32: CUDA cores), and with the prologue one
+    exponential per input element on the SFU beside them."""
+    xb = torch.empty((), dtype=dtype).element_size()
+    nbytes = (Bn * H * W * (Cin + Cout) + Cout * Cin * k * k) * xb
+    nbytes += 2 * Bn * Cin * 4 if prologue else 0
+    flops = 2 * Bn * H * W * Cin * Cout * k * k / (
+        BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+    exps = Bn * Cin * H * W / (SFU_PER_CLK_SM * SMS * SM_CLOCK_HZ) if prologue else 0.0
+    return 1e3 * nbytes / HBM_BPS, 1e3 * max(flops, exps)
+
+
+@contextlib.contextmanager
+def tf32(allowed):
+    """cuDNN's TF32 for f32 convolutions on or off (it is on by default)."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = allowed
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+def stem_channels():
+    """The stem's input channels: those of the flagship's UnetWithWarp."""
+    cfg = dataclasses.replace(FLAGSHIP, unet_dim=8)
+    return FlowDiffuser(cfg, device="cpu").module.model.init_conv.weight.shape[1]
+
+
+def conv_phase():
+    """Both conv kernels against their plain versions at CONV_CASES, bf16
+    and f32, two launches bit for bit, with CUDA-event times beside the
+    bound and one F.conv2d call on the same tensors.  A kernel's ``ms`` is
+    the launch alone on weights laid out beforehand; ``*_wrapper_ms`` adds
+    the wrapper's per-call weight relayout, as the model's path pays it.
+    Returns the native level-0 bf16 rows (rows 9 and 10) and the largest
+    errors."""
+    stem = stem_channels()
+    out, worst = {}, {"conv_rows": 0.0, "conv_fold": 0.0}
+    for i, (Bn, Cin, H, W, Cout, k, pro) in enumerate(CONV_CASES):
+        Cin = Cin or stem
+        for dtype in (torch.bfloat16, torch.float32):
+            g = torch.Generator(device="cuda").manual_seed(900 + i)
+            x = torch.randn(Bn, Cin, H, W, generator=g, device="cuda").to(dtype)
+            w = torch.randn(Cout, Cin, k, k, generator=g, device="cuda") / (Cin * k * k) ** 0.5
+            a = 1.0 + 0.5 * torch.rand(Bn, Cin, generator=g, device="cuda")
+            b = torch.randn(Bn, Cin, generator=g, device="cuda")
+            wc = w.to(dtype)
+            wt = pc._layout(wc, dtype)
+            iters = 20 if dtype == torch.bfloat16 else 5
+            with torch.no_grad(), tf32(False):
+                got = {"conv_rows": (pc.conv_rows(x, w), pc.conv_rows(x, w)),
+                       "conv_fold": (pc.conv_fold(x, w), pc.conv_fold(x, w))}
+                want = {"conv_rows": pc.conv2d_same_plain(x, w)}
+                want["conv_fold"] = want["conv_rows"]
+                if pro:
+                    got["conv_fold_prologue"] = (pc.conv_fold(x, w, a, b),
+                                                 pc.conv_fold(x, w, a, b))
+                    want["conv_fold_prologue"] = pc.conv2d_same_gn_plain(x, w, a, b)
+                torch.cuda.synchronize()
+                same = {n: bool(torch.equal(*v)) for n, v in got.items()}
+                errs = {n: err(v[0], want[n])[0] for n, v in got.items()}
+                scales = {n: float(v.float().abs().max()) for n, v in want.items()}
+                del got, want
+                times = {
+                    "rows_ms": cuda_ms(lambda: pc._launch_laid("rows", x, wt, w.shape), iters),
+                    "fold_ms": cuda_ms(lambda: pc._launch_laid("fold", x, wt, w.shape), iters),
+                    "rows_wrapper_ms": cuda_ms(lambda: pc.conv_rows(x, wc), iters),
+                    "fold_wrapper_ms": cuda_ms(lambda: pc.conv_fold(x, wc), iters),
+                    "plain_ms": cuda_ms(lambda: pc.conv2d_same_plain(x, w), iters),
+                    "library_ms": cuda_ms(lambda: torch.nn.functional.conv2d(
+                        x, wc, padding=k // 2), iters),
+                }
+                if pro:
+                    times["fold_prologue_ms"] = cuda_ms(
+                        lambda: pc._launch_laid("fold", x, wt, w.shape, a, b), iters)
+                    times["fold_prologue_wrapper_ms"] = cuda_ms(
+                        lambda: pc.conv_fold(x, wc, a, b), iters)
+                    times["gn_plain_ms"] = cuda_ms(
+                        lambda: pc.conv2d_same_gn_plain(x, w, a, b), iters)
+            bnd = conv_bound_ms(Bn, Cin, H, W, Cout, k, dtype, False)
+            bnd_pro = conv_bound_ms(Bn, Cin, H, W, Cout, k, dtype, True)
+            row = dict(B=Bn, Cin=Cin, H=H, W=W, Cout=Cout, k=k, dtype=str(dtype).split(".")[1],
+                       bitwise_same=same, max_abs=errs, scale=scales,
+                       bound_ms=max(bnd), bound_by="bytes" if bnd[0] >= bnd[1] else "operations",
+                       **({"prologue_bound_ms": max(bnd_pro)} if pro else {}),
+                       **{n: round(t, 5) for n, t in times.items()})
+            phase("kernel_vs_plain", kernel="conv", **row)
+            for n, e in errs.items():
+                check(same[n], f"{n} not deterministic at {Bn, Cin, H, W, Cout, k, dtype}")
+                check(e <= TOL_CONV[dtype] * scales[n],
+                      f"{n} disagrees with its plain version at {Bn, Cin, H, W, Cout, k, dtype}: "
+                      f"{e} (scale {scales[n]})")
+                key = "conv_rows" if n == "conv_rows" else "conv_fold"
+                worst[key] = max(worst[key], e)
+            if i == 0 and dtype == torch.bfloat16:
+                out["conv_rows"] = dict(ms=times["rows_ms"], plain_ms=times["plain_ms"],
+                                        bound_ms=max(bnd), bound_by=row["bound_by"],
+                                        library_ms=times["library_ms"])
+                out["conv_fold"] = dict(
+                    ms=times["fold_prologue_ms"], plain_ms=times["gn_plain_ms"],
+                    bound_ms=max(bnd_pro),
+                    bound_by="bytes" if bnd_pro[0] >= bnd_pro[1] else "operations",
+                    library_ms=times["library_ms"])
+            del x, w, a, b, wc, wt
+    return out, worst
+
+
 class _PlainSplat(torch.autograd.Function):
     """The splat through its plain versions on the card (this script's
     reference runs only): splat_raw forward, splat_bwd_raw backward."""
@@ -637,12 +781,18 @@ class _PlainPasses(torch.autograd.Function):
 
 
 @contextlib.contextmanager
-def plain_versions(attention=True, flash=False, splat=False):
+def plain_versions(attention=True, flash=False, splat=False, conv=False):
     """Route the UNet through the plain versions of the kernels (the
     reference runs of this script only).  ``attention``: True for the
     composition ``block_plain``, "passes" for the plain versions of the
-    five kernels."""
+    five kernels; ``conv``: both conv kernels through conv2d_same_plain and
+    conv2d_same_gn_plain."""
     saved = (unet_mod.fused_linear_attention_block, unet_mod.attention_middle, sp.splat)
+    saved_conv = (pc.conv_rows, pc.conv_fold)
+    if conv:
+        pc.conv_rows = pc.conv2d_same_plain
+        pc.conv_fold = lambda x, w, a=None, b=None: (
+            pc.conv2d_same_plain(x, w) if a is None else pc.conv2d_same_gn_plain(x, w, a, b))
     if attention == "passes":
         unet_mod.fused_linear_attention_block = lambda x, *a: _PlainPasses.apply(x, *a[:5])
     elif attention:
@@ -656,6 +806,7 @@ def plain_versions(attention=True, flash=False, splat=False):
         yield
     finally:
         unet_mod.fused_linear_attention_block, unet_mod.attention_middle, sp.splat = saved
+        pc.conv_rows, pc.conv_fold = saved_conv
 
 
 def forward_vs_plain(algo, cond, label, **plain):
@@ -675,6 +826,7 @@ def forward_vs_plain(algo, cond, label, **plain):
     e_flow = err(flow_k, flow_p)
     nan_k, nan_p = torch.isnan(out_k[:, :3]), torch.isnan(out_p[:, :3])
     phase("unet_with_warp_vs_plain", at=label, B=Bn, H=H, W=W, plain=plain,
+          conv_backend=algo.cfg.conv_backend,
           flow_max_abs=e_flow[0], flow_mean_abs=e_flow[1], flow_scale=scale,
           nan_mask_agreement=float((nan_k == nan_p).float().mean()))
     check(torch.isfinite(flow_k).all() and scale > 0, f"{label}: UnetWithWarp flow not finite")
@@ -711,6 +863,10 @@ def sample_path(name, algo, items, native):
     expected = {k.name: 0 for k in kernels.KERNELS}
     expected.update({"linear_attention_ctx": 8 * steps, "linear_attention_out": 8 * steps,
                      "flash_attention": steps if native else 0, "splat_fwd": steps + 1})
+    backend = algo.cfg.conv_backend
+    if backend != "cudnn":
+        expected["conv_" + backend] = CONV_PER_EVAL[backend] * steps
+    res["conv_backend"] = backend
     phase("sample_" + name, launches=launches, expected_launches=expected, **res)
     check(res["samples_shape"] == [Bn, 3, H, W] and res["flow_shape"] == [Bn, 2, H, W],
           f"{name}: wrong output shapes")
@@ -725,6 +881,8 @@ def slice_phase():
     algo_ddim, _ = build_flagship(SEED, "cuda", sampling_timesteps=50)
     native_algos = {(s, n): build_flagship(SEED, "cuda", sampling_timesteps=n, sampler=s)[0]
                     for s, n, _ in NATIVE.runs}
+    conv_algos = {be: build_flagship(SEED, "cuda", sampling_timesteps=50, sampler="ddim",
+                                     conv_backend=be)[0] for be in ("fold", "rows")}
     items = [data[i] for i in range(B)]
     native_items = {b: batch_items(SEED, b, NATIVE.height, NATIVE.width)
                     for _, _, b in NATIVE.runs}
@@ -737,6 +895,9 @@ def slice_phase():
 
     forward_vs_plain(algo, cond, "128x128")
     forward_vs_plain(algo, cond_native, "448x1024", flash=True, splat=True)
+    forward_vs_plain(conv_algos["rows"], cond, "128x128", conv=True)
+    forward_vs_plain(conv_algos["fold"], cond_native, "448x1024", flash=True, splat=True,
+                     conv=True)
     del cond_native
 
     totals = {k.name: 0 for k in kernels.KERNELS}
@@ -746,19 +907,31 @@ def slice_phase():
     paths = [("ddim50", algo_ddim, items, False), ("ancestral1000", algo, items, False)]
     paths += [(f"native_{s}{n}_b{b}", native_algos[s, n], native_items[b], True)
               for s, n, b in NATIVE.runs]
+    native_b = f"ddim50_b{NATIVE_B}"
+    paths += [("fold_ddim50", conv_algos["fold"], items, False),
+              ("rows_ddim50", conv_algos["rows"], items, False),
+              ("native_fold_" + native_b, conv_algos["fold"], native_items[NATIVE_B], True)]
     warmed = set()
     for name, a, its, native in paths:
-        if native and len(its) not in warmed:            # warm-up UNet eval at this shape
+        shape = (len(its), native, a.cfg.conv_backend)
+        if (native or a.cfg.conv_backend != "cudnn") and shape not in warmed:
+            # a warm-up UNet eval at this shape and conv backend
             _, c, _ = a.preprocess(to_batch(its, a.device))
             x = torch.randn((len(its), a.channels) + tuple(c.shape[2:]), device="cuda")
             with torch.no_grad():
                 a.module(x, c, torch.full((len(its),), 999, dtype=torch.long, device="cuda"))
-            warmed.add(len(its))
+            warmed.add(shape)
             del c, x
         res, launches = sample_path(name, a, its, native)
         results[name] = res
         for k, n in launches.items():
             totals[k] += n
+    phase("conv_backends_vs_cudnn",
+          ddim50_128x128_b8_steps_per_s={be: results[n]["denoise_steps_per_s"] for be, n in (
+              ("cudnn", "ddim50"), ("fold", "fold_ddim50"), ("rows", "rows_ddim50"))},
+          **{f"{native_b}_448x1024_frames_per_s": {
+              "cudnn": results["native_" + native_b]["frames_per_s"],
+              "fold": results["native_fold_" + native_b]["frames_per_s"]}})
     phase("launch_counts", launches=totals)
     return totals
 
@@ -791,23 +964,29 @@ def train_losses(out_dir):
     return {r["step"]: r["train/loss"] for r in recs if "train/loss" in r}
 
 
-def step_vs_plain(precision, batch):
+def step_vs_plain(precision, batch, conv_backend="cudnn"):
     """One train step's loss and gradients (the flagship at 128x128 b16,
     weights from the seed) with every kernel against the same step with
-    every plain version: the same weights, batch and draws."""
-    cfg = dataclasses.replace(FLAGSHIP, zero_init=False, precision=precision)
+    every plain version: the same weights, batch and draws.  Under a conv
+    backend in f32, both steps run with cuDNN's TF32 off (the f32 conv
+    kernels are exact f32)."""
+    cfg = dataclasses.replace(FLAGSHIP, zero_init=False, precision=precision,
+                              conv_backend=conv_backend)
     algo = FlowDiffuser(cfg, device="cuda", generator=torch.Generator().manual_seed(SEED))
     algo.module.train()
-    loss_k, g_k = step_grads(algo, batch, 11)
-    with plain_versions(attention="passes", splat=True):
-        loss_p, g_p = step_grads(algo, batch, 11)
+    conv = conv_backend != "cudnn"
+    with tf32(not (conv and precision == "float32")):
+        loss_k, g_k = step_grads(algo, batch, 11)
+        with plain_versions(attention="passes", splat=True, conv=conv):
+            loss_p, g_p = step_grads(algo, batch, 11)
     rel = {k: float((g_k[k] - g_p[k]).norm()) / float(g_p[k].norm())
            for k in g_p if float(g_p[k].norm()) > 0}
     worst = max(rel, key=rel.get)
     total = float(torch.sqrt(sum((g_k[k] - g_p[k]).square().sum() for k in g_p))
                   / torch.sqrt(sum(g.square().sum() for g in g_p.values())))
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    phase("train_step_vs_plain", precision=precision, loss=loss_k, plain_loss=loss_p,
+    phase("train_step_vs_plain", precision=precision, conv_backend=conv_backend,
+          loss=loss_k, plain_loss=loss_p,
           loss_rel=loss_rel, grad_leaves=len(rel), grad_global_rel=total,
           grad_worst_leaf=worst, grad_worst_rel=rel[worst],
           grad_median_rel=float(np.median(list(rel.values()))))
@@ -834,31 +1013,50 @@ def train_phase():
     phase("train_build", seconds=round(time.perf_counter() - t, 2), batch=TRAIN_B,
           image_size=cfg.image_size, lr=cfg.lr, weight_decay=cfg.weight_decay, clip=100.0)
 
-    for precision in ("bf16", "float32"):
-        step_vs_plain(precision, batch)
+    for backend in ("cudnn", "fold"):
+        for precision in ("bf16", "float32"):
+            step_vs_plain(precision, batch, backend)
 
-    # one count window: warm-up steps, then the timed ones
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    torch.cuda.synchronize()
-    kernels.reset_counts()
-    for _ in range(TRAIN_WARMUP):
-        metrics = step(state, batch, gen)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(TRAIN_TIMED):
-        metrics = step(state, batch, gen)
-    torch.cuda.synchronize()
-    sec = (time.perf_counter() - t0) / TRAIN_TIMED
-    launches = {k.name: k.launches for k in kernels.KERNELS}
-    n = TRAIN_WARMUP + TRAIN_TIMED
-    expected = {k: n * v for k, v in TRAIN_EXPECTED.items()}
-    phase("train_steps", steps=n, timed=TRAIN_TIMED, ms_per_step=1e3 * sec,
-          train_samples_per_s=TRAIN_B / sec, loss=float(metrics["train/loss"]),
-          launches=launches, expected_launches=expected,
-          max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
-    check(launches == expected, f"train launches {launches}, expected {expected}")
-    check(np.isfinite(float(metrics["train/loss"])), "train loss not finite")
-    del algo, state, step, batch
+    launches = {k.name: 0 for k in kernels.KERNELS}
+    rates = {}
+    for backend in ("cudnn", "fold"):
+        if backend != "cudnn":
+            algo, _ = build_flagship(SEED, "cuda", conv_backend=backend)
+            algo.module.train()
+            state = TrainState(algo.module, make_optimizer(algo.module.parameters(), cfg.lr,
+                                                           cfg.weight_decay, 100.0))
+            step = make_train_step(algo.loss_fn)
+        # one count window: warm-up steps, then the timed ones
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counts()
+        for _ in range(TRAIN_WARMUP):
+            metrics = step(state, batch, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_TIMED):
+            metrics = step(state, batch, gen)
+        torch.cuda.synchronize()
+        sec = (time.perf_counter() - t0) / TRAIN_TIMED
+        counted = {k.name: k.launches for k in kernels.KERNELS}
+        n = TRAIN_WARMUP + TRAIN_TIMED
+        expected = {k.name: 0 for k in kernels.KERNELS}
+        expected.update({k: n * v for k, v in TRAIN_EXPECTED.items()})
+        if backend != "cudnn":
+            expected["conv_" + backend] = n * (CONV_PER_EVAL[backend] + CONV_DGRAD_PER_STEP)
+        rates[backend] = TRAIN_B / sec
+        phase("train_steps", conv_backend=backend, steps=n, timed=TRAIN_TIMED,
+              ms_per_step=1e3 * sec, train_samples_per_s=TRAIN_B / sec,
+              loss=float(metrics["train/loss"]), launches=counted, expected_launches=expected,
+              max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        check(counted == expected, f"train launches ({backend}) {counted}, expected {expected}")
+        check(np.isfinite(float(metrics["train/loss"])), f"train loss ({backend}) not finite")
+        for k, v in counted.items():
+            launches[k] += v
+        del algo, state, step
+    phase("train_conv_backends_vs_cudnn", train_samples_per_s=rates)
+    del batch
 
     # the entry point: 3 steps, validation, checkpoint; continued to 5
     root = Path(tempfile.mkdtemp(prefix="ofd_train_smoke_"))
@@ -921,6 +1119,7 @@ def main():
     flash_row, flash_err = flash_phase()
     splat_row, splat_err = splat_phase()
     splat_bwd_row, splat_bwd_err = splat_bwd_phase()
+    conv_rows_, conv_err = conv_phase()
     launches = slice_phase()
     for k, n in train_phase().items():
         launches[k] += n
@@ -947,6 +1146,10 @@ def main():
                         bound_ms=r["bound"], bound_by="bytes", library_ms=None,
                         per=f"one 128x128 b{TRAIN_B} train step (5 launches: scale 1 bf16, "
                             "scales 2-16 f32)")
+        elif k in (kernels.CONV_ROWS, kernels.CONV_FOLD):
+            vals = dict(max_abs_err=conv_err[k.name], **conv_rows_[k.name],
+                        per=f"one launch, 3x3 64->64 at 448x1024 b{NATIVE_B} bf16"
+                            + (" with the prologue" if k is kernels.CONV_FOLD else ""))
         elif k in bwd:
             st = la_bwd[bwd[k]]
             vals = dict(max_abs_err=st["err"], ms=st["ms"], plain_ms=st["plain_ms"],

@@ -44,14 +44,14 @@ class UnetWithWarp(nn.Module):
 
     def __init__(self, flow_max: float, dim: int, channels: int, full_output: bool,
                  zero_init: bool = True, out_dim: int = 2, unet_dim: int = 64,
-                 dtype=torch.float32):
+                 dtype=torch.float32, conv_backend: str = "cudnn"):
         super().__init__()
         self.flow_max = float(flow_max)
         self.dim = dim
         self.full_output = full_output
         self.dtype = dtype
         self.model = Unet(unet_dim, out_dim=out_dim, channels=channels,
-                          zero_init_final=zero_init, dtype=dtype)
+                          zero_init_final=zero_init, dtype=dtype, conv_backend=conv_backend)
 
     def _warp(self, image, flow):
         # values splat in the compute dtype; the flow (coordinates) stays f32
@@ -98,7 +98,7 @@ class FlowDiffuser:
         self.module = UnetWithWarp(
             flow_max=self.flow_max, dim=self.dim, channels=unet_in,
             full_output=True, zero_init=cfg.zero_init,
-            unet_dim=cfg.unet_dim, dtype=self.dtype,
+            unet_dim=cfg.unet_dim, dtype=self.dtype, conv_backend=cfg.conv_backend,
         )
         init_weights(self.module, generator if generator is not None else torch.Generator())
         self.module.to(self.device).eval()

@@ -28,7 +28,10 @@ class ArtificialDataConfig:
 
 @dataclasses.dataclass(frozen=True)
 class FlowDiffuserConfig:
-    """``algorithm/flow_diffuser.yaml`` plus ``runtime.precision``."""
+    """``algorithm/flow_diffuser.yaml`` plus ``runtime.precision``, and the
+    JAX package's ``OFD_CONV_BACKEND`` as ``conv_backend`` (``cudnn`` is its
+    default XLA lowering, ``rows`` its ``pallas``, ``fold`` its ``fold``;
+    ``ops/conv.py``)."""
 
     image_size: int = 128
     latent_dim: int = 16
@@ -46,6 +49,7 @@ class FlowDiffuserConfig:
     precision: str = "bf16"
     lr: float = 1e-5
     weight_decay: float = 1e-6
+    conv_backend: str = "cudnn"
 
 
 @dataclasses.dataclass(frozen=True)

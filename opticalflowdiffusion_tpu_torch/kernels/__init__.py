@@ -59,7 +59,18 @@ SPLAT_BWD = Kernel(
     "opticalflowdiffusion_tpu_torch/kernels/splat.cu",
     "opticalflowdiffusion_tpu/ops/splat.py:521",
 )
-KERNELS = (LA_CTX, LA_OUT, LA_BWD_Q, LA_BWD_KV1, LA_BWD_KV2, FLASH, SPLAT, SPLAT_BWD)
+CONV_ROWS = Kernel(
+    "conv_rows",
+    "opticalflowdiffusion_tpu_torch/kernels/conv.cu",
+    "opticalflowdiffusion_tpu/ops/conv_pallas.py:69",
+)
+CONV_FOLD = Kernel(
+    "conv_fold",
+    "opticalflowdiffusion_tpu_torch/kernels/conv.cu",
+    "opticalflowdiffusion_tpu/ops/conv_pallas.py:255",
+)
+KERNELS = (LA_CTX, LA_OUT, LA_BWD_Q, LA_BWD_KV1, LA_BWD_KV2, FLASH, SPLAT, SPLAT_BWD,
+           CONV_ROWS, CONV_FOLD)
 
 
 def reset_counts() -> None:
@@ -67,5 +78,5 @@ def reset_counts() -> None:
         k.launches = 0
 
 
-__all__ = ["Kernel", "KERNELS", "FLASH", "LA_BWD_KV1", "LA_BWD_KV2", "LA_BWD_Q", "LA_CTX",
-           "LA_OUT", "SPLAT", "SPLAT_BWD", "reset_counts"]
+__all__ = ["Kernel", "KERNELS", "CONV_FOLD", "CONV_ROWS", "FLASH", "LA_BWD_KV1", "LA_BWD_KV2",
+           "LA_BWD_Q", "LA_CTX", "LA_OUT", "SPLAT", "SPLAT_BWD", "reset_counts"]

@@ -13,6 +13,12 @@ The same module serves and trains: nothing on its path runs under
 card (``ops/attention_fused.py``).  Only what the flagship FlowDiffuser runs
 is ported: sinusoidal time embedding, no self-conditioning, no learned
 variance.
+
+``conv_backend`` (``ops/conv.py``: ``cudnn``, ``rows`` or ``fold``; JAX's
+``OFD_CONV_BACKEND``) picks the lowering of every conv.  Under ``rows`` and
+``fold`` each ResnetBlock also defers its first GroupNorm, time scale/shift
+and SiLU into its second conv's input, as a per-(batch, channel) affine that
+the ``fold`` kernel applies as it loads (JAX's ``OFD_FUSE_GN`` default).
 """
 
 from __future__ import annotations
@@ -25,22 +31,24 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention_fused import fused_linear_attention_block
-from ..ops.conv import conv2d_same
+from ..ops.conv import BACKENDS, conv2d_same
 from ..ops.flash_attention import attention_middle
 
 
 class Conv(nn.Module):
-    """Stride-1 'same' conv; the input is cast to ``dtype`` (JAX ``Conv``)."""
+    """Stride-1 'same' conv; the input is cast to ``dtype`` (JAX ``Conv``),
+    lowered by ``backend`` (``ops/conv.py``)."""
 
     def __init__(self, cin: int, cout: int, k: int, bias: bool = True,
-                 dtype=torch.float32):
+                 dtype=torch.float32, backend: str = "cudnn"):
         super().__init__()
         self.dtype = dtype
+        self.backend = backend
         self.weight = nn.Parameter(torch.empty(cout, cin, k, k))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
     def forward(self, x):
-        y = conv2d_same(x.to(self.dtype), self.weight)
+        y = conv2d_same(x.to(self.dtype), self.weight, self.backend)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype).view(1, -1, 1, 1)
         return y
@@ -48,14 +56,15 @@ class Conv(nn.Module):
 
 class WSConv(Conv):
     """Weight-standardised 3x3 conv: the kernel is standardised per output
-    channel over (cin, kh, kw) with eps 1e-5, in float32."""
+    channel over (cin, kh, kw) with eps 1e-5, in float32.  ``in_affine``
+    (f32 (B, cin) vectors a, b) convolves ``silu(x * a + b)`` instead of x."""
 
-    def forward(self, x):
+    def forward(self, x, in_affine=None):
         w = self.weight
         mean = w.mean(dim=(1, 2, 3), keepdim=True)
         var = w.var(dim=(1, 2, 3), unbiased=False, keepdim=True)
         w = ((w - mean) * torch.rsqrt(var + 1e-5)).to(self.dtype)
-        y = conv2d_same(x.to(self.dtype), w)
+        y = conv2d_same(x.to(self.dtype), w, self.backend, in_affine=in_affine)
         return y + self.bias.to(self.dtype).view(1, -1, 1, 1)
 
 
@@ -76,7 +85,8 @@ class ChanLayerNorm(nn.Module):
 
 class GroupNorm(nn.Module):
     """GroupNorm with the JAX package's fast variance E[x^2] - E[x]^2 and
-    float32 statistics; returns float32 (``x * a + b`` per channel)."""
+    float32 statistics; returns float32 (``x * a + b`` per channel), or with
+    ``return_affine`` the f32 (B, C) vectors a, b themselves."""
 
     def __init__(self, groups: int, dim: int, eps: float = 1e-5):
         super().__init__()
@@ -85,7 +95,7 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
-    def forward(self, x):
+    def forward(self, x, return_affine: bool = False):
         B, C = x.shape[:2]
         g = self.groups
         x32 = x.float().reshape(B, g, -1)
@@ -95,20 +105,35 @@ class GroupNorm(nn.Module):
         sc = self.weight.view(g, C // g)
         a = (rstd[..., None] * sc).reshape(B, C)
         b = (self.bias.view(g, C // g) - (mu * rstd)[..., None] * sc).reshape(B, C)
+        if return_affine:
+            return a, b
         return x.float() * a[:, :, None, None] + b[:, :, None, None]
 
 
 class Block(nn.Module):
-    """WSConv -> GroupNorm -> (scale, shift) -> SiLU."""
+    """WSConv -> GroupNorm -> (scale, shift) -> SiLU (JAX ``Block``).
 
-    def __init__(self, dim: int, dim_out: int, groups: int = 8, dtype=torch.float32):
+    ``defer_norm`` returns ``(h, a, b)``: the raw conv output and the f32
+    (B, C) affine that the GroupNorm and the time scale/shift reduce to, for
+    the next Block's ``in_affine``, which convolves ``silu(x * a + b)``."""
+
+    def __init__(self, dim: int, dim_out: int, groups: int = 8, dtype=torch.float32,
+                 backend: str = "cudnn"):
         super().__init__()
         self.dtype = dtype
-        self.proj = WSConv(dim, dim_out, 3, dtype=dtype)
+        self.proj = WSConv(dim, dim_out, 3, dtype=dtype, backend=backend)
         self.norm = GroupNorm(groups, dim_out)
 
-    def forward(self, x, scale_shift=None):
-        h = self.norm(self.proj(x)).to(self.dtype)
+    def forward(self, x, scale_shift=None, in_affine=None, defer_norm: bool = False):
+        h = self.proj(x, in_affine)
+        if defer_norm:
+            a, b = self.norm(h, return_affine=True)
+            if scale_shift is not None:
+                s, t = scale_shift
+                s32 = s.reshape(s.shape[0], -1).float() + 1.0
+                a, b = a * s32, b * s32 + t.reshape(t.shape[0], -1).float()
+            return h, a, b
+        h = self.norm(h).to(self.dtype)
         if scale_shift is not None:
             s, b = scale_shift
             h = h * (s + 1.0) + b
@@ -116,24 +141,31 @@ class Block(nn.Module):
 
 
 class ResnetBlock(nn.Module):
-    """Two Blocks with the time scale/shift and a 1x1 residual conv (the
-    unfused path of JAX ``ResnetBlock``)."""
+    """Two Blocks with the time scale/shift and a 1x1 residual conv (JAX
+    ``ResnetBlock``); under the ``rows`` and ``fold`` backends the first
+    Block's norm, scale/shift and SiLU ride in the second Block's conv
+    (defer-norm)."""
 
     def __init__(self, dim: int, dim_out: int, time_emb_dim: int, groups: int = 8,
-                 dtype=torch.float32):
+                 dtype=torch.float32, backend: str = "cudnn"):
         super().__init__()
         self.dtype = dtype
+        self.fuse_gn = backend != "cudnn"
         self.mlp = nn.Sequential(nn.SiLU(), nn.Linear(time_emb_dim, dim_out * 2))
-        self.block1 = Block(dim, dim_out, groups, dtype)
-        self.block2 = Block(dim_out, dim_out, groups, dtype)
-        self.res_conv = Conv(dim, dim_out, 1, dtype=dtype) if dim != dim_out else None
+        self.block1 = Block(dim, dim_out, groups, dtype, backend)
+        self.block2 = Block(dim_out, dim_out, groups, dtype, backend)
+        self.res_conv = (Conv(dim, dim_out, 1, dtype=dtype, backend=backend)
+                         if dim != dim_out else None)
 
     def forward(self, x, time_emb):
         lin = self.mlp[1]
         t = F.linear(F.silu(time_emb), lin.weight.to(self.dtype), lin.bias.to(self.dtype))
         scale, shift = t[:, :, None, None].chunk(2, dim=1)
-        h = self.block1(x, (scale, shift))
-        h = self.block2(h)
+        if self.fuse_gn:
+            h, a, b = self.block1(x, (scale, shift), defer_norm=True)
+            h = self.block2(h, in_affine=(a, b))
+        else:
+            h = self.block2(self.block1(x, (scale, shift)))
         if self.res_conv is not None:
             x = self.res_conv(x)
         return h + x
@@ -188,12 +220,12 @@ class Attention(nn.Module):
     """Quadratic attention at the bottleneck (JAX ``Attention``)."""
 
     def __init__(self, dim: int, heads: int = 4, dim_head: int = 32,
-                 dtype=torch.float32):
+                 dtype=torch.float32, **conv):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
         hidden = heads * dim_head
-        self.to_qkv = Conv(dim, hidden * 3, 1, bias=False, dtype=dtype)
-        self.to_out = Conv(hidden, dim, 1, dtype=dtype)
+        self.to_qkv = Conv(dim, hidden * 3, 1, bias=False, dtype=dtype, **conv)
+        self.to_out = Conv(hidden, dim, 1, dtype=dtype, **conv)
 
     def forward(self, x):
         B, C, H, W = x.shape
@@ -226,30 +258,36 @@ def sinusoidal_pos_emb(t: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-def Downsample(dim: int, dim_out: int, dtype=torch.float32) -> nn.Sequential:
+def Downsample(dim: int, dim_out: int, dtype=torch.float32, **conv) -> nn.Sequential:
     """Pixel-unshuffle (channel order (c, dy, dx), as the reference) + 1x1."""
-    return nn.Sequential(nn.PixelUnshuffle(2), Conv(dim * 4, dim_out, 1, dtype=dtype))
+    return nn.Sequential(nn.PixelUnshuffle(2), Conv(dim * 4, dim_out, 1, dtype=dtype, **conv))
 
 
-def Upsample(dim: int, dim_out: int, dtype=torch.float32) -> nn.Sequential:
+def Upsample(dim: int, dim_out: int, dtype=torch.float32, **conv) -> nn.Sequential:
     """Nearest 2x upsample + 3x3 conv."""
     return nn.Sequential(nn.Upsample(scale_factor=2, mode="nearest"),
-                         Conv(dim, dim_out, 3, dtype=dtype))
+                         Conv(dim, dim_out, 3, dtype=dtype, **conv))
 
 
 class Unet(nn.Module):
     """The reference UNet; ``channels`` counts the full input (x plus the
-    concatenated external conditioning)."""
+    concatenated external conditioning).  ``conv_backend`` lowers its convs
+    (module docstring)."""
 
     def __init__(self, dim: int, out_dim: int, channels: int = 3,
                  dim_mults: Sequence[int] = (1, 2, 4, 8), resnet_block_groups: int = 8,
-                 zero_init_final: bool = False, dtype=torch.float32):
+                 zero_init_final: bool = False, dtype=torch.float32,
+                 conv_backend: str = "cudnn"):
         super().__init__()
+        if conv_backend not in BACKENDS:
+            raise ValueError(f"conv_backend {conv_backend!r} is not one of {BACKENDS}")
         self.dim, self.dtype = dim, dtype
         self.zero_init_final = zero_init_final
         G = resnet_block_groups
         time_dim = dim * 4
-        self.init_conv = Conv(channels, dim, 7, dtype=dtype)
+        conv = dict(backend=conv_backend)
+        res = dict(dtype=dtype, backend=conv_backend)
+        self.init_conv = Conv(channels, dim, 7, dtype=dtype, **conv)
         self.time_mlp = nn.Sequential(nn.Identity(), nn.Linear(dim, time_dim),
                                       nn.GELU(), nn.Linear(time_dim, time_dim))
         dims = [dim] + [dim * m for m in dim_mults]
@@ -258,25 +296,27 @@ class Unet(nn.Module):
         self.downs = nn.ModuleList()
         for i, (din, dout) in enumerate(in_out):
             self.downs.append(nn.ModuleList([
-                ResnetBlock(din, din, time_dim, G, dtype),
-                ResnetBlock(din, din, time_dim, G, dtype),
+                ResnetBlock(din, din, time_dim, G, **res),
+                ResnetBlock(din, din, time_dim, G, **res),
                 LinearAttentionBlock(din, dtype=dtype),
-                Downsample(din, dout, dtype) if i < R - 1 else Conv(din, dout, 3, dtype=dtype),
+                (Downsample(din, dout, dtype, **conv) if i < R - 1
+                 else Conv(din, dout, 3, dtype=dtype, **conv)),
             ]))
         mid = dims[-1]
-        self.mid_block1 = ResnetBlock(mid, mid, time_dim, G, dtype)
-        self.mid_attn = PreNormResidual(mid, Attention(mid, dtype=dtype), dtype)
-        self.mid_block2 = ResnetBlock(mid, mid, time_dim, G, dtype)
+        self.mid_block1 = ResnetBlock(mid, mid, time_dim, G, **res)
+        self.mid_attn = PreNormResidual(mid, Attention(mid, dtype=dtype, **conv), dtype)
+        self.mid_block2 = ResnetBlock(mid, mid, time_dim, G, **res)
         self.ups = nn.ModuleList()
         for j, (din, dout) in enumerate(reversed(in_out)):
             self.ups.append(nn.ModuleList([
-                ResnetBlock(dout + din, dout, time_dim, G, dtype),
-                ResnetBlock(dout + din, dout, time_dim, G, dtype),
+                ResnetBlock(dout + din, dout, time_dim, G, **res),
+                ResnetBlock(dout + din, dout, time_dim, G, **res),
                 LinearAttentionBlock(dout, dtype=dtype),
-                Upsample(dout, din, dtype) if j < R - 1 else Conv(dout, din, 3, dtype=dtype),
+                (Upsample(dout, din, dtype, **conv) if j < R - 1
+                 else Conv(dout, din, 3, dtype=dtype, **conv)),
             ]))
-        self.final_res_block = ResnetBlock(dim * 2, dim, time_dim, G, dtype)
-        self.final_conv = Conv(dim, out_dim, 1, dtype=dtype)
+        self.final_res_block = ResnetBlock(dim * 2, dim, time_dim, G, **res)
+        self.final_conv = Conv(dim, out_dim, 1, dtype=dtype, **conv)
 
     def forward(self, x, external_cond: Optional[torch.Tensor], time: torch.Tensor):
         if external_cond is not None:

@@ -1,7 +1,7 @@
 """Where the time of one UNet eval, or one train step, of the flagship goes on the card.
 
     python -m opticalflowdiffusion_tpu_torch.profile_step [--steps 10] [--seed 0] \
-        [--batch 8] [--height 128 --width 128] [--train]
+        [--batch 8] [--height 128 --width 128] [--train] [--conv-backend {cudnn,rows,fold}]
 
 Builds the flagship as ``sample.py`` does (bf16, weights from ``--seed``) on
 a batch of ``--batch`` at ``--height`` x ``--width`` (default 128x128 b8;
@@ -13,7 +13,8 @@ standard-normal batch from numpy seed ``--seed`` as the JAX ``bench.py``
 train row).  Prints one JSON line: wall ms per unit, device-busy ms per
 unit (the union of the traced kernels' intervals), the device's idle
 share, the kernel count per unit, kernel time per unit grouped by kind,
-and the slowest kernels.  Needs a CUDA device.
+and the slowest kernels.  ``--conv-backend`` lowers the UNet's convs
+(``ops/conv.py``; default cudnn).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch
 from .algorithms.base import to_batch
 from .config import MATRIX_FLOW
 from .experiments.base import to_device
+from .ops.conv import BACKENDS
 from .parallel.train import TrainState, make_optimizer, make_train_step
 from .sample import batch_items, build
 
@@ -38,6 +40,7 @@ KINDS = (
     ("flash_attention", ("flash_bf16_kernel", "flash_f32_kernel")),
     ("splat_bwd", ("splat_bwd_kernel",)),
     ("splat", ("splat_max_kernel", "splat_scatter_kernel", "splat_finish_kernel")),
+    ("conv_kernel", ("conv_bf16_kernel", "conv_f32_kernel")),
     ("optimizer", ("multi_tensor", "foreach", "adam")),
     ("conv", ("conv", "cudnn", "xmma", "implicit", "winograd", "fprop", "dgrad", "wgrad")),
     ("gemm", ("gemm", "cutlass", "matmul")),
@@ -101,11 +104,12 @@ def _profile(work, steps: int, unit: str) -> dict:
     }
 
 
-def run(steps: int, seed: int, batch: int = 8, height: int = 128, width: int = 128) -> dict:
+def run(steps: int, seed: int, batch: int = 8, height: int = 128, width: int = 128,
+        conv_backend: str = "cudnn") -> dict:
     """The profile of ``steps`` UnetWithWarp evals."""
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step needs a CUDA device")
-    algo, _ = build(seed, "cuda")
+    algo, _ = build(seed, "cuda", conv_backend=conv_backend)
     items = batch_items(seed, batch, height, width)
     _, cond, _ = algo.preprocess(to_batch(items, algo.device))
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -118,15 +122,16 @@ def run(steps: int, seed: int, batch: int = 8, height: int = 128, width: int = 1
                 algo.module(x, cond, t)
         torch.cuda.synchronize()
 
-    return {"batch": batch, "height": height, "width": width, **_profile(evals, steps, "eval")}
+    return {"batch": batch, "height": height, "width": width, "conv_backend": conv_backend,
+            **_profile(evals, steps, "eval")}
 
 
 def run_train(steps: int, seed: int, batch: int = 16, height: int = 128,
-              width: int = 128) -> dict:
+              width: int = 128, conv_backend: str = "cudnn") -> dict:
     """The profile of ``steps`` train steps (the flagship's optimizer)."""
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step needs a CUDA device")
-    algo, _ = build(seed, "cuda")
+    algo, _ = build(seed, "cuda", conv_backend=conv_backend)
     cfg = algo.cfg
     state = TrainState(algo.module, make_optimizer(algo.module.parameters(), cfg.lr,
                                                    cfg.weight_decay, MATRIX_FLOW.clipping))
@@ -143,7 +148,7 @@ def run_train(steps: int, seed: int, batch: int = 16, height: int = 128,
         torch.cuda.synchronize()
 
     out = _profile(train_steps, steps, "step")
-    return {"batch": batch, "height": height, "width": width,
+    return {"batch": batch, "height": height, "width": width, "conv_backend": conv_backend,
             "train_samples_per_s": batch * 1e3 / out["wall_ms_per_step"], **out}
 
 
@@ -155,12 +160,14 @@ def main(argv=None) -> None:
     ap.add_argument("--height", type=int, default=128)
     ap.add_argument("--width", type=int, default=128)
     ap.add_argument("--train", action="store_true", help="profile train steps")
+    ap.add_argument("--conv-backend", choices=BACKENDS, default="cudnn")
     args = ap.parse_args(argv)
     if args.train:
         out = run_train(args.steps, args.seed, args.batch or MATRIX_FLOW.batch_size,
-                        args.height, args.width)
+                        args.height, args.width, args.conv_backend)
     else:
-        out = run(args.steps, args.seed, args.batch or 8, args.height, args.width)
+        out = run(args.steps, args.seed, args.batch or 8, args.height, args.width,
+                  args.conv_backend)
     print(json.dumps(out), flush=True)
 
 

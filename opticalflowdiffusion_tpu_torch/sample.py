@@ -2,7 +2,7 @@
 
     python -m opticalflowdiffusion_tpu_torch.sample --batch 8 --seed 0 \\
         [--sampling-timesteps 50] [--sampler {auto,ddim,ancestral,dpmpp}] \\
-        [--height 448 --width 1024] [--device cuda]
+        [--height 448 --width 1024] [--conv-backend {cudnn,rows,fold}] [--device cuda]
 
 Builds the flagship (trained at 128x128, joint target, UNet width 64, bf16
 compute) with weights drawn from ``--seed`` (output conv not zeroed, so the
@@ -14,6 +14,7 @@ NaN holes and times.  Without ``--sampling-timesteps`` the flagship's
 otherwise (``dpmpp``: DPM-Solver++(2M)).  ``--height``/``--width`` (default:
 the model's 128) sample at another resolution, such as the native Sintel
 448x1024: the frames are rendered square at the larger side and cropped.
+``--conv-backend`` lowers the UNet's convs (``ops/conv.py``; default cudnn).
 """
 
 from __future__ import annotations
@@ -29,15 +30,17 @@ from .algorithms.base import to_batch
 from .algorithms.flow_diffuser import FlowDiffuser
 from .config import FLAGSHIP, FLAGSHIP_DATA
 from .data.artificial import ArtificialDataset
+from .ops.conv import BACKENDS
 
 SAMPLERS = ("auto", "ddim", "ancestral", "dpmpp")
 
 
 def build(seed: int, device: str, sampling_timesteps=None, image_size=None,
-          unet_dim=None, sampler: str = "auto"):
+          unet_dim=None, sampler: str = "auto", conv_backend: str = "cudnn"):
     """(FlowDiffuser, ArtificialDataset) of the flagship, weights from ``seed``."""
     cfg = dataclasses.replace(FLAGSHIP, zero_init=False,
-                              sampling_timesteps=sampling_timesteps, sampler=sampler)
+                              sampling_timesteps=sampling_timesteps, sampler=sampler,
+                              conv_backend=conv_backend)
     data_cfg = FLAGSHIP_DATA
     if image_size is not None:
         cfg = dataclasses.replace(cfg, image_size=image_size)
@@ -59,8 +62,9 @@ def batch_items(seed: int, batch: int, height: int, width: int):
 
 def run(batch: int, seed: int, device: str, sampling_timesteps=None,
         image_size=None, unet_dim=None, sampler: str = "auto",
-        height=None, width=None) -> dict:
-    algo, _ = build(seed, device, sampling_timesteps, image_size, unet_dim, sampler)
+        height=None, width=None, conv_backend: str = "cudnn") -> dict:
+    algo, _ = build(seed, device, sampling_timesteps, image_size, unet_dim, sampler,
+                    conv_backend)
     H = height or algo.image_size
     W = width or algo.image_size
     _, cond, _ = algo.preprocess(to_batch(batch_items(seed, batch, H, W), algo.device))
@@ -87,6 +91,7 @@ def run(batch: int, seed: int, device: str, sampling_timesteps=None,
         "height": H,
         "width": W,
         "sampler": used,
+        "conv_backend": conv_backend,
         "denoise_steps": steps,
         "samples_shape": list(samples.shape),
         "flow_shape": list(flow.shape),
@@ -109,10 +114,12 @@ def main(argv=None) -> None:
                     help="sample height (default: the model's image_size)")
     ap.add_argument("--width", type=int, default=None,
                     help="sample width (default: the model's image_size)")
+    ap.add_argument("--conv-backend", choices=BACKENDS, default="cudnn")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     print(json.dumps(run(args.batch, args.seed, args.device, args.sampling_timesteps,
-                         sampler=args.sampler, height=args.height, width=args.width)))
+                         sampler=args.sampler, height=args.height, width=args.width,
+                         conv_backend=args.conv_backend)))
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 """The CUDA kernels of the fused linear-attention block (forward and
-backward) and of the splat (forward and backward), and their wrappers.
+backward), of the splat (forward and backward) and of the UNet's convs
+(rows and fold), and their wrappers.
 
 Imports torch and the port only (no JAX), so that it also runs on the card:
 
@@ -16,6 +17,7 @@ import torch
 
 from opticalflowdiffusion_tpu_torch import kernels
 from opticalflowdiffusion_tpu_torch.ops import attention_fused as paf
+from opticalflowdiffusion_tpu_torch.ops import conv as pconv
 from opticalflowdiffusion_tpu_torch.ops import splat as psplat_
 
 
@@ -265,3 +267,144 @@ def test_splat_kernel_deterministic_on_card(cuda_device, dtype):
     assert torch.equal(a, b)
     rel = 1e-5 if dtype == torch.float32 else 2.0 ** -7
     assert float((a.float() - want).abs().max()) <= rel * float(want.abs().max()) + 1e-6
+
+
+# ------------------------------------------------------------------- convs
+def _conv_inputs(seed, B, Cin, H, W, Cout, k, affine=False):
+    """x (B, Cin, H, W), an OIHW kernel and, with ``affine``, f32 (B, Cin)
+    vectors whose bias makes silu(b) far from 0 (so a border that is
+    transformed instead of kept zero shows)."""
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.from_numpy(a.astype(np.float32))
+    x = f(rng.standard_normal((B, Cin, H, W)))
+    w = f(rng.standard_normal((Cout, Cin, k, k)) / np.sqrt(Cin * k * k))
+    if not affine:
+        return x, w, None, None
+    return (x, w, f(rng.standard_normal((B, Cin)) * 0.5 + 1.0),
+            f(rng.standard_normal((B, Cin)) * 0.5 + 2.0))
+
+
+def test_conv_wrappers_take_plain_versions_on_cpu():
+    x, w, a, b = _conv_inputs(11, 2, 9, 12, 20, 16, 7, affine=True)
+    before = [k.launches for k in kernels.KERNELS]
+    assert torch.equal(pconv.conv_rows(x, w), pconv.conv2d_same_plain(x, w))
+    assert torch.equal(pconv.conv_fold(x, w), pconv.conv2d_same_plain(x, w))
+    assert torch.equal(pconv.conv_fold(x, w, a, b), pconv.conv2d_same_gn_plain(x, w, a, b))
+    assert [k.launches for k in kernels.KERNELS] == before
+    with pytest.raises(ValueError):
+        pconv.conv_rows(x, w[:, :, :2, :2])             # an even kernel
+    with pytest.raises(ValueError):
+        pconv.conv_fold(x, w, a)                        # a without b
+
+
+# (B, Cin, H, W, Cout, k): the stem's ragged Cin at 7x7; H and W no multiple
+# of the tile with Cout no multiple of 64; a 5x5; the UNet's 64 -> 64 level
+# at a width of two tiles; a narrow level (W = 16) at Cin 192
+CONV_CASES = [(2, 9, 37, 50, 64, 7), (1, 40, 13, 21, 70, 3), (1, 3, 32, 16, 8, 5),
+              (2, 64, 8, 256, 64, 3), (2, 192, 16, 16, 128, 3)]
+
+
+def _conv_tol(want, dtype):
+    """f32: sums in another order (the card's plain version with TF32 off);
+    bf16: the same bf16 operands and f32 sums, one rounding of the output
+    to bf16 that may fall the other way (one ulp, 2^-8 of a value)."""
+    scale = float(want.float().abs().max())
+    return (1e-5 if dtype == torch.float32 else 2.0 ** -7) * scale
+
+
+@pytest.fixture
+def no_tf32():
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32 = saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CONV_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_conv_kernels_match_plain_on_card(cuda_device, no_tf32, dtype, case):
+    """conv_rows and conv_fold (prologue off and on) against
+    conv2d_same_plain and conv2d_same_gn_plain on the same inputs; each
+    launch counted once; two launches give the same bits."""
+    x, w, a, b = _conv_inputs(12, *case, affine=True)
+    dev = cuda_device
+    x, w, a, b = x.to(dev, dtype), w.to(dev), a.to(dev), b.to(dev)
+    n_rows, n_fold = kernels.CONV_ROWS.launches, kernels.CONV_FOLD.launches
+    rows = pconv.conv_rows(x, w)
+    fold = pconv.conv_fold(x, w)
+    gn, gn2 = pconv.conv_fold(x, w, a, b), pconv.conv_fold(x, w, a, b)
+    want = pconv.conv2d_same_plain(x, w)
+    want_gn = pconv.conv2d_same_gn_plain(x, w, a, b)
+    torch.cuda.synchronize()
+    assert (kernels.CONV_ROWS.launches, kernels.CONV_FOLD.launches) == (n_rows + 1, n_fold + 3)
+    assert rows.dtype == fold.dtype == gn.dtype == dtype
+    assert torch.equal(rows, fold) and torch.equal(gn, gn2)
+    assert float((rows.float() - want.float()).abs().max()) <= _conv_tol(want, dtype)
+    assert float((gn.float() - want_gn.float()).abs().max()) <= _conv_tol(want_gn, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_fold_prologue_keeps_the_border_zero_on_card(cuda_device, no_tf32, dtype):
+    """The zero padding is zero after the transform (silu(0 * a + b) =
+    silu(b) != 0 here): the first and last rows and columns of the output
+    agree with the plain version as well as the interior, at 3x3 and 7x7."""
+    dev = cuda_device
+    for k in (3, 7):
+        x, w, a, b = _conv_inputs(13, 2, 24, 20, 40, 64, k, affine=True)
+        x, w, a, b = x.to(dev, dtype), w.to(dev), a.to(dev), b.to(dev)
+        got = pconv.conv_fold(x, w, a, b).float()
+        want = pconv.conv2d_same_gn_plain(x, w, a, b).float()
+        torch.cuda.synchronize()
+        tol = _conv_tol(want, dtype)
+        for edge in (got - want)[:, :, [0, -1], :], (got - want)[:, :, :, [0, -1]]:
+            assert float(edge.abs().max()) <= tol
+        assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_conv_wrappers_refuse_what_they_cannot_take_on_card(cuda_device):
+    dev = cuda_device
+    x, w, a, b = _conv_inputs(14, 2, 16, 8, 16, 64, 3, affine=True)
+    x, w, a, b = x.to(dev), w.to(dev), a.to(dev), b.to(dev)
+    with pytest.raises(TypeError):
+        pconv.conv_rows(x.half(), w)                    # no fp16 kernel
+    with pytest.raises(ValueError):
+        pconv.conv_rows(x.transpose(2, 3), w.transpose(2, 3))   # not contiguous
+    with pytest.raises(ValueError):
+        pconv.conv_fold(x, w[:, :, :2, :2])             # an even kernel
+    with pytest.raises(ValueError):
+        pconv.conv_fold(x, w[:, :8])                    # Cin mismatch
+    with pytest.raises(ValueError):
+        pconv.conv_fold(x, w, a.double(), b)            # a not f32
+    with pytest.raises(ValueError):
+        pconv.conv_fold(x, w, a[:1], b[:1])             # a not (B, Cin)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["rows", "fold"])
+def test_conv_gradients_through_kernels_match_plain_on_card(cuda_device, no_tf32, backend):
+    """Autograd of conv2d_same with and without in_affine through the
+    backend's kernels (forward and dgrad) against autograd of the plain
+    versions, f32 with TF32 off: to f32 rounding of the sums."""
+    dev = cuda_device
+    x, w, a, b = _conv_inputs(15, 2, 32, 12, 40, 64, 3, affine=True)
+    g = torch.randn(2, 64, 12, 40, generator=torch.Generator().manual_seed(3)).to(dev)
+    for affine in (False, True):
+        leaves = [t.to(dev).requires_grad_() for t in ((x, w, a, b) if affine else (x, w))]
+        ref = [t.detach().clone().requires_grad_() for t in leaves]
+        counts = kernels.CONV_ROWS.launches + kernels.CONV_FOLD.launches
+        if affine:
+            pconv.conv2d_same(leaves[0], leaves[1], backend,
+                              in_affine=tuple(leaves[2:])).backward(g)
+            pconv.conv2d_same_gn_plain(*ref).backward(g)
+        else:
+            pconv.conv2d_same(*leaves, backend).backward(g)
+            pconv.conv2d_same_plain(*ref).backward(g)
+        torch.cuda.synchronize()
+        # forward and dgrad through the kernel; rows' gn forward is the plain one
+        launched = kernels.CONV_ROWS.launches + kernels.CONV_FOLD.launches - counts
+        assert launched == (1 if affine and backend == "rows" else 2)
+        for p, q in zip(leaves, ref):
+            assert _rel(p.grad, q.grad) <= 1e-5
