@@ -4,7 +4,7 @@
 
 Budget: under 10 minutes on one H100, the kernel build included (one plain
 ``nvcc`` call per source, all started together; seconds each).  A run takes
-about three minutes on an H100.  Every line
+about four minutes on an H100.  Every line
 it prints is one JSON object, flushed as it goes, apart from the card's
 ``nvidia-smi`` line.  Phases:
 
@@ -26,8 +26,16 @@ it prints is one JSON object, flushed as it goes, apart from the card's
      launches bit for bit;
    - the three backward passes of the linear-attention block at every
      (N, C) of a 128x128 b16 train step that takes them (N >= 1024: five
-     shapes, six launches a pass), bf16 and f32 x, against
-     ``bwd_q_plain``, ``bwd_kv1_plain`` and ``bwd_kv2_plain``;
+     shapes, six launches a pass), bf16 and f32 x, and at every (N, C) of
+     a native 448x1024 b2 train step (all 8 blocks, C up to 512), bf16 x,
+     against ``bwd_q_plain``, ``bwd_kv1_plain`` and ``bwd_kv2_plain``;
+   - the flash kernel under autograd at (2, 7168, 4, 32) bf16: its
+     gradients against the composition's autograd, with the times and the
+     peak memory of both backwards;
+   - the unfused middle's two kernels (rows 7-8) against
+     ``middle_ctx_plain`` and ``middle_out_plain`` at the qkv shape of every
+     block of a 128x128 b8 and a native b2 UNet eval, bf16 and f32, two
+     launches bit for bit, beside the composition's time;
    - the splat backward at scales 1, 2, 4, 8 and 16 at 128x128 b16 and at
      scale 1 at 448x1024 b2, against ``splat_bwd_raw``, and the hole mask
      of the tiny-weight construction at 448x1024 against the plain path's;
@@ -49,6 +57,11 @@ it prints is one JSON object, flushed as it goes, apart from the card's
    UNet eval.  Under the opt-in conv backends (``ops/conv.py``): one native
    b2 UnetWithWarp forward under ``fold`` with every kernel against the
    same forward with every plain version (one under ``rows`` at 128x128);
+   ``PreNormResidual(LinearAttention)`` on the middle's kernels, on the
+   composition, and the fused ``LinearAttentionBlock`` loaded from the same
+   state_dict at every native block shape, with a backward through the
+   module at native level 0 and at (7168, 512), in a count window of its
+   own (one launch of each middle kernel per forward, none in a backward);
    DDIM-50 at 128x128 b8 under ``fold`` and ``rows`` and at native b2 under
    ``fold``, their rates printed beside the cuDNN paths'.  Each sampling
    path is one count window: the launch counts
@@ -75,8 +88,14 @@ it prints is one JSON object, flushed as it goes, apart from the card's
    ``fold``: one step with every kernel against the same step with every
    plain version (bf16, and f32 with TF32 off on both sides), and a count
    window of 8 steps whose launches add 87 ``conv_fold`` a step (44 forward,
-   43 dgrad), its samples/s printed beside the cuDNN window's.
-6. the kernels line, 7. the result line.
+   43 dgrad), its samples/s printed beside the cuDNN window's.  Then
+   ``train.py --remat`` for 2 steps at 128x128.
+6. native_train: the flagship trained at native 448x1024 b2 with remat (the
+   JAX ``bench.py`` row ``sintel_native_train_samples_per_sec``): one step
+   with every kernel against the all-plain step (bf16); a count window of 2
+   warm-up and 3 timed steps with exact launches, native train samples/s and
+   the window's peak memory.
+7. the kernels line, 8. the result line.
 
 Any failure raises and exits non-zero without the result line; so does a
 run without a CUDA device or without the port's package beside this file.
@@ -105,6 +124,7 @@ from opticalflowdiffusion_tpu_torch.config import FLAGSHIP, NATIVE
 from opticalflowdiffusion_tpu_torch.kernels import build as kbuild
 from opticalflowdiffusion_tpu_torch.models import unet as unet_mod
 from opticalflowdiffusion_tpu_torch.ops import attention_fused as af
+from opticalflowdiffusion_tpu_torch.ops import attention_pallas as am
 from opticalflowdiffusion_tpu_torch.ops import conv as pc
 from opticalflowdiffusion_tpu_torch.ops import flash_attention as fa
 from opticalflowdiffusion_tpu_torch.ops import splat as sp
@@ -140,6 +160,20 @@ TRAIN_EXPECTED = {"linear_attention_ctx": 8, "linear_attention_out": 8,
                   "linear_attention_bwd_kv2": 6, "flash_attention": 0, "splat_fwd": 10,
                   "splat_bwd": 5}
 TRAIN_WARMUP, TRAIN_TIMED = 2, 6
+# native training (bench.py:570-573): b2 at 448x1024, remat, bf16
+NATIVE_TRAIN_B = 2
+NATIVE_TRAIN_WARMUP, NATIVE_TRAIN_TIMED = 2, 3
+# launches per native train step under remat, derived from the code: every
+# block has N >= 1024, so all 8 take the backward kernels; the UnetWithWarp
+# closure runs twice (its forward, and again in the backward), so do its 8
+# blocks' forward kernels, the bottleneck's flash kernel and its splat; the
+# other 9 splats of a step (preprocess 1, pyramid levels 2-16: 2 each) and
+# the 5 splat backwards (the closure's and the 4 model-flow warps of the
+# pyramid) are outside it
+NATIVE_TRAIN_EXPECTED = {"linear_attention_ctx": 16, "linear_attention_out": 16,
+                         "linear_attention_bwd_q": 8, "linear_attention_bwd_kv1": 8,
+                         "linear_attention_bwd_kv2": 8, "flash_attention": 2, "splat_fwd": 11,
+                         "splat_bwd": 5}
 # conv cases (B, Cin, H, W, Cout, k, with the prologue): the level-0 3x3
 # 64->64 and the 7x7 stem (Cin None: the UnetWithWarp's channels) at
 # 448x1024 b2, the widest conv (768->512) at 56x128 b2, the level-0 conv at
@@ -196,6 +230,29 @@ TOL_BWD = 1e-3 + 2.0 ** -7
 # on an H100 over three runs: bf16 loss 4.9e-5-1.7e-4 and gradients
 # 3.1e-3-3.6e-3; f32 1.7e-5-1.1e-4 and 7.1e-4-8.7e-4).
 TOL_TRAIN = {"bf16": (1e-3, 2e-2), "float32": (1e-3, 5e-3)}
+# the same at native 448x1024 b2 with remat (bf16 only): the same sources of
+# difference as at 128x128, so the same pins; the plain step runs the flash
+# kernel's plain recurrence under autograd where the kernel path takes the
+# composition's gradient (the same function, rounded elsewhere)
+TOL_TRAIN_NATIVE = (1e-3, 2e-2)
+# rows 7-8 vs middle_ctx_plain / middle_out_plain: the same f32 arithmetic on
+# qkv's values in another order (the kernels sum a tile's 32 positions, then
+# the tiles, then the CTAs' partials), 1e-5 of the terms' magnitude, the
+# largest sum of |terms| (ctx: sum_n softmax(k) |v|; out: sum_d q' |ctx| / N),
+# since the signed sums cancel (max |ctx| falls as 1/sqrt(N) while the
+# rounding stays that of the terms: ~3e-7 at every N, measured on an H100);
+# a bf16 output is also allowed one bf16 ulp of its largest value (2^-7)
+TOL_MID = 1e-5
+# the flash kernel's gradients vs the composition's autograd: the backward is
+# that autograd on the same saved q, k, v, so the same bits (1e-6 of each
+# gradient's scale for cuBLAS's choice of algorithm)
+TOL_FLASH_GRAD = 1e-6
+# PreNormResidual(LinearAttention) on the kernels vs on the composition,
+# gradients (per leaf, norm of the difference over the norm): the forwards
+# differ by the composition's bf16 roundings of the softmaxes, the context
+# and the middle, which reach every gradient through the out conv and the
+# LayerNorm's backward
+TOL_MID_GRAD = 5e-2
 
 
 def emit(obj):
@@ -434,6 +491,208 @@ def flash_phase():
     return out, worst
 
 
+def flash_grad_phase(Bn=NATIVE_B, N=7168):
+    """The flash kernel under autograd at the native bottleneck, bf16: its
+    q, k, v gradients against the composition's autograd (the same bits
+    expected), with the time of forward + backward on each path and the
+    peak memory that each backward adds (the composition holds the
+    (B, 4, N, N) f32 scores)."""
+    g = torch.Generator(device="cuda").manual_seed(350)
+    qkv = torch.randn(Bn, 3, 4, 32, N, generator=g, device="cuda").to(torch.bfloat16)
+    dout = torch.randn(Bn, N, 4, 32, generator=g, device="cuda").to(torch.bfloat16)
+    out = {}
+
+    def fwd_bwd(fn):
+        leaf = qkv.detach().requires_grad_()
+        q = (leaf[:, 0] * 32 ** -0.5).permute(0, 3, 1, 2)
+        k, v = leaf[:, 1].permute(0, 3, 1, 2), leaf[:, 2].permute(0, 3, 1, 2)
+        fn(q, k, v).backward(dout)
+        return leaf.grad
+
+    for name, fn in (("kernel", fa.attention_middle), ("composition", fa.attention_middle_plain)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out[name] = fwd_bwd(fn)
+        torch.cuda.synchronize()
+        out[name + "_peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        out[name + "_ms"] = cuda_ms(lambda: fwd_bwd(fn), 5, 1)
+    e = err(out["kernel"], out["composition"])[0]
+    scale = float(out["composition"].float().abs().max())
+    phase("flash_grad_vs_composition", B=Bn, N=N, dtype="bfloat16", max_abs=e, scale=scale,
+          fwd_bwd_ms=out["kernel_ms"], composition_fwd_bwd_ms=out["composition_ms"],
+          added_peak_gb=out["kernel_peak_gb"], composition_added_peak_gb=out["composition_peak_gb"],
+          scores_gb=Bn * 4 * N * N * 4 / 1e9)
+    check(torch.isfinite(out["kernel"]).all() and e <= TOL_FLASH_GRAD * scale,
+          f"flash gradients disagree with the composition's: {e} (scale {scale})")
+    return e
+
+
+def mid_bound_ms(Bn, N, xbytes):
+    """(bytes ms, operations ms) of one launch of either middle pass: pass A
+    reads k and v and writes ctx, pass B reads q and ctx and writes out, each
+    once (2 * 128 values a position either way); both do
+    2 * 4096 f32 FLOP per position on CUDA cores and 128 exponentials per
+    position on the SFU (beside them: the larger of the two)."""
+    nbytes = 2 * 128 * Bn * N * xbytes + Bn * 4096 * 4
+    flops = 2 * Bn * N * 4096 / F32_FLOPS
+    exps = Bn * N * 128 / (SFU_PER_CLK_SM * SMS * SM_CLOCK_HZ)
+    return 1e3 * nbytes / HBM_BPS, 1e3 * max(flops, exps)
+
+
+def middle_phase(iters=20):
+    """Rows 7-8 against middle_ctx_plain / middle_out_plain at the qkv shape
+    (B, 384, N), laid out as the module's 1x1 conv gives it, of every block
+    of one 128x128 b8 and one native b2 UNet eval, bf16 and f32; two
+    launches bit for bit; CUDA-event times of each kernel alone, its bound,
+    its plain version and the composition.  Returns per-eval sums at native
+    b2 (bf16, 8 blocks) and the largest absolute errors."""
+    stats = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound": 0.0, "bytes_ms": 0.0,
+                 "ops_ms": 0.0} for k in ("ctx", "out")}
+    composition_ms = 0.0
+    for Bn, shapes, label in ((B, SHAPES, "128x128"), (NATIVE_B, NATIVE_SHAPES, "448x1024")):
+        counts = {}
+        for N, _, c in shapes:
+            counts[N] = counts.get(N, 0) + c
+        for i, (N, count) in enumerate(counts.items()):
+            for dtype in (torch.bfloat16, torch.float32):
+                g = torch.Generator(device="cuda").manual_seed(1000 + i)
+                qkv = torch.randn(Bn, 384, N, generator=g, device="cuda").to(dtype).transpose(1, 2)
+                with torch.no_grad():
+                    c1, c2 = am.middle_ctx(qkv), am.middle_ctx(qkv)
+                    cp = am.middle_ctx_plain(qkv)
+                    o1, o2 = am.middle_out(qkv, cp), am.middle_out(qkv, cp)
+                    op = am.middle_out_plain(qkv, cp)
+                    torch.cuda.synchronize()
+                    same = bool(torch.equal(c1, c2) and torch.equal(o1, o2))
+                    e = {"ctx": err(c1, cp)[0], "out": err(o1, op)[0]}
+                    scale = {"ctx": float(cp.abs().max()), "out": float(op.float().abs().max())}
+                    va = qkv.clone()
+                    va[..., 256:] = va[..., 256:].abs()
+                    mass = {"ctx": float(am.middle_ctx_plain(va).max()),
+                            "out": float(am.middle_out_plain(qkv, cp.abs()).float().max())}
+                    del c1, c2, o1, o2, op, va
+                    times = {
+                        "ctx_ms": cuda_ms(lambda: am.middle_ctx(qkv), iters),
+                        "ctx_plain_ms": cuda_ms(lambda: am.middle_ctx_plain(qkv), 5, 1),
+                        "out_ms": cuda_ms(lambda: am.middle_out(qkv, cp), iters),
+                        "out_plain_ms": cuda_ms(lambda: am.middle_out_plain(qkv, cp), 5, 1),
+                        "composition_ms": cuda_ms(
+                            lambda: am.linear_attention_middle_plain(qkv, 4, 32), 2, 1),
+                    }
+                xb = qkv.element_size()
+                bounds = dict.fromkeys(("ctx", "out"), mid_bound_ms(Bn, N, xb))
+                ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+                tol = {"ctx": TOL_MID * mass["ctx"],
+                       "out": TOL_MID * mass["out"] + ulp * scale["out"]}
+                phase("linear_attention_middle_vs_plain", at=label, B=Bn, N=N, blocks=count,
+                      dtype=str(dtype).split(".")[1], bitwise_same=same,
+                      **{f"{k}_max_abs": e[k] for k in e}, **{f"{k}_scale": scale[k] for k in e},
+                      **{f"{k}_terms_mass": mass[k] for k in e}, **{f"{k}_tol": tol[k] for k in e},
+                      **{f"{k}_bound_ms": max(bounds[k]) for k in e},
+                      **{k: round(v, 5) for k, v in times.items()})
+                check(same, f"middle kernels not deterministic at {Bn, N, dtype}")
+                for k in ("ctx", "out"):
+                    check(e[k] <= tol[k],
+                          f"middle {k} kernel disagrees at {Bn, N, dtype}: {e[k]} "
+                          f"(tolerance {tol[k]})")
+                    stats[k]["err"] = max(stats[k]["err"], e[k])
+                    if label == "448x1024" and dtype == torch.bfloat16:
+                        stats[k]["ms"] += count * times[f"{k}_ms"]
+                        stats[k]["plain_ms"] += count * times[f"{k}_plain_ms"]
+                        stats[k]["bound"] += count * max(bounds[k])
+                        stats[k]["bytes_ms"] += count * bounds[k][0]
+                        stats[k]["ops_ms"] += count * bounds[k][1]
+                if label == "448x1024" and dtype == torch.bfloat16:
+                    composition_ms += count * times["composition_ms"]
+                del qkv, cp
+    for st in stats.values():
+        st["bound_by"] = "bytes" if st["bytes_ms"] >= st["ops_ms"] else "operations"
+    phase("linear_attention_middle_per_eval", at="448x1024", B=NATIVE_B,
+          composition_ms=composition_ms,
+          **{f"{k}_{f}": v for k, st in stats.items() for f, v in st.items()})
+    return stats
+
+
+def middle_modules_phase():
+    """The path of rows 7-8: PreNormResidual(LinearAttention) at every
+    native b2 block shape on the middle's kernels, on the composition, and
+    the fused LinearAttentionBlock from the same state_dict, all held
+    together.  The middle's output is ~N^-1.5 with weights drawn as the
+    model's, below the post-LayerNorm's eps, so the out conv's weight is
+    scaled by N^1.5 and its bias zeroed: the residual branch is then all
+    attention, at unit scale;
+    at native level 0 and at (7168, 512) also a backward through the module
+    on the kernels against the one on the composition.  One count window:
+    one launch of each middle kernel per kernels forward, none in a
+    backward, and the block's two forward kernels once per block forward.
+    Returns the window's launches."""
+    dt = torch.bfloat16
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    expected = {k.name: 0 for k in kernels.KERNELS}
+    worst = {"out": 0.0, "grad": 0.0}
+    for i, (N, C, _) in enumerate(NATIVE_SHAPES):
+        lvl = {458752: 0, 114688: 1, 28672: 2, 7168: 3}[N]
+        H, W = NATIVE.height >> lvl, NATIVE.width >> lvl
+        blk = unet_mod.LinearAttentionBlock(C, dtype=dt)
+        unet_mod.init_weights(blk, torch.Generator().manual_seed(1100 + i))
+        with torch.no_grad():
+            blk.fn.fn.to_out[0].bias.zero_()
+            blk.fn.fn.to_out[0].weight.mul_(float(N) ** 1.5)
+        blk = blk.cuda()
+        mods = {}
+        for be in ("kernels", "composition"):
+            m = unet_mod.PreNormResidual(C, unet_mod.LinearAttention(C, dtype=dt, attn_backend=be),
+                                         dt)
+            m.load_state_dict(blk.state_dict())
+            mods[be] = m.cuda()
+        g = torch.Generator(device="cuda").manual_seed(1200 + i)
+        x = torch.randn(NATIVE_B, C, H, W, generator=g, device="cuda").to(dt)
+        backward = i == 0 or C == 512
+        xs = {be: x.clone().requires_grad_(backward) for be in mods}
+        with torch.set_grad_enabled(backward):
+            y = {be: m(xs[be]) for be, m in mods.items()}
+        with torch.no_grad():
+            y["block"] = blk(x)
+        expected["linear_attention_middle_ctx"] += 1
+        expected["linear_attention_middle_out"] += 1
+        expected["linear_attention_ctx"] += 1
+        expected["linear_attention_out"] += 1
+        ref = y["composition"].detach().float()
+        scale = float((ref - x.float()).abs().max())
+        tol = TOL_BLOCK * scale + 2.0 ** -7 * float(ref.abs().max())
+        e = {be: err(y[be].detach(), ref)[0] for be in ("kernels", "block")}
+        row = dict(N=N, C=C, B=NATIVE_B, H=H, W=W, dtype="bfloat16", residual_scale=scale,
+                   tol=tol, kernels_vs_composition=e["kernels"], block_vs_composition=e["block"],
+                   kernels_vs_block=err(y["kernels"].detach(), y["block"])[0])
+        if backward:
+            dy = torch.randn(y["kernels"].shape, generator=g, device="cuda").to(dt)
+            grads = {}
+            for be, m in mods.items():
+                y[be].backward(dy)
+                grads[be] = {"x": xs[be].grad, **{k: p.grad for k, p in m.named_parameters()}}
+            rel = {k: float((grads["kernels"][k].float() - grads["composition"][k].float()).norm())
+                   / max(float(grads["composition"][k].float().norm()), 1e-30)
+                   for k in grads["composition"]}
+            row["grad_rel"] = rel
+            check(all(torch.isfinite(v).all() for v in grads["kernels"].values()),
+                  f"module gradients not finite at {N, C}")
+            check(max(rel.values()) <= TOL_MID_GRAD,
+                  f"module gradients on the kernels disagree at {N, C}: {rel}")
+            worst["grad"] = max(worst["grad"], max(rel.values()))
+        phase("linear_attention_module_vs_composition", **row)
+        for be in ("kernels", "block"):
+            check(e[be] <= tol, f"{be} disagrees with the composition module at {N, C}: {e[be]}")
+        worst["out"] = max(worst["out"], e["kernels"], e["block"])
+        del blk, mods, x, xs, y
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    phase("linear_attention_modules", launches=launches, expected_launches=expected, **worst)
+    check(launches == expected, f"module launches {launches}, expected {expected}")
+    return launches
+
+
 def splat_inputs(Bn, H, W, dtype, seed):
     """Values as the warp gives them (image in [-1, 1], metric 0 or 1 with
     one NaN-hole in ten) and a flow of a few pixels, one of them infinite."""
@@ -494,16 +753,17 @@ def bwd_bound_ms(kernel, Bn, C, N, xbytes):
     return 1e3 * nbytes / HBM_BPS, 1e3 * t_ops
 
 
-def la_bwd_phase(Bn=TRAIN_B, shapes=TRAIN_SHAPES, iters=10):
+def la_bwd_phase(Bn=TRAIN_B, shapes=TRAIN_SHAPES, dtypes=(torch.bfloat16, torch.float32),
+                 label="128x128", iters=10):
     """The three backward kernels against their plain versions at every
-    (N, C) of a 128x128 b16 train step that takes them, bf16 and f32 x.
-    Errors relative to each output's largest value; times per train step
-    (bf16 x, the main path's dtype) summed over the shapes."""
+    (N, C) of a train step that takes them (by default 128x128 b16), in
+    ``dtypes``.  Errors relative to each output's largest value; times per
+    train step (bf16 x, the main path's dtype) summed over the shapes."""
     names = ("bwd_q", "bwd_kv1", "bwd_kv2")
     stats = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound": 0.0, "bytes_ms": 0.0,
                  "ops_ms": 0.0} for k in names}
     for i, (N, C, count) in enumerate(shapes):
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in dtypes:
             x, (g_pre, w_qkv, w_out, b_out, g_post) = block_inputs(Bn, C, N, dtype, 600 + i)
             g = torch.Generator(device="cuda").manual_seed(700 + i)
             dy = torch.randn(Bn, C, N, generator=g, device="cuda").to(dtype)
@@ -541,7 +801,7 @@ def la_bwd_phase(Bn=TRAIN_B, shapes=TRAIN_SHAPES, iters=10):
                         "bwd_kv2_plain_ms": cuda_ms(lambda: af.bwd_kv2_plain(*args_kv2), 3, 1),
                     }
             bounds = {k: bwd_bound_ms(k, Bn, C, N, x.element_size()) for k in names}
-            phase("kernel_vs_plain", kernel="linear_attention_bwd", N=N, C=C, B=Bn,
+            phase("kernel_vs_plain", kernel="linear_attention_bwd", at=label, N=N, C=C, B=Bn,
                   dtype=str(dtype).split(".")[1], **{f"{k}_max_rel": errs[k] for k in names},
                   **{f"{k}_bound_ms": max(bounds[k]) for k in names},
                   **{k: round(v, 5) for k, v in times.items()})
@@ -558,7 +818,7 @@ def la_bwd_phase(Bn=TRAIN_B, shapes=TRAIN_SHAPES, iters=10):
             del x, dy, c, m, s_, args_q, args_kv2
     for st in stats.values():
         st["bound_by"] = "bytes" if st["bytes_ms"] >= st["ops_ms"] else "operations"
-    phase("linear_attention_bwd_per_step", B=Bn,
+    phase("linear_attention_bwd_per_step", at=label, B=Bn,
           **{f"{k}_{f}": v for k, st in stats.items() for f, v in st.items()})
     return stats
 
@@ -936,12 +1196,12 @@ def slice_phase():
     return totals
 
 
-def train_batch(seed=0, B=TRAIN_B, S=128):
+def train_batch(seed=0, B=TRAIN_B, H=128, W=128):
     """A standard-normal (img, tgt, flow) batch from numpy, as the JAX
-    bench.py train row draws it."""
+    bench.py train rows draw it."""
     rng = np.random.default_rng(seed)
-    arrays = (rng.standard_normal((B, S, S, 3)), rng.standard_normal((B, S, S, 3)),
-              rng.standard_normal((B, S, S, 2)))
+    arrays = (rng.standard_normal((B, H, W, 3)), rng.standard_normal((B, H, W, 3)),
+              rng.standard_normal((B, H, W, 2)))
     return to_device(tuple(a.astype(np.float32) for a in arrays), "cuda")
 
 
@@ -964,20 +1224,23 @@ def train_losses(out_dir):
     return {r["step"]: r["train/loss"] for r in recs if "train/loss" in r}
 
 
-def step_vs_plain(precision, batch, conv_backend="cudnn"):
-    """One train step's loss and gradients (the flagship at 128x128 b16,
-    weights from the seed) with every kernel against the same step with
-    every plain version: the same weights, batch and draws.  Under a conv
-    backend in f32, both steps run with cuDNN's TF32 off (the f32 conv
-    kernels are exact f32)."""
+def step_vs_plain(precision, batch, conv_backend="cudnn", remat=False, tol=None):
+    """One train step's loss and gradients (the flagship built at 128x128,
+    weights from the seed, on ``batch``) with every kernel against the same
+    step with every plain version: the same weights, batch and draws.  Under
+    a conv backend in f32, both steps run with cuDNN's TF32 off (the f32
+    conv kernels are exact f32).  With ``remat`` the UnetWithWarp closure
+    is rematerialised.  Where the bottleneck takes the flash kernel (N >=
+    2048: the native batch) the plain step runs its plain recurrence."""
     cfg = dataclasses.replace(FLAGSHIP, zero_init=False, precision=precision,
-                              conv_backend=conv_backend)
+                              conv_backend=conv_backend, remat=remat)
     algo = FlowDiffuser(cfg, device="cuda", generator=torch.Generator().manual_seed(SEED))
     algo.module.train()
     conv = conv_backend != "cudnn"
     with tf32(not (conv and precision == "float32")):
         loss_k, g_k = step_grads(algo, batch, 11)
-        with plain_versions(attention="passes", splat=True, conv=conv):
+        flash = batch[0].shape[2] * batch[0].shape[3] // 64 >= fa.FLASH_MIN_N
+        with plain_versions(attention="passes", splat=True, conv=conv, flash=flash):
             loss_p, g_p = step_grads(algo, batch, 11)
     rel = {k: float((g_k[k] - g_p[k]).norm()) / float(g_p[k].norm())
            for k in g_p if float(g_p[k].norm()) > 0}
@@ -986,13 +1249,14 @@ def step_vs_plain(precision, batch, conv_backend="cudnn"):
                   / torch.sqrt(sum(g.square().sum() for g in g_p.values())))
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     phase("train_step_vs_plain", precision=precision, conv_backend=conv_backend,
+          B=batch[0].shape[0], H=batch[0].shape[2], W=batch[0].shape[3], remat=remat,
           loss=loss_k, plain_loss=loss_p,
           loss_rel=loss_rel, grad_leaves=len(rel), grad_global_rel=total,
           grad_worst_leaf=worst, grad_worst_rel=rel[worst],
           grad_median_rel=float(np.median(list(rel.values()))))
     check(np.isfinite(loss_k) and all(torch.isfinite(g).all() for g in g_k.values()),
           f"train step ({precision}): non-finite loss or gradient")
-    tol_loss, tol_grad = TOL_TRAIN[precision]
+    tol_loss, tol_grad = tol or TOL_TRAIN[precision]
     check(loss_rel <= tol_loss and total <= tol_grad,
           f"train step ({precision}) with kernels disagrees with the plain versions: "
           f"loss {loss_rel}, gradients {total}")
@@ -1058,6 +1322,19 @@ def train_phase():
     phase("train_conv_backends_vs_cudnn", train_samples_per_s=rates)
     del batch
 
+    # the entry point with remat: 2 steps and a validation at 128x128
+    root = Path(tempfile.mkdtemp(prefix="ofd_train_remat_"))
+    try:
+        res = train_entry.run(2, out=str(root), sampling_timesteps=10, log_every=1, remat=True)
+        phase("train_entry_point_remat", step=res["step"], remat=res["remat"],
+              checkpoints=res["checkpoints"], loss=res["train"]["train/loss"],
+              val_epe=res["val"].get("val/epe"), samples_per_s=res["samples_per_s"])
+        check(res["remat"] and res["step"] == 2 and res["checkpoints"] == [2]
+              and np.isfinite(res["train"]["train/loss"]) and "val/epe" in res["val"],
+              "train.py --remat did not run its 2 steps and validation")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
     # the entry point: 3 steps, validation, checkpoint; continued to 5
     root = Path(tempfile.mkdtemp(prefix="ofd_train_smoke_"))
     try:
@@ -1110,19 +1387,64 @@ def train_phase():
     return launches
 
 
+def native_train_phase():
+    """The flagship trained at native 448x1024 b2 with remat, bf16, on a
+    standard-normal batch from numpy seed 0 (the JAX bench.py row
+    sintel_native_train_samples_per_sec): one step with every kernel
+    against the all-plain step; then one count window of warm-up and timed
+    steps with exact launches.  Returns the window's launches."""
+    batch = train_batch(0, NATIVE_TRAIN_B, NATIVE.height, NATIVE.width)
+    step_vs_plain("bf16", batch, remat=True, tol=TOL_TRAIN_NATIVE)
+    algo, _ = build_flagship(SEED, "cuda", remat=True)
+    cfg = algo.cfg
+    state = TrainState(algo.module, make_optimizer(algo.module.parameters(), cfg.lr,
+                                                   cfg.weight_decay, 100.0))
+    step = make_train_step(algo.loss_fn)
+    algo.module.train()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    for _ in range(NATIVE_TRAIN_WARMUP):
+        metrics = step(state, batch, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(NATIVE_TRAIN_TIMED):
+        metrics = step(state, batch, gen)
+    torch.cuda.synchronize()
+    sec = (time.perf_counter() - t0) / NATIVE_TRAIN_TIMED
+    counted = {k.name: k.launches for k in kernels.KERNELS}
+    n = NATIVE_TRAIN_WARMUP + NATIVE_TRAIN_TIMED
+    expected = {k.name: 0 for k in kernels.KERNELS}
+    expected.update({k: n * v for k, v in NATIVE_TRAIN_EXPECTED.items()})
+    phase("native_train", B=NATIVE_TRAIN_B, H=NATIVE.height, W=NATIVE.width, remat=True,
+          precision=cfg.precision, steps=n, timed=NATIVE_TRAIN_TIMED, ms_per_step=1e3 * sec,
+          native_train_samples_per_s=NATIVE_TRAIN_B / sec, loss=float(metrics["train/loss"]),
+          max_memory_gb=torch.cuda.max_memory_allocated() / 1e9, launches=counted,
+          expected_launches=expected)
+    check(np.isfinite(float(metrics["train/loss"])), "native train loss not finite")
+    check(counted == expected, f"native train launches {counted}, expected {expected}")
+    del algo, state, step, batch
+    return counted
+
+
 def main():
     smi = device_phase()
     build_phase()
     la128 = la_phase(B, SHAPES, "128x128")
     la_native = la_phase(NATIVE_B, NATIVE_SHAPES, "448x1024", iters=10)
     la_bwd = la_bwd_phase()
+    la_bwd_phase(NATIVE_B, NATIVE_SHAPES, (torch.bfloat16,), "448x1024", iters=5)
     flash_row, flash_err = flash_phase()
+    flash_grad_phase()
+    mid = middle_phase()
     splat_row, splat_err = splat_phase()
     splat_bwd_row, splat_bwd_err = splat_bwd_phase()
     conv_rows_, conv_err = conv_phase()
     launches = slice_phase()
-    for k, n in train_phase().items():
-        launches[k] += n
+    for window in (middle_modules_phase, train_phase, native_train_phase):
+        for k, n in window().items():
+            launches[k] += n
     phase("launch_counts_all_paths", launches=launches)
     per_la = f"one 448x1024 b{NATIVE_B} UNet eval (8 launches, bf16 x)"
     per_step = f"one 128x128 b{TRAIN_B} train step (6 launches, bf16 x)"
@@ -1150,6 +1472,12 @@ def main():
             vals = dict(max_abs_err=conv_err[k.name], **conv_rows_[k.name],
                         per=f"one launch, 3x3 64->64 at 448x1024 b{NATIVE_B} bf16"
                             + (" with the prologue" if k is kernels.CONV_FOLD else ""))
+        elif k in (kernels.LA_MID_CTX, kernels.LA_MID_OUT):
+            st = mid["ctx" if k is kernels.LA_MID_CTX else "out"]
+            vals = dict(max_abs_err=st["err"], ms=st["ms"], plain_ms=st["plain_ms"],
+                        bound_ms=st["bound"], bound_by=st["bound_by"], library_ms=None,
+                        per=f"the qkv of the 8 blocks of one 448x1024 b{NATIVE_B} UNet eval "
+                            "(8 launches, bf16)")
         elif k in bwd:
             st = la_bwd[bwd[k]]
             vals = dict(max_abs_err=st["err"], ms=st["ms"], plain_ms=st["plain_ms"],

@@ -8,8 +8,10 @@ without augmentation), the training loss (``loss``, ``loss_fn``),
 ``sample`` (``cfg.sampler`` passes through to the schedule, so 'dpmpp'
 selects DPM-Solver++(2M); H and W come from the conditioning, so one model
 serves 128x128 and 448x1024; ``return_every`` gives trajectories) and
-``val_step`` with its metrics and the ``grad_flow`` probe.  Randomness comes
-from an explicit ``torch.Generator`` on the model's device.  The latent
+``val_step`` with its metrics and the ``grad_flow`` probe.  With
+``cfg.remat`` the model closure (UNet, then splat) is rematerialised in the
+backward (``torch.utils.checkpoint``, JAX's ``jax.checkpoint``).  Randomness
+comes from an explicit ``torch.Generator`` on the model's device.  The latent
 mode, the other targets and the image artifacts come with later slices.
 """
 
@@ -19,6 +21,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from . import augmentation
 from .base import compute_dtype, pair_batch
@@ -115,6 +118,10 @@ class FlowDiffuser:
         )
 
     def model_fn(self, x, cond, t):
+        """The UnetWithWarp closure; under ``cfg.remat``, when a gradient is
+        taken, only its inputs are kept and it runs again in the backward."""
+        if self.cfg.remat and torch.is_grad_enabled():
+            return checkpoint(self.module, x, cond, t, use_reentrant=False)
         return self.module(x, cond, t)
 
     def preprocess(self, batch, aug: bool = False,

@@ -28,7 +28,9 @@ class ArtificialDataConfig:
 
 @dataclasses.dataclass(frozen=True)
 class FlowDiffuserConfig:
-    """``algorithm/flow_diffuser.yaml`` plus ``runtime.precision``, and the
+    """``algorithm/flow_diffuser.yaml`` plus ``runtime.precision`` and
+    ``runtime.remat`` (which JAX's experiment copies into the algorithm as
+    ``_remat``: recompute the UnetWithWarp closure in the backward), and the
     JAX package's ``OFD_CONV_BACKEND`` as ``conv_backend`` (``cudnn`` is its
     default XLA lowering, ``rows`` its ``pallas``, ``fold`` its ``fold``;
     ``ops/conv.py``)."""
@@ -50,6 +52,7 @@ class FlowDiffuserConfig:
     lr: float = 1e-5
     weight_decay: float = 1e-6
     conv_backend: str = "cudnn"
+    remat: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

@@ -69,8 +69,18 @@ CONV_FOLD = Kernel(
     "opticalflowdiffusion_tpu_torch/kernels/conv.cu",
     "opticalflowdiffusion_tpu/ops/conv_pallas.py:255",
 )
+LA_MID_CTX = Kernel(
+    "linear_attention_middle_ctx",
+    "opticalflowdiffusion_tpu_torch/kernels/linear_attention.cu",
+    "opticalflowdiffusion_tpu/ops/attention_pallas.py:49",
+)
+LA_MID_OUT = Kernel(
+    "linear_attention_middle_out",
+    "opticalflowdiffusion_tpu_torch/kernels/linear_attention.cu",
+    "opticalflowdiffusion_tpu/ops/attention_pallas.py:89",
+)
 KERNELS = (LA_CTX, LA_OUT, LA_BWD_Q, LA_BWD_KV1, LA_BWD_KV2, FLASH, SPLAT, SPLAT_BWD,
-           CONV_ROWS, CONV_FOLD)
+           CONV_ROWS, CONV_FOLD, LA_MID_CTX, LA_MID_OUT)
 
 
 def reset_counts() -> None:
@@ -79,4 +89,5 @@ def reset_counts() -> None:
 
 
 __all__ = ["Kernel", "KERNELS", "CONV_FOLD", "CONV_ROWS", "FLASH", "LA_BWD_KV1", "LA_BWD_KV2",
-           "LA_BWD_Q", "LA_CTX", "LA_OUT", "SPLAT", "SPLAT_BWD", "reset_counts"]
+           "LA_BWD_Q", "LA_CTX", "LA_MID_CTX", "LA_MID_OUT", "LA_OUT", "SPLAT", "SPLAT_BWD",
+           "reset_counts"]

@@ -5,7 +5,8 @@
 // on x of shape (B, C, N) (a flattened NCHW map), heads * dim_head = 4 * 32.
 // Replaces the two forward Pallas TPU kernels of the JAX package's
 // ops/attention_fused.py::_fused_block_pallas (the three backward ones:
-// "backward" below):
+// "backward" below; the two of ops/attention_pallas.py, the unfused
+// LinearAttention's middle: "unfused middle" below):
 //
 //   la_ctx_kernel  <- _ctx_kernel (pass A): preLN -> k, v -> k-softmax over N
 //                     with an online max -> ctx = softmax_N(k)^T v per head,
@@ -177,68 +178,64 @@ size_t ctx_smem(int C) {
          (size_t)(WARPS * T + 2 * T + HD) * sizeof(float);
 }
 
-// Pass A.  grid (P, B).  part: (B, P, PART) f32 scratch; counter: (B,) int32,
-// zero on entry and left zero.  Outputs ctx (B, NH, DH, DH), m and s (B, HD).
-template <typename TX>
-__global__ void __launch_bounds__(THREADS)
-la_ctx_kernel(const TX* __restrict__ x, const float* __restrict__ g_pre,
-              const bf16* __restrict__ w_kv, float* __restrict__ part,
-              int* __restrict__ counter, float* __restrict__ ctx_out,
-              float* __restrict__ m_out, float* __restrict__ s_out, int C, int N) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* lnS = reinterpret_cast<bf16*>(smem);
-  float* kvS = reinterpret_cast<float*>(smem + align128((size_t)C * LDT * sizeof(bf16)));
-  float* red = kvS + T * LDK;
-  float* stat = red + WARPS * T;
-  float* chS = stat + 2 * T;
-  __shared__ int is_last;
-
-  const int b = blockIdx.y, p = blockIdx.x, P = gridDim.x;
+// One tile of a context pass.  kvS [T][LDK] holds k (columns 0 .. HD-1) and
+// v (HD .. 2HD-1) of nvalid positions, f32; it is rewritten with exp(k - m).
+// Thread tid < HD keeps channel tid's running max m_run and sum s_run of
+// exp(k - m_run); every thread keeps its 16 context sums acc (head h,
+// k-channel d, v columns e0 .. e0 + 15), rescaled as m_run grows.  A tile's
+// terms are summed on their own before they join acc (a two-level sum, so a
+// CTA's long run of tiles does not grow the rounding error of its sums).
+// chS: HD floats of scratch.
+__device__ __forceinline__ void ctx_tile(float* kvS, int nvalid, float* chS, float& m_run,
+                                         float& s_run, float (&acc)[16]) {
   const int tid = threadIdx.x;
-  const int ntiles = (N + T - 1) / T;
-  // this thread's context entries: head h, k-channel row d, v columns e0..e0+15
   const int h = tid / 64, d = (tid % 64) / 2, e0 = (tid % 2) * 16;
   const int kj = h * DH + d;
-  float acc[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
-  float m_run = -INFINITY, s_run = 0.f;  // channel tid, for tid < HD
-
-  for (int tile = p; tile < ntiles; tile += P) {
-    const int n0 = tile * T;
-    const int nvalid = min(T, N - n0);
-    XSrc<TX> src{x + (size_t)b * C * N + n0, N};
-    pre_ln(src, g_pre, C, nvalid, lnS, red, stat);
-    project(lnS, w_kv, C, 2 * HD, kvS, LDK);
-    __syncthreads();
-    if (tid < HD) {
-      float mt = -INFINITY;
-      for (int t = 0; t < nvalid; ++t) mt = fmaxf(mt, kvS[t * LDK + tid]);
-      const float m_new = fmaxf(m_run, mt);
-      const float alpha = expf(m_run - m_new);
-      float ssum = 0.f;
-      for (int t = 0; t < nvalid; ++t) {
-        const float e = expf(kvS[t * LDK + tid] - m_new);
-        kvS[t * LDK + tid] = e;
-        ssum += e;
-      }
-      s_run = s_run * alpha + ssum;
-      m_run = m_new;
-      chS[tid] = alpha;
-    }
-    __syncthreads();
-    const float alpha = chS[kj];
-#pragma unroll
-    for (int i = 0; i < 16; ++i) acc[i] *= alpha;
+  if (tid < HD) {
+    float mt = -INFINITY;
+    for (int t = 0; t < nvalid; ++t) mt = fmaxf(mt, kvS[t * LDK + tid]);
+    const float m_new = fmaxf(m_run, mt);
+    const float alpha = expf(m_run - m_new);
+    float ssum = 0.f;
     for (int t = 0; t < nvalid; ++t) {
-      const float ek = kvS[t * LDK + kj];
-      const float* vrow = kvS + t * LDK + HD + h * DH + e0;
-#pragma unroll
-      for (int i = 0; i < 16; ++i) acc[i] += ek * vrow[i];
+      const float e = expf(kvS[t * LDK + tid] - m_new);
+      kvS[t * LDK + tid] = e;
+      ssum += e;
     }
-    __syncthreads();
+    s_run = s_run * alpha + ssum;
+    m_run = m_new;
+    chS[tid] = alpha;
   }
+  __syncthreads();
+  const float alpha = chS[kj];
+  float tsum[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) tsum[i] = 0.f;
+  for (int t = 0; t < nvalid; ++t) {
+    const float ek = kvS[t * LDK + kj];
+    const float* vrow = kvS + t * LDK + HD + h * DH + e0;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) tsum[i] += ek * vrow[i];
+  }
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = acc[i] * alpha + tsum[i];
+  __syncthreads();
+}
 
+// The end of a context pass over grid (P, B): this CTA writes its partial
+// (m, s, context sums) of batch element b to part (B, P, PART); the last CTA
+// of b to finish (an atomic ticket on counter[b], which it leaves zero)
+// combines the P partials in the order p = 0 .. P-1 into ctx_out (B, NH, DH,
+// DH) = sums / s and, where given, m_out and s_out (B, HD).  The same bits
+// on every run: no float atomics.  scratch: 2 HD floats.
+__device__ __forceinline__ void ctx_finish(float* __restrict__ part, int* __restrict__ counter,
+                                           float m_run, float s_run, const float (&acc)[16],
+                                           float* scratch, float* __restrict__ ctx_out,
+                                           float* __restrict__ m_out,
+                                           float* __restrict__ s_out, int b, int p, int P) {
+  __shared__ int is_last;
+  const int tid = threadIdx.x;
+  const int kj = (tid / 64) * DH + (tid % 64) / 2, e0 = (tid % 2) * 16;
   float* pb = part + ((size_t)b * P + p) * PART;
   if (tid < HD) {
     pb[tid] = m_run;
@@ -253,7 +250,6 @@ la_ctx_kernel(const TX* __restrict__ x, const float* __restrict__ g_pre,
   if (!is_last) return;
   __threadfence();
 
-  // combine the P partials of batch element b
   const float* base = part + (size_t)b * P * PART;
   if (tid < HD) {
     float m = -INFINITY;
@@ -261,13 +257,15 @@ la_ctx_kernel(const TX* __restrict__ x, const float* __restrict__ g_pre,
     float s = 0.f;
     for (int q = 0; q < P; ++q)
       s += __ldcg(base + q * PART + HD + tid) * expf(__ldcg(base + q * PART + tid) - m);
-    m_out[b * HD + tid] = m;
-    s_out[b * HD + tid] = s;
-    chS[tid] = m;
-    red[tid] = s;
+    if (m_out != nullptr) {
+      m_out[b * HD + tid] = m;
+      s_out[b * HD + tid] = s;
+    }
+    scratch[tid] = m;
+    scratch[HD + tid] = s;
   }
   __syncthreads();
-  const float m = chS[kj], s = red[kj];
+  const float m = scratch[kj], s = scratch[HD + kj];
   float out[16];
 #pragma unroll
   for (int i = 0; i < 16; ++i) out[i] = 0.f;
@@ -281,6 +279,42 @@ la_ctx_kernel(const TX* __restrict__ x, const float* __restrict__ g_pre,
 #pragma unroll
   for (int i = 0; i < 16; ++i) co[i] = out[i] / s;
   if (tid == 0) counter[b] = 0;
+}
+
+// Pass A.  grid (P, B).  part: (B, P, PART) f32 scratch; counter: (B,) int32,
+// zero on entry and left zero.  Outputs ctx (B, NH, DH, DH), m and s (B, HD).
+template <typename TX>
+__global__ void __launch_bounds__(THREADS)
+la_ctx_kernel(const TX* __restrict__ x, const float* __restrict__ g_pre,
+              const bf16* __restrict__ w_kv, float* __restrict__ part,
+              int* __restrict__ counter, float* __restrict__ ctx_out,
+              float* __restrict__ m_out, float* __restrict__ s_out, int C, int N) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* lnS = reinterpret_cast<bf16*>(smem);
+  float* kvS = reinterpret_cast<float*>(smem + align128((size_t)C * LDT * sizeof(bf16)));
+  float* red = kvS + T * LDK;
+  float* stat = red + WARPS * T;
+  float* chS = stat + 2 * T;
+
+  const int b = blockIdx.y, p = blockIdx.x, P = gridDim.x;
+  const int ntiles = (N + T - 1) / T;
+  float acc[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+  float m_run = -INFINITY, s_run = 0.f;  // channel tid, for tid < HD
+
+  for (int tile = p; tile < ntiles; tile += P) {
+    const int n0 = tile * T;
+    const int nvalid = min(T, N - n0);
+    XSrc<TX> src{x + (size_t)b * C * N + n0, N};
+    pre_ln(src, g_pre, C, nvalid, lnS, red, stat);
+    project(lnS, w_kv, C, 2 * HD, kvS, LDK);
+    __syncthreads();
+    ctx_tile(kvS, nvalid, chS, m_run, s_run, acc);
+  }
+  static_assert(WARPS * T >= 2 * HD, "red holds the combine's 2 HD floats");
+  // red is free for the combine
+  ctx_finish(part, counter, m_run, s_run, acc, red, ctx_out, m_out, s_out, b, p, P);
 }
 
 size_t out_smem(int C) {
@@ -394,6 +428,121 @@ la_out_kernel(const TX* __restrict__ x, const float* __restrict__ g_pre,
   }
 }
 
+// ------------------------------------------------------------ unfused middle
+//
+// The linear-attention middle of the unfused LinearAttention module, on
+// packed qkv (B, 3 HD, N) laid out as its 1x1 conv to_qkv gives it (channel
+// s * HD + h * DH + d, N fastest; the batch stride may be larger).  Replaces
+// the two Pallas TPU kernels of the JAX package's ops/attention_pallas.py:
+//
+//   la_mid_ctx_kernel <- _ctx_kernel (pass A): per (h, d) channel an online
+//                        max and sum over N of exp(k), and the per-head
+//                        context ctx[h][d][e] = sum_n softmax_N(k)[n, h, d]
+//                        v[n, h, e], f32 (B, NH, DH, DH).
+//   la_mid_out_kernel <- _out_kernel (pass B): per position and head q' =
+//                        softmax_d(q) * DH^-0.5 and out[h, e] = sum_d q'[d]
+//                        ctx[h][d][e] / N, rounded once to qkv's dtype and
+//                        written (B, HD, N).
+//
+// Numerics are the TPU kernels': f32 exponentials, sums and products on the
+// values of qkv (bf16 or f32), the context kept per head (the TPU's
+// block-diagonal (128, 128) without its zeros), ctx / N folded into pass B.
+// N takes any value: a ragged last tile leaves its tail out of every sum
+// (the TPU pads N with k = -1e30).  Pass A runs la_ctx_kernel's tile update
+// and its ordered last-CTA combine on k and v read straight from qkv.  The
+// TPU's roll-max cascade and selector matmuls exist for its 128-lane tiles
+// and have no counterpart here.
+//
+// Bound on the H100: pass A reads k and v, pass B reads q and writes out:
+// 2 HD values per position each, ~470 MB at B 2, N 458752 in bf16 (0.14
+// ms).  Their f32 arithmetic (2 * 4096 FLOP per position on CUDA cores) is
+// the next bound.  A first, simple version: one CTA of 256 threads per tile
+// of 32 positions, the tile staged in shared memory as f32.
+constexpr int LDM = T + 1;  // [HD][T] f32 q tile of pass B
+
+// Pass A.  grid (P, B).  part (B, P, PART) f32 scratch; counter (B,) int32,
+// zero on entry and left zero; ctx (B, NH, DH, DH) f32.
+template <typename TX>
+__global__ void __launch_bounds__(THREADS)
+la_mid_ctx_kernel(const TX* __restrict__ qkv, long long batch_stride, float* __restrict__ part,
+                  int* __restrict__ counter, float* __restrict__ ctx_out, int N) {
+  __shared__ __align__(16) float kvS[T * LDK];
+  __shared__ float scratch[2 * HD];
+  const int b = blockIdx.y, p = blockIdx.x, P = gridDim.x;
+  const int tid = threadIdx.x;
+  const int ntiles = (N + T - 1) / T;
+  const TX* kv = qkv + (size_t)b * batch_stride + (size_t)HD * N;  // k, then v
+  float acc[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+  float m_run = -INFINITY, s_run = 0.f;
+
+  for (int tile = p; tile < ntiles; tile += P) {
+    const int n0 = tile * T;
+    const int nvalid = min(T, N - n0);
+    for (int i = tid; i < 2 * HD * T; i += THREADS) {
+      const int j = i / T, t = i % T;
+      kvS[t * LDK + j] = t < nvalid ? to_f(kv[(size_t)j * N + n0 + t]) : 0.f;
+    }
+    __syncthreads();
+    ctx_tile(kvS, nvalid, scratch, m_run, s_run, acc);
+  }
+  ctx_finish(part, counter, m_run, s_run, acc, scratch, ctx_out, nullptr, nullptr, b, p, P);
+}
+
+// Pass B.  grid (ceil(N / T), B).  ctx (B, NH, DH, DH) f32 from pass A; out
+// (B, HD, N) in TX.
+template <typename TX>
+__global__ void __launch_bounds__(THREADS)
+la_mid_out_kernel(const TX* __restrict__ qkv, long long batch_stride,
+                  const float* __restrict__ ctx, TX* __restrict__ out, int N) {
+  __shared__ float qS[HD * LDM];       // q[j][t], then q'
+  __shared__ float ctxS[NH * DH * DH];  // ctx / N
+  const int b = blockIdx.y, n0 = blockIdx.x * T;
+  const int nvalid = min(T, N - n0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const TX* q = qkv + (size_t)b * batch_stride + n0;
+  for (int i = tid; i < NH * DH * DH; i += THREADS)
+    ctxS[i] = ctx[(size_t)b * NH * DH * DH + i] / (float)N;
+  for (int i = tid; i < HD * T; i += THREADS) {
+    const int j = i / T, t = i % T;
+    qS[j * LDM + t] = t < nvalid ? to_f(q[(size_t)j * N + t]) : 0.f;
+  }
+  __syncthreads();
+  // softmax over d: thread (head tid / T, position tid % T)
+  if (tid < NH * T) {
+    float* qh = qS + (tid / T) * DH * LDM + tid % T;
+    float m = -INFINITY;
+    for (int d = 0; d < DH; ++d) m = fmaxf(m, qh[d * LDM]);
+    float sum = 0.f;
+    for (int d = 0; d < DH; ++d) {
+      const float e = expf(qh[d * LDM] - m);
+      qh[d * LDM] = e;
+      sum += e;
+    }
+    for (int d = 0; d < DH; ++d) qh[d * LDM] = qh[d * LDM] / sum * Q_SCALE;
+  }
+  __syncthreads();
+  // out[h * DH + e][t] for e = e0 .. e0 + 15: warp -> (h, e0), lane -> t
+  const int h = warp / 2, e0 = (warp % 2) * 16;
+  float acc[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+  for (int d = 0; d < DH; ++d) {
+    const float qd = qS[(h * DH + d) * LDM + lane];
+    const float* crow = ctxS + h * DH * DH + d * DH + e0;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[i] = fmaf(qd, crow[i], acc[i]);
+  }
+  if (lane < nvalid) {
+    TX* o = out + (size_t)b * HD * N + (size_t)(h * DH + e0) * N + n0 + lane;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) put(o + (size_t)i * N, acc[i]);
+  }
+}
+
+static_assert(NH * T <= THREADS && WARPS * 16 == HD, "la_mid_out_kernel's thread layout");
+
 // ------------------------------------------------------------------ backward
 //
 // The block's backward, recompute-based like the TPU's (nothing but ctx, m
@@ -435,8 +584,21 @@ la_out_kernel(const TX* __restrict__ x, const float* __restrict__ g_pre,
 // The weight-gradient update reads its operands from shared memory and
 // adds into the partial once per tile of 32 positions; nothing uses TMA or
 // wgmma yet.
+//
+// Width.  The passes take C <= 512, the widest block of the flagship.  What
+// set the limit is shared memory: the [C][T] tiles grow with C, and at C =
+// 512 pass B' (with a bf16 copy of do beside its f32 one) and pass A'2 (with
+// dln in a region of its own) needed 244 and 242 KB, past the 227 KB a CTA
+// may have.  Pass B' converts do to bf16 in chunks of DO_CHUNK channels
+// into a tile that is free at that point, and pass A'2 lays dln over lnS,
+// kvS and dkvS, which are dead once the tile's weight-gradient update is
+// done: 204 and 162 KB at C = 512.  The arithmetic and its order are those
+// of the separate tiles.
 
 constexpr int LDK2 = 2 * HD + 8;  // [T][2HD] f32/bf16 rows
+constexpr int DO_CHUNK = 64;       // channels of do in bf16 at a time (pass B')
+static_assert(DO_CHUNK * LDT <= T * LDQ, "a chunk of do fits in qpB");
+static_assert(HD / 16 == WARPS, "pass B' gives each warp one column tile of dattn");
 
 // Sum over the WARPS channel groups of per-lane (position) partials a, b:
 // out_a[t] = sum / C, out_b[t] = sum / C.
@@ -568,7 +730,6 @@ __host__ __device__ inline size_t bwdq_smem(int C, bool acc_smem) {
          align128((size_t)T * LDQ * sizeof(float)) +       // attnS: attn, dattn
          align128((size_t)T * LDQ * sizeof(bf16)) +        // attnB
          align128((size_t)C * LDT * sizeof(float)) +       // oS: o, do, dln
-         align128((size_t)C * LDT * sizeof(bf16)) +        // doB
          align128((size_t)(2 * WARPS * T + 6 * T + 3 * C) * sizeof(float)) +
          (acc_smem ? (size_t)2 * C * HD * sizeof(float) : 0);
 }
@@ -598,7 +759,6 @@ la_bwd_q_kernel(const TX* __restrict__ x, const TX* __restrict__ dy,
   float* attnS = reinterpret_cast<float*>(carve((size_t)T * LDQ * sizeof(float)));
   bf16* attnB = reinterpret_cast<bf16*>(carve((size_t)T * LDQ * sizeof(bf16)));
   float* oS = reinterpret_cast<float*>(carve((size_t)C * LDT * sizeof(float)));
-  bf16* doB = reinterpret_cast<bf16*>(carve((size_t)C * LDT * sizeof(bf16)));
   float* red = reinterpret_cast<float*>(
       carve((size_t)(2 * WARPS * T + 6 * T + 3 * C) * sizeof(float)));
   float* stat = red + 2 * WARPS * T;  // mean_x, rstd_x | mean_o, rstd_o | m1, m2
@@ -711,7 +871,6 @@ la_bwd_q_kernel(const TX* __restrict__ x, const TX* __restrict__ dy,
         const float oh = (osrc(c, lane) - mo) * ro;
         const float dov = ok ? (d * g_post[c] - m1 - oh * m2) * ro : 0.f;
         oS[c * LDT + lane] = dov;
-        doB[c * LDT + lane] = __float2bfloat16(dov);
         const float dsum = warp_sum(dov);
         if (lane == 0) dbout[c] += dsum;
       }
@@ -721,21 +880,33 @@ la_bwd_q_kernel(const TX* __restrict__ x, const TX* __restrict__ dy,
     wgrad_update(dW_out, C, HD, [&](int t, int c) { return oS[c * LDT + t]; },
                  [&](int t, int j) { return attnS[t * LDQ + j]; });
     __syncthreads();
-    // dattn[t][j] = sum_c do[c][t] W_out[c][j]  -> attnS
-    for (int jt = warp; jt < HD / 16; jt += WARPS) {
+    // dattn[t][j] = sum_c do[c][t] W_out[c][j]  -> attnS.  Warp w takes the
+    // column tile j = 16 w .. 16 w + 15; do goes to bf16 DO_CHUNK channels
+    // at a time, into qpB (free between the attn product and dq).
+    {
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[T / 16];
       for (int i = 0; i < T / 16; ++i) wmma::fill_fragment(acc[i], 0.f);
-      for (int k = 0; k < C; k += 16) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, w_out + (size_t)k * HD + jt * 16, HD);
-        for (int i = 0; i < T / 16; ++i) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
-          wmma::load_matrix_sync(fa, doB + k * LDT + i * 16, LDT);
-          wmma::mma_sync(acc[i], fa, fb, acc[i]);
+      bf16* doB = qpB;  // [DO_CHUNK][LDT]
+      for (int c0 = 0; c0 < C; c0 += DO_CHUNK) {
+        const int nc = min(DO_CHUNK, C - c0);
+        for (int i = tid; i < nc * T; i += THREADS) {
+          const int c = i / T, t = i % T;
+          doB[c * LDT + t] = __float2bfloat16(oS[(c0 + c) * LDT + t]);
         }
+        __syncthreads();
+        for (int k = 0; k < nc; k += 16) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
+          wmma::load_matrix_sync(fb, w_out + (size_t)(c0 + k) * HD + warp * 16, HD);
+          for (int i = 0; i < T / 16; ++i) {
+            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
+            wmma::load_matrix_sync(fa, doB + k * LDT + i * 16, LDT);
+            wmma::mma_sync(acc[i], fa, fb, acc[i]);
+          }
+        }
+        __syncthreads();
       }
       for (int i = 0; i < T / 16; ++i)
-        wmma::store_matrix_sync(attnS + i * 16 * LDQ + jt * 16, acc[i], LDQ,
+        wmma::store_matrix_sync(attnS + i * 16 * LDQ + warp * 16, acc[i], LDQ,
                                 wmma::mem_row_major);
     }
     __syncthreads();
@@ -878,12 +1049,20 @@ la_bwd_kv1_kernel(const TX* __restrict__ x, const float* __restrict__ g_pre,
 // Per-CTA record of pass A'2: dW_kv (2HD, C) | dg_pre (C).
 __host__ __device__ inline size_t kv2_record(int C) { return (size_t)2 * HD * C + C; }
 
+// Pass A'2's first region: lnS | kvS | dkvS, overlaid by dlnS (f32 [C][LDT]).
+__host__ __device__ inline size_t kv2_front(int C) {
+  const size_t tiles = align128((size_t)C * LDT * sizeof(bf16)) +
+                       2 * align128((size_t)T * LDK2 * sizeof(float));
+  const size_t dln = align128((size_t)C * LDT * sizeof(float));
+  return tiles > dln ? tiles : dln;
+}
+
 __host__ __device__ inline size_t kv2_smem(int C, bool acc_smem) {
-  return kv_common_smem(C) +
-         align128((size_t)T * LDK2 * sizeof(float)) +      // dkvS
+  return kv2_front(C) +
+         align128((size_t)NH * DH * DH * sizeof(float)) +  // dctxT [h][e][d]
+         align128((size_t)(2 * WARPS * T + 6 * T + 4 * HD) * sizeof(float)) +
          align128((size_t)T * LDK2 * sizeof(bf16)) +       // dkvB
          align128((size_t)NH * DH * DH * sizeof(float)) +  // dctxF [h][d][e]
-         align128((size_t)C * LDT * sizeof(float)) +       // dlnS
          align128((size_t)(HD + C) * sizeof(float)) +      // sdot | dg_pre
          (acc_smem ? (size_t)2 * HD * C * sizeof(float) : 0);
 }
@@ -904,15 +1083,17 @@ la_bwd_kv2_kernel(const TX* __restrict__ x, const float* __restrict__ g_pre,
     off += align128(bytes);
     return p;
   };
+  // dlnS overlays lnS, kvS and dkvS (kv2_front)
+  float* dlnS = reinterpret_cast<float*>(smem);
   bf16* lnS = reinterpret_cast<bf16*>(carve((size_t)C * LDT * sizeof(bf16)));
   float* kvS = reinterpret_cast<float*>(carve((size_t)T * LDK2 * sizeof(float)));
+  float* dkvS = reinterpret_cast<float*>(carve((size_t)T * LDK2 * sizeof(float)));
+  off = kv2_front(C);
   float* dctxT = reinterpret_cast<float*>(carve((size_t)NH * DH * DH * sizeof(float)));
   float* red = reinterpret_cast<float*>(
       carve((size_t)(2 * WARPS * T + 6 * T + 4 * HD) * sizeof(float)));
-  float* dkvS = reinterpret_cast<float*>(carve((size_t)T * LDK2 * sizeof(float)));
   bf16* dkvB = reinterpret_cast<bf16*>(carve((size_t)T * LDK2 * sizeof(bf16)));
   float* dctxF = reinterpret_cast<float*>(carve((size_t)NH * DH * DH * sizeof(float)));
-  float* dlnS = reinterpret_cast<float*>(carve((size_t)C * LDT * sizeof(float)));
   float* sdS = reinterpret_cast<float*>(carve((size_t)(HD + C) * sizeof(float)));
   float* dgpre = sdS + HD;
   float* stat = red + 2 * WARPS * T;
@@ -969,6 +1150,7 @@ la_bwd_kv2_kernel(const TX* __restrict__ x, const float* __restrict__ g_pre,
     // dW_kv[j][c] += sum_t dkv[t][j] ln[c][t]
     wgrad_update(dW_kv, 2 * HD, C, [&](int t, int j) { return dkvS[t * LDK2 + j]; },
                  [&](int t, int c) { return __bfloat162float(lnS[c * LDT + t]); });
+    __syncthreads();  // lnS, kvS and dkvS are dead: dlnS overlays them
     // dln[c][t] = sum_j dkv[t][j] W_kv[j][c]
     mm_rows_to_cols(dkvB, LDK2, w_kv, 2 * HD, C, dlnS);
     __syncthreads();
@@ -1097,6 +1279,22 @@ int launch_bwd_kv2(const void* x, const float* g_pre, const bf16* w_kv, const fl
   return reduce_records(part, kv2_record(C), 0, B * P, (int)kv2_record(C), 1, out_w, st);
 }
 
+template <typename TX>
+int launch_mid_ctx(const void* qkv, long long batch_stride, float* part, int* counter,
+                   float* ctx, int B, int N, int P, cudaStream_t st) {
+  la_mid_ctx_kernel<TX><<<dim3(P, B), THREADS, 0, st>>>(static_cast<const TX*>(qkv),
+                                                        batch_stride, part, counter, ctx, N);
+  return (int)cudaGetLastError();
+}
+
+template <typename TX>
+int launch_mid_out(const void* qkv, long long batch_stride, const float* ctx, void* out, int B,
+                   int N, cudaStream_t st) {
+  la_mid_out_kernel<TX><<<dim3((N + T - 1) / T, B), THREADS, 0, st>>>(
+      static_cast<const TX*>(qkv), batch_stride, ctx, static_cast<TX*>(out), N);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1178,6 +1376,28 @@ int ofd_la_bwd_kv2(const void* x, int x_bf16, const float* g_pre, const void* w_
                                        B, C, N, P, device, st)
                 : launch_bwd_kv2<float>(x, g_pre, w, m, s, dctx, sdot, dxq, dx, part, out_w,
                                         B, C, N, P, device, st);
+}
+
+// The unfused middle's launchers.  qkv (B, 3 HD, N) with batch stride
+// batch_stride (elements), bf16 (qkv_bf16 = 1) or f32.  Pass A: part (B, P,
+// PART) f32 scratch and counter (B,) int32 zeros; ctx (B, NH, DH, DH) f32.
+// Pass B: out (B, HD, N) in qkv's dtype.
+int ofd_la_mid_ctx(const void* qkv, int qkv_bf16, long long batch_stride, float* part,
+                   int* counter, float* ctx, int B, int N, int P, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return qkv_bf16 ? launch_mid_ctx<bf16>(qkv, batch_stride, part, counter, ctx, B, N, P, st)
+                  : launch_mid_ctx<float>(qkv, batch_stride, part, counter, ctx, B, N, P, st);
+}
+
+int ofd_la_mid_out(const void* qkv, int qkv_bf16, long long batch_stride, const float* ctx,
+                   void* out, int B, int N, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return qkv_bf16 ? launch_mid_out<bf16>(qkv, batch_stride, ctx, out, B, N, st)
+                  : launch_mid_out<float>(qkv, batch_stride, ctx, out, B, N, st);
 }
 
 const char* ofd_cuda_error_string(int err) {

@@ -31,6 +31,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention_fused import fused_linear_attention_block
+from ..ops.attention_pallas import BACKENDS as ATTN_BACKENDS
+from ..ops.attention_pallas import linear_attention_middle
 from ..ops.conv import BACKENDS, conv2d_same
 from ..ops.flash_attention import attention_middle
 
@@ -171,14 +173,37 @@ class ResnetBlock(nn.Module):
         return h + x
 
 
-class _LinearAttention(nn.Module):
-    """Parameter holder of the reference LinearAttention (to_qkv, to_out)."""
+class LinearAttention(nn.Module):
+    """O(N) kernel-feature attention (JAX ``LinearAttention``): qkv 1x1 (no
+    bias), the middle (``ops/attention_pallas.py``), out 1x1 with bias,
+    ChanLayerNorm.  ``attn_backend`` is JAX's ``OFD_ATTN_BACKEND``:
+    ``composition`` (its ``xla``, the default) or ``kernels`` (its
+    ``pallas``: the two CUDA kernels on the card, which take heads * dim_head
+    = 128 and raise otherwise).  No model of the repo builds it unwrapped:
+    the UNet runs ``PreNormResidual(LinearAttention)`` as the fused
+    :class:`LinearAttentionBlock`."""
 
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32, dtype=torch.float32,
+                 attn_backend: str = "composition"):
         super().__init__()
-        self.to_qkv = nn.Module()
-        self.to_qkv.weight = nn.Parameter(torch.empty(hidden * 3, dim, 1, 1))
-        self.to_out = nn.Sequential(Conv(hidden, dim, 1), ChanLayerNorm(dim))
+        if attn_backend not in ATTN_BACKENDS:
+            raise ValueError(f"attn_backend {attn_backend!r} is not one of {ATTN_BACKENDS}")
+        self.heads, self.dim_head = heads, dim_head
+        self.dtype = dtype
+        self.attn_backend = attn_backend
+        hidden = heads * dim_head
+        self.to_qkv = Conv(dim, hidden * 3, 1, bias=False, dtype=dtype)
+        self.to_out = nn.Sequential(Conv(hidden, dim, 1, dtype=dtype), ChanLayerNorm(dim, dtype))
+
+    def forward(self, x):
+        B, C, H, W = x.shape
+        hidden = self.heads * self.dim_head
+        qkv = self.to_qkv(x).reshape(B, 3 * hidden, H * W)
+        # (B, N, 3 hidden) view of the conv's layout, the one the kernels read
+        out = linear_attention_middle(qkv.transpose(1, 2), self.heads, self.dim_head,
+                                      self.attn_backend)
+        out = out.transpose(1, 2).reshape(B, hidden, H, W).to(self.dtype)
+        return self.to_out(out)
 
 
 class _PreNorm(nn.Module):
@@ -199,7 +224,7 @@ class LinearAttentionBlock(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.heads, self.dim_head = heads, dim_head
-        self.fn = _PreNorm(dim, _LinearAttention(dim, heads * dim_head), dtype)
+        self.fn = _PreNorm(dim, LinearAttention(dim, heads, dim_head, dtype), dtype)
 
     def forward(self, x):
         B, C, H, W = x.shape
@@ -375,6 +400,6 @@ def init_weights(model: nn.Module, generator: torch.Generator,
 
 __all__ = [
     "Unet", "Conv", "WSConv", "ChanLayerNorm", "GroupNorm", "Block", "ResnetBlock",
-    "LinearAttentionBlock", "Attention", "PreNormResidual", "Downsample",
+    "LinearAttention", "LinearAttentionBlock", "Attention", "PreNormResidual", "Downsample",
     "Upsample", "sinusoidal_pos_emb", "init_weights",
 ]

@@ -6,16 +6,18 @@ on ``x`` of shape (B, C, N), the flattened NCHW map.  Weights are in the
 torch layout: ``w_qkv`` (3*heads*dim, C), ``w_out`` (C, heads*dim).
 
 * :func:`block_plain` is the plain-PyTorch composition, the counterpart of
-  JAX's ``_block_xla`` (with ``_ln32`` and
-  ``attention_pallas.py::_linear_attention_middle_xla``): operands in the
-  compute dtype, LayerNorms and softmaxes in float32.
+  JAX's ``_block_xla`` (with ``_ln32`` and the middle of
+  ``ops/attention_pallas.py``, imported here as ``linear_attention_middle``
+  as JAX's module does): operands in the compute dtype, LayerNorms and
+  softmaxes in float32.
 * :func:`fused_linear_attention_block` runs the two CUDA kernels of
   ``kernels/linear_attention.cu`` (context pass, output pass) on a CUDA
   tensor.  When a gradient is asked for it does so inside a
   ``torch.autograd.Function`` that saves ``(ctx, m, s)`` and whose backward
   runs the three backward kernels (pass B', A'1, A'2) when N >= 1024, and
   below that autograd of :func:`block_plain` recomputed (JAX's
-  ``_fwd``/``_bwd`` dispatch).  On a CPU tensor it is :func:`block_plain`.
+  ``_fwd``/``_bwd`` dispatch; the backward kernels take C <= 512, the
+  widest block of the flagship).  On a CPU tensor it is :func:`block_plain`.
   There is no other switch and no fallback: a kernel that cannot be built
   or launched raises.  Like the TPU kernels, the CUDA kernels use bf16
   matmul operands with float32 accumulation even when ``x`` is float32.
@@ -32,6 +34,8 @@ import ctypes
 import torch
 
 from ..kernels import LA_BWD_KV1, LA_BWD_KV2, LA_BWD_Q, LA_CTX, LA_OUT
+from .attention_pallas import ctx_partitions
+from .attention_pallas import linear_attention_middle_plain as linear_attention_middle
 
 EPS = 1e-5
 HEAD_DIM = 32
@@ -53,21 +57,6 @@ def _ln_fwd(xt):
 def ln32(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Bias-free LayerNorm over the last axis, in float32 (JAX ``_ln32``)."""
     return _ln_fwd(x)[0] * g
-
-
-def linear_attention_middle(qkv: torch.Tensor, heads: int, dim: int) -> torch.Tensor:
-    """softmax/context/out middle on packed qkv (B, N, 3*heads*dim) (JAX
-    ``_linear_attention_middle_xla``)."""
-    B, N, _ = qkv.shape
-    qkv = qkv.view(B, N, 3, heads, dim)
-    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-    q = torch.softmax(q.float(), dim=-1).to(qkv.dtype)
-    k = torch.softmax(k.float(), dim=1).to(qkv.dtype)
-    q = q * dim ** -0.5
-    v = v / N
-    ctx = torch.einsum("bnhd,bnhe->bhde", k, v)
-    out = torch.einsum("bhde,bnhd->bnhe", ctx, q)
-    return out.reshape(B, N, heads * dim)
 
 
 def block_plain(x, g_pre, w_qkv, w_out, b_out, g_post, heads: int = 4,
@@ -248,6 +237,8 @@ def _check_x(x):
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError("x must be a contiguous (B, C, N) tensor")
     B, C, N = x.shape
+    # 512: the flagship's widest block, and what the backward passes'
+    # shared-memory tiles hold (kernels/linear_attention.cu, "Width")
     if C % 16 or not 16 <= C <= 512 or N < 1:
         raise ValueError(f"the kernels take 16 <= C <= 512 with C % 16 == 0 "
                          f"and N >= 1, got C={C}, N={N}")
@@ -260,11 +251,6 @@ def _raise_on(lib, err, what):
         raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
 
 
-def _ctx_partitions(B: int, ntiles: int, device) -> int:
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(ntiles, -(-2 * sms // B)))
-
-
 def linear_attention_ctx(x, g_pre, w_kv):
     """Context pass: ctx (B, 4, 32, 32), m and s (B, 128), all float32.
 
@@ -273,7 +259,7 @@ def linear_attention_ctx(x, g_pre, w_kv):
     dev = x.device
     _check("g_pre", g_pre, (C,), torch.float32, dev)
     _check("w_kv", w_kv, (2 * HIDDEN, C), torch.bfloat16, dev)
-    P = _ctx_partitions(B, -(-N // 32), dev)
+    P = ctx_partitions(B, -(-N // 32), dev)
     part = torch.empty(B, P, 2 * HIDDEN + HIDDEN * HEAD_DIM, device=dev)
     counter = torch.zeros(B, dtype=torch.int32, device=dev)
     ctx = torch.empty(B, HIDDEN // HEAD_DIM, HEAD_DIM, HEAD_DIM, device=dev)
@@ -315,21 +301,11 @@ def linear_attention_out(x, g_pre, w_q, ctx, w_out, b_out, g_post):
     return y
 
 
-MAX_BWD_C = 256  # the backward kernels' shared-memory tiles hold C <= 256
-
-
 def _bwd_partitions(B: int, ntiles: int, device) -> int:
     """CTAs per batch element for the backward passes: one wave over the SMs
     (a CTA fills an SM's shared memory)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(ntiles, sms // B))
-
-
-def _check_bwd_x(x):
-    B, C, N = _check_x(x)
-    if C > MAX_BWD_C:
-        raise ValueError(f"the backward kernels take C <= {MAX_BWD_C}, got C={C}")
-    return B, C, N
 
 
 def _part(lib, which, B, P, C, device):
@@ -339,7 +315,7 @@ def _part(lib, which, B, P, C, device):
 def linear_attention_bwd_q(x, dy, g_pre, w_q, ctx, w_out, b_out, g_post):
     """Pass B' kernel: (dxq, dctx, dW_q, dW_out, db_out, dg_pre, dg_post) as
     :func:`bwd_q_plain`.  ``w_q`` (128, C) and ``w_out`` (C, 128) in bf16."""
-    B, C, N = _check_bwd_x(x)
+    B, C, N = _check_x(x)
     dev = x.device
     _check("dy", dy, (B, C, N), x.dtype, dev)
     _check("g_pre", g_pre, (C,), torch.float32, dev)
@@ -370,7 +346,7 @@ def linear_attention_bwd_q(x, dy, g_pre, w_q, ctx, w_out, b_out, g_post):
 
 def linear_attention_bwd_kv1(x, g_pre, w_kv, m, s, dctx):
     """Pass A'1 kernel: sdot (B, 128) as :func:`bwd_kv1_plain`."""
-    B, C, N = _check_bwd_x(x)
+    B, C, N = _check_x(x)
     dev = x.device
     _check("g_pre", g_pre, (C,), torch.float32, dev)
     _check("w_kv", w_kv, (2 * HIDDEN, C), torch.bfloat16, dev)
@@ -394,7 +370,7 @@ def linear_attention_bwd_kv1(x, g_pre, w_kv, m, s, dctx):
 def linear_attention_bwd_kv2(x, g_pre, w_kv, m, s, dctx, sdot, dxq):
     """Pass A'2 kernel: (dx = dxq + dx_kv, dW_kv (256, C), dg_pre) as
     :func:`bwd_kv2_plain`."""
-    B, C, N = _check_bwd_x(x)
+    B, C, N = _check_x(x)
     dev = x.device
     _check("g_pre", g_pre, (C,), torch.float32, dev)
     _check("w_kv", w_kv, (2 * HIDDEN, C), torch.bfloat16, dev)
@@ -454,8 +430,6 @@ class _FusedBlock(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, g_pre, w_qkv, w_out, b_out, g_post):
         fused_bwd = x.shape[2] >= BWD_MIN_N
-        if fused_bwd and x.shape[1] > MAX_BWD_C:
-            raise ValueError(f"the backward kernels take C <= {MAX_BWD_C}, got C={x.shape[1]}")
         y, c, m, s = _forward(x, g_pre, w_qkv, w_out, b_out, g_post)
         saved = (c, m, s) if fused_bwd else ()
         ctx.save_for_backward(x, g_pre, w_qkv, w_out, b_out, g_post, *saved)
@@ -464,9 +438,12 @@ class _FusedBlock(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        x, *params = ctx.saved_tensors[:6]
+        # one read of saved_tensors: under torch.utils.checkpoint (remat) a
+        # second read is refused
+        x, *params = ctx.saved_tensors
+        params, stats = params[:5], params[5:]
         if ctx.fused_bwd:
-            grads = fused_block_bwd(x, dy, *params, *ctx.saved_tensors[6:])
+            grads = fused_block_bwd(x, dy, *params, *stats)
             return tuple(g.to(t.dtype) for g, t in zip(grads, (x, *params)))
         inputs = [t.detach().requires_grad_() for t in (x, *params)]
         with torch.enable_grad():
@@ -479,8 +456,9 @@ def fused_linear_attention_block(x, g_pre, w_qkv, w_out, b_out, g_post,
     """y = x + postLN(W_out @ middle(W_qkv @ preLN(x)) + b) on x (B, C, N).
 
     CUDA tensors go through the forward kernels, and when a gradient is
-    asked for through the backward ones too (at N >= 1024 they take C <=
-    256 and refuse a wider block); CPU tensors through :func:`block_plain`."""
+    asked for at N >= 1024 through the backward ones too (all of them take
+    16 <= C <= 512, C % 16 == 0, and refuse any other C); CPU tensors
+    through :func:`block_plain`."""
     if x.device.type == "cpu":
         return block_plain(x, g_pre, w_qkv, w_out, b_out, g_post, heads, dim)
     if heads * dim != HIDDEN or dim != HEAD_DIM:

@@ -1,0 +1,217 @@
+"""The unfused linear-attention middle (JAX ``ops/attention_pallas.py``).
+
+On packed qkv (B, N, 3 * heads * dim) (channel s * heads * dim + h * dim +
+d), per head:
+
+    q' = softmax_d(q) * dim^-0.5,  k' = softmax_N(k),
+    ctx = sum_n k'[n] (x) v[n] / N,  out[n] = ctx^T q'[n]   -> (B, N, heads * dim)
+
+* :func:`linear_attention_middle_plain` is the composition, the counterpart
+  of JAX's ``_linear_attention_middle_xla``: softmaxes in float32, their
+  results and the einsums in qkv's dtype.
+* :func:`middle_ctx_plain` and :func:`middle_out_plain` are the plain
+  versions of the two kernels, with the TPU kernels' numerics: float32
+  softmaxes, sums and products on qkv's values, the context per head, ctx /
+  N folded into the second pass, the output rounded once to qkv's dtype.
+* :func:`middle_ctx` and :func:`middle_out` launch the CUDA kernels of
+  ``kernels/linear_attention.cu`` (``la_mid_ctx_kernel``,
+  ``la_mid_out_kernel``; heads * dim = 4 * 32, bf16 or f32) on a CUDA
+  tensor and run the plain versions on a CPU tensor.
+* :func:`linear_attention_middle` is the middle with JAX's two settings of
+  ``OFD_ATTN_BACKEND``: ``backend="composition"`` (JAX's ``xla``, the
+  default) or ``"kernels"`` (JAX's ``pallas``), an autograd Function whose
+  forward is the two kernels and whose backward is autograd of the
+  composition, recomputed from the saved qkv (JAX's ``_fwd``/``_bwd``).
+
+Layout: the kernels read qkv as (B, 3 * 128, N) with N fastest, which is how
+the 1x1 conv ``to_qkv`` lays it out; the public functions take JAX's (B, N,
+3 * 128), so the module passes a transposed view and nothing is copied.  A
+tensor in another layout is copied into it first.  ``middle_out`` returns a
+(B, N, 128) view of a contiguous (B, 128, N) tensor, which the module's
+``to_out`` reads as NCHW with no copy.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..kernels import LA_MID_CTX, LA_MID_OUT
+
+HEAD_DIM = 32
+HIDDEN = 128  # heads * dim, the only width the kernels take
+HEADS = HIDDEN // HEAD_DIM
+PART = 2 * HIDDEN + HEADS * HEAD_DIM * HEAD_DIM  # one partial of a context pass: m, s, ctx
+BACKENDS = ("composition", "kernels")
+
+
+def linear_attention_middle_plain(qkv: torch.Tensor, heads: int, dim: int) -> torch.Tensor:
+    """The composition (JAX ``_linear_attention_middle_xla``), (B, N, heads * dim)."""
+    B, N, _ = qkv.shape
+    qkv = qkv.reshape(B, N, 3, heads, dim)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    q = torch.softmax(q.float(), dim=-1).to(qkv.dtype)
+    k = torch.softmax(k.float(), dim=1).to(qkv.dtype)
+    q = q * dim ** -0.5
+    v = v / N
+    ctx = torch.einsum("bnhd,bnhe->bhde", k, v)
+    out = torch.einsum("bhde,bnhd->bnhe", ctx, q)
+    return out.reshape(B, N, heads * dim)
+
+
+def middle_ctx_plain(qkv: torch.Tensor, heads: int = HEADS, dim: int = HEAD_DIM) -> torch.Tensor:
+    """Plain version of pass A (JAX ``_ctx_kernel``): ctx (B, heads, dim,
+    dim) = sum_n exp(k - m) (x) v / s per channel, float32."""
+    B, N, _ = qkv.shape
+    hd = heads * dim
+    k = qkv[..., hd:2 * hd].float()
+    v = qkv[..., 2 * hd:].float().reshape(B, N, heads, dim)
+    e = torch.exp(k - k.amax(dim=1, keepdim=True))
+    s = e.sum(dim=1).reshape(B, heads, dim, 1)
+    return torch.einsum("bnhd,bnhe->bhde", e.reshape(B, N, heads, dim), v) / s
+
+
+def middle_out_plain(qkv: torch.Tensor, ctx: torch.Tensor, heads: int = HEADS,
+                     dim: int = HEAD_DIM) -> torch.Tensor:
+    """Plain version of pass B (JAX ``_out_kernel``): softmax_d(q) * dim^-0.5
+    times ctx / N, float32, rounded once to qkv's dtype, (B, N, heads * dim)."""
+    B, N, _ = qkv.shape
+    q = qkv[..., :heads * dim].float().reshape(B, N, heads, dim)
+    qp = torch.softmax(q, dim=-1) * dim ** -0.5
+    out = torch.einsum("bnhd,bhde->bnhe", qp, ctx / N)
+    return out.reshape(B, N, heads * dim).to(qkv.dtype)
+
+
+# ------------------------------------------------------------ CUDA kernels
+def _lib():
+    from ..kernels import build
+
+    lib = build.load("linear_attention")
+    if not getattr(lib, "_ofd_mid_typed", False):
+        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.ofd_la_mid_ctx.argtypes = [vp, i, ll, vp, vp, vp, i, i, i, i, vp]
+        lib.ofd_la_mid_ctx.restype = i
+        lib.ofd_la_mid_out.argtypes = [vp, i, ll, vp, vp, i, i, i, vp]
+        lib.ofd_la_mid_out.restype = i
+        lib.ofd_cuda_error_string.argtypes = [i]
+        lib.ofd_cuda_error_string.restype = ctypes.c_char_p
+        lib._ofd_mid_typed = True
+    return lib
+
+
+def ctx_partitions(B: int, ntiles: int, device) -> int:
+    """CTAs per batch element of a context pass: two waves over the SMs."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(ntiles, -(-2 * sms // B)))
+
+
+def _channels_first(qkv: torch.Tensor, heads: int, dim: int) -> torch.Tensor:
+    """Checks a CUDA qkv (B, N, 3 * 128) and returns it as a (B, 384, N) view
+    whose last two axes are contiguous (a copy only if it is not so)."""
+    if not qkv.is_cuda:
+        raise ValueError(f"the middle kernels take CUDA tensors, qkv is on {qkv.device}")
+    if heads * dim != HIDDEN or dim != HEAD_DIM:
+        raise ValueError(f"the middle kernels take {HEADS} heads of {HEAD_DIM}, "
+                         f"got {heads} of {dim}")
+    if qkv.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"qkv must be bfloat16 or float32, got {qkv.dtype}")
+    if qkv.dim() != 3 or qkv.shape[2] != 3 * HIDDEN or qkv.shape[0] < 1 or qkv.shape[1] < 1:
+        raise ValueError(f"qkv must be (B, N, {3 * HIDDEN}) with B, N >= 1, "
+                         f"got {tuple(qkv.shape)}")
+    u = qkv.transpose(1, 2)
+    if u.stride()[1:] != (u.shape[2], 1):
+        u = u.contiguous()
+    return u
+
+
+def _raise_on(lib, err, what):
+    if err != 0:
+        msg = lib.ofd_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
+
+
+def middle_ctx(qkv: torch.Tensor, heads: int = HEADS, dim: int = HEAD_DIM) -> torch.Tensor:
+    """Pass A: ctx (B, heads, dim, dim) float32; the kernel on a CUDA tensor,
+    :func:`middle_ctx_plain` on a CPU one."""
+    if qkv.device.type == "cpu":
+        return middle_ctx_plain(qkv, heads, dim)
+    u = _channels_first(qkv, heads, dim)
+    B, _, N = u.shape
+    dev = u.device
+    P = ctx_partitions(B, -(-N // 32), dev)
+    part = torch.empty(B, P, PART, device=dev)
+    counter = torch.zeros(B, dtype=torch.int32, device=dev)
+    ctx = torch.empty(B, HEADS, HEAD_DIM, HEAD_DIM, device=dev)
+    lib = _lib()
+    err = lib.ofd_la_mid_ctx(
+        u.data_ptr(), int(u.dtype == torch.bfloat16), u.stride(0), part.data_ptr(),
+        counter.data_ptr(), ctx.data_ptr(), B, N, P, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(lib, err, LA_MID_CTX.name)
+    LA_MID_CTX.launches += 1
+    return ctx
+
+
+def middle_out(qkv: torch.Tensor, ctx: torch.Tensor, heads: int = HEADS,
+               dim: int = HEAD_DIM) -> torch.Tensor:
+    """Pass B: (B, N, heads * dim) in qkv's dtype; the kernel on a CUDA
+    tensor (a view of a contiguous (B, 128, N) tensor), :func:`middle_out_plain`
+    on a CPU one."""
+    if qkv.device.type == "cpu":
+        return middle_out_plain(qkv, ctx, heads, dim)
+    u = _channels_first(qkv, heads, dim)
+    B, _, N = u.shape
+    want = (B, HEADS, HEAD_DIM, HEAD_DIM)
+    if (ctx.device != u.device or ctx.dtype != torch.float32 or tuple(ctx.shape) != want
+            or not ctx.is_contiguous()):
+        raise ValueError(f"ctx must be a contiguous float32 {want} tensor on {u.device}, got "
+                         f"{ctx.dtype} {tuple(ctx.shape)} on {ctx.device}")
+    out = torch.empty(B, HIDDEN, N, device=u.device, dtype=u.dtype)
+    lib = _lib()
+    err = lib.ofd_la_mid_out(
+        u.data_ptr(), int(u.dtype == torch.bfloat16), u.stride(0), ctx.data_ptr(),
+        out.data_ptr(), B, N, u.device.index, torch.cuda.current_stream(u.device).cuda_stream,
+    )
+    _raise_on(lib, err, LA_MID_OUT.name)
+    LA_MID_OUT.launches += 1
+    return out.transpose(1, 2)
+
+
+class _Middle(torch.autograd.Function):
+    """The two passes forward; autograd of the composition, recomputed from
+    the saved qkv, backward (JAX has no backward kernel here)."""
+
+    @staticmethod
+    def forward(ctx, qkv, heads, dim):
+        ctx.save_for_backward(qkv)
+        ctx.heads, ctx.dim = heads, dim
+        return middle_out(qkv, middle_ctx(qkv, heads, dim), heads, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        (qkv,) = ctx.saved_tensors
+        leaf = qkv.detach().requires_grad_()
+        with torch.enable_grad():
+            out = linear_attention_middle_plain(leaf, ctx.heads, ctx.dim)
+        (d,) = torch.autograd.grad(out, leaf, g)
+        return d, None, None
+
+
+def linear_attention_middle(qkv: torch.Tensor, heads: int = HEADS, dim: int = HEAD_DIM,
+                            backend: str = "composition") -> torch.Tensor:
+    """The middle on qkv (B, N, 3 * heads * dim): the composition, or with
+    ``backend="kernels"`` the two passes (kernels on a CUDA tensor, which
+    take heads * dim = 128 and raise otherwise; plain versions on a CPU one)
+    with the composition's gradient."""
+    if backend == "composition":
+        return linear_attention_middle_plain(qkv, heads, dim)
+    if backend != "kernels":
+        raise ValueError(f"backend {backend!r} is not one of {BACKENDS}")
+    return _Middle.apply(qkv, heads, dim)
+
+
+__all__ = ["BACKENDS", "ctx_partitions", "linear_attention_middle",
+           "linear_attention_middle_plain", "middle_ctx", "middle_ctx_plain", "middle_out",
+           "middle_out_plain"]

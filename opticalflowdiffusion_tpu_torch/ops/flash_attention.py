@@ -13,7 +13,12 @@
   ``kernels/flash_attention.cu`` (d = 32, bf16 or f32).
 * :func:`attention_middle` dispatches as the JAX package does
   (``_use_flash``): the kernel for a CUDA tensor with N >= 2048, the
-  composition otherwise (and always on the CPU).
+  composition otherwise (and always on the CPU).  On the kernel path it is
+  an autograd Function whose backward is autograd of the composition,
+  recomputed from the saved q, k, v (JAX's ``_fwd``/``_bwd``; JAX has no
+  backward kernel for flash).  That backward holds the (B, heads, N, N)
+  float32 scores, 1.6 GB at the native b2 bottleneck (N 7168), and their
+  softmax beside them.
 
 Layout: the kernel reads q, k and v as (B, heads, d, N) with N fastest,
 which is how the UNet's ``to_qkv`` output lies, (B, 3, heads, d, N): k and v
@@ -137,14 +142,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     return out.permute(0, 3, 1, 2)
 
 
+class _FlashMiddle(torch.autograd.Function):
+    """The flash kernel forward; autograd of the composition, recomputed
+    from the saved q, k, v, backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return flash_attention(q, k, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = attention_middle_plain(*leaves)
+        return torch.autograd.grad(out, leaves, g)
+
+
 def attention_middle(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """softmax(q k^T) v over (B, N, heads, d), q pre-scaled by d^-0.5: the
-    flash kernel for a CUDA tensor with N >= ``FLASH_MIN_N``, the composition
-    otherwise.  Forward only: a gradient request on the kernel path raises."""
+    flash kernel for a CUDA tensor with N >= ``FLASH_MIN_N`` (with the
+    composition's gradient), the composition otherwise."""
     if q.is_cuda and q.shape[1] >= FLASH_MIN_N:
-        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-            raise RuntimeError("the flash kernel is forward only; run under torch.no_grad()")
-        return flash_attention(q, k, v)
+        return _FlashMiddle.apply(q, k, v)
     return attention_middle_plain(q, k, v)
 
 

@@ -1,7 +1,8 @@
 """Where the time of one UNet eval, or one train step, of the flagship goes on the card.
 
     python -m opticalflowdiffusion_tpu_torch.profile_step [--steps 10] [--seed 0] \
-        [--batch 8] [--height 128 --width 128] [--train] [--conv-backend {cudnn,rows,fold}]
+        [--batch 8] [--height 128 --width 128] [--train [--remat]] \
+        [--conv-backend {cudnn,rows,fold}]
 
 Builds the flagship as ``sample.py`` does (bf16, weights from ``--seed``) on
 a batch of ``--batch`` at ``--height`` x ``--width`` (default 128x128 b8;
@@ -10,7 +11,9 @@ host clock around synchronised runs, then traces the same evals with
 ``torch.profiler``.  With ``--train`` the unit is one train step instead
 (augment, pyramid loss, backward, clip, Adam; default batch 16, on a
 standard-normal batch from numpy seed ``--seed`` as the JAX ``bench.py``
-train row).  Prints one JSON line: wall ms per unit, device-busy ms per
+train row; ``--remat`` recomputes the UnetWithWarp closure in the backward,
+as the native row ``--train --batch 2 --height 448 --width 1024 --remat``
+does).  Prints one JSON line: wall ms per unit, device-busy ms per
 unit (the union of the traced kernels' intervals), the device's idle
 share, the kernel count per unit, kernel time per unit grouped by kind,
 and the slowest kernels.  ``--conv-backend`` lowers the UNet's convs
@@ -127,11 +130,11 @@ def run(steps: int, seed: int, batch: int = 8, height: int = 128, width: int = 1
 
 
 def run_train(steps: int, seed: int, batch: int = 16, height: int = 128,
-              width: int = 128, conv_backend: str = "cudnn") -> dict:
+              width: int = 128, conv_backend: str = "cudnn", remat: bool = False) -> dict:
     """The profile of ``steps`` train steps (the flagship's optimizer)."""
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step needs a CUDA device")
-    algo, _ = build(seed, "cuda", conv_backend=conv_backend)
+    algo, _ = build(seed, "cuda", conv_backend=conv_backend, remat=remat)
     cfg = algo.cfg
     state = TrainState(algo.module, make_optimizer(algo.module.parameters(), cfg.lr,
                                                    cfg.weight_decay, MATRIX_FLOW.clipping))
@@ -147,9 +150,11 @@ def run_train(steps: int, seed: int, batch: int = 16, height: int = 128,
             step(state, data, gen)
         torch.cuda.synchronize()
 
+    torch.cuda.reset_peak_memory_stats()
     out = _profile(train_steps, steps, "step")
     return {"batch": batch, "height": height, "width": width, "conv_backend": conv_backend,
-            "train_samples_per_s": batch * 1e3 / out["wall_ms_per_step"], **out}
+            "remat": remat, "train_samples_per_s": batch * 1e3 / out["wall_ms_per_step"],
+            "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9, **out}
 
 
 def main(argv=None) -> None:
@@ -161,10 +166,14 @@ def main(argv=None) -> None:
     ap.add_argument("--width", type=int, default=128)
     ap.add_argument("--train", action="store_true", help="profile train steps")
     ap.add_argument("--conv-backend", choices=BACKENDS, default="cudnn")
+    ap.add_argument("--remat", action="store_true",
+                    help="with --train: recompute the UnetWithWarp closure in the backward")
     args = ap.parse_args(argv)
+    if args.remat and not args.train:
+        ap.error("--remat needs --train")
     if args.train:
         out = run_train(args.steps, args.seed, args.batch or MATRIX_FLOW.batch_size,
-                        args.height, args.width, args.conv_backend)
+                        args.height, args.width, args.conv_backend, args.remat)
     else:
         out = run(args.steps, args.seed, args.batch or 8, args.height, args.width,
                   args.conv_backend)

@@ -36,11 +36,13 @@ SAMPLERS = ("auto", "ddim", "ancestral", "dpmpp")
 
 
 def build(seed: int, device: str, sampling_timesteps=None, image_size=None,
-          unet_dim=None, sampler: str = "auto", conv_backend: str = "cudnn"):
-    """(FlowDiffuser, ArtificialDataset) of the flagship, weights from ``seed``."""
+          unet_dim=None, sampler: str = "auto", conv_backend: str = "cudnn",
+          remat: bool = False):
+    """(FlowDiffuser, ArtificialDataset) of the flagship, weights from ``seed``
+    (``remat`` for training it)."""
     cfg = dataclasses.replace(FLAGSHIP, zero_init=False,
                               sampling_timesteps=sampling_timesteps, sampler=sampler,
-                              conv_backend=conv_backend)
+                              conv_backend=conv_backend, remat=remat)
     data_cfg = FLAGSHIP_DATA
     if image_size is not None:
         cfg = dataclasses.replace(cfg, image_size=image_size)

@@ -4,7 +4,7 @@
         [--image-size 128] [--unet-dim 64] [--seed 0] [--device cuda] \\
         [--out outputs/train] [--resume] [--check-interval N] \\
         [--ckpt-every N] [--val-batch 8] [--sampling-timesteps S] \\
-        [--conv-backend {cudnn,rows,fold}]
+        [--conv-backend {cudnn,rows,fold}] [--remat]
 
 The counterpart of ``main.py experiment=matrix_flow algorithm=flow_diffuser
 dataset=artificial``: the flagship (UNet width 64, dim_mults (1, 2, 4, 8),
@@ -17,7 +17,9 @@ checkpoints every ``--ckpt-every`` steps and at the last one under
 ``--resume`` it continues from the newest checkpoint under ``--out``.
 Validation samples with the flagship's 1000-step ancestral loop unless
 ``--sampling-timesteps`` asks for DDIM.  ``--conv-backend`` lowers the UNet's
-convs (``ops/conv.py``; default cudnn).  Prints one JSON line with the last
+convs (``ops/conv.py``; default cudnn).  ``--remat`` recomputes the
+UnetWithWarp closure in the backward (JAX's ``runtime.remat=true``, which the
+native 448x1024 training row sets).  Prints one JSON line with the last
 train and validation metrics and the samples per second of the run
 (validation and checkpoint writes included).
 """
@@ -40,10 +42,10 @@ def build(steps: int, batch: int = MATRIX_FLOW.batch_size, image_size=None, unet
           seed: int = 0, device: str = "cuda", out: str = "outputs/train",
           check_interval=None, ckpt_every=None, val_batch=None,
           sampling_timesteps=None, log_every=None,
-          conv_backend: str = "cudnn") -> MatrixFlowExperiment:
+          conv_backend: str = "cudnn", remat: bool = False) -> MatrixFlowExperiment:
     """The experiment of one run, not yet trained."""
     algo = dataclasses.replace(FLAGSHIP, sampling_timesteps=sampling_timesteps,
-                               conv_backend=conv_backend)
+                               conv_backend=conv_backend, remat=remat)
     data = FLAGSHIP_DATA
     if image_size is not None:
         algo = dataclasses.replace(algo, image_size=image_size)
@@ -74,6 +76,7 @@ def run(steps: int, resume: bool = False, **kwargs) -> dict:
         "image_size": exp.algo_cfg.image_size,
         "unet_dim": exp.algo_cfg.unet_dim,
         "conv_backend": exp.algo_cfg.conv_backend,
+        "remat": exp.algo_cfg.remat,
         "start_step": start,
         "step": exp.state.step,
         "checkpoints": exp.ckpt.steps(),
@@ -100,12 +103,14 @@ def main(argv=None) -> None:
     ap.add_argument("--val-batch", type=int, default=None)
     ap.add_argument("--sampling-timesteps", type=int, default=None)
     ap.add_argument("--conv-backend", choices=BACKENDS, default="cudnn")
+    ap.add_argument("--remat", action="store_true",
+                    help="recompute the UnetWithWarp closure in the backward")
     a = ap.parse_args(argv)
     print(json.dumps(run(a.steps, a.resume, batch=a.batch, image_size=a.image_size,
                          unet_dim=a.unet_dim, seed=a.seed, device=a.device, out=a.out,
                          check_interval=a.check_interval, ckpt_every=a.ckpt_every,
                          val_batch=a.val_batch, sampling_timesteps=a.sampling_timesteps,
-                         conv_backend=a.conv_backend)))
+                         conv_backend=a.conv_backend, remat=a.remat)))
 
 
 if __name__ == "__main__":

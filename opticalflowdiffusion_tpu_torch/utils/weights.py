@@ -9,7 +9,9 @@ Downsample 1x1 conv's input channels go from the JAX order (dy, dx, c) back
 to the pixel-unshuffle order (c, dy, dx).  Every leaf maps to one key by a
 pure re-layout, so the same table maps gradients, and :func:`jax_layout`
 takes a port state_dict (or its gradients) back to the JAX tree, leaf by
-leaf.
+leaf.  The same holds for the unfused ``LinearAttention`` and
+``PreNormResidual(LinearAttention)`` on their own
+(:func:`linear_attention_rows`, :func:`from_jax`, :func:`to_jax`).
 """
 
 from __future__ import annotations
@@ -135,20 +137,58 @@ def _table(params: Tree, dim_mults: Sequence[int]) -> List[Row]:
     return rows
 
 
+def linear_attention_rows(prenorm: bool = False) -> List[Row]:
+    """Rows of the JAX ``LinearAttention`` (``Conv_0`` the qkv 1x1 without
+    bias, ``Conv_1`` the out 1x1, ``ChanLayerNorm_0``) against the port's
+    ``to_qkv``, ``to_out.0``, ``to_out.1``; with ``prenorm`` those of
+    ``PreNormResidual(LinearAttention)``: the inner module's under ``inner``
+    and ``fn.fn.``, the pre-norm gain ``ChanLayerNorm_0.g`` as ``fn.norm.g``."""
+    path, key = (("inner",), "fn.fn.") if prenorm else ((), "")
+    rows = [
+        (path + ("Conv_0", "kernel"), key + "to_qkv.weight", "conv"),
+        (path + ("Conv_1", "kernel"), key + "to_out.0.weight", "conv"),
+        (path + ("Conv_1", "bias"), key + "to_out.0.bias", "vec"),
+        (path + ("ChanLayerNorm_0", "g"), key + "to_out.1.g", "gain"),
+    ]
+    if prenorm:
+        rows.append((("ChanLayerNorm_0", "g"), "fn.norm.g", "gain"))
+    return rows
+
+
 def _get(tree: Tree, path: Tuple[str, ...]):
     for k in path:
         tree = tree[k]
     return tree
 
 
+def from_jax(params: Tree, rows: Sequence[Row], prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The state_dict that ``rows`` map the JAX tree ``params`` to."""
+    return {
+        prefix + key: torch.from_numpy(np.array(
+            _to_port(kind, np.asarray(_get(params, path), np.float32)), order="C"))
+        for path, key, kind in rows
+    }
+
+
+def to_jax(sd: Mapping[str, torch.Tensor], template: Tree, rows: Sequence[Row],
+           prefix: str = "") -> Dict:
+    """The JAX tree of ``template`` (names and shapes) holding the values of
+    the state_dict ``sd`` (parameters or their gradients) that ``rows`` map,
+    as float32 numpy arrays."""
+    out: Dict = {}
+    for path, key, kind in rows:
+        a = sd[prefix + key].detach().float().cpu().numpy()
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = _to_jax(kind, a, np.shape(_get(template, path)))
+    return out
+
+
 def params_from_jax(params: Tree, prefix: str = "",
                     dim_mults: Sequence[int] = (1, 2, 4, 8)) -> Dict[str, torch.Tensor]:
     """State_dict of ``models/unet.py::Unet`` from the JAX ``Unet`` params."""
-    return {
-        prefix + key: torch.from_numpy(np.ascontiguousarray(
-            _to_port(kind, np.asarray(_get(params, path), np.float32))))
-        for path, key, kind in _table(params, dim_mults)
-    }
+    return from_jax(params, _table(params, dim_mults), prefix)
 
 
 def flow_diffuser_state_dict(params: Tree) -> Dict[str, torch.Tensor]:
@@ -162,14 +202,8 @@ def jax_layout(sd: Mapping[str, torch.Tensor], template: Tree, prefix: str = "mo
     """The JAX ``Unet`` tree of ``template`` (names and shapes) holding the
     values of the port state_dict ``sd`` (parameters or their gradients),
     as float32 numpy arrays."""
-    out: Dict = {}
-    for path, key, kind in _table(template, dim_mults):
-        a = sd[prefix + key].detach().float().cpu().numpy()
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = _to_jax(kind, a, np.shape(_get(template, path)))
-    return out
+    return to_jax(sd, template, _table(template, dim_mults), prefix)
 
 
-__all__ = ["flow_diffuser_state_dict", "jax_layout", "params_from_jax"]
+__all__ = ["flow_diffuser_state_dict", "from_jax", "jax_layout", "linear_attention_rows",
+           "params_from_jax", "to_jax"]

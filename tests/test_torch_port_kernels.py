@@ -1,6 +1,7 @@
 """The CUDA kernels of the fused linear-attention block (forward and
-backward), of the splat (forward and backward) and of the UNet's convs
-(rows and fold), and their wrappers.
+backward), of the unfused linear-attention middle, of the splat (forward and
+backward) and of the UNet's convs (rows and fold), the flash kernel under
+autograd, and their wrappers.
 
 Imports torch and the port only (no JAX), so that it also runs on the card:
 
@@ -16,7 +17,10 @@ import pytest
 import torch
 
 from opticalflowdiffusion_tpu_torch import kernels
+from opticalflowdiffusion_tpu_torch.models import unet as punet
 from opticalflowdiffusion_tpu_torch.ops import attention_fused as paf
+from opticalflowdiffusion_tpu_torch.ops import attention_pallas as pap
+from opticalflowdiffusion_tpu_torch.ops import flash_attention as pfa
 from opticalflowdiffusion_tpu_torch.ops import conv as pconv
 from opticalflowdiffusion_tpu_torch.ops import splat as psplat_
 
@@ -124,18 +128,22 @@ def test_each_pass_matches_its_plain_version_on_card(cuda_device, dtype):
 
 @pytest.mark.cuda
 def test_kernel_path_refuses_gradients(cuda_device):
-    """A gradient through the kernels at N >= 1024 needs the backward
-    kernels, which take C <= 256: a wider block refuses it when the forward
-    runs; below N = 1024 the backward is the composition's and any C goes."""
-    xt, tp = _inputs(8, 1, 1024, 512)
-    xt = xt.to(cuda_device).requires_grad_()
-    tp = tuple(t.to(cuda_device) for t in tp)
-    with pytest.raises(ValueError):
-        paf.fused_linear_attention_block(xt, *tp)
-    xs, ts = _inputs(8, 1, 64, 512)
-    xs = xs.to(cuda_device).requires_grad_()
-    paf.fused_linear_attention_block(xs, *(t.to(cuda_device) for t in ts)).sum().backward()
-    assert xs.grad is not None and torch.isfinite(xs.grad).all()
+    """What the kernel path still refuses: a block wider than 512 channels
+    or with C % 16 != 0 raises (forward and backward kernels alike); C =
+    512, the flagship's widest block, computes a gradient through the
+    backward kernels at N >= 1024, and through the composition below."""
+    for C in (528, 504):
+        xt, tp = _inputs(8, 1, 1024, C)
+        xt = xt.to(cuda_device).requires_grad_()
+        with pytest.raises(ValueError):
+            paf.fused_linear_attention_block(xt, *(t.to(cuda_device) for t in tp))
+    n0 = kernels.LA_BWD_KV2.launches
+    for N in (1024, 64):
+        xs, ts = _inputs(8, 1, N, 512)
+        xs = xs.to(cuda_device).requires_grad_()
+        paf.fused_linear_attention_block(xs, *(t.to(cuda_device) for t in ts)).sum().backward()
+        assert xs.grad is not None and torch.isfinite(xs.grad).all()
+    assert kernels.LA_BWD_KV2.launches == n0 + 1
 
 
 def _rel(a, b):
@@ -144,7 +152,8 @@ def _rel(a, b):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,N,C", [(2, 1000, 64), (2, 1024, 256), (1, 2100, 128)])
+@pytest.mark.parametrize("B,N,C", [(2, 1000, 64), (2, 1024, 256), (1, 2100, 128),
+                                   (2, 1024, 512), (1, 1100, 512)])
 def test_backward_kernels_match_plain_on_card(cuda_device, dtype, B, N, C):
     """Pass B', A'1 and A'2 against bwd_q_plain, bwd_kv1_plain and
     bwd_kv2_plain with the same bf16 operands: f32 sums in another order,
@@ -197,6 +206,150 @@ def test_block_gradients_through_kernels_match_plain_on_card(cuda_device):
     assert kernels.LA_BWD_KV2.launches == n0 + 1
     for a, b in zip(leaves, ref):
         assert _rel(a.grad, b.grad) <= 5e-2
+
+
+# ------------------------------------------------------------ unfused middle
+def _qkv_conv_layout(seed, B, N, dtype, dev):
+    """qkv (B, N, 384) as the module hands it over: a view of (B, 384, N)."""
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.standard_normal((B, 384, N)).astype(np.float32))
+    return a.to(dev, dtype).transpose(1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N", [(2, 1000), (1, 37), (2, 7168)])
+def test_middle_kernels_match_plain_on_card(cuda_device, dtype, B, N):
+    """Rows 7-8 against middle_ctx_plain and middle_out_plain (N not a
+    multiple of the 32-position tile, and one tile short): the same f32
+    arithmetic on qkv's values in another order, so 1e-5 of the largest sum
+    of the terms' magnitudes (the signed sums cancel, so their own largest
+    value falls with N while the rounding does not), plus one bf16 ulp of
+    the largest output (2^-7) for a bf16 output; one launch counted per
+    call; two launches give the same bits."""
+    t = _qkv_conv_layout(11, B, N, dtype, cuda_device)
+    n0 = (kernels.LA_MID_CTX.launches, kernels.LA_MID_OUT.launches)
+    ctx, ctx2 = pap.middle_ctx(t), pap.middle_ctx(t)
+    ctx_p = pap.middle_ctx_plain(t)
+    out, out2 = pap.middle_out(t, ctx_p), pap.middle_out(t, ctx_p)
+    out_p = pap.middle_out_plain(t, ctx_p)
+    torch.cuda.synchronize()
+    assert (kernels.LA_MID_CTX.launches, kernels.LA_MID_OUT.launches) == (n0[0] + 2, n0[1] + 2)
+    assert torch.equal(ctx, ctx2) and torch.equal(out, out2)
+    assert out.shape == (B, N, 128) and out.dtype == dtype
+    va = t.clone()
+    va[..., 256:] = va[..., 256:].abs()
+    ctx_mass = float(pap.middle_ctx_plain(va).max())
+    out_mass = float(pap.middle_out_plain(t, ctx_p.abs()).float().max())
+    ulp = 2.0 ** -7 * float(out_p.float().abs().max()) if dtype == torch.bfloat16 else 0.0
+    assert float((ctx - ctx_p).abs().max()) <= 1e-5 * ctx_mass
+    assert float((out.float() - out_p.float()).abs().max()) <= 1e-5 * out_mass + ulp
+
+
+@pytest.mark.cuda
+def test_middle_kernels_refuse_what_they_cannot_take_on_card(cuda_device):
+    t = _qkv_conv_layout(12, 1, 64, torch.float32, cuda_device)
+    with pytest.raises(ValueError):
+        pap.middle_ctx(t, heads=2, dim=64)
+    with pytest.raises(ValueError):
+        punet.LinearAttention(64, heads=2, dim_head=32, attn_backend="kernels").to(
+            cuda_device)(torch.randn(1, 64, 4, 4, device=cuda_device))
+    with pytest.raises(TypeError):
+        pap.middle_ctx(t.half())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_middle_module_on_kernels_matches_composition_and_block_on_card(cuda_device, dtype):
+    """PreNormResidual(LinearAttention) on the kernels, on the composition,
+    and the fused LinearAttentionBlock from the same state_dict: within 5%
+    of the residual branch's scale plus one bf16 ulp of y, the pin of the
+    fused block against block_plain; the kernels' backward is the
+    composition's, so its input gradient is within 5% of the composition
+    module's.  The middle's output is ~N^-1.5, below the post-LayerNorm's
+    eps, so the out conv's weight is scaled by N^1.5 and its bias zeroed:
+    the residual branch is then all attention, at unit scale."""
+    C, H, W = 64, 32, 40
+    blk = punet.LinearAttentionBlock(C, dtype=dtype)
+    punet.init_weights(blk, torch.Generator().manual_seed(13))
+    with torch.no_grad():
+        blk.fn.fn.to_out[0].bias.zero_()
+        blk.fn.fn.to_out[0].weight.mul_(float(H * W) ** 1.5)
+    blk = blk.to(cuda_device)
+    mods = {}
+    for be in ("kernels", "composition"):
+        m = punet.PreNormResidual(C, punet.LinearAttention(C, dtype=dtype, attn_backend=be), dtype)
+        m.load_state_dict(blk.state_dict())
+        mods[be] = m.to(cuda_device)
+    x = torch.randn(2, C, H, W, generator=torch.Generator().manual_seed(14)).to(cuda_device, dtype)
+    xs = {be: x.clone().requires_grad_() for be in mods}
+    n0 = [k.launches for k in (kernels.LA_MID_CTX, kernels.LA_MID_OUT)]
+    y = {be: m(xs[be]) for be, m in mods.items()}
+    with torch.no_grad():
+        y["block"] = blk(x)
+    for be in mods:
+        y[be].float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert [k.launches for k in (kernels.LA_MID_CTX, kernels.LA_MID_OUT)] == [n0[0] + 1, n0[1] + 1]
+    ref = y["composition"].detach().float()
+    scale = float((ref - x.float()).abs().max())
+    ulp = 2.0 ** -7 * float(ref.abs().max()) if dtype == torch.bfloat16 else 0.0
+    assert scale > 0.5
+    for be in ("kernels", "block"):
+        assert float((y[be].detach().float() - ref).abs().max()) <= 0.05 * scale + ulp, be
+    assert _rel(xs["kernels"].grad, xs["composition"].grad) <= 0.05
+
+
+@pytest.mark.cuda
+def test_block_gradients_under_checkpoint_on_card(cuda_device):
+    """The fused block inside torch.utils.checkpoint (remat, non-reentrant)
+    on the backward kernels: its forward runs again in the backward, and
+    the gradients are those of the same block without checkpointing."""
+    from torch.utils.checkpoint import checkpoint
+
+    xt, tp = _inputs(17, 2, 1024, 512)
+    dy = torch.randn(2, 512, 1024, generator=torch.Generator().manual_seed(18)).to(cuda_device)
+    grads = []
+    for remat in (False, True):
+        leaves = [t.to(cuda_device).requires_grad_() for t in (xt, *tp)]
+        n0 = kernels.LA_CTX.launches
+        if remat:
+            y = checkpoint(paf.fused_linear_attention_block, *leaves, use_reentrant=False)
+        else:
+            y = paf.fused_linear_attention_block(*leaves)
+        y.backward(dy)
+        torch.cuda.synchronize()
+        assert kernels.LA_CTX.launches == n0 + (2 if remat else 1)
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+# ------------------------------------------------------------ flash under autograd
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_gradients_match_the_composition_on_card(cuda_device, dtype):
+    """attention_middle on the kernel path (N >= 2048) under autograd: the
+    forward is the flash kernel, and the gradients are autograd of the
+    composition on the same saved q, k, v, so they equal those of the
+    composition itself (pin 1e-6 of each gradient's scale, for cuBLAS's
+    choice of algorithm)."""
+    B, N = 1, 2100
+    qkv = torch.randn(B, 3, 4, 32, N, generator=torch.Generator().manual_seed(15))
+    qkv = qkv.to(cuda_device, dtype)
+    g = torch.randn(B, N, 4, 32, generator=torch.Generator().manual_seed(16)).to(cuda_device, dtype)
+    grads = []
+    n0 = kernels.FLASH.launches
+    for fn in (pfa.attention_middle, pfa.attention_middle_plain):
+        leaf = qkv.clone().requires_grad_()
+        q = (leaf[:, 0] * 32 ** -0.5).permute(0, 3, 1, 2)
+        k, v = leaf[:, 1].permute(0, 3, 1, 2), leaf[:, 2].permute(0, 3, 1, 2)
+        out = fn(q, k, v)
+        out.backward(g)
+        grads.append(leaf.grad)
+    torch.cuda.synchronize()
+    assert kernels.FLASH.launches == n0 + 1
+    assert _rel(grads[0], grads[1]) <= 1e-6
 
 
 @pytest.mark.cuda

@@ -1,0 +1,257 @@
+"""Port vs JAX: the unfused linear attention (kernel rows 7-8) and remat.
+
+The plain versions of the two middle kernels against JAX's Pallas
+``_linear_attention_middle_pallas`` in interpret mode (as
+tests/test_attention_pallas.py runs it), the composition against
+``_linear_attention_middle_xla``, the middle's gradient against
+``jax.grad``; ``LinearAttention`` and ``PreNormResidual(LinearAttention)``
+against the JAX modules on bridged weights and against the fused
+``LinearAttentionBlock``; and the remat option of the training slice.  On
+the CPU the middle's wrappers take the kernels' plain versions.  The
+kernels themselves are checked on the card by tests/test_torch_port_kernels.py
+and chip_smoke.py.
+"""
+
+import dataclasses
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from opticalflowdiffusion_tpu.config import compose
+from opticalflowdiffusion_tpu.models import unet as junet
+from opticalflowdiffusion_tpu.ops import attention_pallas as jap
+from opticalflowdiffusion_tpu_torch import kernels
+from opticalflowdiffusion_tpu_torch import train as train_entry
+from opticalflowdiffusion_tpu_torch.algorithms.base import to_batch
+from opticalflowdiffusion_tpu_torch.algorithms.flow_diffuser import FlowDiffuser
+from opticalflowdiffusion_tpu_torch.config import FLAGSHIP, FLAGSHIP_DATA
+from opticalflowdiffusion_tpu_torch.data.artificial import ArtificialDataset
+from opticalflowdiffusion_tpu_torch.models import diffusion as dm
+from opticalflowdiffusion_tpu_torch.models import unet as punet
+from opticalflowdiffusion_tpu_torch.ops import attention_fused as paf
+from opticalflowdiffusion_tpu_torch.ops import attention_pallas as pap
+from opticalflowdiffusion_tpu_torch.utils import weights
+
+BACKENDS = ("composition", "kernels")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def _qkv(seed, B, N):
+    return np.random.default_rng(seed).standard_normal((B, N, 384)).astype(np.float32)
+
+
+# ------------------------------------------------------------ the middle
+@pytest.mark.parametrize("B,N", [(2, 1000), (1, 200)])
+def test_middle_plain_passes_match_pallas_interpret(B, N):
+    """``middle_ctx_plain`` then ``middle_out_plain`` against the two Pallas
+    kernels in interpret mode (block_n 256, so N = 1000 pads), f32: the pin of
+    tests/test_attention_pallas.py::test_pallas_matches_xla_interpret."""
+    qkv = _qkv(0, B, N)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jap._linear_attention_middle_pallas(jnp.asarray(qkv), 4, 32,
+                                                              block_n=256))
+    t = torch.from_numpy(qkv)
+    got = pap.middle_out_plain(t, pap.middle_ctx_plain(t)).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-3, atol=1e-3 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,N", [(2, 300), (1, 64)])
+def test_middle_composition_matches_xla(B, N, dtype):
+    """``linear_attention_middle_plain`` against ``_linear_attention_middle_xla``
+    on the same qkv: f32 to 1e-5 of the output's scale (summation order);
+    bf16 within 2^-7 of it, one bf16 ulp at the largest value, since both
+    round the softmaxes and einsums to bf16 but sum in another order."""
+    qkv = _qkv(1, B, N)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    want = np.asarray(jap._linear_attention_middle_xla(jnp.asarray(qkv, jdt), 4, 32)
+                      .astype(jnp.float32))
+    t = torch.from_numpy(qkv).to(getattr(torch, dtype))
+    got = pap.linear_attention_middle_plain(t, 4, 32).float().numpy()
+    tol = 1e-5 if dtype == "float32" else 2.0 ** -7
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol * np.abs(want).max())
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_middle_gradient_matches_jax_grad(backend):
+    """The gradient of sum(middle^2) through the port's
+    ``linear_attention_middle`` (the kernels' Function recomputes the
+    composition in its backward) against ``jax.grad`` of JAX's custom-VJP
+    middle: the pin of test_custom_vjp_matches_xla_grad."""
+    qkv = _qkv(2, 1, 64)
+    want = jax.grad(lambda t: jnp.sum(jnp.square(jap.linear_attention_middle(t, 4, 32))))(
+        jnp.asarray(qkv))
+    t = torch.from_numpy(qkv).requires_grad_()
+    pap.linear_attention_middle(t, 4, 32, backend).square().sum().backward()
+    np.testing.assert_allclose(t.grad.numpy(), np.asarray(want), rtol=1e-4, atol=1e-6)
+
+
+def test_middle_wrappers_take_plain_versions_on_cpu():
+    """On a CPU tensor the wrappers are the plain versions and launch
+    nothing; an unknown backend raises."""
+    t = torch.from_numpy(_qkv(3, 2, 100))
+    before = [k.launches for k in kernels.KERNELS]
+    ctx = pap.middle_ctx(t)
+    assert torch.equal(ctx, pap.middle_ctx_plain(t))
+    assert torch.equal(pap.middle_out(t, ctx), pap.middle_out_plain(t, ctx))
+    assert torch.equal(pap.linear_attention_middle(t, backend="kernels"),
+                       pap.middle_out_plain(t, ctx))
+    assert [k.launches for k in kernels.KERNELS] == before
+    with pytest.raises(ValueError):
+        pap.linear_attention_middle(t, backend="pallas")
+    with pytest.raises(ValueError):
+        punet.LinearAttention(16, attn_backend="xla")
+
+
+def test_fused_module_keeps_the_middle_under_its_old_name():
+    assert paf.linear_attention_middle is pap.linear_attention_middle_plain
+
+
+# ------------------------------------------------------------ the modules
+def _module_pair(prenorm, C, backend, dtype, seed):
+    """(port module, JAX module, JAX params) with the JAX params drawn from
+    the port's seeded weights through the bridge's rows."""
+    inner = punet.LinearAttention(C, dtype=dtype, attn_backend=backend)
+    mod = punet.PreNormResidual(C, inner, dtype) if prenorm else inner
+    punet.init_weights(mod, torch.Generator().manual_seed(seed))
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    jinner = junet.LinearAttention(dtype=jdt)
+    jmod = junet.PreNormResidual(jinner, dtype=jdt) if prenorm else jinner
+    x0 = jnp.zeros((1, 4, 4, C), jnp.float32)
+    template = jmod.init(jax.random.PRNGKey(0), x0)["params"]
+    rows = weights.linear_attention_rows(prenorm)
+    tree = weights.to_jax(mod.state_dict(), template, rows)
+    return mod, jmod, tree
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("prenorm", [False, True], ids=["LinearAttention", "PreNormResidual"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_module_matches_jax(prenorm, backend, dtype):
+    """``LinearAttention`` and ``PreNormResidual(LinearAttention)`` against
+    the JAX modules on bridged weights, NCHW against NHWC: f32 to 1e-5 of
+    the output's scale (summation order); bf16 within 5% max and 1% mean
+    of it, the UNet tests' bf16 pin (the frameworks round bf16 at other
+    places, and the kernels' plain versions keep the middle in f32)."""
+    tdt = getattr(torch, dtype)
+    B, C, H, W = 2, 32, 6, 10
+    mod, jmod, tree = _module_pair(prenorm, C, backend, tdt, 3)
+    x = np.random.default_rng(4).standard_normal((B, H, W, C)).astype(np.float32)
+    want = np.asarray(jmod.apply({"params": tree}, jnp.asarray(x)).astype(jnp.float32))
+    with torch.no_grad():
+        got = mod(torch.from_numpy(x).permute(0, 3, 1, 2)).float().permute(0, 2, 3, 1).numpy()
+    scale = np.abs(want).max()
+    err = np.abs(got - want)
+    if dtype == "float32":
+        assert err.max() <= 1e-5 * scale
+    else:
+        assert err.max() <= 5e-2 * scale and err.mean() <= 1e-2 * scale
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("C,H,W", [(32, 6, 10), (64, 4, 4)])
+def test_prenorm_linear_attention_equals_the_fused_block(backend, C, H, W):
+    """``PreNormResidual(LinearAttention)`` loaded with a
+    ``LinearAttentionBlock``'s state_dict computes the block (f32, 1e-5 of
+    the residual branch's scale; the keys are the same)."""
+    blk = punet.LinearAttentionBlock(C)
+    punet.init_weights(blk, torch.Generator().manual_seed(5))
+    mod = punet.PreNormResidual(C, punet.LinearAttention(C, attn_backend=backend))
+    mod.load_state_dict(blk.state_dict())
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal((2, C, H, W))
+                         .astype(np.float32))
+    with torch.no_grad():
+        a, b = mod(x), blk(x)
+    assert float((a - b).abs().max()) <= 1e-5 * float((b - x).abs().max())
+
+
+@pytest.mark.parametrize("prenorm", [False, True], ids=["LinearAttention", "PreNormResidual"])
+def test_linear_attention_weight_round_trip(prenorm):
+    """JAX params -> state_dict -> JAX params gives the same leaves, and
+    the state_dict loads into the port's module as it is."""
+    C = 16
+    jmod = junet.PreNormResidual(junet.LinearAttention()) if prenorm else junet.LinearAttention()
+    params = jax.tree_util.tree_map(
+        np.asarray, jmod.init(jax.random.PRNGKey(7), jnp.zeros((1, 4, 4, C)))["params"])
+    rows = weights.linear_attention_rows(prenorm)
+    sd = weights.from_jax(params, rows)
+    mod = punet.LinearAttention(C)
+    mod = punet.PreNormResidual(C, mod) if prenorm else mod
+    assert sorted(sd) == sorted(mod.state_dict())
+    mod.load_state_dict(sd)
+    back = weights.to_jax(mod.state_dict(), params, rows)
+    flat = jax.tree_util.tree_leaves_with_path
+    want = {jax.tree_util.keystr(k): v for k, v in flat(params)}
+    got = {jax.tree_util.keystr(k): v for k, v in flat(back)}
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+# ------------------------------------------------------------ remat
+S = 16
+
+
+def _algo(remat):
+    cfg = dataclasses.replace(FLAGSHIP, image_size=S, unet_dim=8, precision="float32",
+                              timesteps=20, zero_init=False, remat=remat)
+    return FlowDiffuser(cfg, device="cpu", generator=torch.Generator().manual_seed(6))
+
+
+def test_remat_gives_the_same_gradients():
+    """``p_losses`` and its gradient in every parameter with the UnetWithWarp
+    closure rematerialised (``torch.utils.checkpoint``) against the same
+    without: the recompute repeats the same f32 operations, so 1e-6 of each
+    leaf's largest value."""
+    data = ArtificialDataset(dataclasses.replace(FLAGSHIP_DATA, image_size=S, seed=5, size=64))
+    out = []
+    for remat in (False, True):
+        algo = _algo(remat)
+        tgt_x, cond, _ = algo.preprocess(to_batch([data[i] for i in range(3)], "cpu"))
+        noise = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            tuple(tgt_x.shape)).astype(np.float32))
+        loss = dm.p_losses(algo.sched, algo.model_fn, tgt_x, torch.tensor([1, 7, 19]), noise,
+                           external_cond=cond, warp_fn=algo.warp_fn)
+        loss.backward()
+        out.append((float(loss.detach()), {k: p.grad.clone()
+                                           for k, p in algo.module.named_parameters()}))
+    (l0, g0), (l1, g1) = out
+    assert l1 == pytest.approx(l0, rel=1e-6)
+    assert g0.keys() == g1.keys()
+    for k in g0:
+        torch.testing.assert_close(g1[k], g0[k], rtol=0, atol=1e-6 * float(g0[k].abs().max()))
+
+
+def test_remat_config_follows_jax_compose():
+    """``FlowDiffuserConfig.remat`` defaults to JAX's composed
+    ``runtime.remat``, which JAX's experiment copies into ``_remat``."""
+    cfg = compose(["experiment=matrix_flow", "algorithm=flow_diffuser", "dataset=artificial"])
+    assert FLAGSHIP.remat is bool(cfg.runtime.remat) is False
+    cfg = compose(["experiment=matrix_flow", "algorithm=flow_diffuser", "dataset=artificial",
+                   "runtime.remat=true"])
+    assert bool(cfg.runtime.remat) is True
+    assert train_entry.build(1, device="cpu", image_size=S, unet_dim=8, remat=True,
+                             out="unused").algorithm.cfg.remat is True
+
+
+def test_train_entry_point_with_remat_on_cpu(tmp_path, capsys):
+    """``train.py --remat`` on the CPU: two steps, a validation and a
+    checkpoint, with the closure rematerialised."""
+    train_entry.main(["--device", "cpu", "--image-size", str(S), "--unet-dim", "8",
+                      "--batch", "4", "--val-batch", "2", "--sampling-timesteps", "2",
+                      "--out", str(tmp_path), "--steps", "2", "--remat"])
+    out = json.loads(capsys.readouterr().out)
+    assert out["remat"] is True and out["step"] == 2 and out["checkpoints"] == [2]
+    assert np.isfinite(out["train"]["train/loss"]) and "val/epe" in out["val"]
