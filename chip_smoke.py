@@ -95,7 +95,12 @@ it prints is one JSON object, flushed as it goes, apart from the card's
    with every kernel against the all-plain step (bf16); a count window of 2
    warm-up and 3 timed steps with exact launches, native train samples/s and
    the window's peak memory.
-7. the kernels line, 8. the result line.
+7. the kernels line: for each kernel its route, source, the TPU kernel it
+   replaces, launches over all count windows, error, ms, plain ms, bound
+   ms and what bounds it, library ms; for rows 6, 9 and 10 also
+   ``vs_library`` (ms / library ms) and ``bound_share`` (bound ms / ms),
+   and for the flash kernel the same at (8, 7168) (``at_8x7168``).
+8. the result line.
 
 Any failure raises and exits non-zero without the result line; so does a
 run without a CUDA device or without the port's package beside this file.
@@ -452,8 +457,9 @@ def flash_phase():
     """The flash kernel against flash_plain and the composition, on q, k, v
     laid out as the UNet's to_qkv output (B, 3, h, d, N); with the time of
     one scaled_dot_product_attention call on contiguous (B, h, N, d) copies.
-    Returns the native b2 bf16 row and the largest error."""
-    out = None
+    Returns the bf16 rows at (2, 7168) (the native b2 bottleneck) and
+    (8, 7168) by batch, and the largest error."""
+    out = {}
     worst = 0.0
     for i, (Bn, N, dtype) in enumerate(FLASH_CASES):
         g = torch.Generator(device="cuda").manual_seed(300 + i)
@@ -485,8 +491,8 @@ def flash_phase():
         check(e_comp[0] <= TOL_FLASH_COMP[dtype],
               f"flash kernel disagrees with the composition at {Bn, N, dtype}: {e_comp}")
         worst = max(worst, e_plain[0])
-        if i == 0:
-            out = row
+        if dtype == torch.bfloat16 and N == 7168:
+            out[Bn] = row
         del qkv, q, k, v, got, sq, sk, sv
     return out, worst
 
@@ -1453,10 +1459,15 @@ def main():
     rows = []
     for k in kernels.KERNELS:
         if k is kernels.FLASH:
-            r = flash_row
+            r, r8 = flash_row[NATIVE_B], flash_row[8]
             vals = dict(max_abs_err=flash_err, ms=r["ms"], plain_ms=r["plain_ms"],
                         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                        library_ms=r["sdpa_ms"], per="one launch at (2, 7168, 4, 32) bf16")
+                        library_ms=r["sdpa_ms"], per="one launch at (2, 7168, 4, 32) bf16",
+                        vs_library=r["ms"] / r["sdpa_ms"], bound_share=r["bound_ms"] / r["ms"],
+                        at_8x7168=dict(ms=r8["ms"], library_ms=r8["sdpa_ms"],
+                                       bound_ms=r8["bound_ms"],
+                                       vs_library=r8["ms"] / r8["sdpa_ms"],
+                                       bound_share=r8["bound_ms"] / r8["ms"]))
         elif k is kernels.SPLAT:
             r = splat_row
             vals = dict(max_abs_err=splat_err, ms=r["ms"], plain_ms=r["plain_ms"],
@@ -1469,7 +1480,9 @@ def main():
                         per=f"one 128x128 b{TRAIN_B} train step (5 launches: scale 1 bf16, "
                             "scales 2-16 f32)")
         elif k in (kernels.CONV_ROWS, kernels.CONV_FOLD):
-            vals = dict(max_abs_err=conv_err[k.name], **conv_rows_[k.name],
+            r = conv_rows_[k.name]
+            vals = dict(max_abs_err=conv_err[k.name], **r,
+                        vs_library=r["ms"] / r["library_ms"], bound_share=r["bound_ms"] / r["ms"],
                         per=f"one launch, 3x3 64->64 at 448x1024 b{NATIVE_B} bf16"
                             + (" with the prologue" if k is kernels.CONV_FOLD else ""))
         elif k in (kernels.LA_MID_CTX, kernels.LA_MID_OUT):

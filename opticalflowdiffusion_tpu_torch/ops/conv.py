@@ -50,7 +50,7 @@ launch ``kernels/conv.cu`` or raise.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -61,7 +61,59 @@ BACKENDS = ("cudnn", "rows", "fold")
 # the kernels' tile along Cout and their input-channel slice per dtype: the
 # wrapper pads the laid-out weights to these
 TILE_N = 64
-SLICE_C = {torch.bfloat16: 16, torch.float32: 8}
+SLICE_C = {torch.bfloat16: 32, torch.float32: 8}
+# the bf16 kernel's tile: TILE_M flat positions of a strip of at most
+# STRIP_MAX columns; its shared memory (2 patch stages of np positions x 64
+# bytes, 1-2 raw stages of 32 x rh x rw bf16 and 64 f32, 6 weight stages of
+# 4 KB, 16-20 mbarriers) may not pass the 227 KB a CTA may have
+TILE_M = 512
+STRIP_MAX = 64
+SMEM_MAX = 227 * 1024
+
+
+class ConvPlan(NamedTuple):
+    """The bf16 kernel's tiling of one conv (the source computes the same
+    from ``wt``): strips of ``wt`` image columns, each laid out as rows of
+    pitch ``pw`` (the kw - 1 halo columns computed and dropped), cut into
+    ``runs`` tiles of TILE_M flat positions; ``np`` patch positions per
+    tile, loaded as ``rh`` rows x ``rw`` columns (from a multiple of 8) of 32
+    channels at a time; ``tiles`` in all (with ``nblk`` blocks of 64 output
+    channels and ``nsl`` slices of 32 input channels)."""
+    wt: int
+    pw: int
+    strips: int
+    runs: int
+    nblk: int
+    nsl: int
+    np: int
+    rw: int
+    rh: int
+    tiles: int
+    smem: int
+
+
+def conv_plan(B: int, Cin: int, H: int, W: int, Cout: int, kh: int, kw: int) -> ConvPlan:
+    """The bf16 kernel's plan: one strip where W <= STRIP_MAX, otherwise the
+    fewest strips of at most STRIP_MAX columns, as even as a multiple of 8
+    allows (so that the strips' output rows start 4-byte aligned); two raw
+    stages where the shared memory allows, else one."""
+    if W <= STRIP_MAX:
+        wt = W
+    else:
+        n = -(-W // STRIP_MAX)
+        wt = -(-(-(-W // n)) // 8) * 8
+    pw = wt + kw - 1
+    strips = -(-W // wt)
+    runs = -(-(H * pw) // TILE_M)
+    nblk, nsl = -(-Cout // TILE_N), -(-Cin // SLICE_C[torch.bfloat16])
+    np_ = TILE_M + (kh - 1) * pw + kw - 1
+    rw, rh = -(-(pw + 7) // 8) * 8, (np_ + pw - 2) // pw + 1
+    fixed = 2 * np_ * 64 + 6 * 4096
+    raw = 32 * rh * rw * 2 + 256
+    smem = fixed + 2 * raw + 2 * (2 + 6 + 2) * 8
+    if smem > SMEM_MAX:
+        smem = fixed + raw + 2 * (2 + 6 + 1) * 8
+    return ConvPlan(wt, pw, strips, runs, nblk, nsl, np_, rw, rh, B * strips * runs * nblk, smem)
 
 
 def _pad(w: torch.Tensor) -> Tuple[int, int]:
@@ -104,7 +156,7 @@ def _lib():
     lib = build.load("conv")
     if not getattr(lib, "_ofd_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        geo = [i] * 9      # B, Cin, H, W, Cout, kh, kw, cin_pad, cout_pad
+        geo = [i] * 11     # B, Cin, H, W, Cout, kh, kw, cin_pad, cout_pad, wt, ldx
         lib.ofd_conv_rows.argtypes = [vp, vp, vp, i, *geo, i, vp]
         lib.ofd_conv_rows.restype = i
         lib.ofd_conv_fold.argtypes = [vp, vp, vp, vp, vp, i, i, *geo, i, vp]
@@ -131,18 +183,25 @@ def _check(x: torch.Tensor, w: torch.Tensor, what: str) -> None:
 
 
 def _layout(w: torch.Tensor, dtype) -> torch.Tensor:
-    """OIHW -> [kh * kw, Cin_pad, Cout_pad] in ``dtype``, zero-padded to the
-    kernels' channel slice and Cout tile.  One copy where no padding is
+    """OIHW -> the kernels' weight layout in ``dtype``, zero-padded to the
+    channel slice and Cout tile.  bf16: [Cout_pad / 64][Cin_pad / 32]
+    [kh * kw][4][64][8], each (slice, tap) tile of 64 output x 32 input
+    channels as four 8-channel planes, K-major, as the kernel's wgmma reads
+    it.  f32: [kh * kw][Cin_pad][Cout_pad].  One copy where no padding is
     needed (every conv of the UNet but the stem), two where it is."""
     Cout, Cin, kh, kw = w.shape
     sc = SLICE_C[dtype]
     cin_pad, cout_pad = -(-Cin // sc) * sc, -(-Cout // TILE_N) * TILE_N
-    src = w.permute(2, 3, 1, 0).reshape(kh * kw, Cin, Cout)
-    if (cin_pad, cout_pad) == (Cin, Cout):
-        return torch.empty(kh * kw, Cin, Cout, device=w.device, dtype=dtype).copy_(src)
-    wt = torch.zeros(kh * kw, cin_pad, cout_pad, device=w.device, dtype=dtype)
-    wt[:, :Cin, :Cout] = src
-    return wt
+    if (cin_pad, cout_pad) != (Cin, Cout):
+        w = F.pad(w, (0, 0, 0, 0, 0, cin_pad - Cin, 0, cout_pad - Cout))
+    if dtype == torch.bfloat16:
+        src = w.reshape(cout_pad // TILE_N, TILE_N, cin_pad // sc, sc // 8, 8, kh * kw)
+        src = src.permute(0, 2, 5, 3, 1, 4)
+        shape = (cout_pad // TILE_N, cin_pad // sc, kh * kw, sc // 8, TILE_N, 8)
+    else:
+        src = w.permute(2, 3, 1, 0).reshape(kh * kw, cin_pad, cout_pad)
+        shape = (kh * kw, cin_pad, cout_pad)
+    return torch.empty(shape, device=w.device, dtype=dtype).copy_(src)
 
 
 def _launch(entry: str, x: torch.Tensor, w: torch.Tensor, a=None, b=None) -> torch.Tensor:
@@ -157,7 +216,21 @@ def _launch_laid(entry: str, x: torch.Tensor, wt: torch.Tensor, wshape, a=None,
     B, Cin, H, W = x.shape
     Cout, _, kh, kw = wshape
     out = torch.empty(B, Cout, H, W, device=x.device, dtype=x.dtype)
-    geo = (B, Cin, H, W, Cout, kh, kw, wt.shape[1], wt.shape[2])
+    sc = SLICE_C[x.dtype]
+    cin_pad, cout_pad = -(-Cin // sc) * sc, -(-Cout // TILE_N) * TILE_N
+    strip, ldx = 0, W
+    if x.dtype == torch.bfloat16:
+        plan = conv_plan(B, Cin, H, W, Cout, kh, kw)
+        if plan.smem > SMEM_MAX or max(plan.rw, plan.rh) > 256:
+            raise ValueError(f"the conv_{entry} kernel's tile for x {tuple(x.shape)}, kernel "
+                             f"{tuple(wshape)} does not fit: {plan}")
+        strip = plan.wt
+        if W % 8 or x.data_ptr() % 16:
+            # the kernel's tensor map needs 16-byte rows: one copy with zero
+            # columns past W (the kernel treats them as outside the image)
+            ldx = -(-W // 8) * 8
+            x = F.pad(x, (0, ldx - W))
+    geo = (B, Cin, H, W, Cout, kh, kw, cin_pad, cout_pad, strip, ldx)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     lib = _lib()
     bf16 = int(x.dtype == torch.bfloat16)
@@ -306,5 +379,5 @@ def conv2d_same(x: torch.Tensor, weight: torch.Tensor, backend: str = "cudnn",
     return conv2d_same_plain(x, w)
 
 
-__all__ = ["BACKENDS", "conv2d_same", "conv2d_same_gn_plain", "conv2d_same_plain",
-           "conv_fold", "conv_rows", "dot_1x1", "silu_affine"]
+__all__ = ["BACKENDS", "ConvPlan", "conv2d_same", "conv2d_same_gn_plain", "conv2d_same_plain",
+           "conv_fold", "conv_plan", "conv_rows", "dot_1x1", "silu_affine"]

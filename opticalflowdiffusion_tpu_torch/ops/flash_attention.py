@@ -24,9 +24,12 @@ Layout: the kernel reads q, k and v as (B, heads, d, N) with N fastest,
 which is how the UNet's ``to_qkv`` output lies, (B, 3, heads, d, N): k and v
 are read where they are, with no copy (the batch stride may be that of the
 packed tensor), and the UNet scales q in that layout.  Tensors in another
-layout are copied into it first.  The output is a (B, N, heads, d) view of a
-contiguous (B, heads, d, N) tensor, so the UNet's ``to_out`` gets NCHW with
-no copy.
+layout are copied into it first.  The bf16 kernel reads through TMA tensor
+maps, which need rows and batch strides of 16 bytes: a ragged N (or a
+misaligned view) is copied once into a zero-padded buffer
+(:func:`tma_ready`, :func:`_padded`).  The output is a (B, N, heads, d) view
+of a contiguous (B, heads, d, N) tensor, so the UNet's ``to_out`` gets NCHW
+with no copy.
 """
 
 from __future__ import annotations
@@ -91,7 +94,7 @@ def _lib():
     lib = build.load("flash_attention")
     if not getattr(lib, "_ofd_typed", False):
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.ofd_flash.argtypes = [vp, vp, vp, ll, ll, ll, vp, i, i, i, i, i, vp]
+        lib.ofd_flash.argtypes = [vp, vp, vp, ll, ll, ll, vp, i, i, i, i, i, i, vp]
         lib.ofd_flash.restype = i
         lib.ofd_cuda_error_string.argtypes = [i]
         lib.ofd_cuda_error_string.restype = ctypes.c_char_p
@@ -107,6 +110,26 @@ def _hdn(t: torch.Tensor) -> torch.Tensor:
     if u.stride()[1:] != (d * N, N, 1):
         u = u.contiguous()
     return u
+
+
+def tma_ready(t: torch.Tensor) -> bool:
+    """Whether the bf16 kernel's tensor maps can read the (B, h, d, N) view
+    ``t`` where it lies: rows (N) and the batch stride multiples of 8
+    elements (16 bytes) and a 16-byte aligned base."""
+    return t.shape[-1] % 8 == 0 and t.stride(0) % 8 == 0 and t.data_ptr() % 16 == 0
+
+
+def _padded(*ts: torch.Tensor):
+    """The (B, h, d, N) views in one zero-padded (3, B, h, d, ld) buffer, ld
+    the multiple of 8 at or above N: one copy of q, k and v for the inputs
+    that :func:`tma_ready` refuses (a ragged N; the kernel masks keys past
+    N and writes only N queries)."""
+    B, h, d, N = ts[0].shape
+    ld = -(-N // 8) * 8
+    buf = ts[0].new_zeros((len(ts), B, h, d, ld))
+    for i, t in enumerate(ts):
+        buf[i, ..., :N] = t
+    return tuple(buf)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -126,13 +149,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     if d != HEAD_DIM or N < 1 or B < 1 or h < 1:
         raise ValueError(f"the flash kernel takes d = {HEAD_DIM} and N >= 1, got {tuple(q.shape)}")
     qt, kt, vt = _hdn(q), _hdn(k), _hdn(v)
+    ld = N
+    if q.dtype == torch.bfloat16 and not all(map(tma_ready, (qt, kt, vt))):
+        qt, kt, vt = _padded(qt, kt, vt)
+        ld = qt.shape[-1]
     out = torch.empty(B, h, d, N, device=q.device, dtype=q.dtype)
     dev = q.device
     lib = _lib()
     err = lib.ofd_flash(
         qt.data_ptr(), kt.data_ptr(), vt.data_ptr(),
         qt.stride(0), kt.stride(0), vt.stride(0), out.data_ptr(),
-        int(q.dtype == torch.bfloat16), B, h, N, dev.index,
+        int(q.dtype == torch.bfloat16), B, h, N, ld, dev.index,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:

@@ -113,3 +113,44 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, B, N, dtype):
     assert kernels.FLASH.launches == n0 + 1
     tol = 2e-5 if dtype == torch.float32 else 2.0 ** -7
     assert float((got - want).abs().max()) <= tol
+
+
+def test_ragged_n_is_padded_once_for_the_tensor_maps():
+    """The bf16 kernel reads q, k, v through TMA tensor maps (rows and batch
+    strides of 16 bytes): the to_qkv layout at N = 7168 is read in place,
+    and a ragged N (2100) is copied once into a zero-padded (3, B, h, d, ld)
+    buffer with ld the next multiple of 8."""
+    for N, ready in ((7168, True), (2104, True), (2100, False)):
+        qkv = torch.zeros(2, 3, 4, 32, N, dtype=torch.bfloat16)
+        views = [pfa._hdn(qkv[:, i].permute(0, 3, 1, 2)) for i in range(3)]
+        assert all(pfa.tma_ready(v) == ready for v in views)
+    qkv = torch.from_numpy(np.random.default_rng(5).standard_normal((2, 3, 4, 32, 2100))
+                           .astype(np.float32)).to(torch.bfloat16)
+    views = [pfa._hdn(qkv[:, i].permute(0, 3, 1, 2)) for i in range(3)]
+    padded = pfa._padded(*views)
+    for v, p in zip(views, padded):
+        assert p.shape == (2, 4, 32, 2104) and pfa.tma_ready(p)
+        assert torch.equal(p[..., :2100], v) and not p[..., 2100:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 2, 8])
+@pytest.mark.parametrize("N", [2048, 2100, 2104, 7168])
+def test_flash_kernel_tilings_on_card(cuda_device, B, N):
+    """The bf16 kernel at the edges of its tiling: N a multiple of the 64-key
+    tile (2048, 7168), a multiple of 8 but not of the tile (2104: the last
+    key tile part past N, zero-filled by TMA and masked), and ragged (2100:
+    the padded copy), at B = 1, 2, 8; against flash_plain; one launch per
+    call."""
+    g = torch.Generator(device=cuda_device).manual_seed(N + B)
+    qkv = torch.randn(B, 3, 4, 32, N, generator=g, device=cuda_device).to(torch.bfloat16)
+    q = (qkv[:, 0] * 32 ** -0.5).permute(0, 3, 1, 2)
+    k, v = qkv[:, 1].permute(0, 3, 1, 2), qkv[:, 2].permute(0, 3, 1, 2)
+    n0 = kernels.FLASH.launches
+    with torch.no_grad():
+        got = pfa.flash_attention(q, k, v).float()
+        want = pfa.flash_plain(q, k, v).float()
+    torch.cuda.synchronize()
+    assert kernels.FLASH.launches == n0 + 1
+    assert got.shape == (B, N, 4, 32)
+    assert float((got - want).abs().max()) <= 2.0 ** -7

@@ -561,3 +561,157 @@ def test_conv_gradients_through_kernels_match_plain_on_card(cuda_device, no_tf32
         assert launched == (1 if affine and backend == "rows" else 2)
         for p, q in zip(leaves, ref):
             assert _rel(p.grad, q.grad) <= 1e-5
+
+
+# ------------------------------------------------ the bf16 conv kernel's tiling
+def _flagship_conv_calls(backend, H, W, B=2):
+    """(entry, x shape, OIHW w shape, with the prologue) of every conv that a
+    forward and backward of the flagship UNet (width 64, the UnetWithWarp's
+    9 input channels) sends to the backend's kernel, recorded on the meta
+    device (the dgrads with the flipped kernel's shape)."""
+    calls = []
+
+    def record(name, plain):
+        def fn(x, w, a=None, b=None):
+            calls.append((name, tuple(x.shape), tuple(w.shape), a is not None))
+            return plain(x, w) if a is None else pconv.conv2d_same_gn_plain(x, w, a, b)
+        return fn
+
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setattr(punet, "fused_linear_attention_block", paf.block_plain)
+        mp.setattr(pconv, "conv_rows", record("conv_rows", pconv.conv2d_same_plain))
+        mp.setattr(pconv, "conv_fold", record("conv_fold", pconv.conv2d_same_plain))
+        with torch.device("meta"):
+            net = punet.Unet(64, out_dim=2, channels=9, dtype=torch.bfloat16,
+                             conv_backend=backend)
+            x, cond = torch.empty(B, 6, H, W), torch.empty(B, 3, H, W)
+            t = torch.zeros(B, dtype=torch.long)
+        net(x, cond, t).sum().backward()
+    finally:
+        mp.undo()
+    return calls
+
+
+def _distinct_flagship_convs():
+    """Distinct (x shape, w shape, prologue) of the flagship's fold convs at
+    128x128 b8 and native 448x1024 b2, forward and dgrad."""
+    return sorted({c[1:] for H, W, B in ((128, 128, 8), (448, 1024, 2))
+                   for c in _flagship_conv_calls("fold", H, W, B)})
+
+
+def test_conv_plan_holds_every_flagship_conv():
+    """The bf16 kernel's plan (``conv_plan``) for every conv of the flagship
+    at 128x128 and native 448x1024, forward and dgrad, taken from the model:
+    strips of at most 64 columns (multiples of 8 where there are several)
+    covering W, a pitch of the strip plus the kw - 1 halo, runs of 512
+    positions covering H rows, a raw slice wide and tall enough for any
+    run's patch, and shared memory within the 227 KB a CTA may have."""
+    convs = _distinct_flagship_convs()
+    assert len(convs) >= 10
+    for (B, Cin, H, W), (Cout, _, kh, kw), _ in convs:
+        p = pconv.conv_plan(B, Cin, H, W, Cout, kh, kw)
+        assert p.wt <= pconv.STRIP_MAX and p.strips * p.wt >= W > (p.strips - 1) * p.wt
+        assert p.strips == 1 or p.wt % 8 == 0
+        assert p.pw == p.wt + kw - 1
+        assert p.runs * pconv.TILE_M >= H * p.pw > (p.runs - 1) * pconv.TILE_M
+        assert p.np == pconv.TILE_M + (kh - 1) * p.pw + kw - 1
+        # the raw slice starts at the multiple of 8 at or below x0 - kw // 2
+        assert p.rw % 8 == 0 and p.rw >= p.pw + 7
+        rows = max((m0 + p.np - 1) // p.pw - m0 // p.pw + 1
+                   for m0 in range(0, p.runs * pconv.TILE_M, pconv.TILE_M))
+        assert p.rh >= rows and p.rh <= 256
+        assert p.nblk * 64 >= Cout and p.nsl * 32 >= Cin
+        assert p.tiles == B * p.strips * p.runs * p.nblk
+        assert p.smem <= pconv.SMEM_MAX
+
+
+@pytest.mark.parametrize("shape,plan", [
+    # native level 0, 3x3 64 -> 64 at b2 (rows 9 and 10 of the kernel table)
+    ((2, 64, 448, 1024, 64, 3, 3), (64, 66, 16, 58, 1, 2, 646, 80, 11, 1856)),
+    # the native stem, 7x7 9 -> 64 (one raw stage)
+    ((2, 9, 448, 1024, 64, 7, 7), (64, 70, 16, 62, 1, 1, 938, 80, 15, 1984)),
+    # the widest conv, 768 -> 512 at 56x128 b2
+    ((2, 768, 56, 128, 512, 3, 3), (64, 66, 2, 8, 8, 24, 646, 80, 11, 256)),
+    # 128x128 level 3 (one strip, runs across rows)
+    ((8, 512, 16, 16, 512, 3, 3), (16, 18, 1, 1, 8, 16, 550, 32, 32, 64)),
+    # a ragged card case: W = 21 in one strip, Cout = 70 in two blocks
+    ((1, 40, 13, 21, 70, 3, 3), (21, 23, 1, 1, 2, 2, 560, 32, 26, 2)),
+])
+def test_conv_plan_pins(shape, plan):
+    p = pconv.conv_plan(*shape)
+    assert tuple(p)[:10] == plan
+    assert p.smem <= pconv.SMEM_MAX
+
+
+def test_conv_layout_is_the_kernels_planes():
+    """bf16 weights laid out [Cout / 64][Cin / 32][kh kw][4][64][8]: element
+    (n, c, dy, dx) of the OIHW kernel at block n // 64, slice c // 32, tap
+    dy kw + dx, plane (c % 32) // 8, row n % 64, column c % 8; zero past Cin
+    and Cout.  f32 keeps [kh kw][Cin_pad][Cout_pad]."""
+    rng = np.random.default_rng(20)
+    w = torch.from_numpy(rng.standard_normal((70, 40, 3, 3)).astype(np.float32))
+    lay = pconv._layout(w, torch.bfloat16)
+    assert lay.shape == (2, 2, 9, 4, 64, 8)
+    n, c, dy, dx = np.meshgrid(np.arange(70), np.arange(40), np.arange(3), np.arange(3),
+                               indexing="ij")
+    got = lay[n // 64, c // 32, dy * 3 + dx, (c % 32) // 8, n % 64, c % 8]
+    assert torch.equal(got, w.to(torch.bfloat16)[n, c, dy, dx])
+    assert float(lay.float().abs().sum()) == float(w.to(torch.bfloat16).float().abs().sum())
+    lay32 = pconv._layout(w, torch.float32)
+    assert lay32.shape == (9, 40, 128)
+    assert torch.equal(lay32[:, :, :70], w.permute(2, 3, 1, 0).reshape(9, 40, 70))
+
+
+@pytest.mark.cuda
+def test_conv_kernels_take_every_flagship_conv_on_card(cuda_device):
+    """Both entries, bf16, at every distinct conv of the flagship at 128x128
+    b8 and native 448x1024 b2 (forward and dgrad shapes, from the model),
+    against the plain versions; the prologue where the model uses it, and
+    each kernel launched twice for the same bits."""
+    dev = cuda_device
+    for i, ((B, Cin, H, W), (Cout, _, kh, kw), pro) in enumerate(_distinct_flagship_convs()):
+        g = torch.Generator(device=dev).manual_seed(100 + i)
+        x = torch.randn(B, Cin, H, W, generator=g, device=dev).to(torch.bfloat16)
+        w = torch.randn(Cout, Cin, kh, kw, generator=g, device=dev) / (Cin * kh * kw) ** 0.5
+        a = 1.0 + 0.5 * torch.rand(B, Cin, generator=g, device=dev)
+        b = torch.randn(B, Cin, generator=g, device=dev)
+        with torch.no_grad():
+            rows, rows2 = pconv.conv_rows(x, w), pconv.conv_rows(x, w)
+            want = pconv.conv2d_same_plain(x, w)
+            got = [(rows, rows2, want)]
+            if pro:
+                got.append((pconv.conv_fold(x, w, a, b), pconv.conv_fold(x, w, a, b),
+                            pconv.conv2d_same_gn_plain(x, w, a, b)))
+            else:
+                got.append((pconv.conv_fold(x, w), pconv.conv_fold(x, w), want))
+            torch.cuda.synchronize()
+        for one, two, ref in got:
+            assert torch.equal(one, two), (x.shape, w.shape, pro)
+            e = float((one.float() - ref.float()).abs().max())
+            assert e <= _conv_tol(ref, torch.bfloat16), (x.shape, w.shape, pro, e)
+        del x, w, got, rows, rows2, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_dgrad_with_flipped_kernel_on_card(cuda_device, no_tf32, dtype):
+    """The dgrad launch of ``_ConvSame``'s backward: the kernel on the
+    cotangent with the spatially flipped, io-swapped kernel, against the
+    plain conv with the same kernel, at the native level-0 shape (bf16) and
+    a narrow one; twice for the same bits."""
+    dev = cuda_device
+    shapes = [(2, 64, 32, 40, 64, 3)]
+    if dtype == torch.bfloat16:
+        shapes.append((2, 64, 448, 1024, 128, 3))
+    for B, Cin, H, W, Cout, k in shapes:
+        gen = torch.Generator(device=dev).manual_seed(7)
+        g = torch.randn(B, Cout, H, W, generator=gen, device=dev).to(dtype)
+        w = torch.randn(Cout, Cin, k, k, generator=gen, device=dev) / (Cin * k * k) ** 0.5
+        wf = pconv._flip(w)
+        with torch.no_grad():
+            one, two = pconv.conv_fold(g, wf), pconv.conv_fold(g, wf)
+            want = pconv.conv2d_same_plain(g, wf)
+            torch.cuda.synchronize()
+        assert one.shape == (B, Cin, H, W) and torch.equal(one, two)
+        assert float((one.float() - want.float()).abs().max()) <= _conv_tol(want, dtype)
