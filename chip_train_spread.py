@@ -1,0 +1,77 @@
+"""The spread of chip_smoke.py's train-step check over seeds, on an H100.
+
+chip_smoke.py holds one 128x128 b16 bf16 train step with every kernel to
+the same step with every plain version (``step_vs_plain``, pins
+``TOL_TRAIN``), at one seed.  The random-weight flagship's loss is so
+sensitive that a few flipped bf16 roundings move it by ~1e-4-1e-3 of its
+value, so one seed is one draw.  This script runs the same check at
+``--seeds`` seeds (weights and batch), under both conv backends, each case
+``--reps`` times, and prints one JSON line per case and a summary: the
+largest and mean loss difference per backend, and whether the repeats gave
+the same numbers.
+
+``--splat-sums float32`` takes the plain splat's sums in float32, whose GPU
+atomics sum in a varying order (chip_smoke.py's reference before it took
+them in float64), to show what that order does to the reference.
+
+Usage (from the root of a checkout, one card)::
+
+    python3 chip_train_spread.py [--seeds 5] [--reps 2] [--splat-sums float64]
+"""
+
+import argparse
+import json
+
+import numpy as np
+
+import chip_smoke as cs
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seeds", type=int, default=5)
+    ap.add_argument("--reps", type=int, default=2)
+    ap.add_argument("--splat-sums", choices=("float64", "float32"), default="float64")
+    args = ap.parse_args()
+    cs.device_phase()
+    cs.build_phase()
+    if args.splat_sums == "float32":
+        raw = cs.sp.splat_raw
+        cs.sp.splat_raw = lambda *a, acc_dtype=None, **k: raw(*a, **k)
+
+    rows = []
+
+    def phase(name, **kw):
+        if name == "train_step_vs_plain":
+            rows.append(kw)
+
+    cs.phase = phase
+    for seed in range(args.seeds):
+        cs.SEED = seed
+        batch = cs.train_batch(seed)
+        for backend in ("cudnn", "fold"):
+            for rep in range(args.reps):
+                try:
+                    cs.step_vs_plain("bf16", batch, backend)
+                    ok = True
+                except AssertionError:
+                    ok = False
+                r = rows[-1]
+                cs.emit({"case": "train_step_vs_plain", "seed": seed, "conv_backend": backend,
+                         "rep": rep, "splat_sums": args.splat_sums, "within_pins": ok,
+                         "loss_rel": r["loss_rel"], "grad_global_rel": r["grad_global_rel"],
+                         "loss": r["loss"], "plain_loss": r["plain_loss"]})
+    summary = {}
+    for backend in ("cudnn", "fold"):
+        rel = [r["loss_rel"] for r in rows if r["conv_backend"] == backend]
+        per_case = [rel[i:i + args.reps] for i in range(0, len(rel), args.reps)]
+        summary[backend] = {"loss_rel_max": max(rel), "loss_rel_mean": float(np.mean(rel)),
+                            "over_pin": sum(x > cs.TOL_TRAIN["bf16"][0] for x in rel),
+                            "cases": len(rel),
+                            "repeats_equal": all(len(set(c)) == 1 for c in per_case)}
+    cs.emit({"summary": summary, "splat_sums": args.splat_sums, "seeds": args.seeds,
+             "reps": args.reps, "pin": cs.TOL_TRAIN["bf16"][0]})
+
+
+if __name__ == "__main__":
+    main()

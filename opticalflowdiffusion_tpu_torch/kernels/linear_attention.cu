@@ -10,7 +10,8 @@
 //
 //   la_ctx_kernel  <- _ctx_kernel (pass A): preLN -> k, v -> k-softmax over N
 //                     with an online max -> ctx = softmax_N(k)^T v per head,
-//                     plus the final max m and denominator s.
+//                     plus the final max m and denominator s (with
+//                     la_ctx_combine_kernel, which folds the CTAs' partials).
 //   la_out_kernel  <- _out_kernel (pass B): preLN -> q -> per-head softmax
 //                     over d -> q' ctx / N -> W_out + b -> postLN -> + x.
 //
@@ -19,24 +20,25 @@
 // context sums are f32.  The context is kept per head, (4, 32, 32), instead
 // of the TPU's block-diagonal (128, 128).
 //
-// Design (a first, simple version): one CTA of 256 threads per tile of
-// T = 32 positions.  The x tile is read straight from global memory (the
-// (C, N) layout makes a warp's 32 lanes read 32 neighbouring positions), the
-// normalised tile is kept in shared memory as bf16, and the projections run
-// on tensor cores through WMMA 16x16x16 fragments whose B operand (the
-// weights) is loaded from global memory (L1/L2 resident: at most 384 KB).
-// Pass A spreads the N tiles of one batch element over P CTAs; each CTA
-// keeps its running max, sum and context in registers and writes them as a
-// partial; the last CTA of the batch element (atomic ticket) combines the P
-// partials.
+// bf16 x (the flagship) runs the Hopper bodies of la_ctx_kernel and
+// la_out_kernel ("Hopper bodies of rows 1-2" below: persistent CTAs, a TMA
+// ring of x tiles, weights and ctx in shared memory, wgmma projections, the
+// context sums in 3xTF32 on the tensor cores, and la_ctx_combine_kernel
+// folding the per-CTA partials in parallel).  f32 x keeps the first bodies,
+// la_ctx_f32_kernel and la_out_f32_kernel: one CTA of 256 threads per tile
+// of T = 32 positions, the x tile read straight from global memory, the
+// normalised tile in shared memory as bf16, WMMA 16x16x16 projections whose
+// B operand (the weights) is read from global memory (L1/L2 resident), pass
+// A spread over P CTAs a batch element, each writing one partial.
 //
 // Bound on the H100: both passes move little (x read once, y written once,
 // weights tiny).  Pass B does ~2 * 256 * C bf16 tensor FLOPs per position and
 // is bound by its bytes.  Pass A's least time is set by its f32 context sums
-// (2 * 4096 FLOPs per position on CUDA cores, 67 TFLOP/s), not by its bf16
-// projection or its bytes.  Nothing here uses TMA or wgmma yet; that is
-// later work.
+// (2 * 4096 FLOPs per position: three TF32 products each on the tensor
+// cores, 495 TFLOP/s; 67 TFLOP/s on CUDA cores), not by its bf16 projection
+// or its bytes.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -222,18 +224,16 @@ __device__ __forceinline__ void ctx_tile(float* kvS, int nvalid, float* chS, flo
   __syncthreads();
 }
 
-// The end of a context pass over grid (P, B): this CTA writes its partial
-// (m, s, context sums) of batch element b to part (B, P, PART); the last CTA
-// of b to finish (an atomic ticket on counter[b], which it leaves zero)
-// combines the P partials in the order p = 0 .. P-1 into ctx_out (B, NH, DH,
-// DH) = sums / s and, where given, m_out and s_out (B, HD).  The same bits
-// on every run: no float atomics.  scratch: 2 HD floats.
-__device__ __forceinline__ void ctx_finish(float* __restrict__ part, int* __restrict__ counter,
-                                           float m_run, float s_run, const float (&acc)[16],
-                                           float* scratch, float* __restrict__ ctx_out,
-                                           float* __restrict__ m_out,
-                                           float* __restrict__ s_out, int b, int p, int P) {
-  __shared__ int is_last;
+// The end of the unfused middle's context pass over grid (P, B): this CTA
+// writes its partial (ctx_partial); the last CTA of b to finish (an atomic
+// ticket on counter[b], which it leaves zero) combines the P partials in the
+// order p = 0 .. P-1 into ctx_out (B, NH, DH, DH) = sums / s and, where
+// given, m_out and s_out (B, HD).  The same bits on every run: no float
+// atomics.  scratch: 2 HD floats.  (The block's pass A hands its partials
+// to la_ctx_combine_kernel instead.)
+// This CTA's partial (m, s, context sums) of batch element b -> part (B, P, PART).
+__device__ __forceinline__ void ctx_partial(float* __restrict__ part, float m_run, float s_run,
+                                            const float (&acc)[16], int b, int p, int P) {
   const int tid = threadIdx.x;
   const int kj = (tid / 64) * DH + (tid % 64) / 2, e0 = (tid % 2) * 16;
   float* pb = part + ((size_t)b * P + p) * PART;
@@ -243,6 +243,17 @@ __device__ __forceinline__ void ctx_finish(float* __restrict__ part, int* __rest
   }
 #pragma unroll
   for (int i = 0; i < 16; ++i) pb[2 * HD + kj * DH + e0 + i] = acc[i];
+}
+
+__device__ __forceinline__ void ctx_finish(float* __restrict__ part, int* __restrict__ counter,
+                                           float m_run, float s_run, const float (&acc)[16],
+                                           float* scratch, float* __restrict__ ctx_out,
+                                           float* __restrict__ m_out,
+                                           float* __restrict__ s_out, int b, int p, int P) {
+  __shared__ int is_last;
+  const int tid = threadIdx.x;
+  const int kj = (tid / 64) * DH + (tid % 64) / 2, e0 = (tid % 2) * 16;
+  ctx_partial(part, m_run, s_run, acc, b, p, P);
   __threadfence();
   __syncthreads();
   if (tid == 0) is_last = atomicAdd(counter + b, 1) == P - 1;
@@ -281,14 +292,11 @@ __device__ __forceinline__ void ctx_finish(float* __restrict__ part, int* __rest
   if (tid == 0) counter[b] = 0;
 }
 
-// Pass A.  grid (P, B).  part: (B, P, PART) f32 scratch; counter: (B,) int32,
-// zero on entry and left zero.  Outputs ctx (B, NH, DH, DH), m and s (B, HD).
-template <typename TX>
+// Pass A, f32 x.  grid (P, B).  Writes this CTA's partial to part (B, P,
+// PART); la_ctx_combine_kernel folds them.
 __global__ void __launch_bounds__(THREADS)
-la_ctx_kernel(const TX* __restrict__ x, const float* __restrict__ g_pre,
-              const bf16* __restrict__ w_kv, float* __restrict__ part,
-              int* __restrict__ counter, float* __restrict__ ctx_out,
-              float* __restrict__ m_out, float* __restrict__ s_out, int C, int N) {
+la_ctx_f32_kernel(const float* __restrict__ x, const float* __restrict__ g_pre,
+                  const bf16* __restrict__ w_kv, float* __restrict__ part, int C, int N) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* lnS = reinterpret_cast<bf16*>(smem);
   float* kvS = reinterpret_cast<float*>(smem + align128((size_t)C * LDT * sizeof(bf16)));
@@ -306,15 +314,13 @@ la_ctx_kernel(const TX* __restrict__ x, const float* __restrict__ g_pre,
   for (int tile = p; tile < ntiles; tile += P) {
     const int n0 = tile * T;
     const int nvalid = min(T, N - n0);
-    XSrc<TX> src{x + (size_t)b * C * N + n0, N};
+    XSrc<float> src{x + (size_t)b * C * N + n0, N};
     pre_ln(src, g_pre, C, nvalid, lnS, red, stat);
     project(lnS, w_kv, C, 2 * HD, kvS, LDK);
     __syncthreads();
     ctx_tile(kvS, nvalid, chS, m_run, s_run, acc);
   }
-  static_assert(WARPS * T >= 2 * HD, "red holds the combine's 2 HD floats");
-  // red is free for the combine
-  ctx_finish(part, counter, m_run, s_run, acc, red, ctx_out, m_out, s_out, b, p, P);
+  ctx_partial(part, m_run, s_run, acc, b, p, P);
 }
 
 size_t out_smem(int C) {
@@ -326,13 +332,12 @@ size_t out_smem(int C) {
          (size_t)(WARPS * T + 2 * T) * sizeof(float);
 }
 
-// Pass B.  grid (ceil(N / T), B).  ctx (B, NH, DH, DH) from pass A.
-template <typename TX>
+// Pass B, f32 x.  grid (ceil(N / T), B).  ctx (B, NH, DH, DH) from pass A.
 __global__ void __launch_bounds__(THREADS)
-la_out_kernel(const TX* __restrict__ x, const float* __restrict__ g_pre,
-              const bf16* __restrict__ w_q, const float* __restrict__ ctx,
-              const bf16* __restrict__ w_out, const float* __restrict__ b_out,
-              const float* __restrict__ g_post, TX* __restrict__ y, int C, int N) {
+la_out_f32_kernel(const float* __restrict__ x, const float* __restrict__ g_pre,
+                  const bf16* __restrict__ w_q, const float* __restrict__ ctx,
+                  const bf16* __restrict__ w_out, const float* __restrict__ b_out,
+                  const float* __restrict__ g_post, float* __restrict__ y, int C, int N) {
   extern __shared__ __align__(128) unsigned char smem[];
   size_t off = 0;
   bf16* lnS = reinterpret_cast<bf16*>(smem + off);
@@ -356,7 +361,7 @@ la_out_kernel(const TX* __restrict__ x, const float* __restrict__ g_pre,
   for (int i = tid; i < NH * DH * DH; i += THREADS)
     ctxS[i] = __float2bfloat16(ctx[(size_t)b * NH * DH * DH + i] * inv_n);
 
-  XSrc<TX> src{x + (size_t)b * C * N + n0, N};
+  XSrc<float> src{x + (size_t)b * C * N + n0, N};
   pre_ln(src, g_pre, C, nvalid, lnS, red, stat);
   project(lnS, w_q, C, HD, qS, LDQ);
   __syncthreads();
@@ -420,10 +425,1048 @@ la_out_kernel(const TX* __restrict__ x, const float* __restrict__ g_pre,
   const int t = lane;
   if (t < nvalid) {
     const float mean = stat[t], rstd = stat[T + t];
-    TX* yb = y + (size_t)b * C * N + n0 + t;
+    float* yb = y + (size_t)b * C * N + n0 + t;
     for (int c = warp; c < C; c += WARPS) {
       const float o = (osrc(c, t) - mean) * rstd * g_post[c];
       put(yb + (size_t)c * N, src(c, t) + o);
+    }
+  }
+}
+
+// ------------------------------------------------- Hopper bodies of rows 1-2
+//
+// The bf16-x forward passes, redesigned for Hopper (sm_90a).  The f32-x
+// instantiations keep the first bodies above (la_ctx_f32_kernel,
+// la_out_f32_kernel); both dtypes share the combine of pass A.
+//
+// - Persistent CTAs, grid (P, B): CTA p walks the tiles p, p + P, ... of
+//   batch element b (P from the wrapper's la_plan: one CTA per SM, split
+//   over the batch), so the weights and the context are loaded into shared
+//   memory once per CTA, not once per tile.
+// - A tile is TN = 64 positions.  One producer thread issues TMA loads
+//   (cp.async.bulk.tensor, a 3-d map over x as (ld, C, B), [64][<= 256]
+//   boxes, 128-byte swizzle) into a ring of S stages under mbarriers; ld is
+//   a multiple of 8 (the wrapper pads a ragged N once).  The x tile is read
+//   from shared memory only: LN statistics (two passes, f32), the
+//   normalised tile, and in pass B the residual.
+// - Projections on wgmma: the normalised tile, bf16, [C][64] with the same
+//   swizzle as x (pass A writes it over x in place), is the MN-major A of
+//   the products; the weights are K-major B operands ([rows][64 columns],
+//   128-byte swizzle), put there by one or two 2-d TMA boxes per chunk
+//   straight from the torch layout (zero past C).  Chunks of 64 input
+//   channels (w_kv: 32 KB, w_q: 16 KB) or 64 output channels (w_out, 16
+//   KB) are resident (loaded once) where they fit beside the x ring, else
+//   streamed per tile through a ring of chunk slots in the order the
+//   consumers use them (la_plan says which).
+// - LN statistics: a warp takes 8 positions (a 16-byte chunk of every
+//   channel row, one vector load each) and sums over the channels with a
+//   transposing shuffle butterfly, two passes (mean, then squared
+//   deviations).
+// - Pass A: warp group w projects k and v of heads 2 w, 2 w + 1.  The
+//   per-channel online max and sum run on k's accumulators (a thread's two
+//   rows, a transposing shuffle butterfly over the 8 row groups of a warp, a
+//   4-way combine across warps in shared memory), exp(k - m) (ex2.approx)
+//   and v go to shared memory as f32, and each warp group sums its heads'
+//   context ctx[h][d][e] += exp(k - m)[t][hd] v[t][he] over the tile on the
+//   tensor cores in 3xTF32 (each f32 operand split into two TF32 parts, the
+//   three largest of the four products summed in f32: f32's accuracy,
+//   mma.sync m16n8k8, conflict-free loads from the tiles' 136-float rows),
+//   with the same rescaling and two-level sum as the first body.  Each CTA
+//   writes one partial (m, s, sums); la_ctx_combine_kernel then folds the P
+//   partials of a batch element in the order p = 0 .. P-1, one thread per
+//   context entry: no CTA folds all partials alone, and no float atomics
+//   (the same bits on every run).
+// - Pass B: q = LN(x) W_q^T (m64n128k16), the head softmax on the
+//   accumulators (a quad of lanes holds a row's 32 channels of a head),
+//   q' packed to bf16 in registers as the A operand of attn = q' (ctx / N)
+//   (m64n32k16 per head, ctx / N bf16 in shared memory), attn packed again
+//   as the A of o = attn W_out^T (m64n64k16 per 64 output channels).  The
+//   post-LN statistics are taken on the accumulators (a quad shuffle per
+//   row), y = x + postLN(o + b) is written over the x stage and stored by
+//   TMA.  The o accumulators of up to 4 chunks of 64 channels stay in
+//   registers; above 256 channels the chunks are recomputed for the mean,
+//   the variance and the output (the products are cheap, registers are
+//   not).  At C <= 128 two consumer warp groups take alternate tiles.
+// - Every mbarrier wait traps after ~10 s instead of hanging the card.
+constexpr int TN = 64;                  // positions per tile
+constexpr int XROW = TN * 2;            // bytes of one channel row of a bf16 x tile
+constexpr int CHUNK = 16384;            // bytes of a w_q or w_out chunk (w_kv: 2 CHUNK)
+constexpr int EP = HD + 8;              // f32 row pitch of pass A's exp(k - m) and v tiles
+constexpr int A_THREADS = 288;          // 2 consumer warp groups + 1 producer warp
+constexpr int SMEM_LIMIT = 232448;      // 227 KB: the most a CTA may have
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+// Shared memory of the bf16 passes (la_plan in ops/attention_fused.py
+// computes the same): 1 KB of alignment slack, the x ring, the weight
+// chunk slots, then per pass:
+__host__ __device__ inline size_t ctx_bf16_smem(int C, int S, int slots) {
+  return 1024 + (size_t)S * C * XROW + (size_t)slots * 2 * CHUNK +
+         2 * (size_t)TN * EP * 4 +                      // exp(k - m), v
+         (size_t)(2 * 4 * HD + 2 * HD + C) * 4 +        // max and sum partials, m, alpha, g
+         (size_t)(2 * S + 2 * slots) * 8;               // mbarriers
+}
+__host__ __device__ inline size_t out_bf16_smem(int C, int S, int slots, int nw) {
+  return 1024 + (size_t)(S + nw) * C * XROW + (size_t)slots * CHUNK +
+         (size_t)NH * DH * DH * 2 +                     // ctx / N, bf16 planes
+         (size_t)3 * C * 4 +                            // g_pre, b_out, g_post
+         (size_t)(2 * S + 2 * slots) * 8;
+}
+
+struct CtxPlan {
+  int C, N, S, slots, resident;
+};
+struct OutPlan {
+  int C, N, S, slots, resident, nw;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Waits for the completion of the barrier's phase of the given parity; a
+// wait longer than ~10 s traps, so that a pipeline fault fails the launch
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.b32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  if (done) return;
+  uint64_t t0, t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.b32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    if (!done && t - t0 > 10000000000ull) __trap();
+  } while (!done);
+}
+// by every lane of a warp, which leaves the warp converged for the
+// .sync.aligned instructions after it
+__device__ __forceinline__ void mbar_wait_warp(uint32_t bar, uint32_t parity) {
+  mbar_wait(bar, parity);
+  __syncwarp();
+}
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// the committed bulk stores have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// generic-proxy writes to shared memory, made visible to wgmma and TMA
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+// wgmma shared-memory descriptors: K-major planes without swizzle (LBO the
+// plane stride, SBO 128 bytes), and the 128-byte swizzle of the x tile
+__device__ __forceinline__ uint64_t desc_plain(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return desc_plain(addr, lbo, sbo) | (1ull << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving reads or writes of r across a wgmma wait
+__device__ __forceinline__ void reg_fence(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// D (64 x 128) += A (64 x 16, MN-major, 128-byte swizzle) B (16 x 128, K-major planes)
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db, uint32_t scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64) += A (64 x 16, MN-major, 128-byte swizzle) B (16 x 64, K-major planes)
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db, uint32_t scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+// D (64 x 64) += A (64 x 16, registers) B (16 x 64, K-major planes)
+__device__ __forceinline__ void wgmma_n64_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                       uint32_t scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 32) += A (64 x 16, registers) B (16 x 32, K-major planes)
+__device__ __forceinline__ void wgmma_n32_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
+                                       uint32_t scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+
+// The dynamic shared memory from its first 1024-byte boundary (the 128-byte
+// swizzle's alignment), by pointer arithmetic on the array itself so that
+// the compiler keeps shared-memory loads and stores (a cast through an
+// integer would leave generic ones).
+__device__ __forceinline__ unsigned char* align1024(unsigned char* raw) {
+  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+}
+
+// bf16 at byte offset a of the dynamic shared memory (plain loads and
+// stores, which the compiler may batch and reorder)
+__device__ __forceinline__ float lds_bf16(const unsigned char* sm, uint32_t a) {
+  return __bfloat162float(*reinterpret_cast<const bf16*>(sm + a));
+}
+__device__ __forceinline__ void sts_bf16(unsigned char* sm, uint32_t a, float v) {
+  *reinterpret_cast<bf16*>(sm + a) = __float2bfloat16(v);
+}
+
+// The sum over the 32 lanes of a warp of each lane's v[0 .. 7]: a
+// transposing butterfly (4 + 2 + 1 shuffles that halve the values, then 2
+// that add), after which the 4 lanes of quad k hold the sum of v[k].  The
+// same order on every run.
+__device__ __forceinline__ float warp_sum8(const float (&v)[8]) {
+  const int lane = threadIdx.x & 31;
+  float a[4], b[2];
+  const bool h4 = lane & 16, h3 = lane & 8, h2 = lane & 4;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    a[k] = (h4 ? v[k + 4] : v[k]) + __shfl_xor_sync(FULL_MASK, h4 ? v[k] : v[k + 4], 16);
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+    b[k] = (h3 ? a[k + 2] : a[k]) + __shfl_xor_sync(FULL_MASK, h3 ? a[k] : a[k + 2], 8);
+  float r = (h2 ? b[1] : b[0]) + __shfl_xor_sync(FULL_MASK, h2 ? b[0] : b[1], 4);
+  r += __shfl_xor_sync(FULL_MASK, r, 2);
+  return r + __shfl_xor_sync(FULL_MASK, r, 1);
+}
+
+__device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    f[2 * k] = __uint_as_float(w[k] << 16);
+    f[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+  }
+}
+
+// Pre-LN of the positions 8 j .. 8 j + 7 of a [C][64] bf16 tile (its
+// 16-byte chunk j of every channel row) for the NC chunks j = j0, j0 + 4,
+// .., by one warp (interleaved, for the loads' sake): lane l takes the
+// channels l, l + 32, ...  Mean, then the mean of squared deviations (as
+// jnp.var), over C in f32; writes bf16((x - mean) rstd g) over the same
+// chunks of the tile at la (which may be xs).  Byte offsets into sm.
+template <int NC>
+__device__ __forceinline__ void chunk_ln(unsigned char* sm, uint32_t xs, uint32_t la, int C, int j0,
+                                         const float* g) {
+  const int lane = threadIdx.x & 31;
+  float v[8], acc[NC][8], mean[NC][8], rstd[NC][8];
+  auto at = [&](int c, int n) { return c * XROW + (((j0 + 4 * n) ^ (c & 7)) << 4); };
+#pragma unroll
+  for (int n = 0; n < NC; ++n)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc[n][k] = 0.f;
+  for (int c = lane; c < C; c += 32)
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+      unpack8(*reinterpret_cast<const uint4*>(sm + xs + at(c, n)), v);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) acc[n][k] += v[k];
+    }
+#pragma unroll
+  for (int n = 0; n < NC; ++n) {
+    const float m = warp_sum8(acc[n]) / C;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      mean[n][k] = __shfl_sync(FULL_MASK, m, 4 * k);
+      acc[n][k] = 0.f;
+    }
+  }
+  for (int c = lane; c < C; c += 32)
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+      unpack8(*reinterpret_cast<const uint4*>(sm + xs + at(c, n)), v);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) acc[n][k] += (v[k] - mean[n][k]) * (v[k] - mean[n][k]);
+    }
+#pragma unroll
+  for (int n = 0; n < NC; ++n) {
+    const float r = rsqrtf(warp_sum8(acc[n]) / C + EPS);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) rstd[n][k] = __shfl_sync(FULL_MASK, r, 4 * k);
+  }
+  for (int c = lane; c < C; c += 32) {
+    const float gc = g[c];
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+      const uint32_t o = at(c, n);
+      unpack8(*reinterpret_cast<const uint4*>(sm + xs + o), v);
+      float y[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) y[k] = (v[k] - mean[n][k]) * rstd[n][k] * gc;
+      *reinterpret_cast<uint4*>(sm + la + o) = make_uint4(
+          pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]), pack_bf16(y[4], y[5]), pack_bf16(y[6], y[7]));
+    }
+  }
+  fence_async_smem();
+}
+
+// The max (or sum) over a warp's 8 row groups (lane bits 2-4) of each of
+// this lane's 16 accumulator columns, v[2 j + e] for column 8 j + 2 cq + e:
+// a transposing butterfly of 8 + 4 + 2 shuffles, after which lane (g, cq)
+// holds r[k] for column 8 g + 2 cq + k, k < 2.
+template <bool MAX>
+__device__ __forceinline__ void warp_cols16(const float (&v)[16], float (&r)[2]) {
+  const int lane = threadIdx.x & 31;
+  auto op = [](float a, float b) { return MAX ? fmaxf(a, b) : a + b; };
+  float a[8], b[4];
+  const bool h4 = lane & 16, h3 = lane & 8, h2 = lane & 4;
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    a[k] = op(h4 ? v[k + 8] : v[k], __shfl_xor_sync(FULL_MASK, h4 ? v[k] : v[k + 8], 16));
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    b[k] = op(h3 ? a[k + 4] : a[k], __shfl_xor_sync(FULL_MASK, h3 ? a[k] : a[k + 4], 8));
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+    r[k] = op(h2 ? b[k + 2] : b[k], __shfl_xor_sync(FULL_MASK, h2 ? b[k] : b[k + 2], 4));
+}
+
+// x = hi + lo in TF32 (hi: x rounded to TF32's 10 mantissa bits, lo: the
+// rest rounded again): a product of two such splits, hi hi + hi lo + lo hi,
+// keeps f32's accuracy on the tensor cores (3xTF32)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+}
+
+// D (16 x 8) += A (16 x 8, row) B (8 x 8, col), TF32 operands, f32 sums
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+constexpr float L2E = 1.4426950408889634f;  // log2(e): exp(x) = ex2(x log2 e)
+
+// Pass A, bf16 x.  grid (P, B), A_THREADS threads, ctx_bf16_smem bytes;
+// tx maps x as (ld, C, B) with [64][C / nbox] boxes, tw maps w_kv (256, C)
+// with [256][8] boxes.  Writes this CTA's partial to part (B, P, PART).
+__global__ void __launch_bounds__(A_THREADS, 1)
+la_ctx_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+              const float* __restrict__ g_pre, float* __restrict__ part, CtxPlan pl) {
+  extern __shared__ unsigned char la_smem_raw[];
+  unsigned char* sm = align1024(la_smem_raw);
+  const int C = pl.C, N = pl.N, S = pl.S, slots = pl.slots;
+  const bool resident = pl.resident != 0;
+  const int b = blockIdx.y, p = blockIdx.x, P = gridDim.x;
+  const int ntiles = (N + TN - 1) / TN;
+  const int my = (ntiles - 1 - p) / P + 1;  // tiles p, p + P, ... (p < ntiles)
+  const int nch = (C + 63) / 64;            // weight chunks of 64 channels (32 KB)
+  const int nbox = C > 256 ? 2 : 1, cb = C / nbox;
+  const uint32_t xsz = (uint32_t)C * XROW;
+
+  const uint32_t base = smem_u32(sm);
+  const uint32_t x_off = base, w_off = x_off + S * xsz;
+  float* E = reinterpret_cast<float*>(sm + S * xsz + (size_t)slots * 2 * CHUNK);
+  float* V = E + TN * EP;
+  float* redm = V + TN * EP;      // 4 x HD
+  float* reds = redm + 4 * HD;    // 4 x HD
+  float* mS = reds + 4 * HD;      // HD
+  float* alphaS = mS + HD;        // HD
+  float* gS = alphaS + HD;        // C
+  const uint32_t xfull = smem_u32(gS + C), xempty = xfull + 8 * S;
+  const uint32_t wfull = xempty + 8 * S, wempty = wfull + 8 * slots;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(xfull + 8 * s, 1);
+      mbar_init(xempty + 8 * s, 8);  // lane 0 of each consumer warp
+    }
+    for (int s = 0; s < slots; ++s) {
+      mbar_init(wfull + 8 * s, 1);
+      mbar_init(wempty + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int c = threadIdx.x; c < C; c += blockDim.x) gS[c] = g_pre[c];
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp == 8) {
+    // ---- producer: x tiles, and the weight chunks (once, or per tile)
+    if (lane == 0) {
+      auto load_chunk = [&](int ch, int slot) {  // one [256][64] box
+        mbar_expect_tx(wfull + 8 * slot, 2 * CHUNK);
+        tma_load_2d(w_off + slot * 2 * CHUNK, &tw, wfull + 8 * slot, 64 * ch, 0);
+      };
+      if (resident)
+        for (int ch = 0; ch < nch; ++ch) load_chunk(ch, ch);
+      int wit = 0;
+      for (int i = 0; i < my; ++i) {
+        const int s = i % S;
+        if (i >= S) mbar_wait(xempty + 8 * s, (i / S - 1) & 1);
+        mbar_expect_tx(xfull + 8 * s, xsz);
+        for (int bx = 0; bx < nbox; ++bx)
+          tma_load_3d(x_off + s * xsz + bx * cb * XROW, &tx, xfull + 8 * s, (p + i * P) * TN,
+                      bx * cb, b);
+        if (!resident)
+          for (int ch = 0; ch < nch; ++ch, ++wit) {
+            const int slot = wit % slots;
+            if (wit >= slots) mbar_wait(wempty + 8 * slot, (wit / slots - 1) & 1);
+            load_chunk(ch, slot);
+          }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warp group 0 projects k, warp group 1 v
+  const int tid = threadIdx.x, wg = tid >> 7, wtid = tid & 127, wwarp = wtid >> 5;
+  const int g8 = lane >> 2, cq = lane & 3;
+  const int r0 = wwarp * 16 + g8, r1 = r0 + 8;  // this thread's accumulator rows
+  // context sums of this warp: head hd, d = 16 mh + g8 (+ 8), e = 8 nt + 2 cq (+ 1)
+  const int hd = 2 * wg + (wwarp >> 1), mh = wwarp & 1;
+  float cacc[4][4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) cacc[nt][k] = 0.f;
+  float m_run = -INFINITY, s_run = 0.f;  // channel 64 wg + wtid (wtid < 64)
+  const int ksteps = C / 16;
+
+  for (int i = 0; i < my; ++i) {
+    const int n0 = (p + i * P) * TN, nvalid = min(TN, N - n0);
+    const int s = i % S;
+    const uint32_t xs = x_off + s * xsz;
+    mbar_wait_warp(xfull + 8 * s, (i / S) & 1);
+    chunk_ln<1>(sm, xs - base, xs - base, C, warp, gS);  // LN(x) over x; warp w: positions 8 w ..
+    bar_sync(1, 256);
+
+    // [k | v] of heads 2 wg, 2 wg + 1 = LN(x) W_kv^T: warp group wg takes the
+    // rows 64 wg .. (k) and 128 + 64 wg .. (v) of each plane
+    float ka[32], va[32];  // the first product overwrites them (scale_d = 0)
+    for (int ch = 0; ch < nch; ++ch) {
+      const int it = i * nch + ch;
+      const int slot = resident ? ch : it % slots;
+      mbar_wait_warp(wfull + 8 * slot, resident ? 0 : (it / slots) & 1);
+      const uint32_t wa = w_off + slot * 2 * CHUNK + wg * 64 * XROW;  // row 64 wg of [256][64]
+      wgmma_fence();
+#pragma unroll
+      for (int sub = 0; sub < 4; ++sub) {
+        const int kk = 4 * ch + sub;
+        if (kk < ksteps) {
+          const uint64_t da = desc_sw128(xs + kk * 2048, 4096, 1024);
+          wgmma_n64(ka, da, desc_sw128(wa + sub * 32, 16, 1024), kk > 0);
+          wgmma_n64(va, da, desc_sw128(wa + HD * XROW + sub * 32, 16, 1024), kk > 0);
+        }
+      }
+      wgmma_commit();
+      if (!resident) {  // the slot goes back to the producer once read
+        wgmma_wait0();
+        if (lane == 0) mbar_arrive(wempty + 8 * slot);
+      }
+    }
+    wgmma_wait0();
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      reg_fence(ka[j]);
+      reg_fence(va[j]);
+    }
+    if (lane == 0) mbar_arrive(xempty + 8 * s);  // x tile (now LN(x)) read
+
+    // per-channel max of this tile's k over the valid rows; this warp group's
+    // 64 channels: accumulator column 8 j + 2 cq + e is channel 64 wg + it
+    const bool v0 = r0 < nvalid, v1 = r1 < nvalid;
+    const int bar = 2 + wg, ch0 = 64 * wg;
+    float v[16], r[2];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        v[2 * j + e] = fmaxf(v0 ? ka[4 * j + e] : -INFINITY, v1 ? ka[4 * j + 2 + e] : -INFINITY);
+    warp_cols16<true>(v, r);
+#pragma unroll
+    for (int k = 0; k < 2; ++k) redm[wwarp * HD + ch0 + 8 * g8 + 2 * cq + k] = r[k];
+    bar_sync(bar, 128);
+    if (wtid < 64) {
+      const int c = ch0 + wtid;
+      const float mt = fmaxf(fmaxf(redm[c], redm[HD + c]), fmaxf(redm[2 * HD + c], redm[3 * HD + c]));
+      const float m_new = fmaxf(m_run, mt);
+      alphaS[c] = expf(m_run - m_new);
+      mS[c] = m_new;
+    }
+    bar_sync(bar, 128);
+    // exp(k - m) -> E and v -> V (f32, rows r0 and r1), and the sum of exp(k - m)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = ch0 + 8 * j + 2 * cq;
+      const float ma = mS[col] * L2E, mb = mS[col + 1] * L2E;
+      const float2 ea = make_float2(v0 ? ex2(fmaf(ka[4 * j], L2E, -ma)) : 0.f,
+                                    v0 ? ex2(fmaf(ka[4 * j + 1], L2E, -mb)) : 0.f);
+      const float2 eb = make_float2(v1 ? ex2(fmaf(ka[4 * j + 2], L2E, -ma)) : 0.f,
+                                    v1 ? ex2(fmaf(ka[4 * j + 3], L2E, -mb)) : 0.f);
+      *reinterpret_cast<float2*>(E + r0 * EP + col) = ea;
+      *reinterpret_cast<float2*>(E + r1 * EP + col) = eb;
+      *reinterpret_cast<float2*>(V + r0 * EP + col) = make_float2(va[4 * j], va[4 * j + 1]);
+      *reinterpret_cast<float2*>(V + r1 * EP + col) = make_float2(va[4 * j + 2], va[4 * j + 3]);
+      v[2 * j] = ea.x + eb.x;
+      v[2 * j + 1] = ea.y + eb.y;
+    }
+    warp_cols16<false>(v, r);
+#pragma unroll
+    for (int k = 0; k < 2; ++k) reds[wwarp * HD + ch0 + 8 * g8 + 2 * cq + k] = r[k];
+    bar_sync(bar, 128);
+    if (wtid < 64) {
+      const int c = ch0 + wtid;
+      const float ssum = reds[c] + reds[HD + c] + reds[2 * HD + c] + reds[3 * HD + c];
+      s_run = s_run * alphaS[c] + ssum;
+      m_run = mS[c];
+    }
+
+    // ctx[h][d][e] sums over the tile on the tensor cores, 3xTF32: warp (hd,
+    // mh) takes E^T (16 d x 64 t) V (64 t x 32 e) of its head as m16n8k8
+    // products (4 tiles of 8 e, 8 steps of 8 positions)
+    float ts[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) ts[nt][k] = 0.f;
+    const float* eh = E + hd * DH + 16 * mh + g8;
+    const float* vh = V + hd * DH + g8;
+#pragma unroll
+    for (int kb = 0; kb < TN; kb += 8) {
+      const float* e0 = eh + (kb + cq) * EP;
+      const float* e4 = e0 + 4 * EP;
+      uint32_t ahi[4], alo[4];
+      split_tf32(e0[0], ahi[0], alo[0]);
+      split_tf32(e0[8], ahi[1], alo[1]);
+      split_tf32(e4[0], ahi[2], alo[2]);
+      split_tf32(e4[8], ahi[3], alo[3]);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        uint32_t bhi[2], blo[2];
+        split_tf32(vh[(kb + cq) * EP + 8 * nt], bhi[0], blo[0]);
+        split_tf32(vh[(kb + cq + 4) * EP + 8 * nt], bhi[1], blo[1]);
+        mma_tf32(ts[nt], alo, bhi);  // the small products first
+        mma_tf32(ts[nt], ahi, blo);
+        mma_tf32(ts[nt], ahi, bhi);
+      }
+    }
+    const float al0 = alphaS[hd * DH + 16 * mh + g8], al1 = alphaS[hd * DH + 16 * mh + g8 + 8];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      cacc[nt][0] = cacc[nt][0] * al0 + ts[nt][0];
+      cacc[nt][1] = cacc[nt][1] * al0 + ts[nt][1];
+      cacc[nt][2] = cacc[nt][2] * al1 + ts[nt][2];
+      cacc[nt][3] = cacc[nt][3] * al1 + ts[nt][3];
+    }
+  }
+
+  float* pb = part + ((size_t)b * P + p) * PART;
+  if (wtid < 64) {
+    pb[64 * wg + wtid] = m_run;
+    pb[HD + 64 * wg + wtid] = s_run;
+  }
+  float* pc = pb + 2 * HD + (hd * DH + 16 * mh + g8) * DH + 2 * cq;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    *reinterpret_cast<float2*>(pc + 8 * nt) = make_float2(cacc[nt][0], cacc[nt][1]);
+    *reinterpret_cast<float2*>(pc + 8 * DH + 8 * nt) = make_float2(cacc[nt][2], cacc[nt][3]);
+  }
+}
+
+// The combine of pass A (either dtype): part (B, P, PART) -> ctx (B, NH, DH,
+// DH) = sums / s, m and s (B, HD).  grid (NH * DH * DH / THREADS, B); thread
+// (kj, e) folds the P partials of its entry in the order p = 0 .. P-1, as
+// ctx_finish does in one CTA.
+__global__ void __launch_bounds__(THREADS)
+la_ctx_combine_kernel(const float* __restrict__ part, int P, float* __restrict__ ctx_out,
+                      float* __restrict__ m_out, float* __restrict__ s_out) {
+  const int b = blockIdx.y, idx = blockIdx.x * THREADS + threadIdx.x;
+  const int kj = idx / DH, e = idx % DH;
+  const float* base = part + (size_t)b * P * PART;
+  float m = -INFINITY;
+  for (int q = 0; q < P; ++q) m = fmaxf(m, __ldg(base + (size_t)q * PART + kj));
+  float s = 0.f;
+  for (int q = 0; q < P; ++q)
+    s += __ldg(base + (size_t)q * PART + HD + kj) * expf(__ldg(base + (size_t)q * PART + kj) - m);
+  float out = 0.f;
+  for (int q = 0; q < P; ++q) {
+    const float w = expf(__ldg(base + (size_t)q * PART + kj) - m);
+    out += w * __ldg(base + (size_t)q * PART + 2 * HD + kj * DH + e);
+  }
+  ctx_out[(size_t)b * NH * DH * DH + idx] = out / s;
+  if (e == 0) {
+    m_out[b * HD + kj] = m;
+    s_out[b * HD + kj] = s;
+  }
+}
+
+// Pass B, bf16 x.  grid (P, B), 128 nw + 32 threads (nw consumer warp
+// groups, then the producer warp), out_bf16_smem bytes; tx and ty map x and
+// y as (ld, C, B) with [64][C / nbox] boxes, twq maps w_q (128, C) with
+// [128][64] boxes, two maps w_out (C, 128) with [64][64] boxes.  NW
+// consumer warp groups (2 at C <= 128, else 1); OG chunks of 64 output
+// channels whose o accumulators a thread holds at once: 1 at C <= 64, 2 at
+// C <= 128 (two warp groups and the producer warp leave a thread 168
+// registers, and 128 accumulators beside attn's 32 spill), else 4 (one warp
+// group: 255 registers); RECOMPUTE (C > 64 OG): the chunks computed again for
+// the variance and for y.
+template <int OG, bool RECOMPUTE, int NW>
+__global__ void __launch_bounds__(128 * NW + 32, 1)
+la_out_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap ty,
+              const __grid_constant__ CUtensorMap twq, const __grid_constant__ CUtensorMap two,
+              const float* __restrict__ g_pre, const float* __restrict__ ctx,
+              const float* __restrict__ b_out, const float* __restrict__ g_post, OutPlan pl) {
+  extern __shared__ unsigned char la_smem_raw[];
+  unsigned char* sm = align1024(la_smem_raw);
+  const int C = pl.C, N = pl.N, S = pl.S, slots = pl.slots, nw = NW;
+  const bool resident = pl.resident != 0;
+  const int b = blockIdx.y, p = blockIdx.x, P = gridDim.x;
+  const int ntiles = (N + TN - 1) / TN;
+  const int my = (ntiles - 1 - p) / P + 1;
+  const int nq = (C + 63) / 64, no = nq;  // chunks of w_q (64 input) and w_out (64 output channels)
+  const int ng = (no + OG - 1) / OG;      // groups of OG o chunks (RECOMPUTE: ng > 1, o
+                                          // recomputed for the mean, the variance and y)
+  const int L = nq + (RECOMPUTE ? 3 : 1) * no;  // chunks a tile uses, in order
+  const int nbox = C > 256 ? 2 : 1, cb = C / nbox;
+  const uint32_t xsz = (uint32_t)C * XROW;
+
+  const uint32_t base = smem_u32(sm);
+  const uint32_t x_off = base, la_off = x_off + S * xsz, w_off = la_off + nw * xsz;
+  const uint32_t ctx_off = w_off + slots * CHUNK;
+  float* gS = reinterpret_cast<float*>(sm + (ctx_off - base) + NH * DH * DH * 2);
+  float* bS = gS + C;
+  float* gpS = bS + C;
+  const uint32_t xfull = smem_u32(gpS + C), xempty = xfull + 8 * S;
+  const uint32_t wfull = xempty + 8 * S, wempty = wfull + 8 * slots;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(xfull + 8 * s, 1);
+      mbar_init(xempty + 8 * s, 1);  // after the tile's y store has read the stage
+    }
+    for (int s = 0; s < slots; ++s) {
+      mbar_init(wfull + 8 * s, 1);
+      mbar_init(wempty + 8 * s, 4);  // lane 0 of each consumer warp (streaming: nw = 1)
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    gS[c] = g_pre[c];
+    bS[c] = b_out[c];
+    gpS[c] = g_post[c];
+  }
+  // ctx / N as bf16 K-major planes: head h, plane d / 8, row e, d % 8
+  for (int i = threadIdx.x; i < NH * DH * DH; i += blockDim.x) {
+    const int h = i / (DH * DH), d = (i / DH) % DH, e = i % DH;
+    sts_bf16(sm, ctx_off - base + h * 2048 + (d >> 3) * 512 + e * 16 + (d & 7) * 2,
+             __fdiv_rn(ctx[(size_t)b * NH * DH * DH + i], (float)N));
+  }
+  fence_async_smem();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp == 4 * nw) {
+    // ---- producer: x tiles, and the weight chunks (once, or per tile)
+    if (lane == 0) {
+      auto load_q = [&](int k, int slot) {  // one [128][64] box
+        mbar_expect_tx(wfull + 8 * slot, CHUNK);
+        tma_load_2d(w_off + slot * CHUNK, &twq, wfull + 8 * slot, 64 * k, 0);
+      };
+      auto load_o = [&](int j, int slot) {  // two [64][64] boxes: hidden 0-63, 64-127
+        mbar_expect_tx(wfull + 8 * slot, CHUNK);
+        for (int h = 0; h < 2; ++h)
+          tma_load_2d(w_off + slot * CHUNK + h * CHUNK / 2, &two, wfull + 8 * slot, 64 * h, 64 * j);
+      };
+      if (resident) {
+        for (int k = 0; k < nq; ++k) load_q(k, k);
+        for (int j = 0; j < no; ++j) load_o(j, nq + j);
+      }
+      int wit = 0;
+      for (int i = 0; i < my; ++i) {
+        const int s = i % S;
+        if (i >= S) mbar_wait(xempty + 8 * s, (i / S - 1) & 1);
+        mbar_expect_tx(xfull + 8 * s, xsz);
+        for (int bx = 0; bx < nbox; ++bx)
+          tma_load_3d(x_off + s * xsz + bx * cb * XROW, &tx, xfull + 8 * s, (p + i * P) * TN,
+                      bx * cb, b);
+        if (!resident)
+          for (int u = 0; u < L; ++u, ++wit) {
+            const int slot = wit % slots;
+            if (wit >= slots) mbar_wait(wempty + 8 * slot, (wit / slots - 1) & 1);
+            if (u < nq)
+              load_q(u, slot);
+            else
+              load_o((u - nq) % no, slot);
+          }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warp group cw takes the CTA's tiles cw, cw + nw, ...
+  const int tid = threadIdx.x, cw = tid >> 7, wtid = tid & 127, wwarp = wtid >> 5;
+  const int g8 = lane >> 2, cq = lane & 3;
+  const int r0 = wwarp * 16 + g8, r1 = r0 + 8;
+  const uint32_t la = la_off + cw * xsz;
+  const int ksteps = C / 16;
+  // x[c][r] of this thread's rows r0, r1 and columns c = 8 i + 2 cq + e lies
+  // at byte yo[h][e] + 8 i 128 of the x tile (the swizzle of c % 8 = 2 cq + e)
+  uint32_t yo[2][2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      yo[h][e] = (2 * cq + e) * XROW + ((((2 * wwarp + h) ^ (2 * cq + e)) << 4) | (g8 << 1));
+
+  for (int i = cw; i < my; i += nw) {
+    const int n0 = (p + i * P) * TN;
+    const int s = i % S;
+    const uint32_t xs = x_off + s * xsz;
+    mbar_wait_warp(xfull + 8 * s, (i / S) & 1);
+    chunk_ln<2>(sm, xs - base, la - base, C, wwarp, gS);  // warp w: positions 8 w .., 8 w + 32 ..
+    bar_sync(1 + cw, 128);
+
+    int u = 0;  // this tile's next chunk (streaming: nw = 1, so i counts the tiles)
+    auto acquire = [&](int rslot) -> int {
+      const int it = i * L + u++;
+      const int slot = resident ? rslot : it % slots;
+      mbar_wait_warp(wfull + 8 * slot, resident ? 0 : (it / slots) & 1);
+      return slot;
+    };
+    auto release = [&](int slot) {
+      if (!resident && lane == 0) mbar_arrive(wempty + 8 * slot);
+    };
+
+    // q = LN(x) W_q^T
+    float qa[64];  // the first product overwrites it (scale_d = 0)
+    for (int k = 0; k < nq; ++k) {
+      const int slot = acquire(k);
+      const uint32_t wa = w_off + slot * CHUNK;
+      wgmma_fence();
+#pragma unroll
+      for (int sub = 0; sub < 4; ++sub) {
+        const int kk = 4 * k + sub;
+        if (kk < ksteps)
+          wgmma_n128(qa, desc_sw128(la + kk * 2048, 4096, 1024), desc_sw128(wa + sub * 32, 16, 1024),
+                     kk > 0);
+      }
+      wgmma_commit();
+      if (!resident) {
+        wgmma_wait0();
+        release(slot);
+      }
+    }
+    wgmma_wait0();
+#pragma unroll
+    for (int j = 0; j < 64; ++j) reg_fence(qa[j]);
+
+    // softmax over each head's 32 channels (a quad of lanes holds a row's),
+    // q' = softmax * dim_head^-0.5 packed as the A fragments of attn
+    uint32_t pa[8][4];
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+      float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+      for (int j = 4 * h; j < 4 * h + 4; ++j) {
+        m0 = fmaxf(m0, fmaxf(qa[4 * j], qa[4 * j + 1]));
+        m1 = fmaxf(m1, fmaxf(qa[4 * j + 2], qa[4 * j + 3]));
+      }
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        m0 = fmaxf(m0, __shfl_xor_sync(FULL_MASK, m0, o));
+        m1 = fmaxf(m1, __shfl_xor_sync(FULL_MASK, m1, o));
+      }
+      float s0 = 0.f, s1 = 0.f;
+      m0 *= L2E;
+      m1 *= L2E;
+#pragma unroll
+      for (int j = 4 * h; j < 4 * h + 4; ++j) {
+        qa[4 * j] = ex2(fmaf(qa[4 * j], L2E, -m0));
+        qa[4 * j + 1] = ex2(fmaf(qa[4 * j + 1], L2E, -m0));
+        qa[4 * j + 2] = ex2(fmaf(qa[4 * j + 2], L2E, -m1));
+        qa[4 * j + 3] = ex2(fmaf(qa[4 * j + 3], L2E, -m1));
+        s0 += qa[4 * j] + qa[4 * j + 1];
+        s1 += qa[4 * j + 2] + qa[4 * j + 3];
+      }
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        s0 += __shfl_xor_sync(FULL_MASK, s0, o);
+        s1 += __shfl_xor_sync(FULL_MASK, s1, o);
+      }
+      s0 = Q_SCALE / s0;
+      s1 = Q_SCALE / s1;
+#pragma unroll
+      for (int j = 4 * h; j < 4 * h + 4; ++j) {
+        qa[4 * j] *= s0;
+        qa[4 * j + 1] *= s0;
+        qa[4 * j + 2] *= s1;
+        qa[4 * j + 3] *= s1;
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) pa[kk][r] = pack_bf16(qa[8 * kk + 2 * r], qa[8 * kk + 2 * r + 1]);
+
+    // attn = q' (ctx / N) per head
+    float at[NH][16];
+    wgmma_fence();
+#pragma unroll
+    for (int h = 0; h < NH; ++h)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        wgmma_n32_rs(at[h], pa[2 * h + half], desc_plain(ctx_off + h * 2048 + half * 1024, 512, 128),
+                     half);
+    wgmma_commit();
+    wgmma_wait0();
+    uint32_t pb[8][4];
+#pragma unroll
+    for (int h = 0; h < NH; ++h)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) reg_fence(at[h][j]);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pb[kk][r] = pack_bf16(at[kk >> 1][8 * (kk & 1) + 2 * r], at[kk >> 1][8 * (kk & 1) + 2 * r + 1]);
+
+    // o = attn W_out^T + b in groups of OG chunks; postLN statistics of rows
+    // r0, r1 on the accumulators; y = x + postLN(o) over the x tile
+    float o[OG][32];
+    auto compute = [&](int grp) {
+      int held[OG];
+#pragma unroll
+      for (int jj = 0; jj < OG; ++jj) {
+        const int j = grp * OG + jj;
+        held[jj] = -1;
+        if (j < no) {
+          held[jj] = acquire(nq + j);
+          const uint32_t wa = w_off + held[jj] * CHUNK;
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 8; ++kk)
+            wgmma_n64_rs(o[jj], pb[kk], desc_sw128(wa + (kk >> 2) * (CHUNK / 2) + (kk & 3) * 32, 16, 1024),
+                         kk > 0);
+          wgmma_commit();
+        }
+      }
+      wgmma_wait0();
+#pragma unroll
+      for (int jj = 0; jj < OG; ++jj) {
+#pragma unroll
+        for (int j = 0; j < 32; ++j) reg_fence(o[jj][j]);
+        if (held[jj] >= 0) release(held[jj]);
+#pragma unroll
+        for (int i8 = 0; i8 < 8; ++i8)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {  // + b (columns past C: 0, never used)
+            const int c = 64 * (grp * OG + jj) + 8 * i8 + 2 * cq + e;
+            const float bv = c < C ? bS[c] : 0.f;
+            o[jj][4 * i8 + e] += bv;
+            o[jj][4 * i8 + 2 + e] += bv;
+          }
+      }
+    };
+    // f(rows r0 and r1's values) on this group's columns inside C (C % 16
+    // == 0: a block of 8 columns is inside or outside for the whole warp)
+    auto each = [&](int grp, auto&& f) {
+#pragma unroll
+      for (int jj = 0; jj < OG; ++jj)
+#pragma unroll
+        for (int i8 = 0; i8 < 8; ++i8)
+          if (64 * (grp * OG + jj) + 8 * i8 < C)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) f(o[jj][4 * i8 + e], o[jj][4 * i8 + 2 + e]);
+    };
+    auto quad_sum = [](float& a, float& b) {
+#pragma unroll
+      for (int k = 1; k < 4; k <<= 1) {
+        a += __shfl_xor_sync(FULL_MASK, a, k);
+        b += __shfl_xor_sync(FULL_MASK, b, k);
+      }
+    };
+    float sa = 0.f, sb = 0.f;  // pass 0: the mean
+    for (int grp = 0; grp < ng; ++grp) {
+      compute(grp);
+      each(grp, [&](float va, float vb) {
+        sa += va;
+        sb += vb;
+      });
+    }
+    quad_sum(sa, sb);
+    const float mean0 = sa / C, mean1 = sb / C;
+    sa = sb = 0.f;  // pass 1: the variance
+    for (int grp = 0; grp < ng; ++grp) {
+      if (RECOMPUTE) compute(grp);
+      each(grp, [&](float va, float vb) {
+        sa += (va - mean0) * (va - mean0);
+        sb += (vb - mean1) * (vb - mean1);
+      });
+    }
+    quad_sum(sa, sb);
+    const float rstd0 = rsqrtf(sa / C + EPS), rstd1 = rsqrtf(sb / C + EPS);
+    const uint32_t xrel = xs - base;  // pass 2: y = x + postLN(o), over x
+    for (int grp = 0; grp < ng; ++grp) {
+      if (RECOMPUTE) compute(grp);
+#pragma unroll
+      for (int jj = 0; jj < OG; ++jj)
+#pragma unroll
+        for (int i8 = 0; i8 < 8; ++i8) {
+          const int c8 = 64 * (grp * OG + jj) + 8 * i8;  // this block of 8 columns
+          if (c8 >= C) continue;
+          const uint32_t cb = xrel + c8 * XROW;
+          float xv[2][2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) xv[h][e] = lds_bf16(sm, cb + yo[h][e]);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float gc = gpS[c8 + 2 * cq + e];
+            sts_bf16(sm, cb + yo[0][e], xv[0][e] + (o[jj][4 * i8 + e] - mean0) * rstd0 * gc);
+            sts_bf16(sm, cb + yo[1][e], xv[1][e] + (o[jj][4 * i8 + 2 + e] - mean1) * rstd1 * gc);
+          }
+        }
+    }
+    fence_async_smem();
+    bar_sync(1 + cw, 128);
+    if (wtid == 0) {
+      for (int bx = 0; bx < nbox; ++bx) tma_store_3d(&ty, xs + bx * cb * XROW, n0, bx * cb, b);
+      bulk_commit();
+      bulk_wait_read();
+      mbar_arrive(xempty + 8 * s);
     }
   }
 }
@@ -1180,45 +2223,156 @@ la_reduce_kernel(const float* __restrict__ part, size_t rec, size_t off, int P, 
   out[(size_t)sg * M + i] = v;
 }
 
-template <typename TX>
-int launch_ctx(const void* x, const float* g_pre, const bf16* w_kv, float* part,
-               int* counter, float* ctx, float* m, float* s, int B, int C, int N,
-               int P, cudaStream_t stream) {
-  const size_t smem = ctx_smem(C);
-  cudaError_t err = cudaFuncSetAttribute(
-      la_ctx_kernel<TX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  la_ctx_kernel<TX><<<dim3(P, B), THREADS, smem, stream>>>(
-      static_cast<const TX*>(x), g_pre, w_kv, part, counter, ctx, m, s, C, N);
-  return (int)cudaGetLastError();
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &res) == cudaSuccess &&
+        res == cudaDriverEntryPointSuccess)
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res) ==
+            cudaSuccess &&
+        res == cudaDriverEntryPointSuccess)
+#endif
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
 }
 
-template <typename TX>
-int launch_out(const void* x, const float* g_pre, const bf16* w_q, const float* ctx,
-               const bf16* w_out, const float* b_out, const float* g_post, void* y,
-               int B, int C, int N, cudaStream_t stream) {
-  const size_t smem = out_smem(C);
-  cudaError_t err = cudaFuncSetAttribute(
-      la_out_kernel<TX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  la_out_kernel<TX><<<dim3((N + T - 1) / T, B), THREADS, smem, stream>>>(
-      static_cast<const TX*>(x), g_pre, w_q, ctx, w_out, b_out, g_post,
-      static_cast<TX*>(y), C, N);
-  return (int)cudaGetLastError();
+// x or y as (ld, C, B) bf16, [64 positions][C / nbox channels] boxes with the
+// 128-byte swizzle (nbox = 2 above 256 channels, a box's limit); zero past ld
+bool map_x(CUtensorMap* map, const void* base, int ld, int C, int B) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const int nbox = C > 256 ? 2 : 1;
+  const cuuint64_t dims[3] = {(cuuint64_t)ld, (cuuint64_t)C, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * 2, (cuuint64_t)ld * C * 2};
+  const cuuint32_t box[3] = {TN, (cuuint32_t)(C / nbox), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-
-// the largest dynamic shared memory a block may opt in to on this device
-int max_smem(int device) {
-  int v = 0;
-  cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  return v;
+// a row-major bf16 weight (rows, cols) with [box_rows][64] boxes under the
+// 128-byte swizzle: K-major wgmma operands, 64 columns (128 bytes) a row;
+// zero past the matrix
+bool map_w(CUtensorMap* map, const void* base, int cols, int rows, int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <typename K>
 int set_smem(K kernel, size_t bytes) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)bytes);
+}
+
+int combine(const float* part, int P, float* ctx, float* m, float* s, int B, cudaStream_t st) {
+  la_ctx_combine_kernel<<<dim3(NH * DH * DH / THREADS, B), THREADS, 0, st>>>(part, P, ctx, m, s);
+  return (int)cudaGetLastError();
+}
+
+// Pass A and its combine.  The plan (P, S, slots, resident, smem) is the
+// wrapper's la_plan; it is checked against what the body needs here.
+int launch_ctx(const void* x, int x_bf16, int ld, const float* g_pre, const bf16* w_kv,
+               float* part, float* ctx, float* m, float* s, int B, int C, int N, int P, int S,
+               int slots, int resident, int smem, cudaStream_t st) {
+  if (!x_bf16) {
+    if (ld != N || P < 1 || P > (N + T - 1) / T || (size_t)smem != ctx_smem(C))
+      return (int)cudaErrorInvalidValue;
+    int err = set_smem(la_ctx_f32_kernel, smem);
+    if (err) return err;
+    la_ctx_f32_kernel<<<dim3(P, B), THREADS, smem, st>>>(static_cast<const float*>(x), g_pre, w_kv,
+                                                         part, C, N);
+    err = (int)cudaGetLastError();
+    return err ? err : combine(part, P, ctx, m, s, B, st);
+  }
+  const int nch = (C + 63) / 64;
+  if (ld < N || ld % 8 || !aligned16(x) || !aligned16(w_kv) || P < 1 || P > (N + TN - 1) / TN ||
+      S < 1 || (resident ? slots != nch : slots < 2) || smem > SMEM_LIMIT ||
+      (size_t)smem != ctx_bf16_smem(C, S, slots))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tx, tw;
+  if (!map_x(&tx, x, ld, C, B) || !map_w(&tw, w_kv, C, 2 * HD, 2 * HD))
+    return (int)cudaErrorInvalidValue;
+  int err = set_smem(la_ctx_kernel, smem);
+  if (err) return err;
+  const CtxPlan pl{C, N, S, slots, resident};
+  la_ctx_kernel<<<dim3(P, B), A_THREADS, smem, st>>>(tx, tw, g_pre, part, pl);
+  err = (int)cudaGetLastError();
+  return err ? err : combine(part, P, ctx, m, s, B, st);
+}
+
+template <int OG, bool RECOMPUTE, int NW>
+int launch_out_og(const CUtensorMap& tx, const CUtensorMap& ty, const CUtensorMap& twq,
+                  const CUtensorMap& two, const float* g_pre, const float* ctx,
+                  const float* b_out, const float* g_post, const OutPlan& pl, int B, int P,
+                  int smem, cudaStream_t st) {
+  int err = set_smem(la_out_kernel<OG, RECOMPUTE, NW>, smem);
+  if (err) return err;
+  la_out_kernel<OG, RECOMPUTE, NW><<<dim3(P, B), 128 * NW + 32, smem, st>>>(tx, ty, twq, two, g_pre, ctx,
+                                                                 b_out, g_post, pl);
+  return (int)cudaGetLastError();
+}
+
+// Pass B.  The plan (P, S, slots, resident, nw, smem) is the wrapper's la_plan.
+int launch_out(const void* x, int x_bf16, int ld, const float* g_pre, const bf16* w_q,
+               const float* ctx, const bf16* w_out, const float* b_out, const float* g_post,
+               void* y, int B, int C, int N, int P, int S, int slots, int resident, int nw,
+               int smem, cudaStream_t st) {
+  if (!x_bf16) {
+    if (ld != N || P != (N + T - 1) / T || (size_t)smem != out_smem(C))
+      return (int)cudaErrorInvalidValue;
+    int err = set_smem(la_out_f32_kernel, smem);
+    if (err) return err;
+    la_out_f32_kernel<<<dim3(P, B), THREADS, smem, st>>>(static_cast<const float*>(x), g_pre,
+                                                         w_q, ctx, w_out, b_out, g_post,
+                                                         static_cast<float*>(y), C, N);
+    return (int)cudaGetLastError();
+  }
+  const int nq = (C + 63) / 64;
+  if (ld < N || ld % 8 || !aligned16(x) || !aligned16(y) || !aligned16(w_q) ||
+      !aligned16(w_out) || P < 1 || P > (N + TN - 1) / TN || S < 1 || nw != (C <= 128 ? 2 : 1) ||
+      (resident ? slots != 2 * nq : slots < 4) || smem > SMEM_LIMIT ||
+      (size_t)smem != out_bf16_smem(C, S, slots, nw))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tx, ty, twq, two;
+  if (!map_x(&tx, x, ld, C, B) || !map_x(&ty, y, ld, C, B) || !map_w(&twq, w_q, C, HD, HD) ||
+      !map_w(&two, w_out, HD, C, 64))
+    return (int)cudaErrorInvalidValue;
+  const OutPlan pl{C, N, S, slots, resident, nw};
+#define LA_OUT_LAUNCH(OG, RE, NW) \
+  launch_out_og<OG, RE, NW>(tx, ty, twq, two, g_pre, ctx, b_out, g_post, pl, B, P, smem, st)
+  if (C <= 64) return LA_OUT_LAUNCH(1, false, 2);
+  if (C <= 128) return LA_OUT_LAUNCH(2, false, 2);
+  return C <= 256 ? LA_OUT_LAUNCH(4, false, 1) : LA_OUT_LAUNCH(4, true, 1);
+#undef LA_OUT_LAUNCH
+}
+
+// the largest dynamic shared memory a block may opt in to on this device
+int max_smem(int device) {
+  int v = 0;
+  cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  return v;
 }
 
 int reduce_records(const float* part, size_t rec, size_t off, int P, int M, int S, float* out,
@@ -1302,29 +2456,32 @@ extern "C" {
 // Both launchers return a cudaError_t (0 = launched).  x_bf16 selects the
 // dtype of x (and y): 1 = bfloat16, 0 = float32.  Weights are bf16, row-major
 // in the torch layout: w_kv = W_qkv[HD:3HD] (2HD, C), w_q = W_qkv[:HD]
-// (HD, C), w_out (C, HD).  Gains and bias are f32 (C,).
-int ofd_la_ctx(const void* x, int x_bf16, const float* g_pre, const void* w_kv,
-               float* part, int* counter, float* ctx, float* m, float* s, int B,
-               int C, int N, int P, int device, void* stream) {
+// (HD, C), w_out (C, HD).  Gains and bias are f32 (C,).  x (and y) are
+// (B, C, ld) with ld >= N (bf16: ld a multiple of 8 and 16-byte aligned
+// tensors, the tensor maps' needs; f32: ld = N); positions past N are
+// ignored and their y is unspecified.  The rest of the arguments are the
+// plan of ops/attention_fused.py::la_plan: P CTAs per batch element, S x
+// stages, slots weight chunk slots, resident weights or streamed, nw
+// consumer warp groups, smem bytes (the f32 bodies take P and smem only).
+// Pass A: part (B, P, PART) f32 scratch; ctx (B, NH, DH, DH), m, s (B, HD).
+int ofd_la_ctx(const void* x, int x_bf16, int ld, const float* g_pre, const void* w_kv,
+               float* part, float* ctx, float* m, float* s, int B, int C, int N, int P, int S,
+               int slots, int resident, int smem, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const bf16* w = static_cast<const bf16*>(w_kv);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return x_bf16 ? launch_ctx<bf16>(x, g_pre, w, part, counter, ctx, m, s, B, C, N, P, st)
-                : launch_ctx<float>(x, g_pre, w, part, counter, ctx, m, s, B, C, N, P, st);
+  return launch_ctx(x, x_bf16, ld, g_pre, static_cast<const bf16*>(w_kv), part, ctx, m, s, B, C,
+                    N, P, S, slots, resident, smem, static_cast<cudaStream_t>(stream));
 }
 
-int ofd_la_out(const void* x, int x_bf16, const float* g_pre, const void* w_q,
-               const float* ctx, const void* w_out, const float* b_out,
-               const float* g_post, void* y, int B, int C, int N, int device,
-               void* stream) {
+int ofd_la_out(const void* x, int x_bf16, int ld, const float* g_pre, const void* w_q,
+               const float* ctx, const void* w_out, const float* b_out, const float* g_post,
+               void* y, int B, int C, int N, int P, int S, int slots, int resident, int nw,
+               int smem, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const bf16* wq = static_cast<const bf16*>(w_q);
-  const bf16* wo = static_cast<const bf16*>(w_out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return x_bf16 ? launch_out<bf16>(x, g_pre, wq, ctx, wo, b_out, g_post, y, B, C, N, st)
-                : launch_out<float>(x, g_pre, wq, ctx, wo, b_out, g_post, y, B, C, N, st);
+  return launch_out(x, x_bf16, ld, g_pre, static_cast<const bf16*>(w_q), ctx,
+                    static_cast<const bf16*>(w_out), b_out, g_post, y, B, C, N, P, S, slots,
+                    resident, nw, smem, static_cast<cudaStream_t>(stream));
 }
 
 // The backward launchers.  Each runs its pass over grid (P, B) and then sums

@@ -25,16 +25,21 @@ torch layout: ``w_qkv`` (3*heads*dim, C), ``w_out`` (C, heads*dim).
   ``bwd_kv2_plain`` are the plain versions of the five kernels, with the
   kernels' roundings (``compute_dtype``); with float32 they are the TPU
   passes in float32.
+* :func:`la_plan` is the forward kernels' plan for one shape: tile, CTAs,
+  partials, x stages, weight chunks resident or streamed, shared memory.
+  The wrappers pass it to the launchers, which check it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from ..kernels import LA_BWD_KV1, LA_BWD_KV2, LA_BWD_Q, LA_CTX, LA_OUT
-from .attention_pallas import ctx_partitions
 from .attention_pallas import linear_attention_middle_plain as linear_attention_middle
 
 EPS = 1e-5
@@ -44,6 +49,107 @@ HEADS = HIDDEN // HEAD_DIM
 Q_SCALE = HEAD_DIM ** -0.5
 # JAX's _fwd runs the fused backward at N >= 1024 and the composition's VJP below
 BWD_MIN_N = 1024
+# the forward kernels' plan (kernels/linear_attention.cu, "Hopper bodies of
+# rows 1-2"; the source checks what it is given against the same sums)
+TILE = 64                 # positions per tile of the bf16 bodies
+F32_TILE = 32             # and of the f32 bodies
+CHUNK = 16384             # bytes of a w_q or w_out chunk in shared memory (w_kv: 2 CHUNK)
+E_PITCH = HIDDEN + 8      # f32 row pitch of pass A's exp(k - m) and v tiles
+SMEM_MAX = 227 * 1024     # shared memory a CTA may have
+SMS = 132                 # the H100 SXM's SMs (la_plan's default)
+
+
+class LaPass(NamedTuple):
+    """One forward pass of a plan: ``ctas`` CTAs per batch element (pass A:
+    one partial each), ``stages`` x tiles in the TMA ring, ``slots`` weight
+    chunks in shared memory (64 channels each: 32 KB of w_kv, 16 KB of w_q
+    or w_out), ``resident`` (every chunk loaded once per CTA) or streamed
+    (per tile, through the slots), ``consumers`` warp groups, ``smem`` bytes
+    of dynamic shared memory."""
+    ctas: int
+    stages: int
+    slots: int
+    resident: bool
+    consumers: int
+    smem: int
+
+
+class LaPlan(NamedTuple):
+    """The forward kernels' plan for one (B, C, N, dtype): ``tile``
+    positions, the context pass, its ``partials`` per batch element (folded
+    by la_ctx_combine_kernel), and the output pass."""
+    tile: int
+    ctx: LaPass
+    partials: int
+    out: LaPass
+
+
+def _align128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def _ctx_smem(C: int, S: int, slots: int) -> int:
+    return (1024 + S * C * 2 * TILE + slots * 2 * CHUNK + 2 * TILE * E_PITCH * 4
+            + (2 * 4 * HIDDEN + 2 * HIDDEN + C) * 4 + (2 * S + 2 * slots) * 8)
+
+
+def _out_smem(C: int, S: int, slots: int, nw: int) -> int:
+    return (1024 + (S + nw) * C * 2 * TILE + slots * CHUNK + HIDDEN * HEAD_DIM * 2
+            + 3 * C * 4 + (2 * S + 2 * slots) * 8)
+
+
+def _streamed(smem, chunk, least_slots, stages):
+    """The first (stages, slots) with at least ``least_slots`` streamed chunk
+    slots of ``chunk`` bytes (up to 8) that fits, or None."""
+    for S in stages:
+        slots = min(8, (SMEM_MAX - smem(S, 0)) // (chunk + 16))
+        if slots >= least_slots and smem(S, slots) <= SMEM_MAX:
+            return S, slots
+    return None
+
+
+@functools.lru_cache(maxsize=512)
+def la_plan(B: int, C: int, N: int, dtype=torch.bfloat16, sms: int = SMS) -> LaPlan:
+    """The forward kernels' plan.  bf16: tiles of 64 positions; one CTA per
+    SM split evenly over the batch, each walking its tiles; weights resident
+    where they fit beside the x ring (pass A: 4-2 stages; pass B: two
+    consumer warp groups with 4 stages at C <= 128, else one with 3-1), else
+    streamed through chunk slots (2 stages, or 1 above 256 channels).  f32:
+    the first bodies, tiles of 32 positions, pass A on two waves of CTAs,
+    pass B one CTA per tile, weights read from L2.  Raises if no plan fits."""
+    if dtype == torch.float32:
+        nt = -(-N // F32_TILE)
+        a = _align128(C * 40 * 2)
+        ctx = LaPass(max(1, min(nt, -(-2 * sms // B))), 0, 0, False, 1,
+                     a + 32 * 264 * 4 + (8 * 32 + 2 * 32 + HIDDEN) * 4)
+        out = LaPass(nt, 0, 0, False, 1, a + _align128(32 * 136 * 4) + _align128(32 * 136 * 2)
+                     + _align128(HIDDEN * HEAD_DIM * 2) + _align128(C * 40 * 4) + (8 * 32 + 64) * 4)
+        return LaPlan(F32_TILE, ctx, ctx.ctas, out)
+    nt = -(-N // TILE)
+    nq = -(-C // 64)  # weight chunks of 64 channels (w_kv: 32 KB, w_q and w_out: 16 KB)
+    ctas = max(1, min(nt, sms // B))
+
+    ctx = None
+    for S in (4, 3, 2):
+        if _ctx_smem(C, S, nq) <= SMEM_MAX:
+            ctx = LaPass(ctas, S, nq, True, 2, _ctx_smem(C, S, nq))
+            break
+    if ctx is None:
+        S, slots = _streamed(lambda S, k: _ctx_smem(C, S, k), 2 * CHUNK, 2, (2, 1)) or (0, 0)
+        ctx = LaPass(ctas, S, slots, False, 2, _ctx_smem(C, S, slots))
+
+    out = None
+    for nw, S in ((2, 4),) if C <= 128 else ((1, 3), (1, 2), (1, 1)):
+        smem = _out_smem(C, S, 2 * nq, nw)
+        if smem <= SMEM_MAX:
+            out = LaPass(ctas, S, 2 * nq, True, nw, smem)
+            break
+    if out is None:
+        S, slots = _streamed(lambda S, k: _out_smem(C, S, k, 1), CHUNK, 4, (2, 1)) or (0, 0)
+        out = LaPass(ctas, S, slots, False, 1, _out_smem(C, S, slots, 1))
+    if not (ctx.stages and out.stages):
+        raise ValueError(f"no forward plan fits C={C}: {ctx} {out}")
+    return LaPlan(TILE, ctx, ctx.ctas, out)
 
 
 def _ln_fwd(xt):
@@ -196,11 +302,11 @@ def _lib():
     lib = build.load("linear_attention")
     if not getattr(lib, "_ofd_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.ofd_la_ctx.argtypes = [vp, i, vp, vp, vp, vp, vp, vp, vp,
-                                   i, i, i, i, i, vp]
+        lib.ofd_la_ctx.argtypes = [vp, i, i, vp, vp, vp, vp, vp, vp,
+                                   i, i, i, i, i, i, i, i, i, vp]
         lib.ofd_la_ctx.restype = i
-        lib.ofd_la_out.argtypes = [vp, i, vp, vp, vp, vp, vp, vp, vp,
-                                   i, i, i, i, vp]
+        lib.ofd_la_out.argtypes = [vp, i, i, vp, vp, vp, vp, vp, vp, vp,
+                                   i, i, i, i, i, i, i, i, i, i, vp]
         lib.ofd_la_out.restype = i
         lib.ofd_la_bwd_record.argtypes = [i, i]
         lib.ofd_la_bwd_record.restype = ctypes.c_longlong
@@ -251,6 +357,28 @@ def _raise_on(lib, err, what):
         raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
 
 
+_sms = {}
+
+
+def _plan(x):
+    B, C, N = x.shape
+    sms = _sms.get(x.device.index)
+    if sms is None:
+        sms = _sms[x.device.index] = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return la_plan(B, C, N, x.dtype, sms)
+
+
+def _tma_rows(x):
+    """(x, ld): the bf16 kernels' tensor maps need rows of a multiple of 8
+    elements and a 16-byte aligned base; other x is copied once into a
+    zero-padded (B, C, ld) buffer (positions past N are ignored)."""
+    N = x.shape[2]
+    if x.dtype != torch.bfloat16 or (N % 8 == 0 and x.data_ptr() % 16 == 0):
+        return x, N
+    ld = -(-N // 8) * 8
+    return F.pad(x, (0, ld - N)), ld
+
+
 def linear_attention_ctx(x, g_pre, w_kv):
     """Context pass: ctx (B, 4, 32, 32), m and s (B, 128), all float32.
 
@@ -259,17 +387,18 @@ def linear_attention_ctx(x, g_pre, w_kv):
     dev = x.device
     _check("g_pre", g_pre, (C,), torch.float32, dev)
     _check("w_kv", w_kv, (2 * HIDDEN, C), torch.bfloat16, dev)
-    P = ctx_partitions(B, -(-N // 32), dev)
-    part = torch.empty(B, P, 2 * HIDDEN + HIDDEN * HEAD_DIM, device=dev)
-    counter = torch.zeros(B, dtype=torch.int32, device=dev)
+    plan = _plan(x)
+    pa = plan.ctx
+    xk, ld = _tma_rows(x)
+    part = torch.empty(B, plan.partials, 2 * HIDDEN + HIDDEN * HEAD_DIM, device=dev)
     ctx = torch.empty(B, HIDDEN // HEAD_DIM, HEAD_DIM, HEAD_DIM, device=dev)
     m = torch.empty(B, HIDDEN, device=dev)
     s = torch.empty(B, HIDDEN, device=dev)
     lib = _lib()
     err = lib.ofd_la_ctx(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), g_pre.data_ptr(),
-        w_kv.data_ptr(), part.data_ptr(), counter.data_ptr(), ctx.data_ptr(),
-        m.data_ptr(), s.data_ptr(), B, C, N, P, dev.index,
+        xk.data_ptr(), int(x.dtype == torch.bfloat16), ld, g_pre.data_ptr(),
+        w_kv.data_ptr(), part.data_ptr(), ctx.data_ptr(), m.data_ptr(), s.data_ptr(),
+        B, C, N, pa.ctas, pa.stages, pa.slots, int(pa.resident), pa.smem, dev.index,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(lib, err, LA_CTX.name)
@@ -288,17 +417,20 @@ def linear_attention_out(x, g_pre, w_q, ctx, w_out, b_out, g_post):
     _check("w_out", w_out, (C, HIDDEN), torch.bfloat16, dev)
     _check("b_out", b_out, (C,), torch.float32, dev)
     _check("g_post", g_post, (C,), torch.float32, dev)
-    y = torch.empty_like(x)
+    pb = _plan(x).out
+    xk, ld = _tma_rows(x)
+    y = torch.empty_like(xk)
     lib = _lib()
     err = lib.ofd_la_out(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), g_pre.data_ptr(),
+        xk.data_ptr(), int(x.dtype == torch.bfloat16), ld, g_pre.data_ptr(),
         w_q.data_ptr(), ctx.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
-        g_post.data_ptr(), y.data_ptr(), B, C, N, dev.index,
+        g_post.data_ptr(), y.data_ptr(), B, C, N, pb.ctas, pb.stages, pb.slots,
+        int(pb.resident), pb.consumers, pb.smem, dev.index,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(lib, err, LA_OUT.name)
     LA_OUT.launches += 1
-    return y
+    return y if ld == N else y[..., :N].contiguous()
 
 
 def _bwd_partitions(B: int, ntiles: int, device) -> int:
@@ -471,7 +603,7 @@ def fused_linear_attention_block(x, g_pre, w_qkv, w_out, b_out, g_post,
 
 __all__ = [
     "block_plain", "bwd_kv1_plain", "bwd_kv2_plain", "bwd_q_plain", "ctx_plain",
-    "fused_block_bwd", "fused_linear_attention_block", "linear_attention_bwd_kv1",
+    "fused_block_bwd", "fused_linear_attention_block", "la_plan", "linear_attention_bwd_kv1",
     "linear_attention_bwd_kv2", "linear_attention_bwd_q", "linear_attention_ctx",
     "linear_attention_middle", "linear_attention_out", "ln32", "out_plain",
 ]

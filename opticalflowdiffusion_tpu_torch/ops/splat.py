@@ -12,7 +12,7 @@ transforms, with REFERENCE_QUIRKS 1-3 (JAX ``ops/splat.py:29-38``).
 
 * :func:`splat_raw` and :func:`splat_bwd_raw` are the plain versions: a
   scatter with ``index_add_`` (on the GPU its float atomics sum in a varying
-  order) and the gathers.
+  order, unless the sums are taken in float64) and the gathers.
 * :func:`splat_fwd` and :func:`splat_bwd` launch the CUDA kernels of
   ``kernels/splat.cu``; the forward's sums are the same bits on every run
   (64-bit fixed-point integer atomics), as the JAX version's are.
@@ -98,9 +98,12 @@ def _geometry(H: int, W: int, scale: int, offset: Sequence[int]):
 
 
 def splat_raw(inp: torch.Tensor, flow: torch.Tensor, scale: int = 1,
-              offset: Sequence[int] = (0, 0)) -> torch.Tensor:
+              offset: Sequence[int] = (0, 0), acc_dtype=torch.float32) -> torch.Tensor:
     """Bilinear scatter-add of ``inp`` (B, C, H, W) by ``flow`` (B, 2, H, W)
-    into (B, C, H // scale, W // scale), in ``inp``'s dtype."""
+    into (B, C, H // scale, W // scale), in ``inp``'s dtype.  The float32
+    terms are summed in ``acc_dtype``: with float64 on the GPU the atomics'
+    varying order no longer reaches the float32 result, which is then the
+    same on every run (as the kernel's fixed-point sums are)."""
     B, C, H, W = inp.shape
     scale, ox, oy, Ho, Wo = _geometry(H, W, scale, offset)
     dev = inp.device
@@ -115,7 +118,7 @@ def splat_raw(inp: torch.Tensor, flow: torch.Tensor, scale: int = 1,
     wy1 = ty - y0
     base = torch.arange(B, device=dev).repeat_interleave(H * W) * (Ho * Wo)
     dump = B * Ho * Wo
-    out = torch.zeros(dump + 1, C, device=dev, dtype=torch.float32)
+    out = torch.zeros(dump + 1, C, device=dev, dtype=acc_dtype)
     for cx, cy, w in (
         (x0, y0, (1.0 - wx1) * (1.0 - wy1)),
         (x0 + 1.0, y0, wx1 * (1.0 - wy1)),
@@ -125,9 +128,9 @@ def splat_raw(inp: torch.Tensor, flow: torch.Tensor, scale: int = 1,
         inb = finite & (cx >= 0) & (cx < Wo) & (cy >= 0) & (cy < Ho)
         idx = (base + cy.clamp(0, Ho - 1).long() * Wo + cx.clamp(0, Wo - 1).long())
         idx = torch.where(inb, idx, torch.full_like(idx, dump))
-        out.index_add_(0, idx, vals * w[:, None])
+        out.index_add_(0, idx, (vals * w[:, None]).to(acc_dtype))
     out = out[:dump].view(B, Ho, Wo, C).permute(0, 3, 1, 2)
-    return out.to(inp.dtype)
+    return out.float().to(inp.dtype)
 
 
 def splat_bwd_raw(inp: torch.Tensor, flow: torch.Tensor, g: torch.Tensor, scale: int = 1,

@@ -39,7 +39,7 @@ from .sample import batch_items, build
 
 KINDS = (
     ("linear_attention_bwd", ("la_bwd_", "la_reduce_kernel")),
-    ("linear_attention", ("la_ctx_kernel", "la_out_kernel")),
+    ("linear_attention", ("la_ctx_", "la_out_")),  # the passes, their f32 bodies, the combine
     ("flash_attention", ("flash_bf16_kernel", "flash_f32_kernel")),
     ("splat_bwd", ("splat_bwd_kernel",)),
     ("splat", ("splat_max_kernel", "splat_scatter_kernel", "splat_finish_kernel")),

@@ -203,3 +203,76 @@ def test_block_autograd_on_cpu_matches_jax_vjp(B, N, C):
     got = _port_grads_jax_layout(*(t.grad for t in leaves))
     for name, a, b in zip(_GRADS, got, want):
         np.testing.assert_allclose(a, np.asarray(b), rtol=1e-4, atol=1e-6, err_msg=name)
+
+
+# ------------------------------------------------- the forward kernels' plan
+# (N, C) of the 7 LinearAttentionBlocks of a 128x128 and of a native
+# 448x1024 UNet eval (chip_smoke.py's SHAPES and NATIVE_SHAPES)
+_EVAL_128 = ((16384, 64), (4096, 64), (4096, 128), (1024, 128), (1024, 256), (256, 256),
+             (256, 512))
+_EVAL_NATIVE = ((458752, 64), (114688, 64), (114688, 128), (28672, 128), (28672, 256),
+                (7168, 256), (7168, 512))
+# the flagship's (B, N, C): serving 128x128 b8, native b2 and b8, 128x128
+# training b16 (chip_smoke.py's TRAIN_SHAPES and the two N = 256 blocks),
+# native training b2 (the eval's blocks)
+_FLAGSHIP = sorted({(8, n, c) for n, c in _EVAL_128} | {(16, n, c) for n, c in _EVAL_128}
+                   | {(b, n, c) for b in (2, 8) for n, c in _EVAL_NATIVE})
+
+
+def _check_plan(B, N, C, dtype):
+    plan = paf.la_plan(B, C, N, dtype)
+    tiles = -(-N // plan.tile)
+    assert plan.partials == plan.ctx.ctas
+    for p in (plan.ctx, plan.out):
+        assert 0 < p.smem <= paf.SMEM_MAX
+        assert 1 <= p.ctas <= tiles
+    if dtype == torch.bfloat16:
+        assert plan.tile == paf.TILE
+        chunks = -(-C // 64)
+        for p, resident_slots, least in ((plan.ctx, chunks, 2), (plan.out, 2 * chunks, 4)):
+            assert p.ctas * B <= paf.SMS and p.stages >= 1
+            assert p.slots == resident_slots if p.resident else p.slots >= least
+        assert plan.ctx.consumers == 2 and plan.out.consumers in (1, 2)
+        # two consumer warp groups take alternate tiles of one ring
+        assert plan.out.consumers == 1 or plan.out.stages >= 2
+    else:
+        assert plan.tile == paf.F32_TILE and plan.out.ctas == tiles
+    return plan
+
+
+@pytest.mark.parametrize("B,N,C", _FLAGSHIP)
+def test_forward_plan_fits_every_flagship_shape(B, N, C):
+    """Every (B, N, C) the flagship runs the forward kernels at gets a plan
+    within the 227 KB of shared memory a CTA may have, bf16 and f32."""
+    for dtype in (torch.bfloat16, torch.float32):
+        _check_plan(B, N, C, dtype)
+
+
+@pytest.mark.parametrize("C", [16, 48, 496])
+def test_forward_plan_takes_other_widths(C):
+    """Widths the flagship does not use (the kernels take 16 <= C <= 512, C %
+    16 == 0) also get a plan, with ragged N."""
+    for B, N in ((1, 1), (3, 1000), (2, 7169)):
+        for dtype in (torch.bfloat16, torch.float32):
+            _check_plan(B, N, C, dtype)
+
+
+@pytest.mark.parametrize("args,want", [
+    # native level 0: weights resident, two consumer warp groups in pass B
+    ((2, 64, 458752), ((66, 4, 1, True, 2, 141648), (66, 4, 2, True, 2, 92000))),
+    # native C = 256: pass A streams w_kv, pass B keeps its weights with one stage
+    ((2, 256, 28672), ((66, 2, 2, False, 2, 207936), (66, 1, 8, True, 1, 209040))),
+    # the 128x128 bottleneck at b8: 4 tiles, both passes stream their weights
+    ((8, 512, 256), ((4, 1, 2, False, 2, 208944), (4, 1, 5, False, 1, 228448))),
+])
+def test_forward_plan_pins(args, want):
+    plan = paf.la_plan(*args)
+    assert (tuple(plan.ctx), tuple(plan.out)) == want
+
+
+def test_forward_plan_f32_keeps_the_first_bodies():
+    """f32 x: tiles of 32 positions, pass A on two waves of CTAs, pass B one
+    CTA per tile, the first bodies' shared memory."""
+    plan = paf.la_plan(16, 64, 16384, torch.float32)
+    assert plan == paf.LaPlan(32, paf.LaPass(17, 0, 0, False, 1, 40704), 17,
+                              paf.LaPass(512, 0, 0, False, 1, 50944))

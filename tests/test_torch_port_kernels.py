@@ -150,6 +150,98 @@ def _rel(a, b):
     return float((a.float() - b.float()).abs().max()) / max(float(b.float().abs().max()), 1e-30)
 
 
+# every (B, N, C) of chip_smoke.py's la_phase: the 7 blocks of a 128x128 b8
+# and of a native 448x1024 b2 UNet eval
+LA_PHASE_SHAPES = (
+    [(8, N, C) for N, C in ((16384, 64), (4096, 64), (4096, 128), (1024, 128), (1024, 256),
+                            (256, 256), (256, 512))]
+    + [(2, N, C) for N, C in ((458752, 64), (114688, 64), (114688, 128), (28672, 128),
+                              (28672, 256), (7168, 256), (7168, 512))])
+# ragged N (rows the tensor maps cannot take are padded once), batches 1-16,
+# C from 16 to 512 (resident and streamed weights), and one CTA per batch
+# element (P = 1: N <= 64)
+EDGE_SHAPES = ((1, 1, 16), (2, 31, 64), (16, 64, 256), (8, 1000, 256), (16, 2100, 512),
+               (1, 7169, 64), (2, 7169, 512), (16, 1000, 16), (1, 2100, 256))
+
+
+def _forward_vs_plain(dev, dtype, B, N, C, seed):
+    """Both forward passes against ctx_plain and out_plain, and the block
+    against block_plain, at chip_smoke.py's pins: TOL_CTX = 1e-2 of the
+    context's largest value (m: of its own, s: relative), TOL_OUT = 2e-2 of
+    the residual branch y - x fed an attention-dominated context (ctx / N ~
+    N(0, 1)), TOL_BLOCK = 5e-2 of that branch with a zero output bias (f32 x:
+    the kernels round the operands to bf16, the plain block does not), plus
+    one bf16 ulp of y for bf16 x.  Two launches of each pass give the same
+    bits."""
+    xt, (g_pre, w_qkv, w_out, b_out, g_post) = _inputs(seed, B, N, C)
+    x = xt.to(dev, dtype)
+    g_pre, w_qkv, w_out, b_out, g_post = (t.to(dev) for t in (g_pre, w_qkv, w_out, b_out, g_post))
+    w16 = w_qkv.to(torch.bfloat16)
+    w_kv, w_q = w16[128:].contiguous(), w16[:128].contiguous()
+    wo16 = w_out.to(torch.bfloat16).contiguous()
+    ctx_in = (N * torch.randn(B, 4, 32, 32, generator=torch.Generator().manual_seed(seed))).to(dev)
+    zero = torch.zeros_like(b_out)
+    with torch.no_grad():
+        got = paf.linear_attention_ctx(x, g_pre, w_kv)
+        again = paf.linear_attention_ctx(x, g_pre, w_kv)
+        ctx_p, m_p, s_p = paf.ctx_plain(x, g_pre, w_kv)
+        y = paf.linear_attention_out(x, g_pre, w_q, ctx_in, wo16, b_out, g_post)
+        y2 = paf.linear_attention_out(x, g_pre, w_q, ctx_in, wo16, b_out, g_post)
+        y_p = paf.out_plain(x, g_pre, w_q, ctx_in, wo16, b_out, g_post)
+        yb = paf.fused_linear_attention_block(x, g_pre, w_qkv, w_out, zero, g_post)
+        yb_p = paf.block_plain(x, g_pre, w_qkv, w_out, zero, g_post)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again)) and torch.equal(y, y2)
+    ctx, m, s = got
+    assert float((ctx - ctx_p).abs().max()) <= 1e-2 * float(ctx_p.abs().max())
+    assert float((m - m_p).abs().max()) <= 1e-2 * float(m_p.abs().max())
+    assert float(((s - s_p).abs() / s_p).max()) <= 1e-2
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    xf = x.float()
+    for got_y, want, tol in ((y, y_p, 2e-2), (yb, yb_p, 5e-2)):
+        got_y, want = got_y.float(), want.float()
+        assert got_y.shape == (B, C, N)
+        scale = float((want - xf).abs().max())
+        assert float((got_y - want).abs().max()) <= tol * scale + ulp * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,C", LA_PHASE_SHAPES, ids=lambda v: str(v))
+def test_forward_passes_match_plain_at_every_eval_shape_on_card(cuda_device, dtype, B, N, C):
+    _forward_vs_plain(cuda_device, dtype, B, N, C, 11)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,C", EDGE_SHAPES, ids=lambda v: str(v))
+def test_forward_passes_match_plain_at_edge_shapes_on_card(cuda_device, dtype, B, N, C):
+    _forward_vs_plain(cuda_device, dtype, B, N, C, 12)
+
+
+@pytest.mark.cuda
+def test_forward_plan_on_card(cuda_device):
+    """The launchers check the plan they get: a plan whose shared memory
+    does not add up, or one CTA more than there are tiles, is refused."""
+    xt, (g_pre, w_qkv, *_rest) = _inputs(13, 2, 1024, 64)
+    x = xt.to(cuda_device, torch.bfloat16)
+    g_pre = g_pre.to(cuda_device)
+    w_kv = w_qkv[128:].to(cuda_device, torch.bfloat16).contiguous()
+    lib = paf._lib()
+    plan = paf.la_plan(2, 64, 1024)
+    for bad in (plan.ctx._replace(smem=plan.ctx.smem + 8),
+                plan.ctx._replace(ctas=1024 // paf.TILE + 1)):
+        part = torch.empty(2, bad.ctas, 4352, device=cuda_device)
+        outs = [torch.empty(2, 4, 32, 32, device=cuda_device)] + [
+            torch.empty(2, 128, device=cuda_device) for _ in range(2)]
+        err = lib.ofd_la_ctx(x.data_ptr(), 1, 1024, g_pre.data_ptr(), w_kv.data_ptr(),
+                             part.data_ptr(), *(t.data_ptr() for t in outs), 2, 64, 1024,
+                             bad.ctas, bad.stages, bad.slots, int(bad.resident), bad.smem,
+                             cuda_device.index or 0,
+                             torch.cuda.current_stream(cuda_device).cuda_stream)
+        assert err != 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,N,C", [(2, 1000, 64), (2, 1024, 256), (1, 2100, 128),

@@ -69,6 +69,24 @@ def test_splat_and_vjp_match_jax(scale, offset):
     assert np.abs(np.asarray(d_flow)).max() > 0
 
 
+@pytest.mark.parametrize("scale,offset", [(1, (0, 0)), (4, (3, 2))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_splat_float64_sums_match_jax(scale, offset, dtype):
+    """splat_raw with float64 sums (the card's deterministic reference): in
+    the input's dtype, within float32 rounding of JAX's sums (one bf16
+    rounding of them for bf16)."""
+    inp, flow = _inputs(3 * scale + offset[0])
+    want = splat.splat_raw(jnp.asarray(inp), jnp.asarray(flow), scale, *offset)
+    got = psplat.splat_raw(_nchw(inp).to(dtype), _nchw(flow), scale, offset,
+                           acc_dtype=torch.float64)
+    assert got.dtype == dtype
+    if dtype == torch.float32:
+        _close(_nhwc(got), want)
+    else:
+        f32 = psplat.splat_raw(_nchw(inp).to(dtype).float(), _nchw(flow), scale, offset)
+        _close(_nhwc(got), _nhwc(f32.to(dtype)), rel=2.0 ** -7)
+
+
 @pytest.mark.parametrize("scale", [1, 4])
 def test_splat_autograd_is_the_reference_vjp(scale):
     inp, flow = _inputs(7)
