@@ -26,9 +26,11 @@ it prints is one JSON object, flushed as it goes, apart from the card's
      launches bit for bit;
    - the three backward passes of the linear-attention block at every
      (N, C) of a 128x128 b16 train step that takes them (N >= 1024: five
-     shapes, six launches a pass), bf16 and f32 x, and at every (N, C) of
-     a native 448x1024 b2 train step (all 8 blocks, C up to 512), bf16 x,
-     against ``bwd_q_plain``, ``bwd_kv1_plain`` and ``bwd_kv2_plain``;
+     shapes, six launches a pass) and at every (N, C) of a native 448x1024
+     b2 train step (all 8 blocks, C up to 512), bf16 and f32 x,
+     against ``bwd_q_plain``, ``bwd_kv1_plain`` and ``bwd_kv2_plain``; each
+     line carries the bounds, rows 3 and 5 with their f32 products counted
+     in split TF32 and on f32 CUDA cores (``*_bound_ms_f32_cores``);
    - the flash kernel under autograd at (2, 7168, 4, 32) bf16: its
      gradients against the composition's autograd, with the times and the
      peak memory of both backwards;
@@ -75,7 +77,10 @@ it prints is one JSON object, flushed as it goes, apart from the card's
    output conv not zeroed, a standard-normal batch from numpy seed 0, as
    the JAX ``bench.py`` train row): one step with every kernel against the
    same step with every plain version (loss and per-leaf gradients; the
-   plain splat sums in float64, so the reference is the same every run); one
+   plain splat sums in float64, so the reference is the same every run),
+   and rows 3, 4 and 5 against their plain versions on the activations
+   captured from that step's block backwards (``kernel_vs_plain`` lines at
+   ``train_activations_128x128_b16``, TOL_BWD); one
    count window of 8 steps (augment, loss, backward, clip, Adam) whose
    launches must be 8x a step's (6 per backward pass, 5 splat backward, 10
    splat forward); train samples/s over the last 6 of them after 2
@@ -93,7 +98,8 @@ it prints is one JSON object, flushed as it goes, apart from the card's
    ``train.py --remat`` for 2 steps at 128x128.
 6. native_train: the flagship trained at native 448x1024 b2 with remat (the
    JAX ``bench.py`` row ``sintel_native_train_samples_per_sec``): one step
-   with every kernel against the all-plain step (bf16); a count window of 2
+   with every kernel against the all-plain step (bf16), with rows 3-5 on its
+   captured activations (``train_activations_448x1024_b2``); a count window of 2
    warm-up and 3 timed steps with exact launches, native train samples/s and
    the window's peak memory.
 7. the kernels line: for each kernel its route, source, the TPU kernel it
@@ -102,7 +108,9 @@ it prints is one JSON object, flushed as it goes, apart from the card's
    ``vs_library`` (ms / library ms) and ``bound_share`` (bound ms / ms),
    and for the flash kernel the same at (8, 7168) (``at_8x7168``); for rows
    1 and 2 ``bound_share`` per native eval (their per-shape lines carry
-   ``ctx_bound_share`` and ``out_bound_share``).
+   ``ctx_bound_share`` and ``out_bound_share``); for rows 3 and 5
+   ``bound_ms_f32_cores`` beside the split-TF32 bound, and ``bound_share``
+   with ``per_native_step`` (ms, bounds, share per native b2 train step).
 8. the result line.
 
 Any failure raises and exits non-zero without the result line; so does a
@@ -761,17 +769,30 @@ def splat_phase():
     return out, worst
 
 
-def bwd_bound_ms(kernel, Bn, C, N, xbytes):
+def bwd_bound_ms(kernel, Bn, C, N, xbytes, f32_cores=False):
     """(bytes ms, operations ms) of one backward launch on (Bn, C, N): x and
     dy (and dxq) read once, dx written once, weights once; operations per
-    position: the bf16 tensor-core products and the f32 ones on CUDA cores
-    (each over its unit's peak, the larger of the two)."""
+    position: the bf16 tensor-core products and the f32 ones.  Rows 3 and 5
+    (bwd_q, bwd_kv2) take their f32 products on the tensor cores in split
+    TF32, as their bodies do: three TF32 products for f32 x f32 (dW_out =
+    do^T attn, dctx = q'^T dattn, dq' = dattn ctx^T; dk' = v dctx^T, dv = k'
+    dctx), two where one operand is bf16 (dW_q = dq^T ln, dW_kv = dkv^T ln),
+    at the TF32 rate, on the same units as the bf16 products (so the two
+    times add).  Row 4 (bwd_kv1), and all three with ``f32_cores``, count
+    the f32 products once at the f32 CUDA-core rate, beside the tensor cores
+    (the larger of the two)."""
     P = Bn * N
     io = {"bwd_q": 3, "bwd_kv1": 1, "bwd_kv2": 3}[kernel]
     nbytes = io * P * C * xbytes + 3 * 128 * C * 2 + Bn * 4096 * 4 + 2 * 128 * C * 4
     bf16_macs = {"bwd_q": 4 * 128 * C + 4096, "bwd_kv1": 256 * C, "bwd_kv2": 512 * C}[kernel]
     f32_macs = {"bwd_q": 256 * C + 8192, "bwd_kv1": 4096, "bwd_kv2": 256 * C + 8192}[kernel]
-    t_ops = max(2 * P * bf16_macs / BF16_FLOPS, 2 * P * f32_macs / F32_FLOPS)
+    tf32_macs = {"bwd_q": 3 * 128 * C + 3 * 8192 + 2 * 128 * C,
+                 "bwd_kv2": 3 * 8192 + 2 * 256 * C}.get(kernel)
+    t_bf16 = 2 * P * bf16_macs / BF16_FLOPS
+    if f32_cores or tf32_macs is None:
+        t_ops = max(t_bf16, 2 * P * f32_macs / F32_FLOPS)
+    else:
+        t_ops = t_bf16 + 2 * P * tf32_macs / TF32_FLOPS
     return 1e3 * nbytes / HBM_BPS, 1e3 * t_ops
 
 
@@ -783,7 +804,7 @@ def la_bwd_phase(Bn=TRAIN_B, shapes=TRAIN_SHAPES, dtypes=(torch.bfloat16, torch.
     train step (bf16 x, the main path's dtype) summed over the shapes."""
     names = ("bwd_q", "bwd_kv1", "bwd_kv2")
     stats = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound": 0.0, "bytes_ms": 0.0,
-                 "ops_ms": 0.0} for k in names}
+                 "ops_ms": 0.0, "bound_f32_cores": 0.0} for k in names}
     for i, (N, C, count) in enumerate(shapes):
         for dtype in dtypes:
             x, (g_pre, w_qkv, w_out, b_out, g_post) = block_inputs(Bn, C, N, dtype, 600 + i)
@@ -823,9 +844,11 @@ def la_bwd_phase(Bn=TRAIN_B, shapes=TRAIN_SHAPES, dtypes=(torch.bfloat16, torch.
                         "bwd_kv2_plain_ms": cuda_ms(lambda: af.bwd_kv2_plain(*args_kv2), 3, 1),
                     }
             bounds = {k: bwd_bound_ms(k, Bn, C, N, x.element_size()) for k in names}
+            cores = {k: max(bwd_bound_ms(k, Bn, C, N, x.element_size(), True)) for k in names}
             phase("kernel_vs_plain", kernel="linear_attention_bwd", at=label, N=N, C=C, B=Bn,
                   dtype=str(dtype).split(".")[1], **{f"{k}_max_rel": errs[k] for k in names},
                   **{f"{k}_bound_ms": max(bounds[k]) for k in names},
+                  **{f"{k}_bound_ms_f32_cores": cores[k] for k in ("bwd_q", "bwd_kv2")},
                   **{k: round(v, 5) for k, v in times.items()})
             for k in names:
                 check(errs[k] <= TOL_BWD, f"{k} kernel disagrees at N={N} C={C} {dtype}: "
@@ -835,11 +858,14 @@ def la_bwd_phase(Bn=TRAIN_B, shapes=TRAIN_SHAPES, dtypes=(torch.bfloat16, torch.
                     stats[k]["ms"] += count * times[f"{k}_ms"]
                     stats[k]["plain_ms"] += count * times[f"{k}_plain_ms"]
                     stats[k]["bound"] += count * max(bounds[k])
+                    stats[k]["bound_f32_cores"] += count * cores[k]
                     stats[k]["bytes_ms"] += count * bounds[k][0]
                     stats[k]["ops_ms"] += count * bounds[k][1]
             del x, dy, c, m, s_, args_q, args_kv2
     for st in stats.values():
         st["bound_by"] = "bytes" if st["bytes_ms"] >= st["ops_ms"] else "operations"
+        if st["ms"]:
+            st["bound_share"] = st["bound"] / st["ms"]
     phase("linear_attention_bwd_per_step", at=label, B=Bn,
           **{f"{k}_{f}": v for k, st in stats.items() for f, v in st.items()})
     return stats
@@ -1219,6 +1245,61 @@ def slice_phase():
     return totals
 
 
+@contextlib.contextmanager
+def captured_block_bwd():
+    """The arguments of every fused_block_bwd call (each block's backward on
+    the kernels) inside the window, detached copies, in call order."""
+    calls, original = [], af.fused_block_bwd
+
+    def capture(*args):
+        calls.append(tuple(a.detach().clone() for a in args))
+        return original(*args)
+
+    af.fused_block_bwd = capture
+    try:
+        yield calls
+    finally:
+        af.fused_block_bwd = original
+
+
+def bwd_on_activations(calls, label):
+    """Rows 3, 4 and 5 against their plain versions on the activations that
+    reached each block's backward in a train step (``calls`` from
+    captured_block_bwd), with TOL_BWD: a kernel fault shows here apart from
+    the draw of the step's random-weight loss.  Each row gets the same
+    inputs as its plain version (rows 4 and 5 the plain dctx, sdot, dxq),
+    as fused_block_bwd prepares them.  One kernel_vs_plain line per row."""
+    errs = {k: [] for k in ("bwd_q", "bwd_kv1", "bwd_kv2")}
+    shapes = []
+    rel = lambda got, want: max(err(a, b)[0] / max(float(b.float().abs().max()), 1e-30)
+                                for a, b in zip(got, want))
+    with torch.no_grad():
+        for x, dy, g_pre, w_qkv, w_out, b_out, g_post, c, m, s_ in calls:
+            w16 = w_qkv.to(torch.bfloat16).contiguous()
+            w_q, w_kv = w16[:128], w16[128:]
+            g32 = g_pre.float().contiguous()
+            args_q = (x, dy.to(x.dtype).contiguous(), g32, w_q, c,
+                      w_out.to(torch.bfloat16).contiguous(), b_out.float().contiguous(),
+                      g_post.float().contiguous())
+            want_q = af.bwd_q_plain(*args_q)
+            errs["bwd_q"].append(rel(af.linear_attention_bwd_q(*args_q), want_q))
+            dxq, dctx = want_q[0], want_q[1]
+            want_s = af.bwd_kv1_plain(x, g32, w_kv, m, s_, dctx)
+            errs["bwd_kv1"].append(rel((af.linear_attention_bwd_kv1(x, g32, w_kv, m, s_, dctx),),
+                                       (want_s,)))
+            args_kv2 = (x, g32, w_kv, m, s_, dctx, want_s, dxq)
+            errs["bwd_kv2"].append(rel(af.linear_attention_bwd_kv2(*args_kv2),
+                                       af.bwd_kv2_plain(*args_kv2)))
+            shapes.append(list(x.shape))
+            del want_q, want_s
+    torch.cuda.synchronize()
+    for k, e in errs.items():
+        phase("kernel_vs_plain", kernel=f"linear_attention_{k}", at=label, blocks=len(e),
+              shapes=shapes, max_rel=max(e), per_block=[sig(v) for v in e])
+        check(max(e) <= TOL_BWD, f"{k} disagrees with its plain version on the {label} "
+              f"activations: {e}")
+
+
 def train_batch(seed=0, B=TRAIN_B, H=128, W=128):
     """A standard-normal (img, tgt, flow) batch from numpy, as the JAX
     bench.py train rows draw it."""
@@ -1254,14 +1335,23 @@ def step_vs_plain(precision, batch, conv_backend="cudnn", remat=False, tol=None)
     a conv backend in f32, both steps run with cuDNN's TF32 off (the f32
     conv kernels are exact f32).  With ``remat`` the UnetWithWarp closure
     is rematerialised.  Where the bottleneck takes the flash kernel (N >=
-    2048: the native batch) the plain step runs its plain recurrence."""
+    2048: the native batch) the plain step runs its plain recurrence.  The
+    cuDNN bf16 step also holds rows 3-5 to their plain versions on its own
+    block activations (bwd_on_activations)."""
     cfg = dataclasses.replace(FLAGSHIP, zero_init=False, precision=precision,
                               conv_backend=conv_backend, remat=remat)
     algo = FlowDiffuser(cfg, device="cuda", generator=torch.Generator().manual_seed(SEED))
     algo.module.train()
     conv = conv_backend != "cudnn"
+    # the activations of the cuDNN bf16 step: the rows' check on them
+    capture = conv_backend == "cudnn" and precision == "bf16"
     with tf32(not (conv and precision == "float32")):
-        loss_k, g_k = step_grads(algo, batch, 11)
+        with captured_block_bwd() if capture else contextlib.nullcontext() as calls:
+            loss_k, g_k = step_grads(algo, batch, 11)
+        if capture:
+            bwd_on_activations(calls, f"train_activations_{batch[0].shape[2]}x"
+                                      f"{batch[0].shape[3]}_b{batch[0].shape[0]}")
+            del calls
         flash = batch[0].shape[2] * batch[0].shape[3] // 64 >= fa.FLASH_MIN_N
         with plain_versions(attention="passes", splat=True, conv=conv, flash=flash):
             loss_p, g_p = step_grads(algo, batch, 11)
@@ -1457,7 +1547,8 @@ def main():
     la128 = la_phase(B, SHAPES, "128x128")
     la_native = la_phase(NATIVE_B, NATIVE_SHAPES, "448x1024", iters=10)
     la_bwd = la_bwd_phase()
-    la_bwd_phase(NATIVE_B, NATIVE_SHAPES, (torch.bfloat16,), "448x1024", iters=5)
+    la_bwd_native = la_bwd_phase(NATIVE_TRAIN_B, NATIVE_SHAPES, (torch.bfloat16, torch.float32),
+                                 "448x1024", iters=5)
     flash_row, flash_err = flash_phase()
     flash_grad_phase()
     mid = middle_phase()
@@ -1509,10 +1600,19 @@ def main():
                         per=f"the qkv of the 8 blocks of one 448x1024 b{NATIVE_B} UNet eval "
                             "(8 launches, bf16)")
         elif k in bwd:
-            st = la_bwd[bwd[k]]
-            vals = dict(max_abs_err=st["err"], ms=st["ms"], plain_ms=st["plain_ms"],
-                        bound_ms=st["bound"], bound_by=st["bound_by"], library_ms=None,
-                        per=per_step)
+            st, nat = la_bwd[bwd[k]], la_bwd_native[bwd[k]]
+            vals = dict(max_abs_err=max(st["err"], nat["err"]), ms=st["ms"],
+                        plain_ms=st["plain_ms"], bound_ms=st["bound"], bound_by=st["bound_by"],
+                        library_ms=None, per=per_step)
+            if k is not kernels.LA_BWD_KV1:  # rows 3 and 5: split TF32 on the tensor cores
+                vals.update(bound_ms_f32_cores=st["bound_f32_cores"],
+                            bound_share=nat["bound"] / nat["ms"],
+                            per_native_step=dict(ms=nat["ms"], bound_ms=nat["bound"],
+                                                 bound_ms_f32_cores=nat["bound_f32_cores"],
+                                                 bound_share=nat["bound"] / nat["ms"],
+                                                 plain_ms=nat["plain_ms"],
+                                                 per=f"one 448x1024 b{NATIVE_TRAIN_B} train "
+                                                     "step (8 launches, bf16 x)"))
         else:
             key = "ctx" if k is kernels.LA_CTX else "out"
             st, s128 = la_native[key], la128[key]

@@ -21,7 +21,8 @@
 // of the TPU's block-diagonal (128, 128).
 //
 // bf16 x (the flagship) runs the Hopper bodies of la_ctx_kernel and
-// la_out_kernel ("Hopper bodies of rows 1-2" below: persistent CTAs, a TMA
+// la_out_kernel (and of backward passes B' and A'2, "backward" below)
+// ("Hopper bodies of rows 1-2" below: persistent CTAs, a TMA
 // ring of x tiles, weights and ctx in shared memory, wgmma projections, the
 // context sums in 3xTF32 on the tensor cores, and la_ctx_combine_kernel
 // folding the per-CTA partials in parallel).  f32 x keeps the first bodies,
@@ -1589,7 +1590,11 @@ static_assert(NH * T <= THREADS && WARPS * 16 == HD, "la_mid_out_kernel's thread
 // ------------------------------------------------------------------ backward
 //
 // The block's backward, recompute-based like the TPU's (nothing but ctx, m
-// and s is saved from the forward):
+// and s is saved from the forward).  This section holds the first bodies of
+// the three passes; bf16 x runs them for pass A'1 only, and the Hopper
+// bodies of passes B' and A'2 further below ("Hopper bodies of rows 3 and
+// 5"), which keep the arithmetic described here but take the f32 products
+// in split TF32 on the tensor cores:
 //
 //   la_bwd_q_kernel    <- _bwd_q_kernel (pass B'): recompute preLN -> q ->
 //                         softmax -> attn -> W_out -> postLN, run the chain
@@ -1622,11 +1627,12 @@ static_assert(NH * T <= THREADS && WARPS * 16 == HD, "la_mid_out_kernel's thread
 // Bound on the H100: pass B' does 2 * (2 * 128 * C + 128 * 32 * 2) bf16 and
 // ~2 * (2 * 128 * C + 2 * 4096) f32 operations per position, pass A'2
 // 2 * 2 * 256 * C bf16 and ~2 * (256 * C + 2 * 4096) f32, pass A'1 2 * 256 * C
-// bf16 and 2 * 4096 f32; at these widths the f32 work (CUDA cores, 67
-// TFLOP/s) is the bound, above the bytes (x, dy read once, dx written once).
-// The weight-gradient update reads its operands from shared memory and
-// adds into the partial once per tile of 32 positions; nothing uses TMA or
-// wgmma yet.
+// bf16 and 2 * 4096 f32; at these widths the f32 work is the bound, above
+// the bytes (x, dy read once, dx written once): on CUDA cores (67 TFLOP/s)
+// in these bodies, which read the weight-gradient update's operands from
+// shared memory and add into the partial once per tile of 32 positions; in
+// split TF32 on the tensor cores (495 TFLOP/s, three or two products each)
+// in the Hopper bodies.
 //
 // Width.  The passes take C <= 512, the widest block of the flagship.  What
 // set the limit is shared memory: the [C][T] tiles grow with C, and at C =
@@ -1781,7 +1787,7 @@ __host__ __device__ inline size_t bwdq_smem(int C, bool acc_smem) {
 // pass A; dxq (B, C, N) in TX; part (B * P, bwdq_record(C)) f32 scratch.
 template <typename TX>
 __global__ void __launch_bounds__(THREADS, 1)
-la_bwd_q_kernel(const TX* __restrict__ x, const TX* __restrict__ dy,
+la_bwd_q_f32_kernel(const TX* __restrict__ x, const TX* __restrict__ dy,
                 const float* __restrict__ g_pre, const bf16* __restrict__ w_q,
                 const float* __restrict__ ctx, const bf16* __restrict__ w_out,
                 const float* __restrict__ b_out, const float* __restrict__ g_post,
@@ -2114,7 +2120,7 @@ __host__ __device__ inline size_t kv2_smem(int C, bool acc_smem) {
 // B'; writes dx = dxq + dx_kv (B, C, N) in TX; part (B * P, kv2_record(C)).
 template <typename TX>
 __global__ void __launch_bounds__(THREADS, 1)
-la_bwd_kv2_kernel(const TX* __restrict__ x, const float* __restrict__ g_pre,
+la_bwd_kv2_f32_kernel(const TX* __restrict__ x, const float* __restrict__ g_pre,
                   const bf16* __restrict__ w_kv, const float* __restrict__ m,
                   const float* __restrict__ s, const float* __restrict__ dctx,
                   const float* __restrict__ sdot, const TX* __restrict__ dxq,
@@ -2221,6 +2227,1371 @@ la_reduce_kernel(const float* __restrict__ part, size_t rec, size_t off, int P, 
   float v = 0.f;
   for (int q = 0; q < P; ++q) v += src[(size_t)q * rec];
   out[(size_t)sg * M + i] = v;
+}
+
+// ------------------------------------------------ Hopper bodies of rows 3 and 5
+//
+// The bf16-x backward passes B' (la_bwd_q_kernel) and A'2 (la_bwd_kv2_kernel),
+// redesigned for Hopper (sm_90a).  The f32-x instantiations keep the first
+// bodies above (la_bwd_q_f32_kernel, la_bwd_kv2_f32_kernel); pass A'1 (row 4)
+// keeps its body.  Both passes share the plan of ops/attention_fused.py::
+// la_bwd_plan, and the records and their ordered fold (la_reduce_kernel).
+//
+// - Persistent CTAs, grid (P, B), one consumer warp group and one producer
+//   warp (BW_THREADS).  CTA p walks the tiles p, p + P, ... of batch element
+//   b; a tile is TN = 64 positions, one wgmma row block.  The producer keeps
+//   TMA loads in flight into a ring of S stages (3-d maps over (ld, C, B),
+//   [64][C / nbox] boxes, 128-byte swizzle, as the forward): x with dy (pass
+//   B') or x with dxq (pass A'2).  The output tile (dxq, dx) is written over
+//   the dy / dxq stage and stored by TMA.
+// - x stays in shared memory for the LayerNorm backward.  The normalised
+//   tile LN(x) is kept beside it where the plan finds room (C <= 256: the A
+//   of the projections q = LN(x) W_q^T and [k | v] = LN(x) W_kv^T, as in
+//   the forward, and the exact TF32 B of dW_q and dW_kv); at C = 512 those
+//   fragments are formed from x and the per-position statistics as they
+//   are needed (the projections then take A from registers).
+// - The bf16 products on wgmma, weights in shared memory (16 KB chunks:
+//   w_q [128][64 channels], w_out [64 channels][128] as two boxes, w_kv
+//   [128][64 channels] per half), resident where they fit and otherwise
+//   streamed per tile through chunk slots in the order the consumers use
+//   them.  The products whose reduction runs over the hidden index (dattn =
+//   do W_out, dln = dq W_q, dln = dkv W_kv) read the same chunks as MN-major
+//   B operands (the transpose bit), with A from registers: an accumulator of
+//   one product packed to bf16 is the A fragment of the next.
+// - The f32 products on the tensor cores, mma.sync m16n8k8 in split TF32
+//   (each f32 operand split into hi + lo, the three largest of the four
+//   products summed in f32: f32's accuracy; two products where the other
+//   operand is bf16, which TF32 holds exactly):
+//     dq' = dattn (ctx / N)^T, dk' = (v / N) dctx^T, dv = k' dctx / N sum over
+//       a row's own columns, so their A fragments are the wgmma accumulators
+//       themselves (the k index permuted alike in A and B);
+//     dctx += q'^T dattn, dW_out += do^T attn, dW_q += dq^T ln, dW_kv += dkv^T
+//       ln sum over the positions: the f32 operand is staged in shared memory
+//       as [t][.] rows (pitch 8 mod 32: conflict-free fragment loads).
+// - Partial sums kept over the CTA's run: dctx in registers; the weight and
+//   gain gradients in shared memory where they fit (C = 64: 64 KB), written
+//   to the CTA's record once at the end.  Wider blocks keep them in the
+//   record itself, added to once per tile straight from the mma
+//   accumulators (no float atomics: each element has one owner thread), with
+//   P capped so that all records stay within L2 (la_bwd_plan).  The fold of
+//   the records is ordered: the same bits on every run.
+// - Per-position statistics by shuffles: the LN statistics by a warp's
+//   transposing butterfly over its 8 positions' 16-byte chunks, the postLN
+//   statistics, the softmax backward's row dot and the LayerNorm backward's
+//   means by quad shuffles on the accumulators (a quad holds a row), the
+//   per-channel sums by the 8-row-group butterfly and a 4-warp fold.  The
+//   warp group synchronises by a named barrier.
+// - Every mbarrier wait traps after ~10 s instead of hanging the card.
+//
+// Measured on an H100 (PERF.md), both passes are latency-bound: one
+// consumer warp group (4 warps an SM) walks ~15 dependent phases a tile.
+// Pass B' holds the most state (dattn, the postLN and softmax backwards)
+// and spills at 255 registers; splitting its heads and channels between two
+// cooperating warp groups is the next step.
+constexpr int BW_THREADS = 160;  // one consumer warp group, then the producer warp
+constexpr int AP = 136;          // f32 pitch of [64][128] staging (8 mod 32)
+constexpr int DP = 72;           // f32 pitch of [64][64] staging
+constexpr int CP = 36;           // f32 pitch of pass A'2's dctx rows [h][d][e]
+
+// Shared memory of the two passes (la_bwd_plan in ops/attention_fused.py
+// computes the same): 1 KB of alignment slack, the x and dy (dxq) rings, the
+// normalised tile (ln), the weight chunk slots, then per pass the tiles
+// below; acc: the partial sums in shared memory.
+__host__ __device__ inline size_t bwdq_bf16_smem(int C, int S, int slots, bool acc, bool ln) {
+  return 1024 + (size_t)(2 * S + ln) * C * XROW + (size_t)slots * CHUNK +
+         (size_t)NH * DH * DH * 2 +                   // ctx / N, bf16 planes
+         (size_t)TN * AP * 4 + (size_t)TN * DP * 4 +   // attn (then q', dattn, dq of a head); do
+         (size_t)4 * 128 * 4 + (size_t)2 * TN * 4 +    // per-warp column sums; mean, rstd
+         (acc ? bwdq_record(C) * 4 : 0) +               // the record (dctx included)
+         (size_t)(2 * S + 2 * slots) * 8;              // mbarriers
+}
+__host__ __device__ inline size_t kv2_bf16_smem(int C, int S, int slots, bool acc, bool ln) {
+  return 1024 + (size_t)(2 * S + ln) * C * XROW + (size_t)slots * CHUNK +
+         (size_t)NH * DH * CP * 4 + (size_t)TN * AP * 4 +  // dctx; dk | dv of two heads
+         (size_t)2 * TN * 4 + (size_t)3 * HD * 4 +          // mean, rstd; m, s, sdot
+         (acc ? (size_t)2 * HD * C * 4 + (size_t)C * 4 : 0) +
+         (size_t)(2 * S + 2 * slots) * 8;
+}
+
+struct BwdPlan {
+  int C, N, S, slots, resident;
+};
+
+// D (64 x 128) += A (64 x 16, registers) B (16 x 128, K-major planes, 128-byte swizzle)
+__device__ __forceinline__ void wgmma_n128_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                              uint32_t scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64) += A (64 x 16, registers) B (16 x 64, MN-major: N contiguous, 128-byte swizzle)
+__device__ __forceinline__ void wgmma_n64_rs_mn(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                                uint32_t scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// byte offset of element (c, t) of a [C][64] bf16 tile under the 128-byte swizzle
+__device__ __forceinline__ uint32_t tile_at(int c, int t) {
+  return c * XROW + ((((t >> 3) ^ c) & 7) << 4) + ((t & 7) << 1);
+}
+
+// Mean and rstd over C of the positions 8 j .. 8 j + 7, j = j0 and j0 + 4,
+// of a [C][64] bf16 tile at byte offset xs (two passes, as chunk_ln), by one
+// warp -> stat[t], stat[TN + t]; with LN, a third pass writes bf16((x -
+// mean) rstd g) at byte offset la, in the tile's layout.
+template <bool LN>
+__device__ __forceinline__ void tile_stats(unsigned char* sm, uint32_t xs, uint32_t la, int C, int j0,
+                                           float* stat, const float* g) {
+  const int lane = threadIdx.x & 31;
+  float v[8], acc[2][8], mean[2][8];
+  auto at = [&](int c, int n) { return xs + c * XROW + (((j0 + 4 * n) ^ (c & 7)) << 4); };
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc[n][k] = 0.f;
+  for (int c = lane; c < C; c += 32)
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      unpack8(*reinterpret_cast<const uint4*>(sm + at(c, n)), v);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) acc[n][k] += v[k];
+    }
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    const float m = warp_sum8(acc[n]) / C;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      mean[n][k] = __shfl_sync(FULL_MASK, m, 4 * k);
+      acc[n][k] = 0.f;
+    }
+    if ((lane & 3) == 0) stat[8 * (j0 + 4 * n) + (lane >> 2)] = m;
+  }
+  for (int c = lane; c < C; c += 32)
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      unpack8(*reinterpret_cast<const uint4*>(sm + at(c, n)), v);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) acc[n][k] += (v[k] - mean[n][k]) * (v[k] - mean[n][k]);
+    }
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    const float r = rsqrtf(warp_sum8(acc[n]) / C + EPS);
+    if ((lane & 3) == 0) stat[TN + 8 * (j0 + 4 * n) + (lane >> 2)] = r;
+    if (LN)
+#pragma unroll
+      for (int k = 0; k < 8; ++k) acc[n][k] = __shfl_sync(FULL_MASK, r, 4 * k);  // rstd
+  }
+  if (LN) {
+    for (int c = lane; c < C; c += 32) {
+      const float gc = __ldg(g + c);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const uint32_t o = c * XROW + (((j0 + 4 * n) ^ (c & 7)) << 4);
+        unpack8(*reinterpret_cast<const uint4*>(sm + xs + o), v);
+        float y[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) y[k] = (v[k] - mean[n][k]) * acc[n][k] * gc;
+        *reinterpret_cast<uint4*>(sm + la + o) = make_uint4(
+            pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]), pack_bf16(y[4], y[5]), pack_bf16(y[6], y[7]));
+      }
+    }
+    fence_async_smem();
+  }
+}
+
+// d += a b in split TF32: the small products first (3xTF32), or two products
+// where b is exact in TF32 (a bf16 value)
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4],
+                                     const uint32_t (&bh)[2], const uint32_t (&bl)[2]) {
+  mma_tf32(d, al, bh);
+  mma_tf32(d, ah, bl);
+  mma_tf32(d, ah, bh);
+}
+__device__ __forceinline__ void mma2(float (&d)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4],
+                                     const uint32_t (&b)[2]) {
+  mma_tf32(d, al, b);
+  mma_tf32(d, ah, b);
+}
+// the fragments of a product summed over positions, from [t][.] f32 rows
+// (pitch ld): A (16 x 8) element (m, k) = S[(k0 + k) ld + m0 + m] f, B (8 x
+// 8) element (k, n) = S[(k0 + k) ld + n0 + n], both split
+__device__ __forceinline__ void frag_a(const float* S, int ld, int m0, int k0, uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4], float f = 1.f) {
+  const int lane = threadIdx.x & 31;
+  const float* q = S + (k0 + (lane & 3)) * ld + m0 + (lane >> 2);
+  split_tf32(q[0] * f, hi[0], lo[0]);
+  split_tf32(q[8] * f, hi[1], lo[1]);
+  split_tf32(q[4 * ld] * f, hi[2], lo[2]);
+  split_tf32(q[4 * ld + 8] * f, hi[3], lo[3]);
+}
+__device__ __forceinline__ void frag_b(const float* S, int ld, int n0, int k0, uint32_t (&hi)[2],
+                                       uint32_t (&lo)[2]) {
+  const int lane = threadIdx.x & 31;
+  const float* q = S + (k0 + (lane & 3)) * ld + n0 + (lane >> 2);
+  split_tf32(q[0], hi[0], lo[0]);
+  split_tf32(q[4 * ld], hi[1], lo[1]);
+}
+// the A fragment of a product over a row's own 8 columns 8 i .. 8 i + 7 of
+// a wgmma accumulator, d0 .. d3 = its registers 4 i .. 4 i + 3 (k index
+// permuted: k = cq <- column 2 cq, cq + 4 <- 2 cq + 1; the B fragment takes
+// the same order), each value scaled by f
+__device__ __forceinline__ void frag_acc(float d0, float d1, float d2, float d3, float f,
+                                         uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  split_tf32(d0 * f, hi[0], lo[0]);
+  split_tf32(d2 * f, hi[1], lo[1]);
+  split_tf32(d1 * f, hi[2], lo[2]);
+  split_tf32(d3 * f, hi[3], lo[3]);
+}
+// keeps the A registers of an in-flight wgmma from reuse until after its wait
+template <int R>
+__device__ __forceinline__ void a_fence(uint32_t (&a)[R][4]) {
+#pragma unroll
+  for (int k = 0; k < R; ++k)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[k][r])::"memory");
+}
+// TF32 bits of bf16(v): exact
+__device__ __forceinline__ uint32_t bf16_bits(float v) {
+  return __float_as_uint(__bfloat162float(__float2bfloat16(v)));
+}
+__device__ __forceinline__ void quad_sum2(float& a, float& b) {
+#pragma unroll
+  for (int k = 1; k < 4; k <<= 1) {
+    a += __shfl_xor_sync(FULL_MASK, a, k);
+    b += __shfl_xor_sync(FULL_MASK, b, k);
+  }
+}
+
+// What both passes share: the thread's place in the warp group, the x and
+// output stages of tile i, the weight chunks in use order, and the
+// fragments formed from the x tile.
+struct BwdCtx {
+  unsigned char* sm;
+  uint32_t base, w_off, wfull, wempty;
+  int slots, L, tid, lane, w, g8, cq, r0, r1;
+  bool resident;
+  uint32_t yo[2][2];  // byte offsets of (row r0 / r1, column 2 cq + e) of an 8-column block
+  __device__ BwdCtx(unsigned char* sm_, uint32_t base_, uint32_t w_off_, uint32_t wfull_,
+                    uint32_t wempty_, int slots_, int L_, bool resident_)
+      : sm(sm_), base(base_), w_off(w_off_), wfull(wfull_), wempty(wempty_), slots(slots_), L(L_),
+        resident(resident_) {
+    tid = threadIdx.x;
+    lane = tid & 31;
+    w = tid >> 5;
+    g8 = lane >> 2;
+    cq = lane & 3;
+    r0 = w * 16 + g8;
+    r1 = r0 + 8;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        yo[h][e] = (2 * cq + e) * XROW + ((((2 * w + h) ^ (2 * cq + e)) << 4) | (g8 << 1));
+  }
+  // the slot of this tile's next weight chunk (resident: rslot), once loaded
+  __device__ int acquire(int i, int& u, int rslot) const {
+    const int it = i * L + u++;
+    const int slot = resident ? rslot : it % slots;
+    mbar_wait_warp(wfull + 8 * slot, resident ? 0 : (it / slots) & 1);
+    return slot;
+  }
+  __device__ void release(int slot) const {
+    if (!resident && lane == 0) mbar_arrive(wempty + 8 * slot);
+  }
+  // bf16 value at (row h of this thread, column c8 + 2 cq + e) of a tile
+  __device__ float at(uint32_t tile, int c8, int h, int e) const {
+    return lds_bf16(sm, tile - base + c8 * XROW + yo[h][e]);
+  }
+  __device__ void put(uint32_t tile, int c8, int h, int e, float v) const {
+    sts_bf16(sm, tile - base + c8 * XROW + yo[h][e], v);
+  }
+};
+
+// The A fragment of k-step kk of LN(x) (rows r0, r1; channels 16 kk ..): bf16
+// of (x - mean) rstd g, as the forward's normalised tile
+__device__ __forceinline__ void ln_frag(const BwdCtx& K, uint32_t xt, int kk, const float* g,
+                                        float mu0, float rs0, float mu1, float rs1,
+                                        uint32_t (&a)[4]) {
+  const int c = 16 * kk + 2 * K.cq;
+  const float g0 = __ldg(g + c), g1 = __ldg(g + c + 1), g2 = __ldg(g + c + 8), g3 = __ldg(g + c + 9);
+  const uint32_t x = xt - K.base;
+  auto v = [&](int cc, int t, float mu, float rs, float gg) {
+    return (lds_bf16(K.sm, x + tile_at(cc, t)) - mu) * rs * gg;
+  };
+  a[0] = pack_bf16(v(c, K.r0, mu0, rs0, g0), v(c + 1, K.r0, mu0, rs0, g1));
+  a[1] = pack_bf16(v(c, K.r1, mu1, rs1, g0), v(c + 1, K.r1, mu1, rs1, g1));
+  a[2] = pack_bf16(v(c + 8, K.r0, mu0, rs0, g2), v(c + 9, K.r0, mu0, rs0, g3));
+  a[3] = pack_bf16(v(c + 8, K.r1, mu1, rs1, g2), v(c + 9, K.r1, mu1, rs1, g3));
+}
+
+// acc[j][c] += sum_t A[t][j] ln[c][t] for this warp's rows j = m0 .. m0 + 31
+// (NMB = 2 row blocks of 16; A f32 rows [t][.] of pitch lda, staged column
+// a0) and the channel blocks nb = nb0, nb0 + nbs, ... of 8 (all C / 8 of
+// them), in split TF32 (ln is exact in TF32).  The partial acc (rows of C)
+// is in shared memory or in the record (first: the tile stores, not adds).
+template <bool LNT>
+__device__ __forceinline__ void wgrad_ln(const BwdCtx& K, const float* A, int lda, int a0,
+                                         float* acc, int row0, uint32_t xt, uint32_t lt,
+                                         const float* stat, const float* g, int C, int nb0, int nbs,
+                                         bool load) {
+  const uint32_t x = xt - K.base, l = lt - K.base;
+  const int nbk = C / 8;
+  for (int nbg = nb0; nbg < nbk; nbg += 4 * nbs) {
+    float d[2][4][4];
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int nb = nbg + m * nbs;
+        float* row = acc + (size_t)(row0 + 16 * mb + K.g8) * C + 8 * nb + 2 * K.cq;
+        float2 p = make_float2(0.f, 0.f), q = p;
+        if (load && nb < nbk) {
+          p = *reinterpret_cast<const float2*>(row);
+          q = *reinterpret_cast<const float2*>(row + 8 * C);
+        }
+        d[mb][m][0] = p.x;
+        d[mb][m][1] = p.y;
+        d[mb][m][2] = q.x;
+        d[mb][m][3] = q.y;
+      }
+#pragma unroll 2
+    for (int kb = 0; kb < TN / 8; ++kb) {
+      const int t0 = 8 * kb + K.cq, t1 = t0 + 4;
+      float mu0 = 0.f, rs0 = 0.f, mu1 = 0.f, rs1 = 0.f;
+      if (!LNT) {
+        mu0 = stat[t0];
+        rs0 = stat[TN + t0];
+        mu1 = stat[t1];
+        rs1 = stat[TN + t1];
+      }
+      uint32_t bl[4][2];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int nb = nbg + m * nbs;
+        if (nb >= nbk) continue;
+        const int c = 8 * nb + K.g8;
+        if (LNT) {
+          bl[m][0] = __float_as_uint(lds_bf16(K.sm, l + tile_at(c, t0)));
+          bl[m][1] = __float_as_uint(lds_bf16(K.sm, l + tile_at(c, t1)));
+        } else {
+          const float gc = __ldg(g + c);
+          bl[m][0] = bf16_bits((lds_bf16(K.sm, x + tile_at(c, t0)) - mu0) * rs0 * gc);
+          bl[m][1] = bf16_bits((lds_bf16(K.sm, x + tile_at(c, t1)) - mu1) * rs1 * gc);
+        }
+      }
+#pragma unroll
+      for (int mb = 0; mb < 2; ++mb) {
+        uint32_t ah[4], al[4];
+        frag_a(A, lda, a0 + 16 * mb, 8 * kb, ah, al);
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+          if (nbg + m * nbs < nbk) mma2(d[mb][m], ah, al, bl[m]);
+      }
+    }
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int nb = nbg + m * nbs;
+        if (nb >= nbk) continue;
+        float* row = acc + (size_t)(row0 + 16 * mb + K.g8) * C + 8 * nb + 2 * K.cq;
+        *reinterpret_cast<float2*>(row) = make_float2(d[mb][m][0], d[mb][m][1]);
+        *reinterpret_cast<float2*>(row + 8 * C) = make_float2(d[mb][m][2], d[mb][m][3]);
+      }
+  }
+}
+
+// Pass B', bf16 x.  grid (P, B), BW_THREADS threads, bwdq_bf16_smem bytes.
+// tx, tdy, tdo map x, dy and dxq as (ld, C, B) with [64][C / nbox] boxes; twq
+// maps w_q (128, C) with [128][64] boxes, two w_out (C, 128) with [64][64]
+// boxes.  ACC: the partial sums in shared memory (else in the record); LNT:
+// the normalised tile in shared memory (else formed from x where needed).
+// part (B * P, bwdq_record(C)).
+template <bool ACC, bool LNT>
+__global__ void __launch_bounds__(BW_THREADS, 1)
+la_bwd_q_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tdy,
+                const __grid_constant__ CUtensorMap tdo, const __grid_constant__ CUtensorMap twq,
+                const __grid_constant__ CUtensorMap two, const float* __restrict__ g_pre,
+                const float* __restrict__ ctx, const float* __restrict__ b_out,
+                const float* __restrict__ g_post, float* __restrict__ part, BwdPlan pl) {
+  extern __shared__ unsigned char la_smem_raw[];
+  unsigned char* sm = align1024(la_smem_raw);
+  const int C = pl.C, N = pl.N, S = pl.S, slots = pl.slots;
+  const bool resident = pl.resident != 0;
+  const int b = blockIdx.y, p = blockIdx.x, P = gridDim.x;
+  const int ntiles = (N + TN - 1) / TN;
+  const int my = (ntiles - 1 - p) / P + 1;
+  const int nq = (C + 63) / 64;  // 64-channel chunks of w_q and of w_out
+  const int L = 7 * nq;          // chunks a tile uses: w_q, w_out x 3, w_q x 3
+  const int nbox = C > 256 ? 2 : 1, cb = C / nbox;
+  const uint32_t xsz = (uint32_t)C * XROW;
+
+  const uint32_t base = smem_u32(sm);
+  const uint32_t x_off = base, y_off = x_off + S * xsz, la_off = y_off + S * xsz;
+  const uint32_t w_off = la_off + (LNT ? xsz : 0), ctx_off = w_off + slots * CHUNK;
+  float* As = reinterpret_cast<float*>(sm + (ctx_off - base) + NH * DH * DH * 2);  // [TN][AP]
+  float* Ds = As + TN * AP;      // [TN][DP]: do of a chunk; per-warp channel sums [4][C]
+  float* colb = Ds + TN * DP;    // [4][128]
+  float* stat = colb + 4 * 128;  // mean [TN] | rstd [TN]
+  float* accS = stat + 2 * TN;   // ACC: the partial sums, laid out as the record
+  const uint32_t xfull = smem_u32(accS + (ACC ? bwdq_record(C) : 0)), xempty = xfull + 8 * S;
+  const uint32_t wfull = xempty + 8 * S, wempty = wfull + 8 * slots;
+  float* rec = part + ((size_t)b * P + p) * bwdq_record(C);
+  float* acc = ACC ? accS : rec;  // dW_out (C, HD) | dW_q (HD, C) | db_out | dg_pre | dg_post | dctx
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(xfull + 8 * s, 1);
+      mbar_init(xempty + 8 * s, 1);  // after the tile's dxq store has read the stage
+    }
+    for (int s = 0; s < slots; ++s) {
+      mbar_init(wfull + 8 * s, 1);
+      mbar_init(wempty + 8 * s, 4);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (ACC)
+    for (int i = threadIdx.x; i < (int)bwdq_record(C); i += blockDim.x) accS[i] = 0.f;
+  // ctx / N as bf16 K-major planes (the B of attn, as la_out_kernel)
+  for (int i = threadIdx.x; i < NH * DH * DH; i += blockDim.x) {
+    const int h = i / (DH * DH), d = (i / DH) % DH, e = i % DH;
+    sts_bf16(sm, ctx_off - base + h * 2048 + (d >> 3) * 512 + e * 16 + (d & 7) * 2,
+             __fdiv_rn(ctx[(size_t)b * NH * DH * DH + i], (float)N));
+  }
+  fence_async_smem();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp == 4) {
+    // ---- producer: x and dy tiles, and the weight chunks (once, or per tile)
+    if (lane == 0) {
+      auto load_q = [&](int k, int slot) {  // one [128][64] box
+        mbar_expect_tx(wfull + 8 * slot, CHUNK);
+        tma_load_2d(w_off + slot * CHUNK, &twq, wfull + 8 * slot, 64 * k, 0);
+      };
+      auto load_o = [&](int j, int slot) {  // two [64][64] boxes: hidden 0-63, 64-127
+        mbar_expect_tx(wfull + 8 * slot, CHUNK);
+        for (int h = 0; h < 2; ++h)
+          tma_load_2d(w_off + slot * CHUNK + h * CHUNK / 2, &two, wfull + 8 * slot, 64 * h, 64 * j);
+      };
+      if (resident) {
+        for (int k = 0; k < nq; ++k) load_q(k, k);
+        for (int j = 0; j < nq; ++j) load_o(j, nq + j);
+      }
+      int wit = 0;
+      for (int i = 0; i < my; ++i) {
+        const int s = i % S;
+        if (i >= S) mbar_wait(xempty + 8 * s, (i / S - 1) & 1);
+        mbar_expect_tx(xfull + 8 * s, 2 * xsz);
+        for (int bx = 0; bx < nbox; ++bx) {
+          tma_load_3d(x_off + s * xsz + bx * cb * XROW, &tx, xfull + 8 * s, (p + i * P) * TN,
+                      bx * cb, b);
+          tma_load_3d(y_off + s * xsz + bx * cb * XROW, &tdy, xfull + 8 * s, (p + i * P) * TN,
+                      bx * cb, b);
+        }
+        if (!resident)
+          for (int u = 0; u < L; ++u, ++wit) {
+            const int slot = wit % slots;
+            if (wit >= slots) mbar_wait(wempty + 8 * slot, (wit / slots - 1) & 1);
+            if (u < nq)
+              load_q(u, slot);
+            else if (u < 4 * nq)
+              load_o((u - nq) % nq, slot);
+            else
+              load_q((u - 4 * nq) % nq, slot);
+          }
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer warp group
+  const BwdCtx K(sm, base, w_off, wfull, wempty, slots, L, resident);
+  const int tid = K.tid, w = K.w, g8 = K.g8, cq = K.cq, r0 = K.r0, r1 = K.r1;
+  const int ksteps = C / 16;
+  const float inv_n = 1.f / (float)N;
+  const float* ctxb = ctx + (size_t)b * NH * DH * DH;
+  float* dW_out = acc;
+  float* dW_q = acc + (size_t)C * HD;
+  float* cols = acc + (size_t)2 * C * HD;      // db_out | dg_pre | dg_post
+  float* dctx_p = cols + 3 * C;                // (NH, DH, DH)
+
+  for (int i = 0; i < my; ++i) {
+    const bool load = ACC || i > 0;  // the record's partial: the first tile stores
+    const int n0 = (p + i * P) * TN, nvalid = min(TN, N - n0);
+    const int s = i % S;
+    const uint32_t xt = x_off + s * xsz, yt = y_off + s * xsz;
+    mbar_wait_warp(xfull + 8 * s, (i / S) & 1);
+    tile_stats<LNT>(sm, xt - base, la_off - base, C, w, stat, g_pre);
+    bar_sync(1, 128);
+    const float mu0 = stat[r0], rs0 = stat[TN + r0], mu1 = stat[r1], rs1 = stat[TN + r1];
+    const bool v0 = r0 < nvalid, v1 = r1 < nvalid;
+    int u = 0;
+
+    // q = LN(x) W_q^T and its softmax over each head's 32 channels (sq)
+    auto q_softmax = [&](float (&qa)[64]) {
+      for (int k = 0; k < nq; ++k) {
+        const int slot = K.acquire(i, u, k);
+        const uint32_t wa = w_off + slot * CHUNK;
+        uint32_t a[4][4];
+        if (!LNT)
+#pragma unroll
+          for (int sub = 0; sub < 4; ++sub)
+            if (4 * k + sub < ksteps) ln_frag(K, xt, 4 * k + sub, g_pre, mu0, rs0, mu1, rs1, a[sub]);
+        wgmma_fence();
+#pragma unroll
+        for (int sub = 0; sub < 4; ++sub) {
+          const int kk = 4 * k + sub;
+          if (kk >= ksteps) continue;
+          const uint64_t db = desc_sw128(wa + sub * 32, 16, 1024);
+          if (LNT)
+            wgmma_n128(qa, desc_sw128(la_off + kk * 2048, 4096, 1024), db, kk > 0);
+          else
+            wgmma_n128_rs(qa, a[sub], db, kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait0();
+        if (!LNT) a_fence(a);
+        K.release(slot);
+      }
+#pragma unroll
+      for (int j = 0; j < 64; ++j) reg_fence(qa[j]);
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+        float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+        for (int j = 4 * h; j < 4 * h + 4; ++j) {
+          m0 = fmaxf(m0, fmaxf(qa[4 * j], qa[4 * j + 1]));
+          m1 = fmaxf(m1, fmaxf(qa[4 * j + 2], qa[4 * j + 3]));
+        }
+#pragma unroll
+        for (int o = 1; o < 4; o <<= 1) {
+          m0 = fmaxf(m0, __shfl_xor_sync(FULL_MASK, m0, o));
+          m1 = fmaxf(m1, __shfl_xor_sync(FULL_MASK, m1, o));
+        }
+        float s0 = 0.f, s1 = 0.f;
+        m0 *= L2E;
+        m1 *= L2E;
+#pragma unroll
+        for (int j = 4 * h; j < 4 * h + 4; ++j) {
+          qa[4 * j] = ex2(fmaf(qa[4 * j], L2E, -m0));
+          qa[4 * j + 1] = ex2(fmaf(qa[4 * j + 1], L2E, -m0));
+          qa[4 * j + 2] = ex2(fmaf(qa[4 * j + 2], L2E, -m1));
+          qa[4 * j + 3] = ex2(fmaf(qa[4 * j + 3], L2E, -m1));
+          s0 += qa[4 * j] + qa[4 * j + 1];
+          s1 += qa[4 * j + 2] + qa[4 * j + 3];
+        }
+        quad_sum2(s0, s1);
+        s0 = 1.f / s0;
+        s1 = 1.f / s1;
+#pragma unroll
+        for (int j = 4 * h; j < 4 * h + 4; ++j) {
+          qa[4 * j] *= s0;
+          qa[4 * j + 1] *= s0;
+          qa[4 * j + 2] *= s1;
+          qa[4 * j + 3] *= s1;
+        }
+      }
+    };
+
+    // ---- q' -> attn = q' (ctx / N), f32 to As: the B of dW_out, and (each
+    // thread's own rows, packed to bf16 again per use) the A of o
+    {
+      float qa[64];
+      q_softmax(qa);
+      uint32_t pa[8][4];
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = pack_bf16(qa[8 * kk + 2 * r] * Q_SCALE, qa[8 * kk + 2 * r + 1] * Q_SCALE);
+      float at[NH][16];
+      wgmma_fence();
+#pragma unroll
+      for (int h = 0; h < NH; ++h)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          wgmma_n32_rs(at[h], pa[2 * h + half], desc_plain(ctx_off + h * 2048 + half * 1024, 512, 128),
+                       half);
+      wgmma_commit();
+      wgmma_wait0();
+      a_fence(pa);
+#pragma unroll
+      for (int h = 0; h < NH; ++h)
+#pragma unroll
+        for (int j = 0; j < 16; ++j) reg_fence(at[h][j]);
+#pragma unroll
+      for (int h = 0; h < NH; ++h)
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const int col = 32 * h + 8 * m + 2 * cq;
+          *reinterpret_cast<float2*>(As + r0 * AP + col) = make_float2(at[h][4 * m], at[h][4 * m + 1]);
+          *reinterpret_cast<float2*>(As + r1 * AP + col) =
+              make_float2(at[h][4 * m + 2], at[h][4 * m + 3]);
+        }
+    }
+
+    // ---- o = attn W_out^T + b, chunk j of 64 channels (its slot still held)
+    auto o_chunk = [&](int j, float (&o)[32]) -> int {
+      const int slot = K.acquire(i, u, nq + j);
+      const uint32_t wa = w_off + slot * CHUNK;
+      uint32_t pb[8][4];  // attn of rows r0, r1, bf16: k-step kk is columns 16 kk ..
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const float2 a = *reinterpret_cast<const float2*>(As + r0 * AP + 16 * kk + 8 * hf + 2 * cq);
+          const float2 c2 = *reinterpret_cast<const float2*>(As + r1 * AP + 16 * kk + 8 * hf + 2 * cq);
+          pb[kk][2 * hf] = pack_bf16(a.x, a.y);
+          pb[kk][2 * hf + 1] = pack_bf16(c2.x, c2.y);
+        }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        wgmma_n64_rs(o, pb[kk], desc_sw128(wa + (kk >> 2) * (CHUNK / 2) + (kk & 3) * 32, 16, 1024),
+                     kk > 0);
+      wgmma_commit();
+      wgmma_wait0();
+      a_fence(pb);
+#pragma unroll
+      for (int k = 0; k < 32; ++k) reg_fence(o[k]);
+#pragma unroll
+      for (int i8 = 0; i8 < 8; ++i8)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 64 * j + 8 * i8 + 2 * cq + e;
+          const float bv = c < C ? __ldg(b_out + c) : 0.f;
+          o[4 * i8 + e] += bv;
+          o[4 * i8 + 2 + e] += bv;
+        }
+      return slot;
+    };
+    // postLN statistics of o (mean, then the variance and the two sums of
+    // its backward: sum dy g, sum dy g (o - mean)), on the accumulators
+    float mo0 = 0.f, mo1 = 0.f;
+    for (int j = 0; j < nq; ++j) {
+      float o[32];
+      K.release(o_chunk(j, o));
+#pragma unroll
+      for (int i8 = 0; i8 < 8; ++i8)
+        if (64 * j + 8 * i8 < C)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            mo0 += o[4 * i8 + e];
+            mo1 += o[4 * i8 + 2 + e];
+          }
+    }
+    quad_sum2(mo0, mo1);
+    mo0 /= C;
+    mo1 /= C;
+    float va = 0.f, vb = 0.f, d1a = 0.f, d1b = 0.f, d2a = 0.f, d2b = 0.f;
+    for (int j = 0; j < nq; ++j) {
+      float o[32];
+      K.release(o_chunk(j, o));
+#pragma unroll
+      for (int i8 = 0; i8 < 8; ++i8) {
+        const int c8 = 64 * j + 8 * i8;
+        if (c8 >= C) continue;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float gp = __ldg(g_post + c8 + 2 * cq + e);
+          const float da = o[4 * i8 + e] - mo0, db = o[4 * i8 + 2 + e] - mo1;
+          const float ga = K.at(yt, c8, 0, e) * gp, gb = K.at(yt, c8, 1, e) * gp;
+          va += da * da;
+          vb += db * db;
+          d1a += ga;
+          d1b += gb;
+          d2a += ga * da;
+          d2b += gb * db;
+        }
+      }
+    }
+    quad_sum2(va, vb);
+    quad_sum2(d1a, d1b);
+    quad_sum2(d2a, d2b);
+    const float ro0 = rsqrtf(va / C + EPS), ro1 = rsqrtf(vb / C + EPS);
+    const float m1a = d1a / C, m1b = d1b / C, m2a = d2a * ro0 / C, m2b = d2b * ro1 / C;
+
+    // ---- do = LN_bwd(dy g_post) per chunk: dg_post, db_out, dattn += do
+    // W_out (wgmma, w_out as MN-major B), dW_out += do^T attn (split TF32)
+    float dat[2][32];
+#pragma unroll 1
+    for (int j = 0; j < nq; ++j) {
+      float o[32];
+      const int slot = o_chunk(j, o);
+      const uint32_t wa = w_off + slot * CHUNK;
+      float vg[16];
+#pragma unroll
+      for (int i8 = 0; i8 < 8; ++i8) {
+        const int c8 = 64 * j + 8 * i8;
+        const bool in = c8 < C;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float gp = in ? __ldg(g_post + c8 + 2 * cq + e) : 0.f;
+          const float ya = in && v0 ? K.at(yt, c8, 0, e) : 0.f;
+          const float yb = in && v1 ? K.at(yt, c8, 1, e) : 0.f;
+          const float ha = (o[4 * i8 + e] - mo0) * ro0, hb = (o[4 * i8 + 2 + e] - mo1) * ro1;
+          vg[2 * i8 + e] = ya * ha + yb * hb;
+          o[4 * i8 + e] = in && v0 ? (ya * gp - m1a - ha * m2a) * ro0 : 0.f;
+          o[4 * i8 + 2 + e] = in && v1 ? (yb * gp - m1b - hb * m2b) * ro1 : 0.f;
+        }
+      }
+#pragma unroll
+      for (int i8 = 0; i8 < 8; ++i8) {
+        *reinterpret_cast<float2*>(Ds + r0 * DP + 8 * i8 + 2 * cq) = make_float2(o[4 * i8], o[4 * i8 + 1]);
+        *reinterpret_cast<float2*>(Ds + r1 * DP + 8 * i8 + 2 * cq) =
+            make_float2(o[4 * i8 + 2], o[4 * i8 + 3]);
+      }
+      uint32_t pd[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) pd[kk][r] = pack_bf16(o[8 * kk + 2 * r], o[8 * kk + 2 * r + 1]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t sc = j > 0 || kk > 0;
+        wgmma_n64_rs_mn(dat[0], pd[kk], desc_sw128(wa + kk * 2048, 4096, 1024), sc);
+        wgmma_n64_rs_mn(dat[1], pd[kk], desc_sw128(wa + CHUNK / 2 + kk * 2048, 4096, 1024), sc);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      a_fence(pd);
+      K.release(slot);
+      float r[2];
+      warp_cols16<false>(vg, r);
+#pragma unroll
+      for (int k = 0; k < 2; ++k) colb[w * 128 + 8 * g8 + 2 * cq + k] = r[k];
+#pragma unroll
+      for (int i8 = 0; i8 < 8; ++i8)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) vg[2 * i8 + e] = o[4 * i8 + e] + o[4 * i8 + 2 + e];
+      warp_cols16<false>(vg, r);
+#pragma unroll
+      for (int k = 0; k < 2; ++k) colb[w * 128 + 64 + 8 * g8 + 2 * cq + k] = r[k];
+      bar_sync(1, 128);
+      {  // fold the 4 warps' sums: thread (quantity tid / 64, channel)
+        const int qn = tid >> 6, col = tid & 63, c = 64 * j + col;
+        if (c < C) {
+          const float v = colb[qn * 64 + col] + colb[128 + qn * 64 + col] + colb[256 + qn * 64 + col] +
+                          colb[384 + qn * 64 + col];
+          float* dst = cols + (qn == 0 ? 2 * C : 0) + c;  // dg_post | db_out
+          *dst = (load ? *dst : 0.f) + v;
+        }
+      }
+      // dW_out rows c = 64 j + 16 w + g8 (+ 8), all 128 columns in quarters
+      const int cm = 64 * j + 16 * w;
+      if (cm < C)
+#pragma unroll 1
+        for (int qt = 0; qt < 4; ++qt) {
+          float d[4][4];
+          float* row = dW_out + (size_t)(cm + g8) * HD + 32 * qt + 2 * cq;
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            float2 a = make_float2(0.f, 0.f), c2 = a;
+            if (load) {
+              a = *reinterpret_cast<const float2*>(row + 8 * n);
+              c2 = *reinterpret_cast<const float2*>(row + 8 * HD + 8 * n);
+            }
+            d[n][0] = a.x;
+            d[n][1] = a.y;
+            d[n][2] = c2.x;
+            d[n][3] = c2.y;
+          }
+#pragma unroll 2
+          for (int kb = 0; kb < TN / 8; ++kb) {
+            uint32_t ah[4], al[4];
+            frag_a(Ds, DP, 16 * w, 8 * kb, ah, al);
+#pragma unroll
+            for (int n = 0; n < 4; ++n) {
+              uint32_t bh[2], bl[2];
+              frag_b(As, AP, 32 * qt + 8 * n, 8 * kb, bh, bl);
+              mma3(d[n], ah, al, bh, bl);
+            }
+          }
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            *reinterpret_cast<float2*>(row + 8 * n) = make_float2(d[n][0], d[n][1]);
+            *reinterpret_cast<float2*>(row + 8 * HD + 8 * n) = make_float2(d[n][2], d[n][3]);
+          }
+        }
+      bar_sync(1, 128);  // Ds and colb are free again
+    }
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {
+      reg_fence(dat[0][k]);
+      reg_fence(dat[1][k]);
+    }
+
+    // ---- per head: dq' = dattn (ctx / N)^T, dq = sq (dq' s - sum_d sq dq' s),
+    // then dctx += q'^T dattn and dW_q += dq^T ln.  sq (recomputed) goes to
+    // As (attn is dead), the head's dattn and dq to Ds.
+    {
+      float qa[64];
+      q_softmax(qa);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        *reinterpret_cast<float2*>(As + r0 * AP + 8 * j + 2 * cq) = make_float2(qa[4 * j], qa[4 * j + 1]);
+        *reinterpret_cast<float2*>(As + r1 * AP + 8 * j + 2 * cq) =
+            make_float2(qa[4 * j + 2], qa[4 * j + 3]);
+      }
+    }
+    uint32_t pq[8][4];  // dq, bf16: the A of dln
+    float* dah = Ds;        // [TN][DP]: columns 0-31 dattn, 32-63 dq of the head
+    float* dqh = Ds + 32;
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+      float dh[16];  // the head's 4 column blocks of dattn
+#pragma unroll
+      for (int k = 0; k < 16; ++k) dh[k] = dat[h >> 1][16 * (h & 1) + k];
+      float dqp[4][4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) dqp[n][k] = 0.f;
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii) {
+        uint32_t ah[4], al[4];
+        frag_acc(dh[4 * ii], dh[4 * ii + 1], dh[4 * ii + 2], dh[4 * ii + 3], 1.f, ah, al);
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const float2 cv = __ldg(reinterpret_cast<const float2*>(
+              ctxb + h * DH * DH + (8 * n + g8) * DH + 8 * ii + 2 * cq));
+          uint32_t bh[2], bl[2];
+          split_tf32(cv.x * inv_n, bh[0], bl[0]);
+          split_tf32(cv.y * inv_n, bh[1], bl[1]);
+          mma3(dqp[n], ah, al, bh, bl);
+        }
+      }
+      float sq[16];  // this thread's sq of the head, as dqp
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const float2 a = *reinterpret_cast<const float2*>(As + r0 * AP + 32 * h + 8 * n + 2 * cq);
+        const float2 c2 = *reinterpret_cast<const float2*>(As + r1 * AP + 32 * h + 8 * n + 2 * cq);
+        sq[4 * n] = a.x;
+        sq[4 * n + 1] = a.y;
+        sq[4 * n + 2] = c2.x;
+        sq[4 * n + 3] = c2.y;
+      }
+      float ra = 0.f, rb = 0.f;
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          ra += sq[4 * n + e] * (dqp[n][e] * Q_SCALE);
+          rb += sq[4 * n + 2 + e] * (dqp[n][2 + e] * Q_SCALE);
+        }
+      quad_sum2(ra, rb);
+      float dq[16];
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          dq[4 * n + e] = sq[4 * n + e] * (dqp[n][e] * Q_SCALE - ra);
+          dq[4 * n + 2 + e] = sq[4 * n + 2 + e] * (dqp[n][2 + e] * Q_SCALE - rb);
+        }
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int col = 8 * n + 2 * cq;
+        *reinterpret_cast<float2*>(dah + r0 * DP + col) = make_float2(dh[4 * n], dh[4 * n + 1]);
+        *reinterpret_cast<float2*>(dah + r1 * DP + col) = make_float2(dh[4 * n + 2], dh[4 * n + 3]);
+        *reinterpret_cast<float2*>(dqh + r0 * DP + col) = make_float2(dq[4 * n], dq[4 * n + 1]);
+        *reinterpret_cast<float2*>(dqh + r1 * DP + col) = make_float2(dq[4 * n + 2], dq[4 * n + 3]);
+      }
+#pragma unroll
+      for (int s2 = 0; s2 < 2; ++s2)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pq[2 * h + s2][r] = pack_bf16(dq[8 * s2 + 2 * r], dq[8 * s2 + 2 * r + 1]);
+      bar_sync(1, 128);
+      {  // dctx_h += q'^T dattn: rows d = 16 (w & 1) + g8 (+ 8), columns e = 16 (w >> 1) + 8 n + 2 cq
+        float d[2][4];
+        float* row = dctx_p + h * DH * DH + (16 * (w & 1) + g8) * DH + 16 * (w >> 1) + 2 * cq;
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          float2 a = make_float2(0.f, 0.f), c2 = a;
+          if (load) {
+            a = *reinterpret_cast<const float2*>(row + 8 * n);
+            c2 = *reinterpret_cast<const float2*>(row + 8 * DH + 8 * n);
+          }
+          d[n][0] = a.x;
+          d[n][1] = a.y;
+          d[n][2] = c2.x;
+          d[n][3] = c2.y;
+        }
+#pragma unroll 2
+        for (int kb = 0; kb < TN / 8; ++kb) {
+          uint32_t ah[4], al[4];
+          frag_a(As, AP, 32 * h + 16 * (w & 1), 8 * kb, ah, al, Q_SCALE);
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            uint32_t bh[2], bl[2];
+            frag_b(dah, DP, 16 * (w >> 1) + 8 * n, 8 * kb, bh, bl);
+            mma3(d[n], ah, al, bh, bl);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          *reinterpret_cast<float2*>(row + 8 * n) = make_float2(d[n][0], d[n][1]);
+          *reinterpret_cast<float2*>(row + 8 * DH + 8 * n) = make_float2(d[n][2], d[n][3]);
+        }
+      }
+      wgrad_ln<LNT>(K, dqh, DP, 0, dW_q, 32 * h, xt, la_off, stat, g_pre, C, w, 4, load);
+      bar_sync(1, 128);
+    }
+
+    // ---- dln = dq W_q (w_q chunk cc as MN-major B) and the LayerNorm
+    // backward: dg_pre, dxq = dy + rstd (dln g - mean(dln g) - xhat mean(dln g xhat))
+    auto dln_chunk = [&](int cc, float (&dl)[32]) {
+      const int slot = K.acquire(i, u, cc);
+      const uint32_t wa = w_off + slot * CHUNK;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        wgmma_n64_rs_mn(dl, pq[kk], desc_sw128(wa + kk * 2048, 4096, 1024), kk > 0);
+      wgmma_commit();
+      wgmma_wait0();
+#pragma unroll
+      for (int k = 0; k < 32; ++k) reg_fence(dl[k]);
+      K.release(slot);
+    };
+    float s1a = 0.f, s1b = 0.f, s2a = 0.f, s2b = 0.f;
+    float* cw = Ds + w * C;  // this warp's sums of dln xhat per channel ([4][C] over Ds)
+    for (int cc = 0; cc < nq; ++cc) {
+      float dl[32], vg[16];
+      dln_chunk(cc, dl);
+#pragma unroll
+      for (int i8 = 0; i8 < 8; ++i8) {
+        const int c8 = 64 * cc + 8 * i8;
+        const bool in = c8 < C;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float g = in ? __ldg(g_pre + c8 + 2 * cq + e) : 0.f;
+          const float xa = in ? (K.at(xt, c8, 0, e) - mu0) * rs0 : 0.f;
+          const float xb = in ? (K.at(xt, c8, 1, e) - mu1) * rs1 : 0.f;
+          const float da = dl[4 * i8 + e] * g, db = dl[4 * i8 + 2 + e] * g;
+          s1a += da;
+          s1b += db;
+          s2a += da * xa;
+          s2b += db * xb;
+          vg[2 * i8 + e] = dl[4 * i8 + e] * xa + dl[4 * i8 + 2 + e] * xb;
+        }
+      }
+      float r[2];
+      warp_cols16<false>(vg, r);
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int c = 64 * cc + 8 * g8 + 2 * cq + k;
+        if (c < C) cw[c] = r[k];
+      }
+    }
+    quad_sum2(s1a, s1b);
+    quad_sum2(s2a, s2b);
+    s1a /= C;
+    s1b /= C;
+    s2a /= C;
+    s2b /= C;
+    bar_sync(1, 128);
+    for (int c = tid; c < C; c += 128) {
+      const float v = Ds[c] + Ds[C + c] + Ds[2 * C + c] + Ds[3 * C + c];
+      cols[C + c] = (load ? cols[C + c] : 0.f) + v;
+    }
+    for (int cc = 0; cc < nq; ++cc) {
+      float dl[32];
+      dln_chunk(cc, dl);
+#pragma unroll
+      for (int i8 = 0; i8 < 8; ++i8) {
+        const int c8 = 64 * cc + 8 * i8;
+        if (c8 >= C) continue;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float g = __ldg(g_pre + c8 + 2 * cq + e);
+          const float xa = (K.at(xt, c8, 0, e) - mu0) * rs0, xb = (K.at(xt, c8, 1, e) - mu1) * rs1;
+          K.put(yt, c8, 0, e, K.at(yt, c8, 0, e) + (dl[4 * i8 + e] * g - s1a - xa * s2a) * rs0);
+          K.put(yt, c8, 1, e, K.at(yt, c8, 1, e) + (dl[4 * i8 + 2 + e] * g - s1b - xb * s2b) * rs1);
+        }
+      }
+    }
+    fence_async_smem();
+    bar_sync(1, 128);
+    if (tid == 0) {
+      for (int bx = 0; bx < nbox; ++bx) tma_store_3d(&tdo, yt + bx * cb * XROW, n0, bx * cb, b);
+      bulk_commit();
+      bulk_wait_read();
+      mbar_arrive(xempty + 8 * s);
+    }
+  }
+
+  // ---- the record, where the sums were kept in shared memory
+  if (ACC) {
+    bar_sync(1, 128);
+    for (int k = tid; k < (int)bwdq_record(C) / 4; k += 128)
+      reinterpret_cast<float4*>(rec)[k] = reinterpret_cast<const float4*>(accS)[k];
+  }
+}
+
+// Pass A'2, bf16 x.  grid (P, B), BW_THREADS threads, kv2_bf16_smem bytes.
+// tx, tq, tdx map x, dxq and dx as (ld, C, B) with [64][C / nbox] boxes; tw
+// maps w_kv (256, C) with [128][64] boxes.  ACC and LNT as for pass B'.
+// sdot (B, HD) complete; part (B * P, kv2_record(C)).
+template <bool ACC, bool LNT>
+__global__ void __launch_bounds__(BW_THREADS, 1)
+la_bwd_kv2_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tdx, const __grid_constant__ CUtensorMap tw,
+                  const float* __restrict__ g_pre, const float* __restrict__ m,
+                  const float* __restrict__ s, const float* __restrict__ dctx,
+                  const float* __restrict__ sdot, float* __restrict__ part, BwdPlan pl) {
+  extern __shared__ unsigned char la_smem_raw[];
+  unsigned char* sm = align1024(la_smem_raw);
+  const int C = pl.C, N = pl.N, S = pl.S, slots = pl.slots;
+  const bool resident = pl.resident != 0;
+  const int b = blockIdx.y, p = blockIdx.x, P = gridDim.x;
+  const int ntiles = (N + TN - 1) / TN;
+  const int my = (ntiles - 1 - p) / P + 1;
+  const int nq = (C + 63) / 64;  // 64-channel chunks; each has a k half and a v half of w_kv
+  const int L = 8 * nq;          // chunks a tile uses: k, v of heads 0-1, of heads 2-3, dln x 2
+  const int nbox = C > 256 ? 2 : 1, cb = C / nbox;
+  const uint32_t xsz = (uint32_t)C * XROW;
+
+  const uint32_t base = smem_u32(sm);
+  const uint32_t x_off = base, q_off = x_off + S * xsz, la_off = q_off + S * xsz;
+  const uint32_t w_off = la_off + (LNT ? xsz : 0);
+  float* dS = reinterpret_cast<float*>(sm + (w_off - base) + (size_t)slots * CHUNK);  // [NH][DH][CP]
+  float* KV = dS + NH * DH * CP;  // [TN][AP]: dk | dv of two heads; per-warp channel sums [4][C]
+  float* stat = KV + TN * AP;     // mean [TN] | rstd [TN]
+  float* ms = stat + 2 * TN;      // m | 1 / s | sdot
+  float* accS = ms + 3 * HD;      // ACC: dW_kv (2HD, C) | dg_pre (C)
+  const uint32_t xfull = smem_u32(accS + (ACC ? 2 * HD * C + C : 0)), xempty = xfull + 8 * S;
+  const uint32_t wfull = xempty + 8 * S, wempty = wfull + 8 * slots;
+  float* rec = part + ((size_t)b * P + p) * kv2_record(C);
+  float* acc = ACC ? accS : rec;
+  float* dW_kv = acc;
+  float* cols = acc + (size_t)2 * HD * C;
+
+  if (threadIdx.x == 0) {
+    for (int q = 0; q < S; ++q) {
+      mbar_init(xfull + 8 * q, 1);
+      mbar_init(xempty + 8 * q, 1);
+    }
+    for (int q = 0; q < slots; ++q) {
+      mbar_init(wfull + 8 * q, 1);
+      mbar_init(wempty + 8 * q, 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (ACC)
+    for (int k = threadIdx.x; k < 2 * HD * C + C; k += blockDim.x) accS[k] = 0.f;
+  for (int k = threadIdx.x; k < NH * DH * DH; k += blockDim.x)
+    dS[(k / DH) * CP + k % DH] = dctx[(size_t)b * NH * DH * DH + k];
+  for (int k = threadIdx.x; k < HD; k += blockDim.x) {
+    ms[k] = m[(size_t)b * HD + k];
+    ms[HD + k] = 1.f / s[(size_t)b * HD + k];
+    ms[2 * HD + k] = sdot[(size_t)b * HD + k];
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp == 4) {
+    // ---- producer: x and dxq tiles, and the w_kv chunks (once, or per tile)
+    if (lane == 0) {
+      auto load_w = [&](int h, int cc, int slot) {  // one [128][64] box: rows 128 h .., channels 64 cc ..
+        mbar_expect_tx(wfull + 8 * slot, CHUNK);
+        tma_load_2d(w_off + slot * CHUNK, &tw, wfull + 8 * slot, 64 * cc, 128 * h);
+      };
+      if (resident)
+        for (int cc = 0; cc < nq; ++cc)
+          for (int h = 0; h < 2; ++h) load_w(h, cc, 2 * cc + h);
+      int wit = 0;
+      for (int i = 0; i < my; ++i) {
+        const int q = i % S;
+        if (i >= S) mbar_wait(xempty + 8 * q, (i / S - 1) & 1);
+        mbar_expect_tx(xfull + 8 * q, 2 * xsz);
+        for (int bx = 0; bx < nbox; ++bx) {
+          tma_load_3d(x_off + q * xsz + bx * cb * XROW, &tx, xfull + 8 * q, (p + i * P) * TN,
+                      bx * cb, b);
+          tma_load_3d(q_off + q * xsz + bx * cb * XROW, &tq, xfull + 8 * q, (p + i * P) * TN,
+                      bx * cb, b);
+        }
+        if (!resident)
+          for (int u = 0; u < L; ++u, ++wit) {
+            const int slot = wit % slots;
+            if (wit >= slots) mbar_wait(wempty + 8 * slot, (wit / slots - 1) & 1);
+            load_w(u & 1, (u >> 1) % nq, slot);
+          }
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer warp group
+  const BwdCtx K(sm, base, w_off, wfull, wempty, slots, L, resident);
+  const int tid = K.tid, w = K.w, g8 = K.g8, cq = K.cq, r0 = K.r0, r1 = K.r1;
+  const int ksteps = C / 16;
+  const float inv_n = 1.f / (float)N;
+
+  for (int i = 0; i < my; ++i) {
+    const bool load = ACC || i > 0;
+    const int n0 = (p + i * P) * TN, nvalid = min(TN, N - n0);
+    const int q = i % S;
+    const uint32_t xt = x_off + q * xsz, qt = q_off + q * xsz;
+    mbar_wait_warp(xfull + 8 * q, (i / S) & 1);
+    tile_stats<LNT>(sm, xt - base, la_off - base, C, w, stat, g_pre);
+    bar_sync(1, 128);
+    const float mu0 = stat[r0], rs0 = stat[TN + r0], mu1 = stat[r1], rs1 = stat[TN + r1];
+    const bool v0 = r0 < nvalid, v1 = r1 < nvalid;
+    int u = 0;
+
+    uint32_t pk[16][4];  // dkv, bf16: the A of dln; k-step 8 h + 4 g + s is j = 128 h + 64 g + 16 s
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+      // [k | v] of heads 2 g, 2 g + 1 = LN(x) W_kv^T (rows 64 g .. of each half)
+      float ka[32], va[32];
+      for (int cc = 0; cc < nq; ++cc) {
+        const int sk = K.acquire(i, u, 2 * cc), sv = K.acquire(i, u, 2 * cc + 1);
+        const uint32_t wk = w_off + sk * CHUNK + 64 * g * XROW, wv = w_off + sv * CHUNK + 64 * g * XROW;
+        uint32_t a[4][4];
+        if (!LNT)
+#pragma unroll
+          for (int sub = 0; sub < 4; ++sub)
+            if (4 * cc + sub < ksteps) ln_frag(K, xt, 4 * cc + sub, g_pre, mu0, rs0, mu1, rs1, a[sub]);
+        wgmma_fence();
+#pragma unroll
+        for (int sub = 0; sub < 4; ++sub) {
+          const int kk = 4 * cc + sub;
+          if (kk >= ksteps) continue;
+          if (LNT) {
+            const uint64_t da = desc_sw128(la_off + kk * 2048, 4096, 1024);
+            wgmma_n64(ka, da, desc_sw128(wk + sub * 32, 16, 1024), kk > 0);
+            wgmma_n64(va, da, desc_sw128(wv + sub * 32, 16, 1024), kk > 0);
+          } else {
+            wgmma_n64_rs(ka, a[sub], desc_sw128(wk + sub * 32, 16, 1024), kk > 0);
+            wgmma_n64_rs(va, a[sub], desc_sw128(wv + sub * 32, 16, 1024), kk > 0);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait0();
+        if (!LNT) a_fence(a);
+        K.release(sk);
+        K.release(sv);
+      }
+#pragma unroll
+      for (int k = 0; k < 32; ++k) {
+        reg_fence(ka[k]);
+        reg_fence(va[k]);
+      }
+      // k' = exp(k - m) / s (0 past N)
+#pragma unroll
+      for (int i8 = 0; i8 < 8; ++i8)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 64 * g + 8 * i8 + 2 * cq + e;
+          const float mm = ms[c] * L2E, rs = ms[HD + c];
+          ka[4 * i8 + e] = v0 ? ex2(fmaf(ka[4 * i8 + e], L2E, -mm)) * rs : 0.f;
+          ka[4 * i8 + 2 + e] = v1 ? ex2(fmaf(ka[4 * i8 + 2 + e], L2E, -mm)) * rs : 0.f;
+        }
+      // per head: dk' = (v / N) dctx^T, dv = k' dctx / N (A: the accumulators);
+      // dk = k' (dk' - sdot) and dv replace k' and v
+#pragma unroll
+      for (int hl = 0; hl < 2; ++hl) {
+        const int h = 2 * g + hl;
+        const float* dh = dS + h * DH * CP;
+        float dkp[4][4], dvv[4][4];
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) dkp[n][k] = dvv[n][k] = 0.f;
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii) {
+          uint32_t avh[4], avl[4], akh[4], akl[4];
+          const int i4 = 4 * (4 * hl + ii);
+          frag_acc(va[i4], va[i4 + 1], va[i4 + 2], va[i4 + 3], inv_n, avh, avl);
+          frag_acc(ka[i4], ka[i4 + 1], ka[i4 + 2], ka[i4 + 3], 1.f, akh, akl);
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            uint32_t bh[2], bl[2];
+            const float2 c2 = *reinterpret_cast<const float2*>(dh + (8 * n + g8) * CP + 8 * ii + 2 * cq);
+            split_tf32(c2.x, bh[0], bl[0]);
+            split_tf32(c2.y, bh[1], bl[1]);
+            mma3(dkp[n], avh, avl, bh, bl);
+            split_tf32(dh[(8 * ii + 2 * cq) * CP + 8 * n + g8], bh[0], bl[0]);
+            split_tf32(dh[(8 * ii + 2 * cq + 1) * CP + 8 * n + g8], bh[1], bl[1]);
+            mma3(dvv[n], akh, akl, bh, bl);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float sd = ms[2 * HD + 32 * h + 8 * n + 2 * cq + e];
+            const int k0 = 4 * (4 * hl + n) + e;
+            ka[k0] *= dkp[n][e] - sd;
+            ka[k0 + 2] *= dkp[n][2 + e] - sd;
+            va[k0] = dvv[n][e] * inv_n;
+            va[k0 + 2] = dvv[n][2 + e] * inv_n;
+          }
+      }
+      // stage dk | dv (f32) for dW_kv; pack them for dln
+#pragma unroll
+      for (int i8 = 0; i8 < 8; ++i8) {
+        const int col = 8 * i8 + 2 * cq;
+        *reinterpret_cast<float2*>(KV + r0 * AP + col) = make_float2(ka[4 * i8], ka[4 * i8 + 1]);
+        *reinterpret_cast<float2*>(KV + r1 * AP + col) = make_float2(ka[4 * i8 + 2], ka[4 * i8 + 3]);
+        *reinterpret_cast<float2*>(KV + r0 * AP + 64 + col) = make_float2(va[4 * i8], va[4 * i8 + 1]);
+        *reinterpret_cast<float2*>(KV + r1 * AP + 64 + col) = make_float2(va[4 * i8 + 2], va[4 * i8 + 3]);
+      }
+#pragma unroll
+      for (int s2 = 0; s2 < 4; ++s2)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          pk[4 * g + s2][r] = pack_bf16(ka[8 * s2 + 2 * r], ka[8 * s2 + 2 * r + 1]);
+          pk[8 + 4 * g + s2][r] = pack_bf16(va[8 * s2 + 2 * r], va[8 * s2 + 2 * r + 1]);
+        }
+      bar_sync(1, 128);
+      // dW_kv rows += dkv^T ln: warp w takes staged columns 32 w .. 32 w + 31
+      // (k rows 64 g + .. for w < 2, v rows 128 + 64 g + .. for w >= 2)
+      const int jl = 32 * w, jrow = jl < 64 ? 64 * g + jl : HD + 64 * g + jl - 64;
+      wgrad_ln<LNT>(K, KV, AP, jl, dW_kv, jrow, xt, la_off, stat, g_pre, C, 0, 1, load);
+      bar_sync(1, 128);
+    }
+
+    // ---- dln = dkv W_kv (the chunks as MN-major B) and the LayerNorm
+    // backward: dg_pre, dx = dxq + bf16(rstd (dln g - mean(dln g) - xhat mean(dln g xhat)))
+    auto dln_chunk = [&](int cc, float (&dl)[32]) {
+      const int sk = K.acquire(i, u, 2 * cc), sv = K.acquire(i, u, 2 * cc + 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 16; ++kk)
+        wgmma_n64_rs_mn(dl, pk[kk], desc_sw128(w_off + (kk < 8 ? sk : sv) * CHUNK + (kk & 7) * 2048,
+                                               4096, 1024),
+                        kk > 0);
+      wgmma_commit();
+      wgmma_wait0();
+#pragma unroll
+      for (int k = 0; k < 32; ++k) reg_fence(dl[k]);
+      K.release(sk);
+      K.release(sv);
+    };
+    float s1a = 0.f, s1b = 0.f, s2a = 0.f, s2b = 0.f;
+    float* cw = KV + w * C;  // this warp's sums of dln xhat per channel ([4][C] over KV)
+    for (int cc = 0; cc < nq; ++cc) {
+      float dl[32], vg[16];
+      dln_chunk(cc, dl);
+#pragma unroll
+      for (int i8 = 0; i8 < 8; ++i8) {
+        const int c8 = 64 * cc + 8 * i8;
+        const bool in = c8 < C;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float g = in ? __ldg(g_pre + c8 + 2 * cq + e) : 0.f;
+          const float xa = in ? (K.at(xt, c8, 0, e) - mu0) * rs0 : 0.f;
+          const float xb = in ? (K.at(xt, c8, 1, e) - mu1) * rs1 : 0.f;
+          const float da = dl[4 * i8 + e] * g, db = dl[4 * i8 + 2 + e] * g;
+          s1a += da;
+          s1b += db;
+          s2a += da * xa;
+          s2b += db * xb;
+          vg[2 * i8 + e] = dl[4 * i8 + e] * xa + dl[4 * i8 + 2 + e] * xb;
+        }
+      }
+      float r[2];
+      warp_cols16<false>(vg, r);
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int c = 64 * cc + 8 * g8 + 2 * cq + k;
+        if (c < C) cw[c] = r[k];
+      }
+    }
+    quad_sum2(s1a, s1b);
+    quad_sum2(s2a, s2b);
+    s1a /= C;
+    s1b /= C;
+    s2a /= C;
+    s2b /= C;
+    bar_sync(1, 128);
+    for (int c = tid; c < C; c += 128) {
+      const float v = KV[c] + KV[C + c] + KV[2 * C + c] + KV[3 * C + c];
+      cols[c] = (load ? cols[c] : 0.f) + v;
+    }
+    for (int cc = 0; cc < nq; ++cc) {
+      float dl[32];
+      dln_chunk(cc, dl);
+#pragma unroll
+      for (int i8 = 0; i8 < 8; ++i8) {
+        const int c8 = 64 * cc + 8 * i8;
+        if (c8 >= C) continue;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float g = __ldg(g_pre + c8 + 2 * cq + e);
+          const float xa = (K.at(xt, c8, 0, e) - mu0) * rs0, xb = (K.at(xt, c8, 1, e) - mu1) * rs1;
+          const float ka = round_to((dl[4 * i8 + e] * g - s1a - xa * s2a) * rs0, bf16());
+          const float kb = round_to((dl[4 * i8 + 2 + e] * g - s1b - xb * s2b) * rs1, bf16());
+          K.put(qt, c8, 0, e, K.at(qt, c8, 0, e) + ka);
+          K.put(qt, c8, 1, e, K.at(qt, c8, 1, e) + kb);
+        }
+      }
+    }
+    fence_async_smem();
+    bar_sync(1, 128);  // also: the channel sums in KV are folded
+    if (tid == 0) {
+      for (int bx = 0; bx < nbox; ++bx) tma_store_3d(&tdx, qt + bx * cb * XROW, n0, bx * cb, b);
+      bulk_commit();
+      bulk_wait_read();
+      mbar_arrive(xempty + 8 * q);
+    }
+  }
+
+  if (ACC) {
+    bar_sync(1, 128);
+    for (int k = tid; k < (2 * HD * C + C) / 4; k += 128)
+      reinterpret_cast<float4*>(rec)[k] = reinterpret_cast<const float4*>(accS)[k];
+  }
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
@@ -2382,19 +3753,55 @@ int reduce_records(const float* part, size_t rec, size_t off, int P, int M, int 
   return (int)cudaGetLastError();
 }
 
-template <typename TX>
-int launch_bwd_q(const void* x, const void* dy, const float* g_pre, const bf16* w_q,
-                 const float* ctx, const bf16* w_out, const float* b_out,
-                 const float* g_post, void* dxq, float* part, float* out_w, float* dctx,
-                 int B, int C, int N, int P, int device, cudaStream_t st) {
-  const int acc_smem = bwdq_smem(C, true) <= (size_t)max_smem(device);
-  const size_t smem = bwdq_smem(C, acc_smem);
-  int err = set_smem(la_bwd_q_kernel<TX>, smem);
+template <bool ACC, bool LNT>
+int launch_bwd_q_tma(const CUtensorMap (&m)[5], const float* g_pre, const float* ctx,
+                     const float* b_out, const float* g_post, float* part, const BwdPlan& pl, int B,
+                     int P, int smem, cudaStream_t st) {
+  int err = set_smem(la_bwd_q_kernel<ACC, LNT>, smem);
   if (err) return err;
-  la_bwd_q_kernel<TX><<<dim3(P, B), THREADS, smem, st>>>(
-      static_cast<const TX*>(x), static_cast<const TX*>(dy), g_pre, w_q, ctx, w_out, b_out,
-      g_post, static_cast<TX*>(dxq), part, acc_smem, C, N);
-  err = (int)cudaGetLastError();
+  la_bwd_q_kernel<ACC, LNT><<<dim3(P, B), BW_THREADS, smem, st>>>(m[0], m[1], m[2], m[3], m[4], g_pre,
+                                                                  ctx, b_out, g_post, part, pl);
+  return (int)cudaGetLastError();
+}
+
+// Pass B' and the fold of its records.  The plan (P, S, slots, resident,
+// flush, smem) is the wrapper's la_bwd_plan; it is checked here against what
+// the body needs (the f32 body takes P, flush and smem only).
+int launch_bwd_q(const void* x, const void* dy, int x_bf16, int ld, const float* g_pre,
+                 const bf16* w_q, const float* ctx, const bf16* w_out, const float* b_out,
+                 const float* g_post, void* dxq, float* part, float* out_w, float* dctx, int B,
+                 int C, int N, int P, int S, int slots, int resident, int flush, int ln_tile,
+                 int smem, int device, cudaStream_t st) {
+  int err;
+  if (!x_bf16) {
+    const bool acc = flush == 0;
+    if (ld != N || P < 1 || P > (N + T - 1) / T || (size_t)smem != bwdq_smem(C, acc) ||
+        smem > max_smem(device))
+      return (int)cudaErrorInvalidValue;
+    err = set_smem(la_bwd_q_f32_kernel<float>, smem);
+    if (err) return err;
+    la_bwd_q_f32_kernel<float><<<dim3(P, B), THREADS, smem, st>>>(
+        static_cast<const float*>(x), static_cast<const float*>(dy), g_pre, w_q, ctx, w_out, b_out,
+        g_post, static_cast<float*>(dxq), part, acc, C, N);
+    err = (int)cudaGetLastError();
+  } else {
+    const int nq = (C + 63) / 64;
+    if (ld < N || ld % 8 || !aligned16(x) || !aligned16(dy) || !aligned16(dxq) || !aligned16(w_q) ||
+        !aligned16(w_out) || P < 1 || P > (N + TN - 1) / TN || S < 1 ||
+        (resident ? slots != 2 * nq : slots < 2) || flush < 0 || flush > 1 || ln_tile < 0 ||
+        ln_tile > 1 || (flush == 0 && !ln_tile) || smem > SMEM_LIMIT ||
+        (size_t)smem != bwdq_bf16_smem(C, S, slots, flush == 0, ln_tile))
+      return (int)cudaErrorInvalidValue;
+    CUtensorMap m[5];
+    if (!map_x(&m[0], x, ld, C, B) || !map_x(&m[1], dy, ld, C, B) || !map_x(&m[2], dxq, ld, C, B) ||
+        !map_w(&m[3], w_q, C, HD, HD) || !map_w(&m[4], w_out, HD, C, 64))
+      return (int)cudaErrorInvalidValue;
+    const BwdPlan pl{C, N, S, slots, resident};
+#define LA_BWD_Q(ACC, LNT) \
+  launch_bwd_q_tma<ACC, LNT>(m, g_pre, ctx, b_out, g_post, part, pl, B, P, smem, st)
+    err = flush == 0 ? LA_BWD_Q(true, true) : ln_tile ? LA_BWD_Q(false, true) : LA_BWD_Q(false, false);
+#undef LA_BWD_Q
+  }
   if (err) return err;
   const size_t rec = bwdq_record(C), mw = (size_t)2 * C * HD + 3 * C;
   err = reduce_records(part, rec, 0, B * P, (int)mw, 1, out_w, st);
@@ -2416,19 +3823,53 @@ int launch_bwd_kv1(const void* x, const float* g_pre, const bf16* w_kv, const fl
   return reduce_records(part, HD, 0, P, HD, B, sdot, st);
 }
 
-template <typename TX>
-int launch_bwd_kv2(const void* x, const float* g_pre, const bf16* w_kv, const float* m,
-                   const float* s, const float* dctx, const float* sdot, const void* dxq,
-                   void* dx, float* part, float* out_w, int B, int C, int N, int P, int device,
-                   cudaStream_t st) {
-  const int acc_smem = kv2_smem(C, true) <= (size_t)max_smem(device);
-  const size_t smem = kv2_smem(C, acc_smem);
-  int err = set_smem(la_bwd_kv2_kernel<TX>, smem);
+template <bool ACC, bool LNT>
+int launch_bwd_kv2_tma(const CUtensorMap (&mp)[4], const float* g_pre, const float* m,
+                       const float* s, const float* dctx, const float* sdot, float* part,
+                       const BwdPlan& pl, int B, int P, int smem, cudaStream_t st) {
+  int err = set_smem(la_bwd_kv2_kernel<ACC, LNT>, smem);
   if (err) return err;
-  la_bwd_kv2_kernel<TX><<<dim3(P, B), THREADS, smem, st>>>(
-      static_cast<const TX*>(x), g_pre, w_kv, m, s, dctx, sdot, static_cast<const TX*>(dxq),
-      static_cast<TX*>(dx), part, acc_smem, C, N);
-  err = (int)cudaGetLastError();
+  la_bwd_kv2_kernel<ACC, LNT><<<dim3(P, B), BW_THREADS, smem, st>>>(mp[0], mp[1], mp[2], mp[3], g_pre, m,
+                                                                    s, dctx, sdot, part, pl);
+  return (int)cudaGetLastError();
+}
+
+// Pass A'2 and the fold of its records; the plan as for pass B'.
+int launch_bwd_kv2(const void* x, int x_bf16, int ld, const float* g_pre, const bf16* w_kv,
+                   const float* m, const float* s, const float* dctx, const float* sdot,
+                   const void* dxq, void* dx, float* part, float* out_w, int B, int C, int N,
+                   int P, int S, int slots, int resident, int flush, int ln_tile, int smem,
+                   int device, cudaStream_t st) {
+  int err;
+  if (!x_bf16) {
+    const bool acc = flush == 0;
+    if (ld != N || P < 1 || P > (N + T - 1) / T || (size_t)smem != kv2_smem(C, acc) ||
+        smem > max_smem(device))
+      return (int)cudaErrorInvalidValue;
+    err = set_smem(la_bwd_kv2_f32_kernel<float>, smem);
+    if (err) return err;
+    la_bwd_kv2_f32_kernel<float><<<dim3(P, B), THREADS, smem, st>>>(
+        static_cast<const float*>(x), g_pre, w_kv, m, s, dctx, sdot, static_cast<const float*>(dxq),
+        static_cast<float*>(dx), part, acc, C, N);
+    err = (int)cudaGetLastError();
+  } else {
+    const int nq = (C + 63) / 64;
+    if (ld < N || ld % 8 || !aligned16(x) || !aligned16(dxq) || !aligned16(dx) || !aligned16(w_kv) ||
+        P < 1 || P > (N + TN - 1) / TN || S < 1 || (resident ? slots != 2 * nq : slots < 2) ||
+        flush < 0 || flush > 1 || ln_tile < 0 || ln_tile > 1 || (flush == 0 && !ln_tile) ||
+        smem > SMEM_LIMIT || (size_t)smem != kv2_bf16_smem(C, S, slots, flush == 0, ln_tile))
+      return (int)cudaErrorInvalidValue;
+    CUtensorMap mp[4];
+    if (!map_x(&mp[0], x, ld, C, B) || !map_x(&mp[1], dxq, ld, C, B) || !map_x(&mp[2], dx, ld, C, B) ||
+        !map_w(&mp[3], w_kv, C, 2 * HD, HD))
+      return (int)cudaErrorInvalidValue;
+    const BwdPlan pl{C, N, S, slots, resident};
+#define LA_BWD_KV2(ACC, LNT) \
+  launch_bwd_kv2_tma<ACC, LNT>(mp, g_pre, m, s, dctx, sdot, part, pl, B, P, smem, st)
+    err = flush == 0 ? LA_BWD_KV2(true, true)
+                     : ln_tile ? LA_BWD_KV2(false, true) : LA_BWD_KV2(false, false);
+#undef LA_BWD_KV2
+  }
   if (err) return err;
   return reduce_records(part, kv2_record(C), 0, B * P, (int)kv2_record(C), 1, out_w, st);
 }
@@ -2487,6 +3928,12 @@ int ofd_la_out(const void* x, int x_bf16, int ld, const float* g_pre, const void
 // The backward launchers.  Each runs its pass over grid (P, B) and then sums
 // the per-CTA records in a fixed order.  Scratch part: (B * P, record) f32
 // with record = ofd_la_bwd_record(pass, C) (pass 0: B', 1: A'1, 2: A'2).
+// Passes B' and A'2 take x (and dy, dxq, dx) as (B, C, ld) with ld as for
+// the forward, and the rest of their plan from ops/attention_fused.py::
+// la_bwd_plan: P, S x stages, slots weight chunks of 16 KB, resident or
+// streamed, flush (0: the partials kept in shared memory and written once,
+// 1: kept in the record, added to every tile), ln_tile (the normalised
+// tile in shared memory), smem bytes; the f32 bodies take P, flush and smem.
 // Outputs are f32 unless they are dx: out_w of B' is dW_out (C, HD) | dW_q
 // (HD, C) | db_out | dg_pre | dg_post, with dctx (B, NH, DH, DH); A'1 gives
 // sdot (B, HD); out_w of A'2 is dW_kv (2HD, C) | dg_pre.  dxq (B' output,
@@ -2495,19 +3942,17 @@ long long ofd_la_bwd_record(int pass, int C) {
   return pass == 0 ? (long long)bwdq_record(C) : pass == 1 ? HD : (long long)kv2_record(C);
 }
 
-int ofd_la_bwd_q(const void* x, const void* dy, int x_bf16, const float* g_pre,
+int ofd_la_bwd_q(const void* x, const void* dy, int x_bf16, int ld, const float* g_pre,
                  const void* w_q, const float* ctx, const void* w_out, const float* b_out,
                  const float* g_post, void* dxq, float* part, float* out_w, float* dctx, int B,
-                 int C, int N, int P, int device, void* stream) {
+                 int C, int N, int P, int S, int slots, int resident, int flush, int ln_tile,
+                 int smem, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const bf16* wq = static_cast<const bf16*>(w_q);
-  const bf16* wo = static_cast<const bf16*>(w_out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return x_bf16 ? launch_bwd_q<bf16>(x, dy, g_pre, wq, ctx, wo, b_out, g_post, dxq, part,
-                                     out_w, dctx, B, C, N, P, device, st)
-                : launch_bwd_q<float>(x, dy, g_pre, wq, ctx, wo, b_out, g_post, dxq, part,
-                                      out_w, dctx, B, C, N, P, device, st);
+  return launch_bwd_q(x, dy, x_bf16, ld, g_pre, static_cast<const bf16*>(w_q), ctx,
+                      static_cast<const bf16*>(w_out), b_out, g_post, dxq, part, out_w, dctx, B, C,
+                      N, P, S, slots, resident, flush, ln_tile, smem, device,
+                      static_cast<cudaStream_t>(stream));
 }
 
 int ofd_la_bwd_kv1(const void* x, int x_bf16, const float* g_pre, const void* w_kv,
@@ -2521,18 +3966,16 @@ int ofd_la_bwd_kv1(const void* x, int x_bf16, const float* g_pre, const void* w_
                 : launch_bwd_kv1<float>(x, g_pre, w, m, s, dctx, part, sdot, B, C, N, P, st);
 }
 
-int ofd_la_bwd_kv2(const void* x, int x_bf16, const float* g_pre, const void* w_kv,
+int ofd_la_bwd_kv2(const void* x, int x_bf16, int ld, const float* g_pre, const void* w_kv,
                    const float* m, const float* s, const float* dctx, const float* sdot,
                    const void* dxq, void* dx, float* part, float* out_w, int B, int C, int N,
-                   int P, int device, void* stream) {
+                   int P, int S, int slots, int resident, int flush, int ln_tile, int smem,
+                   int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const bf16* w = static_cast<const bf16*>(w_kv);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return x_bf16 ? launch_bwd_kv2<bf16>(x, g_pre, w, m, s, dctx, sdot, dxq, dx, part, out_w,
-                                       B, C, N, P, device, st)
-                : launch_bwd_kv2<float>(x, g_pre, w, m, s, dctx, sdot, dxq, dx, part, out_w,
-                                        B, C, N, P, device, st);
+  return launch_bwd_kv2(x, x_bf16, ld, g_pre, static_cast<const bf16*>(w_kv), m, s, dctx, sdot, dxq,
+                        dx, part, out_w, B, C, N, P, S, slots, resident, flush, ln_tile, smem,
+                        device, static_cast<cudaStream_t>(stream));
 }
 
 // The unfused middle's launchers.  qkv (B, 3 HD, N) with batch stride

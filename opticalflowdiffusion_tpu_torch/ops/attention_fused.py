@@ -26,8 +26,10 @@ torch layout: ``w_qkv`` (3*heads*dim, C), ``w_out`` (C, heads*dim).
   kernels' roundings (``compute_dtype``); with float32 they are the TPU
   passes in float32.
 * :func:`la_plan` is the forward kernels' plan for one shape: tile, CTAs,
-  partials, x stages, weight chunks resident or streamed, shared memory.
-  The wrappers pass it to the launchers, which check it.
+  partials, x stages, weight chunks resident or streamed, shared memory;
+  :func:`la_bwd_plan` the same for passes B' and A'2, with where their
+  weight-gradient partials are kept.  The wrappers pass them to the
+  launchers, which check them.
 """
 
 from __future__ import annotations
@@ -82,6 +84,35 @@ class LaPlan(NamedTuple):
     ctx: LaPass
     partials: int
     out: LaPass
+
+
+class LaBwdPass(NamedTuple):
+    """One backward pass of a plan (B' or A'2): ``stages`` of the x ring (x
+    with dy, or with dxq), ``slots`` weight chunks of 16 KB, ``resident``
+    (loaded once per CTA) or streamed per tile, ``consumers`` warp groups
+    (the f32 bodies: 2, 256 threads without a producer), ``flush``: how
+    often the CTA's weight-gradient partials go to its record, 0 = once at
+    the end (kept in shared memory) or 1 = every tile (kept in the record,
+    through L2), ``ln_tile``: the normalised x tile kept in shared
+    memory (else formed from x where it is needed), and ``smem`` bytes of
+    dynamic shared memory."""
+    stages: int
+    slots: int
+    resident: bool
+    consumers: int
+    flush: int
+    ln_tile: bool
+    smem: int
+
+
+class LaBwdPlan(NamedTuple):
+    """The plan of backward passes B' and A'2 for one (B, C, N, dtype):
+    ``tile`` positions, ``ctas`` per batch element (both passes), and the
+    two passes."""
+    tile: int
+    ctas: int
+    q: LaBwdPass
+    kv2: LaBwdPass
 
 
 def _align128(n: int) -> int:
@@ -150,6 +181,83 @@ def la_plan(B: int, C: int, N: int, dtype=torch.bfloat16, sms: int = SMS) -> LaP
     if not (ctx.stages and out.stages):
         raise ValueError(f"no forward plan fits C={C}: {ctx} {out}")
     return LaPlan(TILE, ctx, ctx.ctas, out)
+
+
+# the backward plan (kernels/linear_attention.cu, "Hopper bodies of rows 3
+# and 5"; the source checks what it is given against the same sums)
+BWD_CHUNK = 16384         # bytes of a weight chunk (w_q, w_out, half of w_kv: 64 channels)
+
+
+def _bwdq_smem(C: int, S: int, slots: int, acc: bool, ln: bool) -> int:
+    return (1024 + (2 * S + ln) * C * 2 * TILE + slots * BWD_CHUNK + HIDDEN * HEAD_DIM * 2
+            + TILE * 136 * 4 + TILE * 72 * 4 + 4 * 128 * 4 + 2 * TILE * 4
+            + ((2 * C * HIDDEN + 3 * C + HIDDEN * HEAD_DIM) * 4 if acc else 0)
+            + (2 * S + 2 * slots) * 8)
+
+
+def _kv2_smem(C: int, S: int, slots: int, acc: bool, ln: bool) -> int:
+    return (1024 + (2 * S + ln) * C * 2 * TILE + slots * BWD_CHUNK + HEADS * HEAD_DIM * 36 * 4
+            + TILE * 136 * 4 + 2 * TILE * 4 + 3 * HIDDEN * 4
+            + ((2 * HIDDEN * C + C) * 4 if acc else 0) + (2 * S + 2 * slots) * 8)
+
+
+def _bwdq_smem_f32(C: int, acc: bool) -> int:
+    """The first bodies' shared memory (bwdq_smem in the source)."""
+    a = _align128
+    return (a(C * 40 * 2) + a(32 * 136 * 4) + a(32 * 136 * 2) + a(4096 * 2) + a(4096 * 4)
+            + a(32 * 136 * 4) + a(32 * 136 * 2) + a(C * 40 * 4) + a((2 * 8 * 32 + 6 * 32 + 3 * C) * 4)
+            + (2 * C * HIDDEN * 4 if acc else 0))
+
+
+def _kv2_smem_f32(C: int, acc: bool) -> int:
+    """The first bodies' shared memory (kv2_smem in the source)."""
+    a = _align128
+    front = max(a(C * 40 * 2) + 2 * a(32 * 264 * 4), a(C * 40 * 4))
+    return (front + a(4096 * 4) + a((2 * 8 * 32 + 6 * 32 + 4 * HIDDEN) * 4) + a(32 * 264 * 2)
+            + a(4096 * 4) + a((HIDDEN + C) * 4) + (2 * HIDDEN * C * 4 if acc else 0))
+
+
+def _bwd_pass(smem, nres: int) -> LaBwdPass:
+    """The partials in shared memory where they fit (with the normalised
+    tile), else in the record; weights resident with the most x stages (2,
+    1), the normalised tile kept where it fits; else streamed with one stage
+    and the most slots (up to 8): at least 4 beside the normalised tile, or
+    at least 2 without it."""
+    for acc in (True, False):
+        for S in (2, 1):
+            for ln in (True,) if acc else (True, False):
+                if smem(S, nres, acc, ln) <= SMEM_MAX:
+                    return LaBwdPass(S, nres, True, 1, 0 if acc else 1, ln, smem(S, nres, acc, ln))
+    for ln, least in ((True, 4), (False, 2)):
+        slots = min(8, (SMEM_MAX - smem(1, 0, False, ln)) // (BWD_CHUNK + 16))
+        if slots >= least:
+            break
+    return LaBwdPass(1, slots, False, 1, 1, ln, smem(1, slots, False, ln))
+
+
+@functools.lru_cache(maxsize=512)
+def la_bwd_plan(B: int, C: int, N: int, dtype=torch.bfloat16, sms: int = SMS) -> LaBwdPlan:
+    """The plan of backward passes B' and A'2.  bf16: tiles of 64 positions,
+    one CTA per SM split evenly over the batch, each walking its tiles (at
+    C = 512, native b2, one or two: fewer CTAs, whose records would stay in
+    L2, measured slower on an H100); see :func:`_bwd_pass` for the rest.  f32:
+    the first bodies, tiles of 32 positions, the partials in shared memory
+    where they fit (C = 64).  Raises if no plan fits."""
+    if dtype == torch.float32:
+        nt = -(-N // F32_TILE)
+        ctas = max(1, min(nt, sms // B))
+        passes = []
+        for smem in (_bwdq_smem_f32, _kv2_smem_f32):
+            acc = smem(C, True) <= SMEM_MAX
+            passes.append(LaBwdPass(0, 0, False, 2, 0 if acc else 1, False, smem(C, acc)))
+        return LaBwdPlan(F32_TILE, ctas, *passes)
+    nt = -(-N // TILE)
+    nq = -(-C // 64)
+    q = _bwd_pass(lambda S, k, acc, ln: _bwdq_smem(C, S, k, acc, ln), 2 * nq)
+    kv2 = _bwd_pass(lambda S, k, acc, ln: _kv2_smem(C, S, k, acc, ln), 2 * nq)
+    if min(q.slots, kv2.slots) < 2:
+        raise ValueError(f"no backward plan fits C={C}: {q} {kv2}")
+    return LaBwdPlan(TILE, max(1, min(nt, sms // B)), q, kv2)
 
 
 def _ln_fwd(xt):
@@ -310,13 +418,13 @@ def _lib():
         lib.ofd_la_out.restype = i
         lib.ofd_la_bwd_record.argtypes = [i, i]
         lib.ofd_la_bwd_record.restype = ctypes.c_longlong
-        lib.ofd_la_bwd_q.argtypes = [vp, vp, i, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
-                                     i, i, i, i, i, vp]
+        lib.ofd_la_bwd_q.argtypes = [vp, vp, i, i, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+                                     i, i, i, i, i, i, i, i, i, i, i, vp]
         lib.ofd_la_bwd_q.restype = i
         lib.ofd_la_bwd_kv1.argtypes = [vp, i, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp]
         lib.ofd_la_bwd_kv1.restype = i
-        lib.ofd_la_bwd_kv2.argtypes = [vp, i, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
-                                       i, i, i, i, i, vp]
+        lib.ofd_la_bwd_kv2.argtypes = [vp, i, i, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+                                       i, i, i, i, i, i, i, i, i, i, i, vp]
         lib.ofd_la_bwd_kv2.restype = i
         lib.ofd_cuda_error_string.argtypes = [i]
         lib.ofd_cuda_error_string.restype = ctypes.c_char_p
@@ -360,12 +468,19 @@ def _raise_on(lib, err, what):
 _sms = {}
 
 
-def _plan(x):
-    B, C, N = x.shape
-    sms = _sms.get(x.device.index)
+def _sm_count(device) -> int:
+    sms = _sms.get(device.index)
     if sms is None:
-        sms = _sms[x.device.index] = torch.cuda.get_device_properties(x.device).multi_processor_count
-    return la_plan(B, C, N, x.dtype, sms)
+        sms = _sms[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms
+
+
+def _plan(x):
+    return la_plan(*x.shape, x.dtype, _sm_count(x.device))
+
+
+def _bwd_plan(x):
+    return la_bwd_plan(*x.shape, x.dtype, _sm_count(x.device))
 
 
 def _tma_rows(x):
@@ -434,10 +549,9 @@ def linear_attention_out(x, g_pre, w_q, ctx, w_out, b_out, g_post):
 
 
 def _bwd_partitions(B: int, ntiles: int, device) -> int:
-    """CTAs per batch element for the backward passes: one wave over the SMs
-    (a CTA fills an SM's shared memory)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(ntiles, sms // B))
+    """CTAs per batch element for pass A'1: one wave over the SMs (a CTA
+    fills an SM's shared memory)."""
+    return max(1, min(ntiles, _sm_count(device) // B))
 
 
 def _part(lib, which, B, P, C, device):
@@ -457,21 +571,27 @@ def linear_attention_bwd_q(x, dy, g_pre, w_q, ctx, w_out, b_out, g_post):
     _check("b_out", b_out, (C,), torch.float32, dev)
     _check("g_post", g_post, (C,), torch.float32, dev)
     lib = _lib()
-    P = _bwd_partitions(B, -(-N // 32), dev)
+    plan = _bwd_plan(x)
+    P, pq = plan.ctas, plan.q
     part = _part(lib, 0, B, P, C, dev)
-    dxq = torch.empty_like(x)
+    xk, ld = _tma_rows(x)
+    dyk = _tma_rows(dy)[0]
+    dxq = torch.empty_like(xk)
     out_w = torch.empty(2 * C * HIDDEN + 3 * C, device=dev)
     dctx = torch.empty(B, HEADS, HEAD_DIM, HEAD_DIM, device=dev)
     err = lib.ofd_la_bwd_q(
-        x.data_ptr(), dy.data_ptr(), int(x.dtype == torch.bfloat16), g_pre.data_ptr(),
+        xk.data_ptr(), dyk.data_ptr(), int(x.dtype == torch.bfloat16), ld, g_pre.data_ptr(),
         w_q.data_ptr(), ctx.data_ptr(), w_out.data_ptr(), b_out.data_ptr(), g_post.data_ptr(),
         dxq.data_ptr(), part.data_ptr(), out_w.data_ptr(), dctx.data_ptr(), B, C, N, P,
-        dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        pq.stages, pq.slots, int(pq.resident), pq.flush, int(pq.ln_tile), pq.smem, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(lib, err, LA_BWD_Q.name)
     LA_BWD_Q.launches += 1
     dw_out, dw_q, rest = out_w.split([C * HIDDEN, C * HIDDEN, 3 * C])
     db_out, dg_pre, dg_post = rest.split(C)
+    if ld != N:
+        dxq = dxq[..., :N].contiguous()
     return (dxq, dctx, dw_q.view(HIDDEN, C), dw_out.view(C, HIDDEN), db_out, dg_pre,
             dg_post)
 
@@ -511,19 +631,25 @@ def linear_attention_bwd_kv2(x, g_pre, w_kv, m, s, dctx, sdot, dxq):
     _check("dctx", dctx, (B, HEADS, HEAD_DIM, HEAD_DIM), torch.float32, dev)
     _check("dxq", dxq, (B, C, N), x.dtype, dev)
     lib = _lib()
-    P = _bwd_partitions(B, -(-N // 32), dev)
+    plan = _bwd_plan(x)
+    P, pk = plan.ctas, plan.kv2
     part = _part(lib, 2, B, P, C, dev)
-    dx = torch.empty_like(x)
+    xk, ld = _tma_rows(x)
+    dxqk = _tma_rows(dxq)[0]
+    dx = torch.empty_like(xk)
     out_w = torch.empty(2 * HIDDEN * C + C, device=dev)
     err = lib.ofd_la_bwd_kv2(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), g_pre.data_ptr(), w_kv.data_ptr(),
-        m.data_ptr(), s.data_ptr(), dctx.data_ptr(), sdot.data_ptr(), dxq.data_ptr(),
-        dx.data_ptr(), part.data_ptr(), out_w.data_ptr(), B, C, N, P, dev.index,
+        xk.data_ptr(), int(x.dtype == torch.bfloat16), ld, g_pre.data_ptr(), w_kv.data_ptr(),
+        m.data_ptr(), s.data_ptr(), dctx.data_ptr(), sdot.data_ptr(), dxqk.data_ptr(),
+        dx.data_ptr(), part.data_ptr(), out_w.data_ptr(), B, C, N, P, pk.stages, pk.slots,
+        int(pk.resident), pk.flush, int(pk.ln_tile), pk.smem, dev.index,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(lib, err, LA_BWD_KV2.name)
     LA_BWD_KV2.launches += 1
     dw_kv, dg_pre = out_w.split([2 * HIDDEN * C, C])
+    if ld != N:
+        dx = dx[..., :N].contiguous()
     return dx, dw_kv.view(2 * HIDDEN, C), dg_pre
 
 
@@ -603,7 +729,8 @@ def fused_linear_attention_block(x, g_pre, w_qkv, w_out, b_out, g_post,
 
 __all__ = [
     "block_plain", "bwd_kv1_plain", "bwd_kv2_plain", "bwd_q_plain", "ctx_plain",
-    "fused_block_bwd", "fused_linear_attention_block", "la_plan", "linear_attention_bwd_kv1",
+    "fused_block_bwd", "fused_linear_attention_block", "la_bwd_plan", "la_plan",
+    "linear_attention_bwd_kv1",
     "linear_attention_bwd_kv2", "linear_attention_bwd_q", "linear_attention_ctx",
     "linear_attention_middle", "linear_attention_out", "ln32", "out_plain",
 ]

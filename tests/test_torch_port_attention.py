@@ -276,3 +276,73 @@ def test_forward_plan_f32_keeps_the_first_bodies():
     plan = paf.la_plan(16, 64, 16384, torch.float32)
     assert plan == paf.LaPlan(32, paf.LaPass(17, 0, 0, False, 1, 40704), 17,
                               paf.LaPass(512, 0, 0, False, 1, 50944))
+
+
+# ------------------------------------------------ the backward kernels' plan
+# (B, N, C) of the blocks that take the backward kernels (N >= 1024): a
+# 128x128 b16 train step (chip_smoke.py's TRAIN_SHAPES) and a native b2 one
+_TRAIN_BWD = sorted({(16, n, c) for n, c in _EVAL_128 if n >= 1024}
+                    | {(2, n, c) for n, c in _EVAL_NATIVE})
+
+
+def _check_bwd_plan(B, N, C, dtype):
+    plan = paf.la_bwd_plan(B, C, N, dtype)
+    tiles = -(-N // plan.tile)
+    assert 1 <= plan.ctas <= tiles and plan.ctas * B <= max(paf.SMS, B)
+    smem = {torch.bfloat16: (paf._bwdq_smem, paf._kv2_smem)}.get(dtype)
+    for i, p in enumerate((plan.q, plan.kv2)):
+        assert 0 < p.smem <= paf.SMEM_MAX and p.flush in (0, 1)
+        if dtype == torch.bfloat16:
+            assert plan.tile == paf.TILE and p.consumers == 1 and p.stages >= 1
+            # the launcher's check: the same sum from the plan's own fields
+            assert p.smem == smem[i](C, p.stages, p.slots, p.flush == 0, p.ln_tile)
+            chunks = 2 * -(-C // 64)  # 16 KB weight chunks a pass uses once each
+            assert p.slots == chunks if p.resident else p.slots >= 2
+            # partials in shared memory only beside the normalised tile
+            assert p.flush == 1 or p.ln_tile
+        else:
+            assert plan.tile == paf.F32_TILE and p.stages == 0 and not p.ln_tile
+    return plan
+
+
+@pytest.mark.parametrize("B,N,C", _TRAIN_BWD)
+def test_backward_plan_fits_every_train_shape(B, N, C):
+    """Every (B, N, C) of a 128x128 b16 and a native b2 train step gets a
+    backward plan within the 227 KB a CTA may have, bf16 and f32."""
+    for dtype in (torch.bfloat16, torch.float32):
+        _check_bwd_plan(B, N, C, dtype)
+
+
+@pytest.mark.parametrize("C", [16, 48, 496])
+def test_backward_plan_takes_other_widths(C):
+    """Widths the flagship does not use (16 <= C <= 512, C % 16 == 0) with
+    N from 1 to ragged 7169 also get a backward plan."""
+    for N in (1, 1000, 7169):
+        for B in (1, 3):
+            for dtype in (torch.bfloat16, torch.float32):
+                _check_bwd_plan(B, N, C, dtype)
+
+
+@pytest.mark.parametrize("args,want", [
+    # native level 0: partials in shared memory, weights resident, two stages
+    ((2, 64, 458752), (66, (2, 2, True, 1, 0, True, 221504), (2, 2, True, 1, 0, True, 195904))),
+    # C = 128: the partials in the record, flushed every tile
+    ((2, 128, 114688), (66, (2, 4, True, 1, 1, True, 212576), (2, 4, True, 1, 1, True, 203872))),
+    # C = 256 at 128x128 b16: weights streamed through 4 slots, one stage
+    ((16, 256, 1024), (8, (1, 4, False, 1, 1, True, 228944), (1, 4, False, 1, 1, True, 220240))),
+    # C = 512: no room for the normalised tile, 2 slots; three or four tiles a CTA
+    ((2, 512, 7168), (66, (1, 2, False, 1, 1, False, 228912), (1, 2, False, 1, 1, False, 220208))),
+])
+def test_backward_plan_pins(args, want):
+    plan = paf.la_bwd_plan(*args)
+    assert (plan.ctas, tuple(plan.q), tuple(plan.kv2)) == want
+
+
+def test_backward_plan_f32_keeps_the_first_bodies():
+    """f32 x: tiles of 32 positions, one CTA per SM split over the batch, the
+    first bodies' shared memory, the partials in it at C = 64 only."""
+    plan = paf.la_bwd_plan(16, 64, 16384, torch.float32)
+    assert plan == paf.LaBwdPlan(32, 8, paf.LaBwdPass(0, 0, False, 2, 0, False, 161280),
+                                 paf.LaBwdPass(0, 0, False, 2, 0, False, 193536))
+    wide = paf.la_bwd_plan(2, 512, 7168, torch.float32)
+    assert (wide.q.flush, wide.kv2.flush) == (1, 1)

@@ -243,14 +243,59 @@ def test_forward_plan_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+def test_backward_plan_on_card(cuda_device):
+    """The backward launchers check the plan they get: shared memory that
+    does not add up, the normalised tile switched off beside partials kept
+    in shared memory, or one CTA more than there are tiles, is refused."""
+    dev = cuda_device
+    B, C, N = 2, 64, 1024
+    xt, (g_pre, w_qkv, w_out, b_out, g_post) = _inputs(14, B, N, C)
+    x = xt.to(dev, torch.bfloat16)
+    g_pre, b_out, g_post = (t.to(dev) for t in (g_pre, b_out, g_post))
+    w16 = w_qkv.to(dev, torch.bfloat16)
+    w_q, w_kv = w16[:128].contiguous(), w16[128:].contiguous()
+    wo = w_out.to(dev, torch.bfloat16).contiguous()
+    stats = [torch.zeros(B, 128, device=dev) for _ in range(3)]  # m, s, sdot
+    ctx = torch.zeros(B, 4, 32, 32, device=dev)
+    lib = paf._lib()
+    plan = paf.la_bwd_plan(B, C, N)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for q, kv2, ctas in ((plan.q._replace(smem=plan.q.smem + 8), plan.kv2, plan.ctas),
+                         (plan.q._replace(ln_tile=False), plan.kv2._replace(ln_tile=False),
+                          plan.ctas),
+                         (plan.q, plan.kv2, N // paf.TILE + 1)):
+        part = torch.empty(B * ctas * lib.ofd_la_bwd_record(0, C), device=dev)
+        out_w = torch.empty(2 * 256 * C + 3 * C, device=dev)
+        dx = torch.empty_like(x)
+        err_q = lib.ofd_la_bwd_q(x.data_ptr(), x.data_ptr(), 1, N, g_pre.data_ptr(),
+                                 w_q.data_ptr(), ctx.data_ptr(), wo.data_ptr(), b_out.data_ptr(),
+                                 g_post.data_ptr(), dx.data_ptr(), part.data_ptr(),
+                                 out_w.data_ptr(), ctx.data_ptr(), B, C, N, ctas, q.stages,
+                                 q.slots, int(q.resident), q.flush, int(q.ln_tile), q.smem,
+                                 dev.index or 0, stream)
+        err_kv2 = lib.ofd_la_bwd_kv2(x.data_ptr(), 1, N, g_pre.data_ptr(), w_kv.data_ptr(),
+                                     *(t.data_ptr() for t in stats[:2]), ctx.data_ptr(),
+                                     stats[2].data_ptr(), x.data_ptr(), dx.data_ptr(),
+                                     part.data_ptr(), out_w.data_ptr(), B, C, N, ctas,
+                                     kv2.stages, kv2.slots, int(kv2.resident), kv2.flush,
+                                     int(kv2.ln_tile), kv2.smem, dev.index or 0, stream)
+        assert err_q != 0 and (err_kv2 != 0 or kv2 == plan.kv2 and ctas == plan.ctas)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,N,C", [(2, 1000, 64), (2, 1024, 256), (1, 2100, 128),
-                                   (2, 1024, 512), (1, 1100, 512)])
+                                   (2, 1024, 512), (1, 1100, 512), (16, 1024, 64),
+                                   (1, 16384, 64), (16, 1031, 16), (1, 1024, 128),
+                                   (16, 16384, 128)])
 def test_backward_kernels_match_plain_on_card(cuda_device, dtype, B, N, C):
     """Pass B', A'1 and A'2 against bwd_q_plain, bwd_kv1_plain and
     bwd_kv2_plain with the same bf16 operands: f32 sums in another order,
     within 1e-3 of each output's largest value (measured <= 3e-4 on an
-    H100); each launch counted once; two launches give the same bits."""
+    H100); each launch counted once; two launches give the same bits.  The
+    shapes cover B 1 and 16, C 16 to 512, N ragged (1000, 1031, 1100, 2100)
+    and aligned (1024, 16384), partials in shared memory (C <= 64) and in the
+    record, weights resident and streamed, and one tile a CTA (1, 1024)."""
     dev = cuda_device
     xt, (g_pre, w_qkv, w_out, b_out, g_post) = _inputs(9, B, N, C)
     x = xt.to(dev, dtype)
@@ -269,9 +314,10 @@ def test_backward_kernels_match_plain_on_card(cuda_device, dtype, B, N, C):
     got_kv = paf.linear_attention_bwd_kv2(x, g_pre, w_kv, m, s, dctx, want_s, want_q[0])
     want_kv = paf.bwd_kv2_plain(x, g_pre, w_kv, m, s, dctx, want_s, want_q[0])
     again = paf.linear_attention_bwd_q(x, dy, g_pre, w_q, ctx, wo, b_out, g_post)
+    again_kv = paf.linear_attention_bwd_kv2(x, g_pre, w_kv, m, s, dctx, want_s, want_q[0])
     torch.cuda.synchronize()
     assert [k.launches for k in (kernels.LA_BWD_Q, kernels.LA_BWD_KV1, kernels.LA_BWD_KV2)] \
-        == [n0[0] + 2, n0[1] + 1, n0[2] + 1]
+        == [n0[0] + 2, n0[1] + 1, n0[2] + 2]
     ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0      # dx rounded to bf16
     for i, (a, b) in enumerate(zip(got_q, want_q)):
         assert _rel(a, b) <= 1e-3 + (ulp if i == 0 else 0.0), i
@@ -279,6 +325,65 @@ def test_backward_kernels_match_plain_on_card(cuda_device, dtype, B, N, C):
     for i, (a, b) in enumerate(zip(got_kv, want_kv)):
         assert _rel(a, b) <= 1e-3 + (ulp if i == 0 else 0.0), i
     assert all(torch.equal(a, b) for a, b in zip(got_q, again))
+    assert all(torch.equal(a, b) for a, b in zip(got_kv, again_kv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,remat,blocks", [(16, 128, 128, False, 6), (2, 448, 1024, True, 8)])
+def test_backward_kernels_match_plain_on_train_activations_on_card(cuda_device, B, H, W, remat,
+                                                                   blocks):
+    """Pass B', A'1 and A'2 against their plain versions on the activations
+    that reach every block's backward (fused_block_bwd) in one train step of
+    the flagship (bf16, random weights from a seed, a standard-normal batch
+    from numpy): 128x128 b16, and native 448x1024 b2 with remat.  Within 1e-3
+    of each output's largest value (dx also one bf16 ulp), as on the random
+    inputs above; unlike the step's loss, this does not depend on which bf16
+    roundings a change of the kernels flips."""
+    import dataclasses
+
+    from opticalflowdiffusion_tpu_torch.algorithms.flow_diffuser import FlowDiffuser
+    from opticalflowdiffusion_tpu_torch.config import FLAGSHIP
+    from opticalflowdiffusion_tpu_torch.experiments.base import to_device
+
+    cfg = dataclasses.replace(FLAGSHIP, zero_init=False, precision="bf16", remat=remat)
+    algo = FlowDiffuser(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    algo.module.train()
+    rng = np.random.default_rng(0)
+    batch = to_device(tuple(rng.standard_normal((B, H, W, c)).astype(np.float32)
+                            for c in (3, 3, 2)), cuda_device)
+    calls, original = [], paf.fused_block_bwd
+
+    def capture(*args):
+        calls.append(tuple(a.detach().clone() for a in args))
+        return original(*args)
+
+    paf.fused_block_bwd = capture
+    try:
+        loss, _ = algo.loss_fn(batch, torch.Generator(device="cuda").manual_seed(11))
+        loss.backward()
+    finally:
+        paf.fused_block_bwd = original
+    del algo, loss
+    assert len(calls) == blocks
+    ulp = 2.0 ** -7
+    with torch.no_grad():
+        for x, dy, g_pre, w_qkv, w_out, b_out, g_post, c, m, s in calls:
+            w16 = w_qkv.to(torch.bfloat16).contiguous()
+            w_q, w_kv = w16[:128], w16[128:]
+            g32 = g_pre.float().contiguous()
+            args_q = (x, dy.to(x.dtype).contiguous(), g32, w_q, c,
+                      w_out.to(torch.bfloat16).contiguous(), b_out.float().contiguous(),
+                      g_post.float().contiguous())
+            want_q = paf.bwd_q_plain(*args_q)
+            for i, (a, b) in enumerate(zip(paf.linear_attention_bwd_q(*args_q), want_q)):
+                assert _rel(a, b) <= 1e-3 + (ulp if i == 0 else 0.0), (x.shape, "B'", i)
+            want_s = paf.bwd_kv1_plain(x, g32, w_kv, m, s, want_q[1])
+            assert _rel(paf.linear_attention_bwd_kv1(x, g32, w_kv, m, s, want_q[1]),
+                        want_s) <= 1e-3, (x.shape, "A'1")
+            args_kv2 = (x, g32, w_kv, m, s, want_q[1], want_s, want_q[0])
+            for i, (a, b) in enumerate(zip(paf.linear_attention_bwd_kv2(*args_kv2),
+                                           paf.bwd_kv2_plain(*args_kv2))):
+                assert _rel(a, b) <= 1e-3 + (ulp if i == 0 else 0.0), (x.shape, "A'2", i)
 
 
 @pytest.mark.cuda
