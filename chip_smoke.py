@@ -22,15 +22,26 @@ it prints is one JSON object, flushed as it goes, apart from the card's
      bf16 and (1, 2100, 4, 32) bf16 (N not a multiple of the tile), against
      ``flash_plain`` and the composition, beside one PyTorch
      ``scaled_dot_product_attention`` call (a yardstick only);
-   - the splat at 128x128 b8 and 448x1024 b2: against ``splat_raw`` and two
-     launches bit for bit;
+   - the splat at 128x128 b8 and 448x1024 b2: bit for bit against
+     ``splat_fixed_plain`` (values as integers and the hole mask), against
+     ``splat_raw`` within TOL_SPLAT, two launches bit for bit, and the
+     modelled share of corners beyond the windows (the kernel's own windows,
+     ``ofd_splat_windows``, on the plain version's targets); then bit for
+     bit at 64x96 over scales 1-16 with offsets, at 1, 3, 5 and 9 channels
+     and at sizes no multiple of the tile or the scale (100x70, 37x29),
+     with flows of 4 and 40 px, zero, 1e6 px with 1e-20 weights and
+     non-finite values, the zero flow at scale 16 at 128x128 b16 and the
+     tiny-weight flow at 448x1024;
    - the three backward passes of the linear-attention block at every
      (N, C) of a 128x128 b16 train step that takes them (N >= 1024: five
      shapes, six launches a pass) and at every (N, C) of a native 448x1024
      b2 train step (all 8 blocks, C up to 512), bf16 and f32 x,
-     against ``bwd_q_plain``, ``bwd_kv1_plain`` and ``bwd_kv2_plain``; each
-     line carries the bounds, rows 3 and 5 with their f32 products counted
-     in split TF32 and on f32 CUDA cores (``*_bound_ms_f32_cores``);
+     against ``bwd_q_plain``, ``bwd_kv1_plain`` and ``bwd_kv2_plain`` (row
+     4 takes the context kernel's ctx and dctx, its plain version
+     recomputes over N; two launches bit for bit; ``torch.einsum`` of ctx
+     and dctx is its yardstick); each line carries the bounds, rows 3 and 5
+     with their f32 products counted in split TF32 and on f32 CUDA cores
+     (``*_bound_ms_f32_cores``);
    - the flash kernel under autograd at (2, 7168, 4, 32) bf16: its
      gradients against the composition's autograd, with the times and the
      peak memory of both backwards;
@@ -80,7 +91,9 @@ it prints is one JSON object, flushed as it goes, apart from the card's
    plain splat sums in float64, so the reference is the same every run),
    and rows 3, 4 and 5 against their plain versions on the activations
    captured from that step's block backwards (``kernel_vs_plain`` lines at
-   ``train_activations_128x128_b16``, TOL_BWD); one
+   ``train_activations_128x128_b16``, TOL_BWD), and the splat forward bit
+   for bit against ``splat_fixed_plain`` on the inputs of that step's 10
+   splats (``splat_on_step_inputs``, with their times); one
    count window of 8 steps (augment, loss, backward, clip, Adam) whose
    launches must be 8x a step's (6 per backward pass, 5 splat backward, 10
    splat forward); train samples/s over the last 6 of them after 2
@@ -99,10 +112,18 @@ it prints is one JSON object, flushed as it goes, apart from the card's
 6. native_train: the flagship trained at native 448x1024 b2 with remat (the
    JAX ``bench.py`` row ``sintel_native_train_samples_per_sec``): one step
    with every kernel against the all-plain step (bf16), with rows 3-5 on its
-   captured activations (``train_activations_448x1024_b2``); a count window of 2
+   captured activations (``train_activations_448x1024_b2``) and the splat on
+   its 11 splats' inputs; a count window of 2
    warm-up and 3 timed steps with exact launches, native train samples/s and
    the window's peak memory.
-7. the kernels line: for each kernel its route, source, the TPU kernel it
+7. profiler: device times from ``torch.profiler``, after the last
+   host-clock window, so that no profiler trace runs before one: the
+   splat forward by pass and its launches per call at 128x128 b8 and
+   448x1024 b2 (bf16, f32) and at the pyramid loss's f32 scales 2-16 at
+   128x128 b16 by a flow and by a zero flow (``splat_by_pass`` lines, with
+   CUDA-event ms taken before the first trace); row 4's device time a
+   launch at b16 and b2 and an empty kernel's (``device_times``).
+8. the kernels line: for each kernel its route, source, the TPU kernel it
    replaces, launches over all count windows, error, ms, plain ms, bound
    ms and what bounds it, library ms; for rows 6, 9 and 10 also
    ``vs_library`` (ms / library ms) and ``bound_share`` (bound ms / ms),
@@ -110,8 +131,16 @@ it prints is one JSON object, flushed as it goes, apart from the card's
    1 and 2 ``bound_share`` per native eval (their per-shape lines carry
    ``ctx_bound_share`` and ``out_bound_share``); for rows 3 and 5
    ``bound_ms_f32_cores`` beside the split-TF32 bound, and ``bound_share``
-   with ``per_native_step`` (ms, bounds, share per native b2 train step).
-8. the result line.
+   with ``per_native_step`` (ms, bounds, share per native b2 train step);
+   for row 4 ``library_ms`` (the einsum), ``vs_library``, ``bound_share``,
+   ``device_ms`` (torch.profiler), ``launch_floor_ms`` and
+   ``launch_floor_device_ms`` (an empty kernel's launch through the same
+   path) and ``per_native_step``; for the splat ``split_ms`` by pass,
+   ``launches_per_call``, ``pyramid_128x128_b16_f32`` (ms and device ms
+   at scales 2-16, by a flow and a zero flow), ``escape_share_modelled``,
+   ``bitwise_cases`` and
+   ``per_native_step`` (its 11 calls on a native step's inputs).
+9. the result line.
 
 Any failure raises and exits non-zero without the result line; so does a
 run without a CUDA device or without the port's package beside this file.
@@ -306,6 +335,15 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def empty_launch():
+    """One launch of an empty kernel through the same ctypes path as the
+    wrappers (kernels/linear_attention.cu ``la_empty_kernel``): the floor
+    under a kernel whose work is a few KB."""
+    lib, dev = af._lib(), torch.device("cuda", torch.cuda.current_device())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    return lambda: lib.ofd_la_empty(dev.index, stream)
 
 
 def bound_ms(kernel, Bn, C, N, xbytes, f32_cores=False):
@@ -734,39 +772,270 @@ def splat_inputs(Bn, H, W, dtype, seed):
     return x, metric, flow
 
 
+def bits(t):
+    """A float tensor's bits as integers, so that equality covers NaN bits."""
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def bitwise_equal(a, b):
+    return a.dtype == b.dtype and bool(torch.equal(bits(a), bits(b)))
+
+
+def device_split(fn, n=20):
+    """torch.profiler over ``n`` calls of ``fn``: device ms per call by pass
+    (the splat's three kernels by name, anything else by its own name) and
+    the launches per call (kernels and memsets).  Only profiler_phase calls
+    it, after the last host-clock window."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    split = {}
+    for e in evs:
+        key = next((k for k in ("splat_max", "splat_scatter", "splat_finish") if k in e.name),
+                   e.name[:40])
+        split[key] = split.get(key, 0.0) + e.time_range.elapsed_us() / 1e3 / n
+    return split, len(evs) / n
+
+
+def splat_escape_share(flow, scale=1, offset=(0, 0)):
+    """Modelled, not counted in the kernel: the share of the corners in the
+    output that fall outside their CTA's window and so take the escapes'
+    global atomics, from the kernel's own windows (``ofd_splat_windows``)
+    and the plain version's targets of ``flow``."""
+    Bn, _, H, W = flow.shape
+    _, dump, corners = sp._splat_terms(torch.zeros(Bn, 1, H, W, device=flow.device), flow,
+                                       scale, offset)
+    Ho, Wo = H // scale, W // scale
+    wx0, wy0, win = sp._kernel_windows(H, W, scale, offset)
+    wx0 = wx0.long().to(flow.device).view(1, W).expand(H, W).reshape(-1).repeat(Bn)
+    wy0 = wy0.long().to(flow.device).view(H, 1).expand(H, W).reshape(-1).repeat(Bn)
+    escaped = total = 0
+    for idx, _ in corners:
+        ok = idx != dump
+        t = idx % (Ho * Wo)
+        lx, ly = t % Wo - wx0, t // Wo - wy0
+        inside = (lx >= 0) & (lx < win) & (ly >= 0) & (ly < win)
+        escaped += int((ok & ~inside).sum())
+        total += int(ok.sum())
+    return escaped / max(total, 1)
+
+
 def splat_phase():
-    """The forward splat kernel against splat_raw on the values the warp
-    builds ([x * metric, metric]); two launches bit for bit.  Returns the
-    native b2 bf16 row and the largest error."""
+    """The forward splat kernel on the values the warp builds ([x * metric,
+    metric]): bit for bit against splat_fixed_plain (values and hole mask),
+    within TOL_SPLAT of splat_raw, two launches bit for bit; and the
+    modelled share of corners beyond the windows on these flows (its split
+    by pass comes from profiler_phase).  Returns the native b2 bf16 row and
+    the largest error."""
     out = None
     worst = 0.0
     for i, (Bn, H, W) in enumerate(SPLAT_CASES):
         for dtype in (torch.bfloat16, torch.float32):
             x, metric, flow = splat_inputs(Bn, H, W, dtype, 400 + i)
             v = torch.cat([x * metric, metric], dim=1)
-            a, _ = sp.splat_fwd(v, flow)
-            b_, _ = sp.splat_fwd(v, flow)
+            a, mask_a = sp.splat_fwd(v, flow)
+            b_, mask_b = sp.splat_fwd(v, flow)
+            fixed, mask_f = sp.splat_fixed_plain(v, flow)
             want = sp.splat_raw(v, flow)
             torch.cuda.synchronize()
-            same = bool(torch.equal(a, b_))
+            same = bitwise_equal(a, b_) and bool(torch.equal(mask_a, mask_b))
+            exact = bitwise_equal(a, fixed) and bool(torch.equal(mask_a, mask_f))
             e = err(a, want)
             scale = float(want.float().abs().max())
+            del fixed, mask_f, mask_b, b_
             times = {"ms": cuda_ms(lambda: sp.splat_fwd(v, flow)),
-                     "plain_ms": cuda_ms(lambda: sp.splat_raw(v, flow))}
+                     "plain_ms": cuda_ms(lambda: sp.splat_raw(v, flow)),
+                     "fixed_plain_ms": cuda_ms(lambda: sp.splat_fixed_plain(v, flow), 3, 1)}
             xb = x.element_size()
             nbytes = Bn * H * W * (3 * xb + xb + 2 * 4 + 4 * xb)
             bound = 1e3 * nbytes / HBM_BPS
             row = dict(B=Bn, H=H, W=W, dtype=str(dtype).split(".")[1], bitwise_same=same,
-                       max_abs=e[0], mean_abs=e[1], scale=scale, bound_ms=bound,
-                       bound_by="bytes", **{k: round(t, 5) for k, t in times.items()})
+                       bitwise_vs_fixed_plain=exact, max_abs=e[0], mean_abs=e[1], scale=scale,
+                       bound_ms=bound, bound_by="bytes", bound_share=bound / times["ms"],
+                       escape_share_modelled=splat_escape_share(flow),
+                       **{k: round(t, 5) for k, t in times.items()})
             phase("kernel_vs_plain", kernel="splat_fwd", **row)
             check(same, f"splat kernel not deterministic at {Bn, H, W, dtype}")
+            check(exact, f"splat kernel differs from splat_fixed_plain at {Bn, H, W, dtype}")
             check(e[0] <= TOL_SPLAT[dtype] * scale,
                   f"splat kernel disagrees with splat_raw at {Bn, H, W, dtype}: {e}")
             worst = max(worst, e[0])
             if (Bn, H, W, dtype) == (NATIVE_B, NATIVE.height, NATIVE.width, torch.bfloat16):
                 out = row
+            del x, metric, flow, v, a, want
     return out, worst
+
+
+# the bit-for-bit cases: (C, H, W, scale, offset) at b2, and the flows.  C = 4
+# (the warp's 3 + 1) at 64x96 over the scales; C below, at and past the
+# kernel's chunk of 4 channels; sizes no multiple of its 32-source tile or
+# of the scale (partial edge tiles)
+SPLAT_BITWISE_GEOMS = ((4, 64, 96, 1, (0, 0)), (4, 64, 96, 2, (1, 0)), (4, 64, 96, 4, (3, 2)),
+                       (4, 64, 96, 8, (7, 5)), (4, 64, 96, 16, (0, 0)),
+                       (4, 64, 96, 16, (15, 9)), (1, 64, 96, 1, (0, 0)),
+                       (3, 64, 96, 2, (1, 0)), (5, 64, 96, 4, (3, 2)), (9, 64, 96, 1, (0, 0)),
+                       (9, 64, 96, 16, (0, 0)), (4, 100, 70, 3, (2, 1)),
+                       (5, 100, 70, 1, (0, 0)), (1, 37, 29, 3, (0, 2)))
+SPLAT_BITWISE_KINDS = ("flow4", "flow40", "zero", "huge", "nonfinite")
+
+
+def bitwise_splat_inputs(kind, Bn, H, W, dtype, seed, C=4):
+    """Values in [-1, 1] (C channels) and a flow: 4 N(0, 1) px (``flow4``)
+    or 40 N(0, 1) px (``flow40``, most corners beyond the halo) with one
+    infinite target, a zero flow, 1e6 px with 1e-20 px at column 0 and a
+    last channel of 1 (``huge``: column 1 gets weights of 1e-20 only), or 4
+    N(0, 1) px with inf, -inf and NaN values (``nonfinite``, both
+    infinities side by side, so on shared targets)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    v = 2 * torch.rand(Bn, C, H, W, generator=g, device="cuda") - 1
+    flow = 4 * torch.randn(Bn, 2, H, W, generator=g, device="cuda")
+    if kind == "flow40":
+        flow *= 10
+    elif kind == "zero":
+        flow.zero_()
+    elif kind == "huge":
+        flow.zero_()
+        flow[:, 0] = 1e6
+        flow[:, 0, :, 0] = 1e-20
+        v[:, -1] = 1.0
+    elif kind == "nonfinite":
+        v[0, 0, 1, 2], v[0, 0, 1, 3] = float("inf"), float("-inf")
+        v[0, C - 1, 4, 4] = float("inf")
+        v[-1, min(1, C - 1), 5, 6] = float("nan")
+    if kind != "huge":
+        flow[0, 0, 0, 0] = float("inf")
+    return v.to(dtype), flow
+
+
+def splat_bitwise_phase():
+    """The forward kernel bit for bit against splat_fixed_plain (values as
+    integers, NaN bits included, and the hole mask), two launches the same:
+    at b2 over SPLAT_BITWISE_GEOMS x SPLAT_BITWISE_KINDS in bf16 and f32;
+    the zero flow at scale 16 at 128x128 b16 (256 sources a target); the
+    tiny-weight flow at 448x1024.  Returns the number of cases."""
+    cases = [(k, 2, C, H, W, sc, off, dt) for C, H, W, sc, off in SPLAT_BITWISE_GEOMS
+             for k in SPLAT_BITWISE_KINDS for dt in (torch.bfloat16, torch.float32)]
+    cases += [("zero", TRAIN_B, 4, 128, 128, 16, (0, 0), torch.float32),
+              ("huge", 1, 4, NATIVE.height, NATIVE.width, 1, (0, 0), torch.float32)]
+    bad = []
+    for i, (kind, Bn, C, H, W, scale, off, dtype) in enumerate(cases):
+        v, flow = bitwise_splat_inputs(kind, Bn, H, W, dtype, 1400 + i, C)
+        a, ma = sp.splat_fwd(v, flow, scale, off)
+        b_, mb = sp.splat_fwd(v, flow, scale, off)
+        f, mf = sp.splat_fixed_plain(v, flow, scale, off)
+        torch.cuda.synchronize()
+        ok = (bitwise_equal(a, f) and bool(torch.equal(ma, mf)) and bitwise_equal(a, b_)
+              and bool(torch.equal(ma, mb)))
+        if not ok:
+            bad.append(dict(kind=kind, B=Bn, C=C, H=H, W=W, scale=scale, offset=list(off),
+                            dtype=str(dtype).split(".")[1],
+                            values_differ=int((bits(a) != bits(f)).sum()),
+                            mask_differs=int((ma != mf).sum())))
+        del v, flow, a, ma, b_, mb, f, mf
+    phase("splat_bitwise_vs_fixed_plain", cases=len(cases), failed=bad)
+    check(not bad, f"splat kernel differs from splat_fixed_plain: {bad}")
+    return len(cases)
+
+
+@contextlib.contextmanager
+def captured_splats():
+    """The arguments of every forward splat kernel call inside the window,
+    detached copies, in call order."""
+    calls, original = [], sp.splat_fwd
+
+    def capture(inp, flow, scale=1, offset=(0, 0)):
+        calls.append((inp.detach().clone(), flow.detach().clone(), int(scale),
+                      tuple(int(o) for o in offset)))
+        return original(inp, flow, scale, offset)
+
+    sp.splat_fwd = capture
+    try:
+        yield calls
+    finally:
+        sp.splat_fwd = original
+
+
+def splat_on_step_inputs(calls, label):
+    """The forward splat kernel bit for bit against splat_fixed_plain on the
+    (inp, flow) of every splat of a train step (``calls`` from
+    captured_splats), with the modelled share of corners beyond the windows
+    per call
+    and the kernel's and splat_raw's CUDA-event times summed over the step.
+    Returns the per-step sums."""
+    rows, bad = [], []
+    kernel_ms = plain_ms = 0.0
+    for i, (inp, flow, scale, off) in enumerate(calls):
+        a, ma = sp.splat_fwd(inp, flow, scale, off)
+        f, mf = sp.splat_fixed_plain(inp, flow, scale, off)
+        torch.cuda.synchronize()
+        if not (bitwise_equal(a, f) and bool(torch.equal(ma, mf))):
+            bad.append(i)
+        ms = cuda_ms(lambda: sp.splat_fwd(inp, flow, scale, off), 10)
+        pms = cuda_ms(lambda: sp.splat_raw(inp, flow, scale, off), 3, 1)
+        kernel_ms, plain_ms = kernel_ms + ms, plain_ms + pms
+        finite = torch.isfinite(flow)
+        rows.append(dict(shape=list(inp.shape), dtype=str(inp.dtype).split(".")[1],
+                         scale=scale, offset=list(off), ms=round(ms, 5),
+                         max_abs_flow_px=float(flow[finite].abs().max()) if finite.any() else 0.0,
+                         escape_share_modelled=splat_escape_share(flow, scale, off)))
+        del a, ma, f, mf
+    phase("splat_on_step_inputs", at=label, calls=len(calls), bitwise_failed=bad,
+          kernel_ms_per_step=kernel_ms, plain_ms_per_step=plain_ms, per_call=rows)
+    check(not bad, f"splat kernel differs from splat_fixed_plain on the {label} inputs: {bad}")
+    return dict(ms=kernel_ms, plain_ms=plain_ms, calls=len(calls))
+
+
+# the splat forward by pass: (label, B, H, W, dtype, scale, zero flow) on the
+# warp's values [x * metric, metric] (C = 4): SPLAT_CASES, and the pyramid
+# loss's f32 scales at 128x128 b16 by a flow and by a zero flow (the
+# target's downsample, s^2 sources a target)
+SPLAT_PROFILE_CASES = (
+    tuple((f"{H}x{W}_b{Bn}_{str(dt).split('.')[1]}", Bn, H, W, dt, 1, False)
+          for Bn, H, W in SPLAT_CASES
+          for dt in (torch.bfloat16, torch.float32))
+    + tuple((f"pyramid_s{sc}" + ("_zero" if z else ""), TRAIN_B, 128, 128, torch.float32, sc, z)
+            for sc in (2, 4, 8, 16) for z in (False, True)))
+
+
+def profiler_phase():
+    """Device times from torch.profiler, run after the last host-clock
+    window so that no profiler trace precedes one: the splat forward by
+    pass, with its launches per call, at SPLAT_PROFILE_CASES (their
+    CUDA-event ms taken first, before any trace); row 4's device ms a
+    launch at b16 and b2; an empty kernel's launch.  Returns {"splat":
+    {label: row}, "bwd_kv1": {B: ms a launch}, "empty_device_ms": ms}."""
+    cases = []
+    for i, (label, Bn, H, W, dtype, scale, zero) in enumerate(SPLAT_PROFILE_CASES):
+        x, metric, flow = splat_inputs(Bn, H, W, dtype, 1300 + i)
+        if zero:
+            flow.zero_()
+        v = torch.cat([x * metric, metric], dim=1)
+        call = (lambda v=v, flow=flow, scale=scale: sp.splat_fwd(v, flow, scale))
+        cases.append((label, Bn, H, W, dtype, scale, zero, call, cuda_ms(call)))
+        del x, metric
+    kv1_in = {}
+    for Bn in (TRAIN_B, NATIVE_TRAIN_B):
+        g = torch.Generator(device="cuda").manual_seed(900 + Bn)
+        kv1_in[Bn] = [torch.randn(Bn, 4, 32, 32, generator=g, device="cuda") for _ in range(2)]
+    rows = {}
+    for label, Bn, H, W, dtype, scale, zero, call, ms in cases:
+        split, per_call = device_split(call)
+        rows[label] = dict(B=Bn, H=H, W=W, dtype=str(dtype).split(".")[1], scale=scale,
+                           zero_flow=zero, ms=ms, device_ms=sum(split.values()),
+                           split_ms=split, launches_per_call=per_call)
+        phase("splat_by_pass", case=label, **rows[label])
+        check(set(split) == {"splat_max", "splat_scatter", "splat_finish"},
+              f"the splat forward at {label} ran {sorted(split)}, not its three passes")
+    kv1 = {Bn: sum(device_split(lambda c=c, d=d: af.linear_attention_bwd_kv1(c, d, 1024))[0]
+                   .values()) for Bn, (c, d) in kv1_in.items()}
+    empty = sum(device_split(empty_launch())[0].values())
+    phase("device_times", bwd_kv1_device_ms_per_launch=kv1, empty_launch_device_ms=empty)
+    return {"splat": rows, "bwd_kv1": kv1, "empty_device_ms": empty}
 
 
 def bwd_bound_ms(kernel, Bn, C, N, xbytes, f32_cores=False):
@@ -778,18 +1047,24 @@ def bwd_bound_ms(kernel, Bn, C, N, xbytes, f32_cores=False):
     do^T attn, dctx = q'^T dattn, dq' = dattn ctx^T; dk' = v dctx^T, dv = k'
     dctx), two where one operand is bf16 (dW_q = dq^T ln, dW_kv = dkv^T ln),
     at the TF32 rate, on the same units as the bf16 products (so the two
-    times add).  Row 4 (bwd_kv1), and all three with ``f32_cores``, count
-    the f32 products once at the f32 CUDA-core rate, beside the tensor cores
-    (the larger of the two)."""
+    times add); with ``f32_cores`` they count the f32 products once at the
+    f32 CUDA-core rate, beside the tensor cores (the larger of the two).
+    Row 4 (bwd_kv1) computes sdot from ctx and dctx: its bytes are theirs
+    and sdot's, its operations 4096 f32 multiply-adds per batch element,
+    whatever C and N."""
+    if kernel == "bwd_kv1":
+        # ctx and dctx read (16 KB each per batch element), sdot written
+        # (512 B); 4096 f32 multiply-adds per batch element, on CUDA cores
+        return 1e3 * Bn * (2 * 16384 + 512) / HBM_BPS, 1e3 * 2 * Bn * 4096 / F32_FLOPS
     P = Bn * N
-    io = {"bwd_q": 3, "bwd_kv1": 1, "bwd_kv2": 3}[kernel]
+    io = {"bwd_q": 3, "bwd_kv2": 3}[kernel]
     nbytes = io * P * C * xbytes + 3 * 128 * C * 2 + Bn * 4096 * 4 + 2 * 128 * C * 4
-    bf16_macs = {"bwd_q": 4 * 128 * C + 4096, "bwd_kv1": 256 * C, "bwd_kv2": 512 * C}[kernel]
-    f32_macs = {"bwd_q": 256 * C + 8192, "bwd_kv1": 4096, "bwd_kv2": 256 * C + 8192}[kernel]
+    bf16_macs = {"bwd_q": 4 * 128 * C + 4096, "bwd_kv2": 512 * C}[kernel]
+    f32_macs = {"bwd_q": 256 * C + 8192, "bwd_kv2": 256 * C + 8192}[kernel]
     tf32_macs = {"bwd_q": 3 * 128 * C + 3 * 8192 + 2 * 128 * C,
-                 "bwd_kv2": 3 * 8192 + 2 * 256 * C}.get(kernel)
+                 "bwd_kv2": 3 * 8192 + 2 * 256 * C}[kernel]
     t_bf16 = 2 * P * bf16_macs / BF16_FLOPS
-    if f32_cores or tf32_macs is None:
+    if f32_cores:
         t_ops = max(t_bf16, 2 * P * f32_macs / F32_FLOPS)
     else:
         t_ops = t_bf16 + 2 * P * tf32_macs / TF32_FLOPS
@@ -805,6 +1080,7 @@ def la_bwd_phase(Bn=TRAIN_B, shapes=TRAIN_SHAPES, dtypes=(torch.bfloat16, torch.
     names = ("bwd_q", "bwd_kv1", "bwd_kv2")
     stats = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound": 0.0, "bytes_ms": 0.0,
                  "ops_ms": 0.0, "bound_f32_cores": 0.0} for k in names}
+    stats["bwd_kv1"]["library_ms"] = 0.0
     for i, (N, C, count) in enumerate(shapes):
         for dtype in dtypes:
             x, (g_pre, w_qkv, w_out, b_out, g_post) = block_inputs(Bn, C, N, dtype, 600 + i)
@@ -822,13 +1098,15 @@ def la_bwd_phase(Bn=TRAIN_B, shapes=TRAIN_SHAPES, dtypes=(torch.bfloat16, torch.
                 args_kv2 = (x, g_pre, w_kv, m, s_, dctx, want_s, dxq)
                 want_kv = af.bwd_kv2_plain(*args_kv2)
                 got = {"bwd_q": af.linear_attention_bwd_q(*args_q),
-                       "bwd_kv1": (af.linear_attention_bwd_kv1(x, g_pre, w_kv, m, s_, dctx),),
+                       "bwd_kv1": (af.linear_attention_bwd_kv1(c, dctx, N),),
                        "bwd_kv2": af.linear_attention_bwd_kv2(*args_kv2)}
+                again_s = af.linear_attention_bwd_kv1(c, dctx, N)
                 torch.cuda.synchronize()
+                same_s = bool(torch.equal(got["bwd_kv1"][0], again_s))
                 want = {"bwd_q": want_q, "bwd_kv1": (want_s,), "bwd_kv2": want_kv}
                 errs = {k: max(err(a, b)[0] / max(float(b.float().abs().max()), 1e-30)
                                for a, b in zip(got[k], want[k])) for k in names}
-                del got, want, want_q, want_kv
+                del got, want, want_q, want_kv, again_s
                 fast = dtype == torch.bfloat16
                 times = {}
                 if fast:
@@ -836,9 +1114,11 @@ def la_bwd_phase(Bn=TRAIN_B, shapes=TRAIN_SHAPES, dtypes=(torch.bfloat16, torch.
                         "bwd_q_ms": cuda_ms(lambda: af.linear_attention_bwd_q(*args_q), iters),
                         "bwd_q_plain_ms": cuda_ms(lambda: af.bwd_q_plain(*args_q), 3, 1),
                         "bwd_kv1_ms": cuda_ms(lambda: af.linear_attention_bwd_kv1(
-                            x, g_pre, w_kv, m, s_, dctx), iters),
+                            c, dctx, N), 50),
                         "bwd_kv1_plain_ms": cuda_ms(lambda: af.bwd_kv1_plain(
                             x, g_pre, w_kv, m, s_, dctx), 3, 1),
+                        "bwd_kv1_library_ms": cuda_ms(lambda: torch.einsum(
+                            "bhde,bhde->bhd", c, dctx) / N, 50),
                         "bwd_kv2_ms": cuda_ms(lambda: af.linear_attention_bwd_kv2(*args_kv2),
                                               iters),
                         "bwd_kv2_plain_ms": cuda_ms(lambda: af.bwd_kv2_plain(*args_kv2), 3, 1),
@@ -847,9 +1127,11 @@ def la_bwd_phase(Bn=TRAIN_B, shapes=TRAIN_SHAPES, dtypes=(torch.bfloat16, torch.
             cores = {k: max(bwd_bound_ms(k, Bn, C, N, x.element_size(), True)) for k in names}
             phase("kernel_vs_plain", kernel="linear_attention_bwd", at=label, N=N, C=C, B=Bn,
                   dtype=str(dtype).split(".")[1], **{f"{k}_max_rel": errs[k] for k in names},
+                  bwd_kv1_bitwise_same=same_s,
                   **{f"{k}_bound_ms": max(bounds[k]) for k in names},
                   **{f"{k}_bound_ms_f32_cores": cores[k] for k in ("bwd_q", "bwd_kv2")},
                   **{k: round(v, 5) for k, v in times.items()})
+            check(same_s, f"bwd_kv1 kernel not deterministic at N={N} C={C} {dtype}")
             for k in names:
                 check(errs[k] <= TOL_BWD, f"{k} kernel disagrees at N={N} C={C} {dtype}: "
                       f"{errs[k]}")
@@ -857,6 +1139,8 @@ def la_bwd_phase(Bn=TRAIN_B, shapes=TRAIN_SHAPES, dtypes=(torch.bfloat16, torch.
                 if fast:
                     stats[k]["ms"] += count * times[f"{k}_ms"]
                     stats[k]["plain_ms"] += count * times[f"{k}_plain_ms"]
+                    if k == "bwd_kv1":
+                        stats[k]["library_ms"] += count * times["bwd_kv1_library_ms"]
                     stats[k]["bound"] += count * max(bounds[k])
                     stats[k]["bound_f32_cores"] += count * cores[k]
                     stats[k]["bytes_ms"] += count * bounds[k][0]
@@ -866,6 +1150,8 @@ def la_bwd_phase(Bn=TRAIN_B, shapes=TRAIN_SHAPES, dtypes=(torch.bfloat16, torch.
         st["bound_by"] = "bytes" if st["bytes_ms"] >= st["ops_ms"] else "operations"
         if st["ms"]:
             st["bound_share"] = st["bound"] / st["ms"]
+    stats["bwd_kv1"]["launch_floor_ms"] = cuda_ms(empty_launch(), 50)
+    stats["bwd_kv1"]["launches"] = sum(count for _, _, count in shapes)
     phase("linear_attention_bwd_per_step", at=label, B=Bn,
           **{f"{k}_{f}": v for k, st in stats.items() for f, v in st.items()})
     return stats
@@ -1268,7 +1554,9 @@ def bwd_on_activations(calls, label):
     captured_block_bwd), with TOL_BWD: a kernel fault shows here apart from
     the draw of the step's random-weight loss.  Each row gets the same
     inputs as its plain version (rows 4 and 5 the plain dctx, sdot, dxq),
-    as fused_block_bwd prepares them.  One kernel_vs_plain line per row."""
+    as fused_block_bwd prepares them; row 4 takes the forward's saved ctx,
+    its plain version recomputes over N.  One kernel_vs_plain line per
+    row."""
     errs = {k: [] for k in ("bwd_q", "bwd_kv1", "bwd_kv2")}
     shapes = []
     rel = lambda got, want: max(err(a, b)[0] / max(float(b.float().abs().max()), 1e-30)
@@ -1285,7 +1573,7 @@ def bwd_on_activations(calls, label):
             errs["bwd_q"].append(rel(af.linear_attention_bwd_q(*args_q), want_q))
             dxq, dctx = want_q[0], want_q[1]
             want_s = af.bwd_kv1_plain(x, g32, w_kv, m, s_, dctx)
-            errs["bwd_kv1"].append(rel((af.linear_attention_bwd_kv1(x, g32, w_kv, m, s_, dctx),),
+            errs["bwd_kv1"].append(rel((af.linear_attention_bwd_kv1(c, dctx, x.shape[2]),),
                                        (want_s,)))
             args_kv2 = (x, g32, w_kv, m, s_, dctx, want_s, dxq)
             errs["bwd_kv2"].append(rel(af.linear_attention_bwd_kv2(*args_kv2),
@@ -1298,6 +1586,10 @@ def bwd_on_activations(calls, label):
               shapes=shapes, max_rel=max(e), per_block=[sig(v) for v in e])
         check(max(e) <= TOL_BWD, f"{k} disagrees with its plain version on the {label} "
               f"activations: {e}")
+
+
+# the splat kernel on the captured inputs of one train step, by "HxW_bB"
+STEP_SPLATS = {}
 
 
 def train_batch(seed=0, B=TRAIN_B, H=128, W=128):
@@ -1337,7 +1629,8 @@ def step_vs_plain(precision, batch, conv_backend="cudnn", remat=False, tol=None)
     is rematerialised.  Where the bottleneck takes the flash kernel (N >=
     2048: the native batch) the plain step runs its plain recurrence.  The
     cuDNN bf16 step also holds rows 3-5 to their plain versions on its own
-    block activations (bwd_on_activations)."""
+    block activations (bwd_on_activations), and the splat kernel bit for bit
+    to splat_fixed_plain on its splats' own inputs (splat_on_step_inputs)."""
     cfg = dataclasses.replace(FLAGSHIP, zero_init=False, precision=precision,
                               conv_backend=conv_backend, remat=remat)
     algo = FlowDiffuser(cfg, device="cuda", generator=torch.Generator().manual_seed(SEED))
@@ -1346,12 +1639,16 @@ def step_vs_plain(precision, batch, conv_backend="cudnn", remat=False, tol=None)
     # the activations of the cuDNN bf16 step: the rows' check on them
     capture = conv_backend == "cudnn" and precision == "bf16"
     with tf32(not (conv and precision == "float32")):
-        with captured_block_bwd() if capture else contextlib.nullcontext() as calls:
+        with contextlib.ExitStack() as stack:
+            if capture:
+                calls = stack.enter_context(captured_block_bwd())
+                splat_calls = stack.enter_context(captured_splats())
             loss_k, g_k = step_grads(algo, batch, 11)
         if capture:
-            bwd_on_activations(calls, f"train_activations_{batch[0].shape[2]}x"
-                                      f"{batch[0].shape[3]}_b{batch[0].shape[0]}")
-            del calls
+            label = f"{batch[0].shape[2]}x{batch[0].shape[3]}_b{batch[0].shape[0]}"
+            bwd_on_activations(calls, "train_activations_" + label)
+            STEP_SPLATS[label] = splat_on_step_inputs(splat_calls, "train_step_" + label)
+            del calls, splat_calls
         flash = batch[0].shape[2] * batch[0].shape[3] // 64 >= fa.FLASH_MIN_N
         with plain_versions(attention="passes", splat=True, conv=conv, flash=flash):
             loss_p, g_p = step_grads(algo, batch, 11)
@@ -1553,6 +1850,7 @@ def main():
     flash_grad_phase()
     mid = middle_phase()
     splat_row, splat_err = splat_phase()
+    splat_bitwise = splat_bitwise_phase()
     splat_bwd_row, splat_bwd_err = splat_bwd_phase()
     conv_rows_, conv_err = conv_phase()
     launches = slice_phase()
@@ -1560,6 +1858,7 @@ def main():
         for k, n in window().items():
             launches[k] += n
     phase("launch_counts_all_paths", launches=launches)
+    prof = profiler_phase()
     per_la = f"one 448x1024 b{NATIVE_B} UNet eval (8 launches, bf16 x)"
     per_step = f"one 128x128 b{TRAIN_B} train step (6 launches, bf16 x)"
     bwd = {kernels.LA_BWD_Q: "bwd_q", kernels.LA_BWD_KV1: "bwd_kv1",
@@ -1578,9 +1877,22 @@ def main():
                                        bound_share=r8["bound_ms"] / r8["ms"]))
         elif k is kernels.SPLAT:
             r = splat_row
+            nat = STEP_SPLATS[f"{NATIVE.height}x{NATIVE.width}_b{NATIVE_TRAIN_B}"]
+            pr = prof["splat"][f"{NATIVE.height}x{NATIVE.width}_b{NATIVE_B}_bfloat16"]
+            pyramid = {lb: dict(ms=p["ms"], device_ms=p["device_ms"])
+                       for lb, p in prof["splat"].items() if lb.startswith("pyramid")}
             vals = dict(max_abs_err=splat_err, ms=r["ms"], plain_ms=r["plain_ms"],
                         bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
-                        per=f"one launch at 448x1024 b{NATIVE_B} bf16 (3 + 1 channels)")
+                        per=f"one call at 448x1024 b{NATIVE_B} bf16 (3 + 1 channels)",
+                        bound_share=r["bound_share"], device_ms=pr["device_ms"],
+                        split_ms=pr["split_ms"], launches_per_call=pr["launches_per_call"],
+                        pyramid_128x128_b16_f32=pyramid,
+                        escape_share_modelled=r["escape_share_modelled"],
+                        bitwise_cases=splat_bitwise,
+                        per_native_step=dict(ms=nat["ms"], plain_ms=nat["plain_ms"],
+                                             calls=nat["calls"],
+                                             per=f"the splats of one 448x1024 b{NATIVE_TRAIN_B} "
+                                                 "remat train step, on their own inputs"))
         elif k is kernels.SPLAT_BWD:
             r = splat_bwd_row
             vals = dict(max_abs_err=splat_bwd_err, ms=r["ms"], plain_ms=r["plain_ms"],
@@ -1604,7 +1916,22 @@ def main():
             vals = dict(max_abs_err=max(st["err"], nat["err"]), ms=st["ms"],
                         plain_ms=st["plain_ms"], bound_ms=st["bound"], bound_by=st["bound_by"],
                         library_ms=None, per=per_step)
-            if k is not kernels.LA_BWD_KV1:  # rows 3 and 5: split TF32 on the tensor cores
+            if k is kernels.LA_BWD_KV1:     # row 4: sdot from ctx and dctx
+                vals.update(library_ms=st["library_ms"], vs_library=st["ms"] / st["library_ms"],
+                            bound_share=st["bound"] / st["ms"],
+                            device_ms=st["launches"] * prof["bwd_kv1"][TRAIN_B],
+                            launch_floor_ms=nat["launch_floor_ms"],
+                            launch_floor_device_ms=prof["empty_device_ms"],
+                            per_native_step=dict(ms=nat["ms"], device_ms=nat["launches"]
+                                                 * prof["bwd_kv1"][NATIVE_TRAIN_B],
+                                                 bound_ms=nat["bound"],
+                                                 bound_share=nat["bound"] / nat["ms"],
+                                                 plain_ms=nat["plain_ms"],
+                                                 library_ms=nat["library_ms"],
+                                                 vs_library=nat["ms"] / nat["library_ms"],
+                                                 per=f"one 448x1024 b{NATIVE_TRAIN_B} train "
+                                                     "step (8 launches, bf16 x)"))
+            else:                            # rows 3 and 5: split TF32 on the tensor cores
                 vals.update(bound_ms_f32_cores=st["bound_f32_cores"],
                             bound_share=nat["bound"] / nat["ms"],
                             per_native_step=dict(ms=nat["ms"], bound_ms=nat["bound"],

@@ -24,7 +24,9 @@ torch layout: ``w_qkv`` (3*heads*dim, C), ``w_out`` (C, heads*dim).
 * ``ctx_plain``, ``out_plain``, ``bwd_q_plain``, ``bwd_kv1_plain`` and
   ``bwd_kv2_plain`` are the plain versions of the five kernels, with the
   kernels' roundings (``compute_dtype``); with float32 they are the TPU
-  passes in float32.
+  passes in float32.  Pass A'1's kernel computes sdot in closed form from
+  the forward's ctx (``kv1_from_ctx_plain``) where ``bwd_kv1_plain``, as
+  the TPU's pass, recomputes it over the positions: the same function.
 * :func:`la_plan` is the forward kernels' plan for one shape: tile, CTAs,
   partials, x stages, weight chunks resident or streamed, shared memory;
   :func:`la_bwd_plan` the same for passes B' and A'2, with where their
@@ -378,11 +380,20 @@ def _kv_recompute(x, g_pre, w_kv, m, s, cdt):
 
 def bwd_kv1_plain(x, g_pre, w_kv, m, s, dctx, compute_dtype=torch.bfloat16):
     """Plain version of pass A'1 (JAX ``_bwd_kv1_kernel``): sdot (B, 128) =
-    sum_n k' dk' with dk' = (v / N) dctx^T per head."""
+    sum_n k' dk' with dk' = (v / N) dctx^T per head, recomputing k' and v."""
     N = x.shape[2]
     _, _, _, kp, v = _kv_recompute(x, g_pre, w_kv, m, s, compute_dtype)
     dkp = torch.einsum("bnhe,bhde->bnhd", v / N, dctx)
     return (kp * dkp).sum(dim=1).reshape(x.shape[0], HIDDEN)
+
+
+def kv1_from_ctx_plain(ctx, dctx, N):
+    """sdot (B, 128) of pass A'1 in closed form from pass A's ctx: since
+    ctx[h, d, e] = sum_n k'[n, h, d] v[n, h, e] (same m and s),
+    sum_n k' dk' = sum_e ctx[h, d, e] dctx[h, d, e] / N.  The function of
+    the pass A'1 kernel, which :func:`bwd_kv1_plain` computes by the
+    recompute over N."""
+    return (ctx.float() * dctx.float()).sum(dim=-1).reshape(ctx.shape[0], HIDDEN) / N
 
 
 def bwd_kv2_plain(x, g_pre, w_kv, m, s, dctx, sdot, dxq, compute_dtype=torch.bfloat16):
@@ -421,8 +432,10 @@ def _lib():
         lib.ofd_la_bwd_q.argtypes = [vp, vp, i, i, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
                                      i, i, i, i, i, i, i, i, i, i, i, vp]
         lib.ofd_la_bwd_q.restype = i
-        lib.ofd_la_bwd_kv1.argtypes = [vp, i, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp]
+        lib.ofd_la_bwd_kv1.argtypes = [vp, vp, vp, i, i, i, vp]
         lib.ofd_la_bwd_kv1.restype = i
+        lib.ofd_la_empty.argtypes = [i, vp]
+        lib.ofd_la_empty.restype = i
         lib.ofd_la_bwd_kv2.argtypes = [vp, i, i, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
                                        i, i, i, i, i, i, i, i, i, i, i, vp]
         lib.ofd_la_bwd_kv2.restype = i
@@ -548,12 +561,6 @@ def linear_attention_out(x, g_pre, w_q, ctx, w_out, b_out, g_post):
     return y if ld == N else y[..., :N].contiguous()
 
 
-def _bwd_partitions(B: int, ntiles: int, device) -> int:
-    """CTAs per batch element for pass A'1: one wave over the SMs (a CTA
-    fills an SM's shared memory)."""
-    return max(1, min(ntiles, _sm_count(device) // B))
-
-
 def _part(lib, which, B, P, C, device):
     return torch.empty(B * P * lib.ofd_la_bwd_record(which, C), device=device)
 
@@ -596,24 +603,26 @@ def linear_attention_bwd_q(x, dy, g_pre, w_q, ctx, w_out, b_out, g_post):
             dg_post)
 
 
-def linear_attention_bwd_kv1(x, g_pre, w_kv, m, s, dctx):
-    """Pass A'1 kernel: sdot (B, 128) as :func:`bwd_kv1_plain`."""
-    B, C, N = _check_x(x)
-    dev = x.device
-    _check("g_pre", g_pre, (C,), torch.float32, dev)
-    _check("w_kv", w_kv, (2 * HIDDEN, C), torch.bfloat16, dev)
-    for name, t in (("m", m), ("s", s)):
-        _check(name, t, (B, HIDDEN), torch.float32, dev)
-    _check("dctx", dctx, (B, HEADS, HEAD_DIM, HEAD_DIM), torch.float32, dev)
-    lib = _lib()
-    P = _bwd_partitions(B, -(-N // 32), dev)
-    part = _part(lib, 1, B, P, C, dev)
+def linear_attention_bwd_kv1(ctx, dctx, N):
+    """Pass A'1 kernel: sdot (B, 128) f32 with sdot[b, 32 h + d] =
+    sum_e ctx[b, h, d, e] dctx[b, h, d, e] / N, from pass A's ``ctx`` (the
+    forward's, saved) and pass B''s ``dctx``, both (B, 4, 32, 32) f32: the
+    closed form (:func:`kv1_from_ctx_plain`) of the sum over positions that
+    :func:`bwd_kv1_plain` recomputes, the same function for x of either
+    dtype.  One launch, the same bits on every launch."""
+    if not ctx.is_cuda:
+        raise ValueError("the linear-attention kernels take CUDA tensors")
+    dev = ctx.device
+    B = ctx.shape[0] if ctx.dim() == 4 else 0
+    if B < 1 or int(N) < 1:
+        raise ValueError(f"need ctx (B >= 1, 4, 32, 32) and N >= 1, got "
+                         f"{tuple(ctx.shape)} and N={N}")
+    for name, t in (("ctx", ctx), ("dctx", dctx)):
+        _check(name, t, (B, HEADS, HEAD_DIM, HEAD_DIM), torch.float32, dev)
     sdot = torch.empty(B, HIDDEN, device=dev)
-    err = lib.ofd_la_bwd_kv1(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), g_pre.data_ptr(), w_kv.data_ptr(),
-        m.data_ptr(), s.data_ptr(), dctx.data_ptr(), part.data_ptr(), sdot.data_ptr(),
-        B, C, N, P, dev.index, torch.cuda.current_stream(dev).cuda_stream,
-    )
+    lib = _lib()
+    err = lib.ofd_la_bwd_kv1(ctx.data_ptr(), dctx.data_ptr(), sdot.data_ptr(), B, int(N),
+                             dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, LA_BWD_KV1.name)
     LA_BWD_KV1.launches += 1
     return sdot
@@ -633,7 +642,7 @@ def linear_attention_bwd_kv2(x, g_pre, w_kv, m, s, dctx, sdot, dxq):
     lib = _lib()
     plan = _bwd_plan(x)
     P, pk = plan.ctas, plan.kv2
-    part = _part(lib, 2, B, P, C, dev)
+    part = _part(lib, 1, B, P, C, dev)
     xk, ld = _tma_rows(x)
     dxqk = _tma_rows(dxq)[0]
     dx = torch.empty_like(xk)
@@ -663,7 +672,7 @@ def fused_block_bwd(x, dy, g_pre, w_qkv, w_out, b_out, g_post, ctx, m, s):
         x, dy.to(x.dtype).contiguous(), g32, w_q, ctx,
         w_out.to(torch.bfloat16).contiguous(), b_out.float().contiguous(),
         g_post.float().contiguous())
-    sdot = linear_attention_bwd_kv1(x, g32, w_kv, m, s, dctx)
+    sdot = linear_attention_bwd_kv1(ctx, dctx, x.shape[2])
     dx, dw_kv, dg_pre_kv = linear_attention_bwd_kv2(x, g32, w_kv, m, s, dctx, sdot, dxq)
     return dx, dg_pre_q + dg_pre_kv, torch.cat([dw_q, dw_kv]), dw_out, db_out, dg_post
 
@@ -729,7 +738,8 @@ def fused_linear_attention_block(x, g_pre, w_qkv, w_out, b_out, g_post,
 
 __all__ = [
     "block_plain", "bwd_kv1_plain", "bwd_kv2_plain", "bwd_q_plain", "ctx_plain",
-    "fused_block_bwd", "fused_linear_attention_block", "la_bwd_plan", "la_plan",
+    "fused_block_bwd", "fused_linear_attention_block", "kv1_from_ctx_plain", "la_bwd_plan",
+    "la_plan",
     "linear_attention_bwd_kv1",
     "linear_attention_bwd_kv2", "linear_attention_bwd_q", "linear_attention_ctx",
     "linear_attention_middle", "linear_attention_out", "ln32", "out_plain",

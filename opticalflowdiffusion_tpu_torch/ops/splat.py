@@ -13,9 +13,14 @@ transforms, with REFERENCE_QUIRKS 1-3 (JAX ``ops/splat.py:29-38``).
 * :func:`splat_raw` and :func:`splat_bwd_raw` are the plain versions: a
   scatter with ``index_add_`` (on the GPU its float atomics sum in a varying
   order, unless the sums are taken in float64) and the gathers.
+* :func:`splat_fixed_plain` is the forward kernel's own arithmetic (each
+  term rounded once to a 64-bit fixed point, integer sums, non-finite
+  terms apart, the hole-mask flag): the kernel equals it bit for bit.
 * :func:`splat_fwd` and :func:`splat_bwd` launch the CUDA kernels of
   ``kernels/splat.cu``; the forward's sums are the same bits on every run
-  (64-bit fixed-point integer atomics), as the JAX version's are.
+  (64-bit fixed-point integer sums, in a shared-memory window per tile of
+  sources and then in global memory; the kernel source owns its plan and
+  states the scratch it needs), as the JAX version's are.
 * :func:`splat` is the differentiable op (``torch.autograd.Function``) over
   the kernels for CUDA tensors and the plain versions for CPU tensors.  It
   also returns the hole mask ``sum of the last channel > 0``; on the card a
@@ -28,6 +33,7 @@ transforms, with REFERENCE_QUIRKS 1-3 (JAX ``ops/splat.py:29-38``).
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Sequence, Tuple
 
 import torch
@@ -43,16 +49,24 @@ def _stretch(offset: int, size: int, scale: int) -> int:
     return abs(int(offset) - size % scale) % scale
 
 
+def _div(a, scale: int):
+    """a / scale, correctly rounded in float32 on every device: CUDA divides
+    a tensor by a Python scalar as a multiplication by its reciprocal, which
+    is off by an ulp at scales that are no power of two (the kernels and
+    JAX divide)."""
+    return a / torch.full_like(a, float(scale))
+
+
 def _transform(f, size: int, scale: int, off: int, stretch: int, gate: bool = True):
     """Forward transform (JAX ``_fwd_transform``); ``gate=False`` drops the
     ``scale > 1`` gate of the edge branch (``_ingrad_transform_y`` and the
     flowgrad x transform)."""
     shifted = f - off
-    f_edge = (f + (f - size + 1.0) * stretch - off) / scale
+    f_edge = _div(f + (f - size + 1.0) * stretch - off, scale)
     edge = f >= size - 1.0
     if gate and scale == 1:
         edge = torch.zeros_like(edge)
-    return torch.where(edge, f_edge, torch.where(shifted < 0.0, shifted, shifted / scale))
+    return torch.where(edge, f_edge, torch.where(shifted < 0.0, shifted, _div(shifted, scale)))
 
 
 def _ingrad_x(f, size: int, scale: int, off: int, stretch: int):
@@ -60,8 +74,8 @@ def _ingrad_x(f, size: int, scale: int, off: int, stretch: int):
     f1 = f + (f - size + 1.0) * stretch
     f1 = f1 + (f1 - size + 1.0) * off
     shifted = f - off
-    return torch.where(f >= size - 1.0, (f1 - off) / scale,
-                       torch.where(shifted < 0.0, shifted, shifted / scale))
+    return torch.where(f >= size - 1.0, _div(f1 - off, scale),
+                       torch.where(shifted < 0.0, shifted, _div(shifted, scale)))
 
 
 def _flowgrad_y(f, size: int, scale: int, off: int):
@@ -97,13 +111,11 @@ def _geometry(H: int, W: int, scale: int, offset: Sequence[int]):
     return scale, ox, oy, H // scale, W // scale
 
 
-def splat_raw(inp: torch.Tensor, flow: torch.Tensor, scale: int = 1,
-              offset: Sequence[int] = (0, 0), acc_dtype=torch.float32) -> torch.Tensor:
-    """Bilinear scatter-add of ``inp`` (B, C, H, W) by ``flow`` (B, 2, H, W)
-    into (B, C, H // scale, W // scale), in ``inp``'s dtype.  The float32
-    terms are summed in ``acc_dtype``: with float64 on the GPU the atomics'
-    varying order no longer reaches the float32 result, which is then the
-    same on every run (as the kernel's fixed-point sums are)."""
+def _splat_terms(inp: torch.Tensor, flow: torch.Tensor, scale: int, offset: Sequence[int]):
+    """The float32 terms of the splat, corner by corner: ((B, C, Ho, Wo),
+    dump, [(idx (S,), term (S, C)) for the 4 corners]) over the S = B H W
+    sources, with idx = b Ho Wo + y Wo + x, or ``dump`` = B Ho Wo for a
+    corner outside the output or a non-finite target."""
     B, C, H, W = inp.shape
     scale, ox, oy, Ho, Wo = _geometry(H, W, scale, offset)
     dev = inp.device
@@ -118,7 +130,7 @@ def splat_raw(inp: torch.Tensor, flow: torch.Tensor, scale: int = 1,
     wy1 = ty - y0
     base = torch.arange(B, device=dev).repeat_interleave(H * W) * (Ho * Wo)
     dump = B * Ho * Wo
-    out = torch.zeros(dump + 1, C, device=dev, dtype=acc_dtype)
+    corners = []
     for cx, cy, w in (
         (x0, y0, (1.0 - wx1) * (1.0 - wy1)),
         (x0 + 1.0, y0, wx1 * (1.0 - wy1)),
@@ -128,9 +140,75 @@ def splat_raw(inp: torch.Tensor, flow: torch.Tensor, scale: int = 1,
         inb = finite & (cx >= 0) & (cx < Wo) & (cy >= 0) & (cy < Ho)
         idx = (base + cy.clamp(0, Ho - 1).long() * Wo + cx.clamp(0, Wo - 1).long())
         idx = torch.where(inb, idx, torch.full_like(idx, dump))
-        out.index_add_(0, idx, (vals * w[:, None]).to(acc_dtype))
+        corners.append((idx, vals * w[:, None]))
+    return (B, C, Ho, Wo), dump, corners
+
+
+def splat_raw(inp: torch.Tensor, flow: torch.Tensor, scale: int = 1,
+              offset: Sequence[int] = (0, 0), acc_dtype=torch.float32) -> torch.Tensor:
+    """Bilinear scatter-add of ``inp`` (B, C, H, W) by ``flow`` (B, 2, H, W)
+    into (B, C, H // scale, W // scale), in ``inp``'s dtype.  The float32
+    terms are summed in ``acc_dtype``: with float64 on the GPU the atomics'
+    varying order no longer reaches the float32 result, which is then the
+    same on every run (as the kernel's fixed-point sums are)."""
+    (B, C, Ho, Wo), dump, corners = _splat_terms(inp, flow, scale, offset)
+    out = torch.zeros(dump + 1, C, device=inp.device, dtype=acc_dtype)
+    for idx, term in corners:
+        out.index_add_(0, idx, term.to(acc_dtype))
     out = out[:dump].view(B, Ho, Wo, C).permute(0, 3, 1, 2)
     return out.float().to(inp.dtype)
+
+
+_NAN_BITS = {torch.float32: (torch.int32, 0x7FFFFFFF), torch.bfloat16: (torch.int16, 0x7FFF)}
+
+
+def splat_fixed_plain(inp: torch.Tensor, flow: torch.Tensor, scale: int = 1,
+                      offset: Sequence[int] = (0, 0)) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel's arithmetic in plain PyTorch: (out (B, C, Ho, Wo)
+    in ``inp``'s dtype, hole mask (B, 1, Ho, Wo) bool), the same bits as
+    :func:`splat_fwd` for every input.  :func:`splat_raw`'s float32 terms
+    are each rounded once (half to even) to a 64-bit fixed point, term * 2^e
+    with e = 62 - ceil(log2(H W)) - the exponent of the channel's largest
+    finite |v|, and summed as integers (exact in any order); the non-finite
+    terms are summed apart (NaN if a NaN or both infinities landed, else
+    that infinity) and take the fixed-point sum's place; the sum times 2^-e
+    is rounded to float32 and cast once to the dtype (a NaN written with the
+    kernel's bits).  mask = (v > 0) | (v == 0 & a finite positive term of
+    the last channel landed), on the last channel's v as written."""
+    H, W = inp.shape[2:]
+    (B, C, Ho, Wo), dump, corners = _splat_terms(inp, flow, scale, offset)
+    dev = inp.device
+    a = inp.float().abs()
+    mx = torch.where(torch.isfinite(a), a, torch.zeros_like(a)).amax(dim=(0, 2, 3))
+    e = [62 - max(0, (H * W - 1).bit_length()) - int(k)
+         for k in torch.frexp(mx).exponent.tolist()]
+    sc = torch.tensor([math.ldexp(1.0, k) for k in e], dtype=torch.float64, device=dev)
+    inv = torch.tensor([math.ldexp(1.0, -k) for k in e], dtype=torch.float64, device=dev)
+    acc = torch.zeros(dump + 1, C, dtype=torch.int64, device=dev)
+    special = torch.zeros(dump + 1, C, 3, dtype=torch.int64, device=dev)  # +inf, -inf, NaN
+    hit = torch.zeros(dump + 1, dtype=torch.int64, device=dev)
+    for idx, term in corners:
+        fin = torch.isfinite(term)
+        q = torch.round(torch.where(fin, term, torch.zeros_like(term)).double() * sc)
+        acc.index_add_(0, idx, q.long())
+        special.index_add_(0, idx, torch.stack(
+            [term == float("inf"), term == float("-inf"), torch.isnan(term)], -1).long())
+        hit.index_add_(0, idx, (fin[:, -1] & (term[:, -1] > 0)).long())
+    r = (acc[:dump].double() * inv).float()
+    pos, neg, nan = (special[:dump, :, k] > 0 for k in range(3))
+    r = torch.where(pos, torch.full_like(r, float("inf")), r)
+    r = torch.where(neg, torch.full_like(r, float("-inf")), r)
+    r = torch.where(nan | (pos & neg), torch.full_like(r, float("nan")), r)
+    out = r.view(B, Ho, Wo, C).permute(0, 3, 1, 2).to(inp.dtype).contiguous()
+    int_dtype, nan_bits = _NAN_BITS[inp.dtype]
+    nan_out = torch.isnan(out)
+    if bool(nan_out.any()):
+        bits = torch.where(nan_out, torch.full_like(out.view(int_dtype), nan_bits),
+                           out.view(int_dtype))
+        out = bits.view(inp.dtype)
+    last = out[:, -1:].float()
+    hit = (hit[:dump] > 0).view(B, 1, Ho, Wo)
+    return out, (last > 0) | ((last == 0) & hit)
 
 
 def splat_bwd_raw(inp: torch.Tensor, flow: torch.Tensor, g: torch.Tensor, scale: int = 1,
@@ -188,8 +266,12 @@ def _lib():
     lib = build.load("splat")
     if not getattr(lib, "_ofd_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.ofd_splat.argtypes = [vp, vp, i, vp, vp, vp, vp, vp, vp] + [i] * 9 + [vp]
+        lib.ofd_splat.argtypes = [vp, vp, i, vp, ctypes.c_longlong, vp, vp] + [i] * 8 + [vp]
         lib.ofd_splat.restype = i
+        lib.ofd_splat_scratch_bytes.argtypes = [i] * 5
+        lib.ofd_splat_scratch_bytes.restype = ctypes.c_longlong
+        lib.ofd_splat_windows.argtypes = [i] * 5 + [vp, vp]
+        lib.ofd_splat_windows.restype = i
         lib.ofd_splat_bwd.argtypes = [vp, vp, vp, i, vp, vp] + [i] * 8 + [vp]
         lib.ofd_splat_bwd.restype = i
         lib.ofd_cuda_error_string.argtypes = [i]
@@ -225,26 +307,41 @@ def _raise_on(lib, err, what):
         raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
 
 
+def _kernel_windows(H: int, W: int, scale: int, offset: Sequence[int] = (0, 0)):
+    """The forward kernel's own windows (``ofd_splat_windows``), for the
+    checks on the card: per source column and row the origin, in output
+    cells, of its tile's window, as int32 (W,) and (H,) CPU tensors, and the
+    window's side.  Corners outside it take the escapes' global atomics."""
+    ox, oy = (int(o) for o in offset)
+    wx0 = torch.empty(W, dtype=torch.int32)
+    wy0 = torch.empty(H, dtype=torch.int32)
+    win = _lib().ofd_splat_windows(H, W, int(scale), ox, oy, wx0.data_ptr(), wy0.data_ptr())
+    if win < 1:
+        raise ValueError(f"no splat windows for {(H, W)} at scale {scale}, offset {offset}")
+    return wx0, wy0, win
+
+
 def splat_fwd(inp: torch.Tensor, flow: torch.Tensor, scale: int = 1,
               offset: Sequence[int] = (0, 0)) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel on contiguous CUDA tensors ``inp`` (B, C, H, W)
     bf16 or f32 and ``flow`` (B, 2, H, W) f32.  Returns the splat (B, C, Ho,
-    Wo) in inp's dtype, the same bits on every run, and the hole mask
-    (B, 1, Ho, Wo) bool of its last channel."""
+    Wo) in inp's dtype and the hole mask (B, 1, Ho, Wo) bool of its last
+    channel: the bits of :func:`splat_fixed_plain`, the same on every run.
+    Three launches, one scratch allocation and no memset."""
     B, C, H, W, scale, ox, oy, Ho, Wo = _check_args(inp, flow, scale, offset)
     dev = inp.device
-    maxbits = torch.zeros(C, dtype=torch.int32, device=dev)
-    acc = torch.zeros(B, C, Ho, Wo, dtype=torch.int64, device=dev)
-    special = torch.zeros(B, C, Ho, Wo, dtype=torch.float32, device=dev)
-    hit = torch.zeros(B, 1, Ho, Wo, dtype=torch.uint8, device=dev)
     out = torch.empty(B, C, Ho, Wo, dtype=inp.dtype, device=dev)
     mask = torch.empty(B, 1, Ho, Wo, dtype=torch.uint8, device=dev)
+    if out.numel() == 0:          # H or W below the scale: nothing to splat into
+        return out, mask.view(torch.bool)
     lib = _lib()
+    nbytes = lib.ofd_splat_scratch_bytes(B, C, H, W, scale)
+    if nbytes < 0:
+        raise ValueError(f"the splat kernel takes 1 <= B <= 65535, got {B}")
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     err = lib.ofd_splat(
-        inp.data_ptr(), flow.data_ptr(), int(inp.dtype == torch.bfloat16),
-        maxbits.data_ptr(), acc.data_ptr(), special.data_ptr(), hit.data_ptr(),
-        out.data_ptr(), mask.data_ptr(), B, C, H, W, scale, ox, oy,
-        max(0, (H * W - 1).bit_length()), dev.index,
+        inp.data_ptr(), flow.data_ptr(), int(inp.dtype == torch.bfloat16), scratch.data_ptr(),
+        nbytes, out.data_ptr(), mask.data_ptr(), B, C, H, W, scale, ox, oy, dev.index,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(lib, err, SPLAT.name)
@@ -348,5 +445,5 @@ def softsplat(inp: torch.Tensor, flow: torch.Tensor, metric=None, mode: str = "l
     return _softsplat(inp, flow, metric, mode, scale, offset)[0]
 
 
-__all__ = ["MODES", "softsplat", "splat", "splat_bwd", "splat_bwd_raw", "splat_fwd",
-           "splat_raw"]
+__all__ = ["MODES", "softsplat", "splat", "splat_bwd", "splat_bwd_raw", "splat_fixed_plain",
+           "splat_fwd", "splat_raw"]

@@ -186,6 +186,56 @@ def test_backward_plain_passes_match_pallas_bwd():
     assert dctx.shape == (B, 4, 32, 32) and sdot.shape == (B, 128)
 
 
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,C", [(2, 200, 64), (1, 48, 32), (2, 1100, 128)])
+def test_kv1_from_ctx_matches_bwd_kv1_plain(B, N, C, cdt):
+    """Pass A'1's closed form: sum_e ctx dctx / N from ``ctx_plain``'s ctx
+    equals ``bwd_kv1_plain``'s sum over positions with the same m and s.
+    The two sum the same products in another order: within 2e-6 of the
+    largest |sdot| (measured <= 3.5e-7), f32 and bf16 compute."""
+    x, p = _inputs(21, B, N, C)
+    xt, (g_pre, w_qkv, w_out, b_out, g_post) = _port_args(x, p)
+    dctx = torch.from_numpy(np.random.default_rng(22).standard_normal(
+        (B, 4, 32, 32)).astype(np.float32))
+    w_kv = w_qkv[128:]
+    ctx, m, s = paf.ctx_plain(xt, g_pre, w_kv, cdt)
+    want = paf.bwd_kv1_plain(xt, g_pre, w_kv, m, s, dctx, cdt)
+    got = paf.kv1_from_ctx_plain(ctx, dctx, N)
+    assert got.shape == want.shape == (B, 128) and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= 2e-6 * float(want.abs().max())
+
+
+def test_backward_plain_passes_with_sdot_from_ctx_match_pallas_bwd():
+    """test_backward_plain_passes_match_pallas_bwd with pass A'1 in closed
+    form (``kv1_from_ctx_plain`` on the context pass's ctx, as the kernel
+    takes it): the whole backward chain against ``_fused_block_bwd_pallas``
+    in interpret mode, at the same shape and pins."""
+    B, N, C = 2, 200, 64
+    x, p = _inputs(11, B, N, C)
+    dy = np.random.default_rng(12).standard_normal((B, N, C)).astype(np.float32)
+    xj, pj = jnp.asarray(x), tuple(map(jnp.asarray, p))
+    with pltpu.force_tpu_interpret_mode():
+        _, (ctx, m, s) = af._fused_block_pallas(xj, *pj, 4, 32, block_n=128,
+                                                compute_dtype=jnp.float32)
+        want = af._fused_block_bwd_pallas(xj, *pj, ctx, m, s, jnp.asarray(dy), 4, 32,
+                                          compute_dtype=jnp.float32)
+    xt, (g_pre, w_qkv, w_out, b_out, g_post) = _port_args(x, p)
+    dyt = torch.from_numpy(dy).transpose(1, 2).contiguous()
+    f32 = torch.float32
+    w_q, w_kv = w_qkv[:128], w_qkv[128:]
+    ctx_p, m_p, s_p = paf.ctx_plain(xt, g_pre, w_kv, f32)
+    dxq, dctx, dw_q, dw_out, db_out, dg_q, dg_post = paf.bwd_q_plain(
+        xt, dyt, g_pre, w_q, ctx_p, w_out, b_out, g_post, f32)
+    sdot = paf.kv1_from_ctx_plain(ctx_p, dctx, N)
+    dx, dw_kv, dg_kv = paf.bwd_kv2_plain(xt, g_pre, w_kv, m_p, s_p, dctx, sdot, dxq, f32)
+    got = _port_grads_jax_layout(dx, dg_q + dg_kv, torch.cat([dw_q, dw_kv]), dw_out,
+                                 db_out, dg_post)
+    for name, a, b in zip(_GRADS, got, want):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a, b, rtol=5e-3, atol=2e-4 * np.abs(b).max(),
+                                   err_msg=name)
+
+
 @pytest.mark.parametrize("B,N,C", [(2, 200, 64), (1, 48, 32)])
 def test_block_autograd_on_cpu_matches_jax_vjp(B, N, C):
     """Autograd of the port's ``fused_linear_attention_block`` on a CPU tensor

@@ -64,6 +64,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         paf.linear_attention_out(xt, g_pre, w16[:128].contiguous(), ctx,
                                  w_out.to(torch.bfloat16), b_out, g_post)
+    before = kernels.LA_BWD_KV1.launches
+    with pytest.raises(ValueError):
+        paf.linear_attention_bwd_kv1(ctx, ctx, 64)
+    assert kernels.LA_BWD_KV1.launches == before
 
 
 @pytest.mark.cuda
@@ -292,7 +296,9 @@ def test_backward_kernels_match_plain_on_card(cuda_device, dtype, B, N, C):
     """Pass B', A'1 and A'2 against bwd_q_plain, bwd_kv1_plain and
     bwd_kv2_plain with the same bf16 operands: f32 sums in another order,
     within 1e-3 of each output's largest value (measured <= 3e-4 on an
-    H100); each launch counted once; two launches give the same bits.  The
+    H100); pass A'1 takes the context kernel's ctx where bwd_kv1_plain
+    recomputes over N; each launch counted once; two launches give the
+    same bits.  The
     shapes cover B 1 and 16, C 16 to 512, N ragged (1000, 1031, 1100, 2100)
     and aligned (1024, 16384), partials in shared memory (C <= 64) and in the
     record, weights resident and streamed, and one tile a CTA (1, 1024)."""
@@ -309,15 +315,17 @@ def test_backward_kernels_match_plain_on_card(cuda_device, dtype, B, N, C):
     got_q = paf.linear_attention_bwd_q(x, dy, g_pre, w_q, ctx, wo, b_out, g_post)
     want_q = paf.bwd_q_plain(x, dy, g_pre, w_q, ctx, wo, b_out, g_post)
     dctx = want_q[1]
-    got_s = paf.linear_attention_bwd_kv1(x, g_pre, w_kv, m, s, dctx)
+    got_s = paf.linear_attention_bwd_kv1(ctx, dctx, N)
     want_s = paf.bwd_kv1_plain(x, g_pre, w_kv, m, s, dctx)
     got_kv = paf.linear_attention_bwd_kv2(x, g_pre, w_kv, m, s, dctx, want_s, want_q[0])
     want_kv = paf.bwd_kv2_plain(x, g_pre, w_kv, m, s, dctx, want_s, want_q[0])
     again = paf.linear_attention_bwd_q(x, dy, g_pre, w_q, ctx, wo, b_out, g_post)
+    again_s = paf.linear_attention_bwd_kv1(ctx, dctx, N)
     again_kv = paf.linear_attention_bwd_kv2(x, g_pre, w_kv, m, s, dctx, want_s, want_q[0])
     torch.cuda.synchronize()
     assert [k.launches for k in (kernels.LA_BWD_Q, kernels.LA_BWD_KV1, kernels.LA_BWD_KV2)] \
-        == [n0[0] + 2, n0[1] + 1, n0[2] + 2]
+        == [n0[0] + 2, n0[1] + 2, n0[2] + 2]
+    assert torch.equal(got_s, again_s)
     ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0      # dx rounded to bf16
     for i, (a, b) in enumerate(zip(got_q, want_q)):
         assert _rel(a, b) <= 1e-3 + (ulp if i == 0 else 0.0), i
@@ -378,7 +386,7 @@ def test_backward_kernels_match_plain_on_train_activations_on_card(cuda_device, 
             for i, (a, b) in enumerate(zip(paf.linear_attention_bwd_q(*args_q), want_q)):
                 assert _rel(a, b) <= 1e-3 + (ulp if i == 0 else 0.0), (x.shape, "B'", i)
             want_s = paf.bwd_kv1_plain(x, g32, w_kv, m, s, want_q[1])
-            assert _rel(paf.linear_attention_bwd_kv1(x, g32, w_kv, m, s, want_q[1]),
+            assert _rel(paf.linear_attention_bwd_kv1(c, want_q[1], x.shape[2]),
                         want_s) <= 1e-3, (x.shape, "A'1")
             args_kv2 = (x, g32, w_kv, m, s, want_q[1], want_s, want_q[0])
             for i, (a, b) in enumerate(zip(paf.linear_attention_bwd_kv2(*args_kv2),
@@ -617,6 +625,100 @@ def test_splat_kernel_deterministic_on_card(cuda_device, dtype):
     assert torch.equal(a, b)
     rel = 1e-5 if dtype == torch.float32 else 2.0 ** -7
     assert float((a.float() - want).abs().max()) <= rel * float(want.abs().max()) + 1e-6
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _bitwise_splat_inputs(kind, dtype, dev, seed, B=2, H=64, W=96, C=4):
+    """chip_smoke.py's bit-for-bit cases: 4 N(0, 1) px or 40 N(0, 1) px flows
+    with an infinite target, a zero flow, 1e6 px flows with 1e-20 px at
+    column 0 (weights of 1e-20), inf, -inf and NaN values."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    v = 2 * torch.rand(B, C, H, W, generator=g, device=dev) - 1
+    flow = 4 * torch.randn(B, 2, H, W, generator=g, device=dev)
+    if kind == "flow40":
+        flow *= 10
+    elif kind == "zero":
+        flow.zero_()
+    elif kind == "huge":
+        flow.zero_()
+        flow[:, 0] = 1e6
+        flow[:, 0, :, 0] = 1e-20
+        v[:, -1] = 1.0
+    elif kind == "nonfinite":
+        v[0, 0, 1, 2], v[0, 0, 1, 3] = float("inf"), float("-inf")
+        v[0, C - 1, 4, 4] = float("inf")
+        v[-1, min(1, C - 1), 5, 6] = float("nan")
+    if kind != "huge":
+        flow[0, 0, 0, 0] = float("inf")
+    return v.to(dtype), flow
+
+
+# (C, H, W, scale, offset): C = 4 at 64x96 over the scales; C below, at and
+# past the chunk of 4 (two and three chunks); sizes no multiple of the
+# 32-source tile or of the scale (partial edge tiles)
+SPLAT_BITWISE_GEOMS = [(4, 64, 96, 1, (0, 0)), (4, 64, 96, 2, (1, 0)), (4, 64, 96, 4, (3, 2)),
+                       (4, 64, 96, 16, (15, 9)), (1, 64, 96, 1, (0, 0)), (3, 64, 96, 2, (1, 0)),
+                       (5, 64, 96, 4, (3, 2)), (9, 64, 96, 1, (0, 0)), (9, 64, 96, 16, (0, 0)),
+                       (4, 100, 70, 3, (2, 1)), (5, 100, 70, 1, (0, 0)), (1, 37, 29, 3, (0, 2))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,H,W,scale,offset", SPLAT_BITWISE_GEOMS)
+@pytest.mark.parametrize("kind", ["flow4", "flow40", "zero", "huge", "nonfinite"])
+def test_splat_kernel_is_bitwise_its_fixed_point_plain_on_card(cuda_device, dtype, C, H, W,
+                                                               scale, offset, kind):
+    """The forward kernel equals splat_fixed_plain bit for bit (values as
+    integers, NaN bits included, and the hole mask) and two launches give
+    the same bits: the kernel's sums are 64-bit integer sums of the same
+    once-rounded terms, in whatever grouping, chunk by chunk of channels."""
+    v, flow = _bitwise_splat_inputs(kind, dtype, cuda_device, 17 * scale + len(kind),
+                                    H=H, W=W, C=C)
+    n0 = kernels.SPLAT.launches
+    out, mask = psplat_.splat_fwd(v, flow, scale, offset)
+    again, mask2 = psplat_.splat_fwd(v, flow, scale, offset)
+    want, wmask = psplat_.splat_fixed_plain(v, flow, scale, offset)
+    torch.cuda.synchronize()
+    assert kernels.SPLAT.launches == n0 + 2
+    assert torch.equal(_bits(out), _bits(want)) and torch.equal(mask, wmask)
+    assert torch.equal(_bits(out), _bits(again)) and torch.equal(mask, mask2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,H,W,scale", [(2, 4, 448, 1024, 1), (2, 4, 448, 1024, 16),
+                                           (8, 4, 128, 128, 1), (16, 4, 128, 128, 2),
+                                           (16, 4, 128, 128, 16), (1, 9, 13, 18, 4),
+                                           (1, 5, 100, 70, 3), (1, 1, 40, 40, 40)])
+def test_splat_windows_cover_the_output_on_card(cuda_device, B, C, H, W, scale):
+    """The forward kernel's own windows (``ofd_splat_windows``): every corner
+    of a source that does not move lands inside its tile's window (the halo
+    takes the rest of the bilinear footprint), and the windows together
+    cover the output, so the finish pass, which sums the windows over each
+    cell, misses no cell, at every phase offset; the scratch it states
+    holds a window per 32 x 32 tile and the escapes' accumulator."""
+    lib = psplat_._lib()
+    Ho, Wo = H // scale, W // scale
+    for off in {(0, 0), (scale - 1, scale // 2)}:
+        wx0, wy0, win = psplat_._kernel_windows(H, W, scale, off)
+        _, dump, corners = psplat_._splat_terms(torch.zeros(1, 1, H, W), torch.zeros(1, 2, H, W),
+                                                scale, off)
+        ox, oy = wx0.long().view(1, W).expand(H, W).reshape(-1), wy0.long().view(H, 1).expand(
+            H, W).reshape(-1)
+        for idx, _ in corners:
+            ok = idx != dump
+            lx, ly = idx % Wo - ox, idx // Wo - oy
+            assert bool(((lx >= 0) & (lx < win) & (ly >= 0) & (ly < win))[ok].all())
+        for origins, size in ((wx0.unique(), Wo), (wy0.unique(), Ho)):
+            v = torch.arange(size)
+            covered = ((origins.long().view(-1, 1) <= v)
+                       & (v < origins.long().view(-1, 1) + win)).any(0)
+            assert bool(covered.all())
+    tiles = B * -(-H // 32) * -(-W // 32)
+    assert lib.ofd_splat_scratch_bytes(B, C, H, W, scale) >= (
+        tiles * win * win * (8 * C + 4) + B * Ho * Wo * (8 * C + 4))
 
 
 # ------------------------------------------------------------------- convs

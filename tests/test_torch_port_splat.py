@@ -87,6 +87,83 @@ def test_splat_float64_sums_match_jax(scale, offset, dtype):
         _close(_nhwc(got), _nhwc(f32.to(dtype)), rel=2.0 ** -7)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scale,offset", [(1, (0, 0)), (2, (0, 0)), (2, (1, 1)), (4, (0, 0)),
+                                          (4, (1, 1)), (4, (3, 2))])
+def test_splat_fixed_plain_matches_float64_sums_and_jax(scale, offset, dtype):
+    """The fixed-point plain version (the forward kernel's arithmetic)
+    against splat_raw with float64 sums and against JAX's splat: each term
+    is rounded to at least 2^-40 of the largest |value| before the sum, so
+    within float32 rounding of the sums (1e-5 of the largest output; one
+    bf16 rounding of them, 2^-7, for bf16); the hole mask is the float64
+    sum's > 0 on these inputs (no term below the fixed point)."""
+    inp, flow = _inputs(5 * scale + offset[0] + 1)
+    v = _nchw(inp).to(dtype)
+    got, mask = psplat.splat_fixed_plain(v, _nchw(flow), scale, offset)
+    want = psplat.splat_raw(v, _nchw(flow), scale, offset, acc_dtype=torch.float64)
+    assert got.dtype == dtype and mask.dtype == torch.bool
+    assert mask.shape == (2, 1, 13 // scale, 18 // scale)
+    rel = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    _close(_nhwc(got), _nhwc(want), rel=rel)
+    assert torch.equal(mask, want[:, -1:] > 0)
+    if dtype == torch.float32:
+        _close(_nhwc(got), splat.splat_raw(jnp.asarray(inp), jnp.asarray(flow), scale, *offset))
+
+
+def test_splat_fixed_plain_non_finite_terms_and_tiny_weights():
+    """Non-finite values are summed apart (+inf, -inf, or NaN where a NaN or
+    both infinities land) and written with the kernel's NaN bits; a corner
+    weight of 1e-20 rounds to 0 in the fixed point, yet its target stays
+    out of the hole mask, as the float64 sum's > 0 says."""
+    B, C, H, W = 1, 4, 8, 16
+    v = torch.rand(B, C, H, W, generator=torch.Generator().manual_seed(3)) + 0.5
+    v[0, 0, 2, 3], v[0, 0, 2, 4] = float("inf"), float("-inf")
+    v[0, 1, 5, 5] = float("nan")
+    v[0, 2, 6, 9] = float("-inf")
+    flow = torch.zeros(B, 2, H, W)
+    flow[0, 0, :, 10:] = 1e6                  # columns 10.. leave the image
+    flow[0, 0, :, 0] = 1e-20                  # column 0 gives column 1 a weight of 1e-20
+    flow[0, 0, :, 1] = 1e6
+    flow[0, 0, 2, 3] = 0.5                    # inf and -inf share targets 3 and 4
+    got, mask = psplat.splat_fixed_plain(v, flow)
+    want = psplat.splat_raw(v, flow, acc_dtype=torch.float64)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert bool(torch.isnan(got[0, 0, 2, 4])) and bool(torch.isnan(got[0, 1, 5, 5]))
+    assert float(got[0, 2, 6, 9]) == float("-inf") and float(got[0, 0, 2, 3]) == float("inf")
+    assert bool((got.view(torch.int32)[torch.isnan(got)] == 0x7FFFFFFF).all())
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin)
+    _close(got[fin].numpy(), want[fin].numpy())
+    assert bool((got[0, -1, :, 1] == 0).all()) and bool((want[0, -1, :, 1] > 0).all())
+    assert torch.equal(mask, want[:, -1:] > 0)
+    bf, _ = psplat.splat_fixed_plain(v.bfloat16(), flow)
+    assert bool((bf.view(torch.int16)[torch.isnan(bf)] == 0x7FFF).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,H,W,scale,offset", [(1, 13, 18, 1, (0, 0)), (3, 13, 18, 2, (1, 0)),
+                                                (5, 13, 18, 4, (3, 2)), (9, 13, 18, 1, (0, 0)),
+                                                (9, 37, 29, 3, (2, 1)), (4, 100, 70, 3, (2, 1))])
+def test_splat_fixed_plain_any_channels_and_shapes(C, H, W, scale, offset, dtype):
+    """The fixed-point plain version at channel counts below, at and past
+    the kernel's chunk of 4 (so its chunk loop, per-chunk flags and the hit
+    flag of the last chunk have a reference), and at sizes that are no
+    multiple of the kernel's 32-source tile or of the scale: against
+    splat_raw with float64 sums and JAX's splat, at the pins of
+    test_splat_fixed_plain_matches_float64_sums_and_jax."""
+    inp, flow = _inputs(100 + 7 * C + scale, B=2, H=H, W=W, C=C, flow_scale=4.0)
+    v = _nchw(inp).to(dtype)
+    got, mask = psplat.splat_fixed_plain(v, _nchw(flow), scale, offset)
+    want = psplat.splat_raw(v, _nchw(flow), scale, offset, acc_dtype=torch.float64)
+    assert got.shape == (2, C, H // scale, W // scale) and mask.shape == (2, 1, H // scale,
+                                                                           W // scale)
+    rel = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    _close(_nhwc(got), _nhwc(want), rel=rel)
+    assert torch.equal(mask, want[:, -1:] > 0)
+    if dtype == torch.float32:
+        _close(_nhwc(got), splat.splat_raw(jnp.asarray(inp), jnp.asarray(flow), scale, *offset))
+
+
 @pytest.mark.parametrize("scale", [1, 4])
 def test_splat_autograd_is_the_reference_vjp(scale):
     inp, flow = _inputs(7)
