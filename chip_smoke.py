@@ -50,8 +50,9 @@ it prints is one JSON object, flushed as it goes, apart from the card's
      block of a 128x128 b8 and a native b2 UNet eval, bf16 and f32, two
      launches bit for bit, beside the composition's time;
    - the splat backward at scales 1, 2, 4, 8 and 16 at 128x128 b16 and at
-     scale 1 at 448x1024 b2, against ``splat_bwd_raw``, and the hole mask
-     of the tiny-weight construction at 448x1024 against the plain path's;
+     scale 1 at 448x1024 b2, bit for bit against ``splat_bwd_raw`` (values
+     as integers), and the hole mask of the tiny-weight construction at
+     448x1024 against the plain path's;
    - the two conv kernels (``conv_rows``, ``conv_fold``) against
      ``conv2d_same_plain`` (and ``conv_fold`` with its prologue against
      ``conv2d_same_gn_plain``) at the level-0 3x3 64->64 and the 7x7 stem
@@ -93,7 +94,9 @@ it prints is one JSON object, flushed as it goes, apart from the card's
    captured from that step's block backwards (``kernel_vs_plain`` lines at
    ``train_activations_128x128_b16``, TOL_BWD), and the splat forward bit
    for bit against ``splat_fixed_plain`` on the inputs of that step's 10
-   splats (``splat_on_step_inputs``, with their times); one
+   splats (``splat_on_step_inputs``, with their times), and the splat
+   backward bit for bit against ``splat_bwd_raw`` on the inputs of its 5
+   (``splat_bwd_on_step_inputs``, with their times); one
    count window of 8 steps (augment, loss, backward, clip, Adam) whose
    launches must be 8x a step's (6 per backward pass, 5 splat backward, 10
    splat forward); train samples/s over the last 6 of them after 2
@@ -112,8 +115,8 @@ it prints is one JSON object, flushed as it goes, apart from the card's
 6. native_train: the flagship trained at native 448x1024 b2 with remat (the
    JAX ``bench.py`` row ``sintel_native_train_samples_per_sec``): one step
    with every kernel against the all-plain step (bf16), with rows 3-5 on its
-   captured activations (``train_activations_448x1024_b2``) and the splat on
-   its 11 splats' inputs; a count window of 2
+   captured activations (``train_activations_448x1024_b2``), the splat on
+   its 11 splats' inputs and the splat backward on its 5; a count window of 2
    warm-up and 3 timed steps with exact launches, native train samples/s and
    the window's peak memory.
 7. profiler: device times from ``torch.profiler``, after the last
@@ -122,7 +125,11 @@ it prints is one JSON object, flushed as it goes, apart from the card's
    448x1024 b2 (bf16, f32) and at the pyramid loss's f32 scales 2-16 at
    128x128 b16 by a flow and by a zero flow (``splat_by_pass`` lines, with
    CUDA-event ms taken before the first trace); row 4's device time a
-   launch at b16 and b2 and an empty kernel's (``device_times``).
+   launch at b16 and b2 and an empty kernel's (``device_times``); the splat
+   backward's device time a call at each case of its phase and per train
+   step on the two steps' captured inputs (``splat_bwd_device_times``);
+   row 7's device time a call at each qkv of its phase and summed over a
+   native b2 eval (``mid_ctx_device_times``).
 8. the kernels line: for each kernel its route, source, the TPU kernel it
    replaces, launches over all count windows, error, ms, plain ms, bound
    ms and what bounds it, library ms; for rows 6, 9 and 10 also
@@ -139,7 +146,10 @@ it prints is one JSON object, flushed as it goes, apart from the card's
    ``launches_per_call``, ``pyramid_128x128_b16_f32`` (ms and device ms
    at scales 2-16, by a flow and a zero flow), ``escape_share_modelled``,
    ``bitwise_cases`` and
-   ``per_native_step`` (its 11 calls on a native step's inputs).
+   ``per_native_step`` (its 11 calls on a native step's inputs); for the
+   splat backward ``device_ms`` (its 5 cases of a 128x128 b16 step),
+   ``per_128x128_step`` and ``per_native_step`` (its 5 calls on each
+   step's own inputs: events, plain, bound and device ms).
 9. the result line.
 
 Any failure raises and exits non-zero without the result line; so does a
@@ -608,6 +618,21 @@ def mid_bound_ms(Bn, N, xbytes):
     return 1e3 * nbytes / HBM_BPS, 1e3 * max(flops, exps)
 
 
+def mid_blocks(shapes):
+    """{N: blocks} of a UNet eval's qkv shapes."""
+    counts = {}
+    for N, _, c in shapes:
+        counts[N] = counts.get(N, 0) + c
+    return counts
+
+
+def mid_qkv(i, Bn, N, dtype):
+    """A standard-normal qkv (B, 384, N) from seed 1000 + i, laid out as the
+    module's 1x1 conv gives it, as the public (B, N, 384) view."""
+    g = torch.Generator(device="cuda").manual_seed(1000 + i)
+    return torch.randn(Bn, 384, N, generator=g, device="cuda").to(dtype).transpose(1, 2)
+
+
 def middle_phase(iters=20):
     """Rows 7-8 against middle_ctx_plain / middle_out_plain at the qkv shape
     (B, 384, N), laid out as the module's 1x1 conv gives it, of every block
@@ -619,13 +644,9 @@ def middle_phase(iters=20):
                  "ops_ms": 0.0} for k in ("ctx", "out")}
     composition_ms = 0.0
     for Bn, shapes, label in ((B, SHAPES, "128x128"), (NATIVE_B, NATIVE_SHAPES, "448x1024")):
-        counts = {}
-        for N, _, c in shapes:
-            counts[N] = counts.get(N, 0) + c
-        for i, (N, count) in enumerate(counts.items()):
+        for i, (N, count) in enumerate(mid_blocks(shapes).items()):
             for dtype in (torch.bfloat16, torch.float32):
-                g = torch.Generator(device="cuda").manual_seed(1000 + i)
-                qkv = torch.randn(Bn, 384, N, generator=g, device="cuda").to(dtype).transpose(1, 2)
+                qkv = mid_qkv(i, Bn, N, dtype)
                 with torch.no_grad():
                     c1, c2 = am.middle_ctx(qkv), am.middle_ctx(qkv)
                     cp = am.middle_ctx_plain(qkv)
@@ -943,6 +964,57 @@ def splat_bitwise_phase():
 
 
 @contextlib.contextmanager
+def captured_splat_bwd():
+    """The arguments of every splat backward kernel call inside the window,
+    detached copies, in call order."""
+    calls, original = [], sp.splat_bwd
+
+    def capture(inp, flow, g, scale=1, offset=(0, 0)):
+        calls.append((inp.detach().clone(), flow.detach().clone(), g.detach().clone(),
+                      int(scale), tuple(int(o) for o in offset)))
+        return original(inp, flow, g, scale, offset)
+
+    sp.splat_bwd = capture
+    try:
+        yield calls
+    finally:
+        sp.splat_bwd = original
+
+
+def splat_bwd_on_step_inputs(calls, label, launched):
+    """The splat backward kernel bit for bit against splat_bwd_raw on the
+    (inp, flow, g) of every backward splat of a train step (``calls`` from
+    captured_splat_bwd; all ``launched`` of the step's launches, 5), with the
+    kernel's and splat_bwd_raw's CUDA-event times and the bytes bound summed
+    over the step.  Returns the per-step sums, whether every call was bit
+    for bit, and the calls (profiler_phase takes their device time)."""
+    check(len(calls) == launched == TRAIN_EXPECTED["splat_bwd"],
+          f"{label}: captured {len(calls)} splat backward calls of the step's {launched} "
+          f"launches, expected {TRAIN_EXPECTED['splat_bwd']}")
+    rows, bad = [], []
+    kernel_ms = plain_ms = bound = 0.0
+    for i, (inp, flow, g, scale, off) in enumerate(calls):
+        exact = splat_bwd_equal(sp.splat_bwd(inp, flow, g, scale, off),
+                                sp.splat_bwd_raw(inp, flow, g, scale, off))
+        torch.cuda.synchronize()
+        if not exact:
+            bad.append(i)
+        ms = cuda_ms(lambda: sp.splat_bwd(inp, flow, g, scale, off), 10)
+        pms = cuda_ms(lambda: sp.splat_bwd_raw(inp, flow, g, scale, off), 3, 1)
+        b = splat_bwd_bound_ms(inp, g)
+        kernel_ms, plain_ms, bound = kernel_ms + ms, plain_ms + pms, bound + b
+        finite = torch.isfinite(flow)
+        rows.append(dict(shape=list(inp.shape), dtype=str(inp.dtype).split(".")[1],
+                         scale=scale, offset=list(off), ms=round(ms, 5), bound_ms=b,
+                         max_abs_flow_px=float(flow[finite].abs().max()) if finite.any() else 0.0))
+    phase("splat_bwd_on_step_inputs", at=label, calls=len(calls), bitwise_failed=bad,
+          kernel_ms_per_step=kernel_ms, plain_ms_per_step=plain_ms, bound_ms_per_step=bound,
+          per_call=rows)
+    check(not bad, f"splat_bwd differs from splat_bwd_raw on the {label} inputs: {bad}")
+    return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound, bitwise=not bad, calls=calls)
+
+
+@contextlib.contextmanager
 def captured_splats():
     """The arguments of every forward splat kernel call inside the window,
     detached copies, in call order."""
@@ -960,13 +1032,15 @@ def captured_splats():
         sp.splat_fwd = original
 
 
-def splat_on_step_inputs(calls, label):
+def splat_on_step_inputs(calls, label, launched):
     """The forward splat kernel bit for bit against splat_fixed_plain on the
     (inp, flow) of every splat of a train step (``calls`` from
-    captured_splats), with the modelled share of corners beyond the windows
-    per call
+    captured_splats; all ``launched`` of the step's launches), with the
+    modelled share of corners beyond the windows per call
     and the kernel's and splat_raw's CUDA-event times summed over the step.
     Returns the per-step sums."""
+    check(0 < len(calls) == launched,
+          f"{label}: captured {len(calls)} splat calls of the step's {launched} launches")
     rows, bad = [], []
     kernel_ms = plain_ms = 0.0
     for i, (inp, flow, scale, off) in enumerate(calls):
@@ -1007,8 +1081,13 @@ def profiler_phase():
     window so that no profiler trace precedes one: the splat forward by
     pass, with its launches per call, at SPLAT_PROFILE_CASES (their
     CUDA-event ms taken first, before any trace); row 4's device ms a
-    launch at b16 and b2; an empty kernel's launch.  Returns {"splat":
-    {label: row}, "bwd_kv1": {B: ms a launch}, "empty_device_ms": ms}."""
+    launch at b16 and b2; an empty kernel's launch; the splat backward's
+    device ms a call at splat_bwd_phase's cases and a step on the captured
+    train steps' inputs; row 7's device ms a call (the pass and its
+    combine) at middle_phase's qkv, and summed over a native b2 eval's 8
+    blocks (bf16).  Returns {"splat": {label: row}, "bwd_kv1": {B: ms a
+    launch}, "empty_device_ms": ms, "splat_bwd": {label: row}, "mid_ctx":
+    {label: row}, "mid_ctx_native_eval_device_ms": ms}."""
     cases = []
     for i, (label, Bn, H, W, dtype, scale, zero) in enumerate(SPLAT_PROFILE_CASES):
         x, metric, flow = splat_inputs(Bn, H, W, dtype, 1300 + i)
@@ -1035,7 +1114,39 @@ def profiler_phase():
                    .values()) for Bn, (c, d) in kv1_in.items()}
     empty = sum(device_split(empty_launch())[0].values())
     phase("device_times", bwd_kv1_device_ms_per_launch=kv1, empty_launch_device_ms=empty)
-    return {"splat": rows, "bwd_kv1": kv1, "empty_device_ms": empty}
+    # the splat backward: device ms a call at splat_bwd_phase's cases, and
+    # summed over the backward splats of each captured train step
+    bwd = {}
+    for i, (Bn, H, W, scale) in enumerate(SPLAT_BWD_CASES):
+        for dtype in (torch.bfloat16, torch.float32):
+            v, flow, cot = splat_bwd_inputs(i, Bn, H, W, scale, dtype)
+            split, per_call = device_split(lambda: sp.splat_bwd(v, flow, cot, scale))
+            label = f"{H}x{W}_b{Bn}_s{scale}_{str(dtype).split('.')[1]}"
+            bwd[label] = dict(device_ms=sum(split.values()), launches_per_call=per_call,
+                              bound_ms=splat_bwd_bound_ms(v, cot))
+            del v, flow, cot
+    for label, st in STEP_SPLAT_BWD.items():
+        bwd["train_step_" + label] = dict(device_ms=sum(
+            sum(device_split(lambda a=a: sp.splat_bwd(*a))[0].values()) for a in st["calls"]),
+            calls=len(st["calls"]), bound_ms=st["bound_ms"])
+    phase("splat_bwd_device_times", per_case=bwd)
+    mid, mid_native = {}, 0.0
+    for Bn, shapes, at in ((B, SHAPES, "128x128"), (NATIVE_B, NATIVE_SHAPES, "448x1024")):
+        for i, (N, count) in enumerate(mid_blocks(shapes).items()):
+            for dtype in (torch.bfloat16, torch.float32):
+                qkv = mid_qkv(i, Bn, N, dtype)
+                with torch.no_grad():
+                    split, per_call = device_split(lambda: am.middle_ctx(qkv), 10)
+                row = dict(B=Bn, N=N, blocks=count, device_ms=sum(split.values()),
+                           launches_per_call=per_call,
+                           bound_ms=max(mid_bound_ms(Bn, N, qkv.element_size())))
+                mid[f"{at}_b{Bn}_N{N}_{str(dtype).split('.')[1]}"] = row
+                if at == "448x1024" and dtype == torch.bfloat16:
+                    mid_native += count * row["device_ms"]
+                del qkv
+    phase("mid_ctx_device_times", per_case=mid, native_eval_device_ms=mid_native)
+    return {"splat": rows, "bwd_kv1": kv1, "empty_device_ms": empty, "splat_bwd": bwd,
+            "mid_ctx": mid, "mid_ctx_native_eval_device_ms": mid_native}
 
 
 def bwd_bound_ms(kernel, Bn, C, N, xbytes, f32_cores=False):
@@ -1157,35 +1268,60 @@ def la_bwd_phase(Bn=TRAIN_B, shapes=TRAIN_SHAPES, dtypes=(torch.bfloat16, torch.
     return stats
 
 
+# the splat backward's cases: (B, H, W, scale), each in bf16 and f32 values
+SPLAT_BWD_CASES = tuple((TRAIN_B, 128, 128, sc) for sc in (1, 2, 4, 8, 16)) + ((2, 448, 1024, 1),)
+
+
+def splat_bwd_inputs(i, Bn, H, W, scale, dtype):
+    """Values in [-1, 1] (4 channels), a 4 px flow with one infinite target
+    and a standard-normal cotangent, from seed 800 + i."""
+    g = torch.Generator(device="cuda").manual_seed(800 + i)
+    v = (2 * torch.rand(Bn, 4, H, W, generator=g, device="cuda") - 1).to(dtype)
+    flow = 4 * torch.randn(Bn, 2, H, W, generator=g, device="cuda")
+    flow[0, 0, 0, 0] = float("inf")
+    cot = torch.randn(Bn, 4, H // scale, W // scale, generator=g, device="cuda")
+    return v, flow, cot
+
+
+def splat_bwd_bound_ms(inp, cot):
+    """Bytes ms of one splat backward: inp, flow and the cotangent read once,
+    d_inp and d_flow written once."""
+    Bn, C, H, W = inp.shape
+    nbytes = Bn * H * W * (2 * C * inp.element_size() + 2 * 2 * 4) + cot.numel() * 4
+    return 1e3 * nbytes / HBM_BPS
+
+
+def splat_bwd_equal(got, want):
+    """(d_inp, d_flow) equal bit for bit, values as integers."""
+    return all(bitwise_equal(a, b) for a, b in zip(got, want))
+
+
 def splat_bwd_phase():
-    """The splat backward kernel against splat_bwd_raw at every scale of a
-    128x128 b16 train step (bf16 and f32 values) and at scale 1 at 448x1024
-    b2; and the tiny-weight hole-mask construction at 448x1024.  Returns the
-    per-step sums (bf16 at scale 1 as the UNet's warp, f32 at the pyramid
-    scales as the loss) and the largest error."""
-    per_step = {"ms": 0.0, "plain_ms": 0.0, "bound": 0.0}
+    """The splat backward kernel bit for bit against splat_bwd_raw (and
+    within TOL_SPLAT) at every scale of a 128x128 b16 train step (bf16 and
+    f32 values) and at scale 1 at 448x1024 b2; and the tiny-weight
+    hole-mask construction at 448x1024.  Returns the per-step sums (bf16 at
+    scale 1 as the UNet's warp, f32 at the pyramid scales as the loss) with
+    whether every case was bit for bit, and the largest error."""
+    per_step = {"ms": 0.0, "plain_ms": 0.0, "bound": 0.0, "bitwise": True}
     worst = 0.0
-    cases = [(TRAIN_B, 128, 128, sc) for sc in (1, 2, 4, 8, 16)] + [(2, 448, 1024, 1)]
-    for i, (Bn, H, W, scale) in enumerate(cases):
+    for i, (Bn, H, W, scale) in enumerate(SPLAT_BWD_CASES):
         for dtype in (torch.bfloat16, torch.float32):
-            g = torch.Generator(device="cuda").manual_seed(800 + i)
-            v = (2 * torch.rand(Bn, 4, H, W, generator=g, device="cuda") - 1).to(dtype)
-            flow = 4 * torch.randn(Bn, 2, H, W, generator=g, device="cuda")
-            flow[0, 0, 0, 0] = float("inf")
-            cot = torch.randn(Bn, 4, H // scale, W // scale, generator=g, device="cuda")
+            v, flow, cot = splat_bwd_inputs(i, Bn, H, W, scale, dtype)
             d_inp, d_flow = sp.splat_bwd(v, flow, cot, scale)
             w_inp, w_flow = sp.splat_bwd_raw(v, flow, cot, scale)
             torch.cuda.synchronize()
+            exact = splat_bwd_equal((d_inp, d_flow), (w_inp, w_flow))
             e_in = err(d_inp, w_inp)[0] / max(float(w_inp.float().abs().max()), 1e-30)
             e_fl = err(d_flow, w_flow)[0] / max(float(w_flow.abs().max()), 1e-30)
             times = {"ms": cuda_ms(lambda: sp.splat_bwd(v, flow, cot, scale)),
                      "plain_ms": cuda_ms(lambda: sp.splat_bwd_raw(v, flow, cot, scale), 5, 1)}
-            xb = v.element_size()
-            nbytes = Bn * H * W * (2 * 4 * xb + 2 * 2 * 4) + cot.numel() * 4
-            bound = 1e3 * nbytes / HBM_BPS
+            bound = splat_bwd_bound_ms(v, cot)
             phase("kernel_vs_plain", kernel="splat_bwd", B=Bn, H=H, W=W, scale=scale,
-                  dtype=str(dtype).split(".")[1], d_inp_max_rel=e_in, d_flow_max_rel=e_fl,
-                  bound_ms=bound, **{k: round(t, 5) for k, t in times.items()})
+                  dtype=str(dtype).split(".")[1], bitwise_vs_plain=exact, d_inp_max_rel=e_in,
+                  d_flow_max_rel=e_fl, bound_ms=bound, **{k: round(t, 5) for k, t in times.items()})
+            per_step["bitwise"] &= exact
+            check(exact, f"splat_bwd differs from splat_bwd_raw at {Bn, H, W, scale, dtype}")
             check(e_in <= TOL_SPLAT[dtype] and e_fl <= TOL_SPLAT[torch.float32],
                   f"splat_bwd disagrees at {Bn, H, W, scale, dtype}: {e_in} {e_fl}")
             worst = max(worst, e_in, e_fl)
@@ -1588,8 +1724,9 @@ def bwd_on_activations(calls, label):
               f"activations: {e}")
 
 
-# the splat kernel on the captured inputs of one train step, by "HxW_bB"
+# the splat kernels on the captured inputs of one train step, by "HxW_bB"
 STEP_SPLATS = {}
+STEP_SPLAT_BWD = {}
 
 
 def train_batch(seed=0, B=TRAIN_B, H=128, W=128):
@@ -1629,8 +1766,10 @@ def step_vs_plain(precision, batch, conv_backend="cudnn", remat=False, tol=None)
     is rematerialised.  Where the bottleneck takes the flash kernel (N >=
     2048: the native batch) the plain step runs its plain recurrence.  The
     cuDNN bf16 step also holds rows 3-5 to their plain versions on its own
-    block activations (bwd_on_activations), and the splat kernel bit for bit
-    to splat_fixed_plain on its splats' own inputs (splat_on_step_inputs)."""
+    block activations (bwd_on_activations), the splat kernel bit for bit
+    to splat_fixed_plain on its splats' own inputs (splat_on_step_inputs),
+    and the splat backward bit for bit to splat_bwd_raw on its own inputs
+    (splat_bwd_on_step_inputs)."""
     cfg = dataclasses.replace(FLAGSHIP, zero_init=False, precision=precision,
                               conv_backend=conv_backend, remat=remat)
     algo = FlowDiffuser(cfg, device="cuda", generator=torch.Generator().manual_seed(SEED))
@@ -1643,12 +1782,19 @@ def step_vs_plain(precision, batch, conv_backend="cudnn", remat=False, tol=None)
             if capture:
                 calls = stack.enter_context(captured_block_bwd())
                 splat_calls = stack.enter_context(captured_splats())
+                splat_bwd_calls = stack.enter_context(captured_splat_bwd())
+            launched = (kernels.SPLAT.launches, kernels.SPLAT_BWD.launches)
             loss_k, g_k = step_grads(algo, batch, 11)
+            launched = (kernels.SPLAT.launches - launched[0],
+                        kernels.SPLAT_BWD.launches - launched[1])
         if capture:
             label = f"{batch[0].shape[2]}x{batch[0].shape[3]}_b{batch[0].shape[0]}"
             bwd_on_activations(calls, "train_activations_" + label)
-            STEP_SPLATS[label] = splat_on_step_inputs(splat_calls, "train_step_" + label)
-            del calls, splat_calls
+            STEP_SPLATS[label] = splat_on_step_inputs(splat_calls, "train_step_" + label,
+                                                      launched[0])
+            STEP_SPLAT_BWD[label] = splat_bwd_on_step_inputs(splat_bwd_calls,
+                                                             "train_step_" + label, launched[1])
+            del calls, splat_calls, splat_bwd_calls
         flash = batch[0].shape[2] * batch[0].shape[3] // 64 >= fa.FLASH_MIN_N
         with plain_versions(attention="passes", splat=True, conv=conv, flash=flash):
             loss_p, g_p = step_grads(algo, batch, 11)
@@ -1895,10 +2041,30 @@ def main():
                                                  "remat train step, on their own inputs"))
         elif k is kernels.SPLAT_BWD:
             r = splat_bwd_row
+            st128, nat = (STEP_SPLAT_BWD[f"{h}x{w}_b{b}"] for h, w, b in (
+                (128, 128, TRAIN_B), (NATIVE.height, NATIVE.width, NATIVE_TRAIN_B)))
+            dev = prof["splat_bwd"]
             vals = dict(max_abs_err=splat_bwd_err, ms=r["ms"], plain_ms=r["plain_ms"],
                         bound_ms=r["bound"], bound_by="bytes", library_ms=None,
                         per=f"one 128x128 b{TRAIN_B} train step (5 launches: scale 1 bf16, "
-                            "scales 2-16 f32)")
+                            "scales 2-16 f32)",
+                        bitwise_vs_plain=r["bitwise"] and st128["bitwise"] and nat["bitwise"],
+                        device_ms=sum(dev[f"128x128_b{TRAIN_B}_s{sc}_"
+                                          f"{'bfloat16' if sc == 1 else 'float32'}"]["device_ms"]
+                                      for sc in (1, 2, 4, 8, 16)),
+                        per_128x128_step=dict(
+                            ms=st128["ms"], plain_ms=st128["plain_ms"], bound_ms=st128["bound_ms"],
+                            device_ms=dev[f"train_step_128x128_b{TRAIN_B}"]["device_ms"],
+                            calls=len(st128["calls"]),
+                            per="the splat backwards of one 128x128 b16 train step, on their "
+                                "own inputs"),
+                        per_native_step=dict(
+                            ms=nat["ms"], plain_ms=nat["plain_ms"], bound_ms=nat["bound_ms"],
+                            device_ms=dev[f"train_step_{NATIVE.height}x{NATIVE.width}_"
+                                          f"b{NATIVE_TRAIN_B}"]["device_ms"],
+                            calls=len(nat["calls"]),
+                            per=f"the splat backwards of one 448x1024 b{NATIVE_TRAIN_B} remat "
+                                "train step, on their own inputs"))
         elif k in (kernels.CONV_ROWS, kernels.CONV_FOLD):
             r = conv_rows_[k.name]
             vals = dict(max_abs_err=conv_err[k.name], **r,
@@ -1911,6 +2077,8 @@ def main():
                         bound_ms=st["bound"], bound_by=st["bound_by"], library_ms=None,
                         per=f"the qkv of the 8 blocks of one 448x1024 b{NATIVE_B} UNet eval "
                             "(8 launches, bf16)")
+            if k is kernels.LA_MID_CTX:
+                vals["device_ms"] = prof["mid_ctx_native_eval_device_ms"]
         elif k in bwd:
             st, nat = la_bwd[bwd[k]], la_bwd_native[bwd[k]]
             vals = dict(max_abs_err=max(st["err"], nat["err"]), ms=st["ms"],

@@ -46,6 +46,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include <atomic>
+
 using namespace nvcuda;
 
 namespace {
@@ -225,13 +227,6 @@ __device__ __forceinline__ void ctx_tile(float* kvS, int nvalid, float* chS, flo
   __syncthreads();
 }
 
-// The end of the unfused middle's context pass over grid (P, B): this CTA
-// writes its partial (ctx_partial); the last CTA of b to finish (an atomic
-// ticket on counter[b], which it leaves zero) combines the P partials in the
-// order p = 0 .. P-1 into ctx_out (B, NH, DH, DH) = sums / s and, where
-// given, m_out and s_out (B, HD).  The same bits on every run: no float
-// atomics.  scratch: 2 HD floats.  (The block's pass A hands its partials
-// to la_ctx_combine_kernel instead.)
 // This CTA's partial (m, s, context sums) of batch element b -> part (B, P, PART).
 __device__ __forceinline__ void ctx_partial(float* __restrict__ part, float m_run, float s_run,
                                             const float (&acc)[16], int b, int p, int P) {
@@ -244,53 +239,6 @@ __device__ __forceinline__ void ctx_partial(float* __restrict__ part, float m_ru
   }
 #pragma unroll
   for (int i = 0; i < 16; ++i) pb[2 * HD + kj * DH + e0 + i] = acc[i];
-}
-
-__device__ __forceinline__ void ctx_finish(float* __restrict__ part, int* __restrict__ counter,
-                                           float m_run, float s_run, const float (&acc)[16],
-                                           float* scratch, float* __restrict__ ctx_out,
-                                           float* __restrict__ m_out,
-                                           float* __restrict__ s_out, int b, int p, int P) {
-  __shared__ int is_last;
-  const int tid = threadIdx.x;
-  const int kj = (tid / 64) * DH + (tid % 64) / 2, e0 = (tid % 2) * 16;
-  ctx_partial(part, m_run, s_run, acc, b, p, P);
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) is_last = atomicAdd(counter + b, 1) == P - 1;
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
-
-  const float* base = part + (size_t)b * P * PART;
-  if (tid < HD) {
-    float m = -INFINITY;
-    for (int q = 0; q < P; ++q) m = fmaxf(m, __ldcg(base + q * PART + tid));
-    float s = 0.f;
-    for (int q = 0; q < P; ++q)
-      s += __ldcg(base + q * PART + HD + tid) * expf(__ldcg(base + q * PART + tid) - m);
-    if (m_out != nullptr) {
-      m_out[b * HD + tid] = m;
-      s_out[b * HD + tid] = s;
-    }
-    scratch[tid] = m;
-    scratch[HD + tid] = s;
-  }
-  __syncthreads();
-  const float m = scratch[kj], s = scratch[HD + kj];
-  float out[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) out[i] = 0.f;
-  for (int q = 0; q < P; ++q) {
-    const float w = expf(__ldcg(base + q * PART + kj) - m);
-    const float* pc = base + q * PART + 2 * HD + kj * DH + e0;
-#pragma unroll
-    for (int i = 0; i < 16; ++i) out[i] += w * __ldcg(pc + i);
-  }
-  float* co = ctx_out + (size_t)b * NH * DH * DH + kj * DH + e0;
-#pragma unroll
-  for (int i = 0; i < 16; ++i) co[i] = out[i] / s;
-  if (tid == 0) counter[b] = 0;
 }
 
 // Pass A, f32 x.  grid (P, B).  Writes this CTA's partial to part (B, P,
@@ -1106,10 +1054,10 @@ la_ctx_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CU
   }
 }
 
-// The combine of pass A (either dtype): part (B, P, PART) -> ctx (B, NH, DH,
-// DH) = sums / s, m and s (B, HD).  grid (NH * DH * DH / THREADS, B); thread
-// (kj, e) folds the P partials of its entry in the order p = 0 .. P-1, as
-// ctx_finish does in one CTA.
+// The combine of a context pass (the block's pass A in either dtype, and the
+// unfused middle's): part (B, P, PART) -> ctx (B, NH, DH, DH) = sums / s and,
+// where given, m and s (B, HD).  grid (NH * DH * DH / THREADS, B); thread
+// (kj, e) folds the P partials of its entry in the order p = 0 .. P-1.
 __global__ void __launch_bounds__(THREADS)
 la_ctx_combine_kernel(const float* __restrict__ part, int P, float* __restrict__ ctx_out,
                       float* __restrict__ m_out, float* __restrict__ s_out) {
@@ -1127,7 +1075,7 @@ la_ctx_combine_kernel(const float* __restrict__ part, int P, float* __restrict__
     out += w * __ldg(base + (size_t)q * PART + 2 * HD + kj * DH + e);
   }
   ctx_out[(size_t)b * NH * DH * DH + idx] = out / s;
-  if (e == 0) {
+  if (e == 0 && m_out != nullptr) {
     m_out[b * HD + kj] = m;
     s_out[b * HD + kj] = s;
   }
@@ -1482,7 +1430,9 @@ la_out_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CU
 //   la_mid_ctx_kernel <- _ctx_kernel (pass A): per (h, d) channel an online
 //                        max and sum over N of exp(k), and the per-head
 //                        context ctx[h][d][e] = sum_n softmax_N(k)[n, h, d]
-//                        v[n, h, e], f32 (B, NH, DH, DH).
+//                        v[n, h, e], f32 (B, NH, DH, DH) (with
+//                        la_ctx_combine_kernel, which folds the CTAs'
+//                        partials).
 //   la_mid_out_kernel <- _out_kernel (pass B): per position and head q' =
 //                        softmax_d(q) * DH^-0.5 and out[h, e] = sum_d q'[d]
 //                        ctx[h][d][e] / N, rounded once to qkv's dtype and
@@ -1492,47 +1442,218 @@ la_out_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CU
 // values of qkv (bf16 or f32), the context kept per head (the TPU's
 // block-diagonal (128, 128) without its zeros), ctx / N folded into pass B.
 // N takes any value: a ragged last tile leaves its tail out of every sum
-// (the TPU pads N with k = -1e30).  Pass A runs la_ctx_kernel's tile update
-// and its ordered last-CTA combine on k and v read straight from qkv.  The
-// TPU's roll-max cascade and selector matmuls exist for its 128-lane tiles
-// and have no counterpart here.
+// (the TPU pads N with k = -1e30).  The TPU's roll-max cascade and selector
+// matmuls exist for its 128-lane tiles and have no counterpart here.
 //
 // Bound on the H100: pass A reads k and v, pass B reads q and writes out:
 // 2 HD values per position each, ~470 MB at B 2, N 458752 in bf16 (0.14
-// ms).  Their f32 arithmetic (2 * 4096 FLOP per position on CUDA cores) is
-// the next bound.  A first, simple version: one CTA of 256 threads per tile
-// of 32 positions, the tile staged in shared memory as f32.
-constexpr int LDM = T + 1;  // [HD][T] f32 q tile of pass B
+// ms).  Their f32 arithmetic (2 * 4096 FLOP per position) is the next
+// bound.
+//
+// Pass A is the block's pass A (the Hopper bodies of rows 1-2) without the
+// LayerNorm and the projection: persistent CTAs, grid (P, B) from the
+// wrapper's mid_plan, CTA p walking the tiles p, p + P, ... of batch element
+// b.  One producer thread keeps a ring of MID_STAGES tiles filled by TMA
+// (cp.async.bulk.tensor, a 3-d map over the k and v rows as (ld, 2 HD, B)
+// with the batch stride, [2 HD][TN] boxes of 128-byte rows, TN = 64 bf16 or
+// 32 f32 positions, 128-byte swizzle); ld and the batch stride are
+// multiples of 16 bytes (the wrapper copies a ragged or misaligned qkv once
+// into a zero-padded buffer).  Eight consumer warps share nothing but the
+// ring: warp (h, mh) owns the k channels d = 16 mh .. 16 mh + 15 of head h
+// and their context rows ctx[h][d][0 .. 31].  A lane reads its two channels'
+// k values of the tile straight into the A fragments of mma.sync m16n8k8,
+// keeps their online max and sum (a quad of lanes holds a channel's row:
+// two shuffles), turns them into exp(k - m) (ex2.approx) in registers, and
+// sums the tile's E^T V (16 d x TN positions x 32 e) on the tensor cores in
+// split TF32: exp(k - m) split into two TF32 parts, v too for f32 x (the
+// three largest of the four products), while a bf16 v is exact in TF32 (two
+// products).  V's fragments come from the tile as TMA left it: the
+// swizzle puts the 8 rows a fragment reads in 8 different bank groups, so
+// the loads are conflict-free (bf16 takes a lane's two positions of a
+// k-step as one 32-bit word, its k index permuted alike in A and B).  Each
+// tile's products are summed on their own before they join the running
+// sums, rescaled as the max grows (the two-level sum of the block's pass
+// A).  Each CTA writes one partial (m, s, sums) and la_ctx_combine_kernel
+// folds them in the order p = 0 .. P-1: no float atomics, the same bits on
+// every run.  Every mbarrier wait traps after ~10 s.
+constexpr int MID_THREADS = 288;  // 8 consumer warps, then the producer warp
+constexpr int MID_ROW = 128;      // bytes of one channel row of a tile
+constexpr uint32_t MID_TILE = 2 * HD * MID_ROW;
+constexpr int MID_STAGES = 3;     // tiles in flight a CTA (two CTAs an SM)
+// the ring, its full and empty barriers, and the 1024-byte alignment slack
+constexpr size_t MID_SMEM = 1024 + (size_t)MID_STAGES * MID_TILE + (size_t)2 * MID_STAGES * 8;
+static_assert(2 * MID_SMEM <= 228 * 1024, "two pass-A CTAs must share an SM");
 
-// Pass A.  grid (P, B).  part (B, P, PART) f32 scratch; counter (B,) int32,
-// zero on entry and left zero; ctx (B, NH, DH, DH) f32.
+// Byte offset of (row r, position t) in a [2 HD][TN] tile of 128-byte rows
+// under the 128-byte swizzle (16-byte chunk t / 16 XOR r mod 8).
 template <typename TX>
-__global__ void __launch_bounds__(THREADS)
-la_mid_ctx_kernel(const TX* __restrict__ qkv, long long batch_stride, float* __restrict__ part,
-                  int* __restrict__ counter, float* __restrict__ ctx_out, int N) {
-  __shared__ __align__(16) float kvS[T * LDK];
-  __shared__ float scratch[2 * HD];
-  const int b = blockIdx.y, p = blockIdx.x, P = gridDim.x;
-  const int tid = threadIdx.x;
-  const int ntiles = (N + T - 1) / T;
-  const TX* kv = qkv + (size_t)b * batch_stride + (size_t)HD * N;  // k, then v
-  float acc[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
-  float m_run = -INFINITY, s_run = 0.f;
-
-  for (int tile = p; tile < ntiles; tile += P) {
-    const int n0 = tile * T;
-    const int nvalid = min(T, N - n0);
-    for (int i = tid; i < 2 * HD * T; i += THREADS) {
-      const int j = i / T, t = i % T;
-      kvS[t * LDK + j] = t < nvalid ? to_f(kv[(size_t)j * N + n0 + t]) : 0.f;
-    }
-    __syncthreads();
-    ctx_tile(kvS, nvalid, scratch, m_run, s_run, acc);
-  }
-  ctx_finish(part, counter, m_run, s_run, acc, scratch, ctx_out, nullptr, nullptr, b, p, P);
+__device__ __forceinline__ uint32_t mid_at(int r, int t) {
+  const uint32_t byte = t * sizeof(TX);
+  return r * MID_ROW + ((((byte >> 4) ^ r) & 7) << 4) + (byte & 15);
 }
+// The position of a lane's value h (0: the k index cq of an m16n8k8 A or B
+// fragment, 1: cq + 4) of k-step kk.  f32: 8 kk + cq + 4 h; bf16: 8 kk + 2 cq
+// + h, both in one 32-bit word (the k index permuted alike in A and B).
+template <typename TX>
+__device__ __forceinline__ int mid_pos(int kk, int cq, int h) {
+  return sizeof(TX) == 4 ? 8 * kk + cq + 4 * h : 8 * kk + 2 * cq + h;
+}
+// a lane's values 0 and 1 of k-step kk of row r, as f32
+__device__ __forceinline__ void mid_pair(const unsigned char* tile, int r, int kk, int cq,
+                                         float (&v)[2], float) {
+  v[0] = *reinterpret_cast<const float*>(tile + mid_at<float>(r, mid_pos<float>(kk, cq, 0)));
+  v[1] = *reinterpret_cast<const float*>(tile + mid_at<float>(r, mid_pos<float>(kk, cq, 1)));
+}
+__device__ __forceinline__ void mid_pair(const unsigned char* tile, int r, int kk, int cq,
+                                         float (&v)[2], bf16) {
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(tile + mid_at<bf16>(r, mid_pos<bf16>(kk, cq, 0)));
+  v[0] = __uint_as_float(u << 16);
+  v[1] = __uint_as_float(u & 0xffff0000u);
+}
+
+// Pass A.  grid (P, B), MID_THREADS threads, MID_SMEM bytes; tkv maps the
+// k and v rows of qkv (channels HD .. 3 HD - 1) as (ld, 2 HD, B).  Writes this
+// CTA's partial to part (B, P, PART).
+template <typename TX>
+__global__ void __launch_bounds__(MID_THREADS, 2)
+la_mid_ctx_kernel(const __grid_constant__ CUtensorMap tkv, float* __restrict__ part, int N) {
+  constexpr int S = MID_STAGES;
+  constexpr int TN = MID_ROW / sizeof(TX);  // positions per tile
+  constexpr int KS = TN / 8;                // k-steps of m16n8k8
+  extern __shared__ unsigned char la_smem_raw[];
+  unsigned char* sm = align1024(la_smem_raw);
+  const int b = blockIdx.y, p = blockIdx.x, P = gridDim.x;
+  const int ntiles = (N + TN - 1) / TN;
+  const int my = (ntiles - 1 - p) / P + 1;  // tiles p, p + P, ... (p < ntiles)
+  const uint32_t base = smem_u32(sm);
+  const uint32_t full = base + S * MID_TILE, empty = full + 8 * S;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp == 8) {
+    // ---- producer: the k | v tiles
+    if (lane == 0)
+      for (int i = 0; i < my; ++i) {
+        const int s = i % S;
+        if (i >= S) mbar_wait(empty + 8 * s, (i / S - 1) & 1);
+        mbar_expect_tx(full + 8 * s, MID_TILE);
+        tma_load_3d(base + s * MID_TILE, &tkv, full + 8 * s, (p + i * P) * TN, 0, b);
+      }
+    return;
+  }
+
+  // ---- consumers: warp (h, mh) takes the k rows rk and rk + 8 (a lane's two
+  // fragment rows), and all DH v rows of head h from rv
+  const int h = warp >> 1, mh = warp & 1, g8 = lane >> 2, cq = lane & 3;
+  const int rk = h * DH + 16 * mh + g8, rv = HD + h * DH + g8;
+  float cacc[4][4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) cacc[nt][k] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, s_run[2] = {0.f, 0.f};
+
+  for (int i = 0; i < my; ++i) {
+    const int s = i % S, nvalid = min(TN, N - (p + i * P) * TN);
+    const unsigned char* tile = sm + s * MID_TILE;
+    mbar_wait_warp(full + 8 * s, (i / S) & 1);
+    float a[2][KS][2];  // k, then exp(k - m): rows rk, rk + 8
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) mid_pair(tile, rk + 8 * r, kk, cq, a[r][kk], TX());
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mt = -INFINITY;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (mid_pos<TX>(kk, cq, e) < nvalid) mt = fmaxf(mt, a[r][kk][e]);
+      mt = fmaxf(mt, __shfl_xor_sync(FULL_MASK, mt, 1));
+      mt = fmaxf(mt, __shfl_xor_sync(FULL_MASK, mt, 2));
+      const float m_new = fmaxf(m_run[r], mt), ml = m_new * L2E;
+      alpha[r] = expf(m_run[r] - m_new);
+      float ssum = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float x = mid_pos<TX>(kk, cq, e) < nvalid ? ex2(fmaf(a[r][kk][e], L2E, -ml)) : 0.f;
+          a[r][kk][e] = x;
+          ssum += x;
+        }
+      ssum += __shfl_xor_sync(FULL_MASK, ssum, 1);
+      ssum += __shfl_xor_sync(FULL_MASK, ssum, 2);
+      s_run[r] = s_run[r] * alpha[r] + ssum;
+      m_run[r] = m_new;
+    }
+
+    // this tile's E^T V in split TF32: A (16 d x 8 positions) from registers,
+    // B (8 positions x 8 e) from the v rows of the tile
+    float ts[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) ts[nt][k] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t ahi[4], alo[4];
+      split_tf32(a[0][kk][0], ahi[0], alo[0]);
+      split_tf32(a[1][kk][0], ahi[1], alo[1]);
+      split_tf32(a[0][kk][1], ahi[2], alo[2]);
+      split_tf32(a[1][kk][1], ahi[3], alo[3]);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        float bv[2];
+        mid_pair(tile, rv + 8 * nt, kk, cq, bv, TX());
+        uint32_t bhi[2], blo[2];
+        if (sizeof(TX) == 2) {  // a bf16 value is exact in TF32
+          bhi[0] = __float_as_uint(bv[0]);
+          bhi[1] = __float_as_uint(bv[1]);
+          mma_tf32(ts[nt], alo, bhi);
+          mma_tf32(ts[nt], ahi, bhi);
+        } else {
+          split_tf32(bv[0], bhi[0], blo[0]);
+          split_tf32(bv[1], bhi[1], blo[1]);
+          mma_tf32(ts[nt], alo, bhi);  // the small products first
+          mma_tf32(ts[nt], ahi, blo);
+          mma_tf32(ts[nt], ahi, bhi);
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);  // the warp's reads of the stage are done
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      cacc[nt][0] = cacc[nt][0] * alpha[0] + ts[nt][0];
+      cacc[nt][1] = cacc[nt][1] * alpha[0] + ts[nt][1];
+      cacc[nt][2] = cacc[nt][2] * alpha[1] + ts[nt][2];
+      cacc[nt][3] = cacc[nt][3] * alpha[1] + ts[nt][3];
+    }
+  }
+
+  float* pb = part + ((size_t)b * P + p) * PART;
+  if (cq == 0) {
+    pb[rk] = m_run[0], pb[rk + 8] = m_run[1];
+    pb[HD + rk] = s_run[0], pb[HD + rk + 8] = s_run[1];
+  }
+  float* pc = pb + 2 * HD + rk * DH + 2 * cq;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    *reinterpret_cast<float2*>(pc + 8 * nt) = make_float2(cacc[nt][0], cacc[nt][1]);
+    *reinterpret_cast<float2*>(pc + 8 * DH + 8 * nt) = make_float2(cacc[nt][2], cacc[nt][3]);
+  }
+}
+
+constexpr int LDM = T + 1;  // [HD][T] f32 q tile of pass B
 
 // Pass B.  grid (ceil(N / T), B).  ctx (B, NH, DH, DH) f32 from pass A; out
 // (B, HD, N) in TX.
@@ -3823,12 +3944,51 @@ int launch_bwd_kv2(const void* x, int x_bf16, int ld, const float* g_pre, const 
   return reduce_records(part, kv2_record(C), 0, B * P, (int)kv2_record(C), 1, out_w, st);
 }
 
+// the k and v rows (2 HD, from channel HD) of qkv as (ld, 2 HD, B) in TX
+// with batch stride bstride (elements), [2 HD][128 bytes] boxes under the
+// 128-byte swizzle; zero past ld
 template <typename TX>
-int launch_mid_ctx(const void* qkv, long long batch_stride, float* part, int* counter,
-                   float* ctx, int B, int N, int P, cudaStream_t st) {
-  la_mid_ctx_kernel<TX><<<dim3(P, B), THREADS, 0, st>>>(static_cast<const TX*>(qkv),
-                                                        batch_stride, part, counter, ctx, N);
-  return (int)cudaGetLastError();
+bool map_kv(CUtensorMap* map, const void* kv, int ld, long long bstride, int B) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)ld, (cuuint64_t)(2 * HD), (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * sizeof(TX), (cuuint64_t)bstride * sizeof(TX)};
+  const cuuint32_t box[3] = {(cuuint32_t)(MID_ROW / sizeof(TX)), 2 * HD, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, sizeof(TX) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+            3, const_cast<void*>(kv), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The body's shared-memory limit, raised to the most a CTA may have once per
+// body and device (the CUDA call would otherwise cost every launch).
+template <typename TX>
+int mid_smem_once(int device) {
+  static std::atomic<unsigned long long> done{0};
+  const unsigned long long bit = device < 64 ? 1ull << device : 0ull;
+  if (bit && (done.load() & bit)) return 0;
+  const int err = set_smem(la_mid_ctx_kernel<TX>, SMEM_LIMIT);
+  if (err == 0) done.fetch_or(bit);
+  return err;
+}
+
+// Pass A of the unfused middle and its combine.  P, the CTAs per batch
+// element, is the wrapper's mid_plan (1 <= P <= tiles).
+template <typename TX>
+int launch_mid_ctx(const void* kv, int ld, long long bstride, float* part, float* ctx, int B,
+                   int N, int P, int device, cudaStream_t st) {
+  const int q = 16 / sizeof(TX), tn = MID_ROW / sizeof(TX);
+  if (B < 1 || B > 65535 || N < 1 || ld < N || ld % q || bstride % q || bstride < 2LL * HD * ld ||
+      !aligned16(kv) || P < 1 || P > (N + tn - 1) / tn)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tkv;
+  if (!map_kv<TX>(&tkv, kv, ld, bstride, B)) return (int)cudaErrorInvalidValue;
+  int err = mid_smem_once<TX>(device);
+  if (err) return err;
+  la_mid_ctx_kernel<TX><<<dim3(P, B), MID_THREADS, MID_SMEM, st>>>(tkv, part, N);
+  err = (int)cudaGetLastError();
+  return err ? err : combine(part, P, ctx, nullptr, nullptr, B, st);
 }
 
 template <typename TX>
@@ -3938,17 +4098,22 @@ int ofd_la_bwd_kv2(const void* x, int x_bf16, int ld, const float* g_pre, const 
                         device, static_cast<cudaStream_t>(stream));
 }
 
-// The unfused middle's launchers.  qkv (B, 3 HD, N) with batch stride
-// batch_stride (elements), bf16 (qkv_bf16 = 1) or f32.  Pass A: part (B, P,
-// PART) f32 scratch and counter (B,) int32 zeros; ctx (B, NH, DH, DH) f32.
-// Pass B: out (B, HD, N) in qkv's dtype.
-int ofd_la_mid_ctx(const void* qkv, int qkv_bf16, long long batch_stride, float* part,
-                   int* counter, float* ctx, int B, int N, int P, int device, void* stream) {
+// The unfused middle's launchers, qkv_bf16 selecting bf16 (1) or f32 (0).
+// Pass A: kv points at the k rows (channel HD) of qkv (B, 3 HD, .) whose
+// rows are ld >= N long (ld and batch_stride in elements, multiples of 16
+// bytes, kv 16-byte aligned; positions past N are ignored); P, its CTAs per
+// batch element, is ops/attention_pallas.py::mid_plan; part (B, P, PART) f32
+// scratch; ctx (B, NH, DH, DH) f32.  Pass B:
+// qkv (B, 3 HD, N) with batch stride batch_stride (elements); out (B, HD, N)
+// in qkv's dtype.
+int ofd_la_mid_ctx(const void* kv, int qkv_bf16, int ld, long long batch_stride, float* part,
+                   float* ctx, int B, int N, int P, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return qkv_bf16 ? launch_mid_ctx<bf16>(qkv, batch_stride, part, counter, ctx, B, N, P, st)
-                  : launch_mid_ctx<float>(qkv, batch_stride, part, counter, ctx, B, N, P, st);
+  return qkv_bf16
+             ? launch_mid_ctx<bf16>(kv, ld, batch_stride, part, ctx, B, N, P, device, st)
+             : launch_mid_ctx<float>(kv, ld, batch_stride, part, ctx, B, N, P, device, st);
 }
 
 int ofd_la_mid_out(const void* qkv, int qkv_bf16, long long batch_stride, const float* ctx,

@@ -60,27 +60,35 @@
 // sum.  The arithmetic of every term, sum and flag is that of
 // ops/splat.py::splat_fixed_plain, which the kernel equals bit for bit.
 //
-// Backward (splat_bwd): one thread per source pixel gathers the output
-// cotangent g at the four corners of the reference's ingrad transform (for
+// Backward (splat_bwd): for each source pixel, the output cotangent g
+// gathered at the four corners of the reference's ingrad transform (for
 // d_inp) and of its flowgrad transform (for d_flow, weighted by the
 // derivative of the bilinear weight and summed over channels), with the
 // reference's quirks 1-3 (ops/splat.py:29-38).  Gathers only: no atomics,
-// the same bits on every run.
+// the same bits on every run, and the bits of ops/splat.py::splat_bwd_raw.
+// Two launches: the cotangent laid out channels-last, then the gathers, a
+// few sources of a row a thread with vector accesses, every load issued
+// before the arithmetic, each corner cell read once for both gradients
+// (below, "Backward").
 //
 // Bound on the H100: bytes.  Forward: inp and flow read once, the output
 // written once (~0.006 ms at 448x1024 b2 with 4 channels); the passes also
 // read inp twice, write and read the windows' 64-bit sums once (1.8 x the
 // output's cells at scale 1: ~60 MB at that shape) and zero and read the
 // escapes' (29 MB).  Backward: inp, flow and the cotangent read once, d_inp
-// and d_flow written once; the cotangent is gathered at 8 corners per
-// source, mostly from L1/L2.
+// and d_flow written once (0.013 ms a call at 448x1024 b2, 4 channels); the
+// cotangent's 4 corners of a source come from L1/L2, scattered where the
+// flow is large (the random-weight UNet's reach ~220 px, farther than a
+// shared-memory window of a tile's targets could hold, so none is staged).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 #include <stdlib.h>
 
+#include <algorithm>
 #include <atomic>
 
 namespace {
@@ -116,25 +124,11 @@ __device__ __forceinline__ float pick(float f, float size, float f_edge, float s
   return __fdiv_rn(shifted, scale);
 }
 
-// forward (and the ingrad y transform, which drops the scale > 1 gate)
+// forward
 __device__ __forceinline__ float fwd_t(float f, float size, float scale, float off,
                                        float stretch, bool gate) {
   const float f_edge = __fdiv_rn(__fsub_rn(edge_stretch(f, size, stretch), off), scale);
   return pick(f, size, f_edge, scale, off, gate ? scale > 1.f : true);
-}
-
-// ingrad x: quirk 1, an extra "* offset" stretch
-__device__ __forceinline__ float ingrad_x_t(float f, float size, float scale, float off,
-                                            float stretch) {
-  const float f1 = edge_stretch(f, size, stretch);
-  const float f2 = edge_stretch(f1, size, off);
-  return pick(f, size, __fdiv_rn(__fsub_rn(f2, off), scale), scale, off, true);
-}
-
-// flowgrad y: quirk 2, "* offset" where the forward has the stretch
-__device__ __forceinline__ float flowgrad_y_t(float f, float size, float scale, float off) {
-  const float f_edge = __fdiv_rn(__fsub_rn(edge_stretch(f, size, off), off), scale);
-  return pick(f, size, f_edge, scale, off, true);
 }
 
 // flowgrad freeze flag: d(transform)/d(flow), 1/scale in the interior branch only
@@ -523,93 +517,387 @@ splat_finish_kernel(const unsigned long long* __restrict__ wsum,
   }
 }
 
-// Backward.  One thread per source pixel.  g (B, C, Ho, Wo) f32; d_inp
-// (B, C, H, W) in TX; d_flow (B, 2, H, W) f32.
-template <typename TX>
-__global__ void __launch_bounds__(THREADS)
-splat_bwd_kernel(const TX* __restrict__ x, const float* __restrict__ flow,
-                 const float* __restrict__ gout, int C, Geom g, long long total,
-                 TX* __restrict__ d_inp, float* __restrict__ d_flow) {
-  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= total) return;
-  const long long HW = (long long)g.H * g.W, HWo = (long long)g.Ho * g.Wo;
-  const int b = (int)(i / HW);
-  const long long p = i - b * HW;
-  const int py = (int)(p / g.W), px = (int)(p - (long long)py * g.W);
-  const float* fl = flow + (long long)b * 2 * HW;
-  const float fx = __fadd_rn((float)px, fl[p]);
-  const float fy = __fadd_rn((float)py, fl[HW + p]);
-  float* dfl = d_flow + (long long)b * 2 * HW;
-  if (!isfinite(fx) || !isfinite(fy)) {
-    for (int c = 0; c < C; ++c) put(d_inp + ((long long)b * C + c) * HW + p, 0.f);
-    dfl[p] = 0.f;
-    dfl[HW + p] = 0.f;
-    return;
-  }
-  const float W = (float)g.W, H = (float)g.H;
-  // ingrad corners (x0, y0) .. (x0 + 1, y0 + 1) and their weights
-  const float txi = ingrad_x_t(fx, W, g.scale, g.ox, g.sx);
-  const float tyi = fwd_t(fy, H, g.scale, g.oy, g.sy, false);
-  // flowgrad corners, and the swapped freeze flags (quirk 3)
-  const float txf = fwd_t(fx, W, g.scale, g.ox, g.sx, false);
-  const float tyf = flowgrad_y_t(fy, H, g.scale, g.oy);
-  const float dxx = freeze(fx, W, g.scale, g.ox), dyy = freeze(fy, H, g.scale, g.oy);
+// Backward, two launches.  splat_bwd_layout_kernel lays the cotangent out
+// channels-last (gt): with the model's large flows a source's corners land
+// anywhere in g, and a corner's 4 channels are then one 16-byte load from one
+// L2 sector instead of 4 loads from 4 planes.  splat_bwd_kernel: a CTA of 32
+// x BWD_ROWS threads covers 32 BWD_SPT columns and walks `steps` groups of
+// BWD_ROWS rows down them, grid (ceil(W / (32 BWD_SPT)), ceil(H / (BWD_ROWS
+// steps)), B), so every index is 32-bit and found without a divide (steps
+// from bwd_steps: the CTAs fill every SM's BWD_MIN_CTAS slots once).  A
+// thread takes BWD_SPT consecutive sources of a row: vector accesses of
+// flow, x, d_inp and d_flow where W and the pointers allow it (vec), and its
+// next row group's flow and first channels of x copied ahead into its own
+// slots of a two-stage ring in shared memory (cp.async), so that the loads
+// stay in flight without holding registers.  Per chunk of 4 channels it
+// works out every source's corners, then issues every gather, then does the
+// arithmetic.  The flowgrad corners are the ingrad ones wherever the two
+// transforms floor to the same cell, which they do away from the edge
+// branches (quirks 1 and 2 change the edge branch only), so a cell is read
+// once for both gradients; an edge source's d_flow is redone after the chunk
+// loop at its own corners (edge_flow).  At a power-of-two scale (the model's
+// 1-16) the transforms multiply by the exact reciprocal (DivPow2) instead of
+// dividing: the same values.  NC = 4, the model's channel count, unrolls the
+// chunk loop.  Every rounded operation is the first body's (one thread per
+// source), in the same order: the outputs are splat_bwd_raw's bits.  g (B,
+// C, Ho, Wo) f32; d_inp (B, C, H, W) in TX; d_flow (B, 2, H, W) f32.
+constexpr int BWD_SPT = 2;        // sources a thread, consecutive along W
+constexpr int BWD_ROWS = 16;      // rows of sources a CTA (threadIdx.y)
+constexpr int BWD_MIN_CTAS = 1;   // CTAs an SM the registers must allow (128 a thread)
+constexpr int BWD_MAX_STEPS = 8;  // row groups a CTA walks, at most
 
+// A thread's BWD_SPT consecutive values of a row: one vector access where vec
+// says that W and the pointers allow it, else one access per value (n of
+// them in the row).
+template <typename T, int N>
+struct alignas(sizeof(T) * N) Vec {
+  T v[N];
+};
+__device__ __forceinline__ void load_row(const float* p, int n, bool vec, float (&v)[BWD_SPT]) {
+  if (vec) {
+    const Vec<float, BWD_SPT> u = *reinterpret_cast<const Vec<float, BWD_SPT>*>(p);
+#pragma unroll
+    for (int s = 0; s < BWD_SPT; ++s) v[s] = u.v[s];
+  } else {
+#pragma unroll
+    for (int s = 0; s < BWD_SPT; ++s) v[s] = s < n ? p[s] : 0.f;
+  }
+}
+__device__ __forceinline__ void load_row(const bf16* p, int n, bool vec, float (&v)[BWD_SPT]) {
+  if (vec) {
+    const Vec<bf16, BWD_SPT> u = *reinterpret_cast<const Vec<bf16, BWD_SPT>*>(p);
+#pragma unroll
+    for (int s = 0; s < BWD_SPT; ++s) v[s] = __bfloat162float(u.v[s]);
+  } else {
+#pragma unroll
+    for (int s = 0; s < BWD_SPT; ++s) v[s] = s < n ? __bfloat162float(p[s]) : 0.f;
+  }
+}
+template <typename T>
+__device__ __forceinline__ void store_row(T* p, int n, bool vec, const float (&v)[BWD_SPT]) {
+  if (vec) {
+    Vec<T, BWD_SPT> u;
+#pragma unroll
+    for (int s = 0; s < BWD_SPT; ++s) put(u.v + s, v[s]);
+    *reinterpret_cast<Vec<T, BWD_SPT>*>(p) = u;
+  } else {
+#pragma unroll
+    for (int s = 0; s < BWD_SPT; ++s)
+      if (s < n) put(p + s, v[s]);
+  }
+}
+
+// The 4 cells around (x0, y0) (x0 + kx, y0 + ky at k = 2 ky + kx) as offsets
+// into a (Ho, Wo) plane, -1 where the cell lies outside it.
+__device__ __forceinline__ void corner_cells(float x0, float y0, const Geom& g, int (&cell)[4]) {
+#pragma unroll
+  for (int ky = 0; ky < 2; ++ky) {
+    const float ya = __fadd_rn(y0, (float)ky);
+    const bool iy = ya >= 0.f && ya < (float)g.Ho;
+#pragma unroll
+    for (int kx = 0; kx < 2; ++kx) {
+      const float xa = __fadd_rn(x0, (float)kx);
+      const bool ix = xa >= 0.f && xa < (float)g.Wo;
+      cell[2 * ky + kx] = ix && iy ? (int)ya * g.Wo + (int)xa : -1;
+    }
+  }
+}
+
+// One source's ingrad and flowgrad corners and weights; ok: in the row and
+// a finite target.
+struct BwdSrc {
+  bool ok, same;             // same: the flowgrad corner cell is the ingrad one
+  float axi, ayi, axf, ayf;  // the bilinear fractions (weights 1 - a, a)
+  float xf0, yf0;            // the flowgrad corner
+  int cell[4];               // the ingrad corners' offsets, -1 outside
+};
+
+// x / scale, correctly rounded: a division, or for a power-of-two scale the
+// product with its exact reciprocal, which is the same value (the model's
+// scales 1-16)
+struct DivRN {
+  __device__ float operator()(float x, float scale) const { return __fdiv_rn(x, scale); }
+};
+struct DivPow2 {
+  float inv;
+  __device__ float operator()(float x, float) const { return __fmul_rn(x, inv); }
+};
+
+// The reference's backward transforms (ops/splat.py:_transform with the
+// gate dropped, _ingrad_x, _flowgrad_y): the ingrad and flowgrad targets
+// share the interior and left branches, and differ on the edge branch only
+// (quirk 1: ingrad x stretches twice; quirk 2: flowgrad y stretches by the
+// offset), which is worked out only where a source takes it.
+template <typename D>
+__device__ __forceinline__ BwdSrc bwd_src(float fx, float fy, bool valid, const Geom& g, D div) {
+  BwdSrc r;
+  const float W = (float)g.W, H = (float)g.H;
+  r.ok = valid && isfinite(fx) && isfinite(fy);
+  const float shx = __fsub_rn(fx, g.ox), shy = __fsub_rn(fy, g.oy);
+  float txi = shx < 0.f ? shx : div(shx, g.scale), tyi = shy < 0.f ? shy : div(shy, g.scale);
+  float txf = txi, tyf = tyi;
+  if (fx >= W - 1.f) {
+    const float f1 = edge_stretch(fx, W, g.sx);
+    txi = div(__fsub_rn(edge_stretch(f1, W, g.ox), g.ox), g.scale);
+    txf = div(__fsub_rn(f1, g.ox), g.scale);
+  }
+  if (fy >= H - 1.f) {
+    tyi = div(__fsub_rn(edge_stretch(fy, H, g.sy), g.oy), g.scale);
+    tyf = div(__fsub_rn(edge_stretch(fy, H, g.oy), g.oy), g.scale);
+  }
   const float xi0 = floorf(txi), yi0 = floorf(tyi);
-  const float axi = __fsub_rn(txi, xi0), ayi = __fsub_rn(tyi, yi0);
-  const float xf0 = floorf(txf), yf0 = floorf(tyf);
-  const float axf = __fsub_rn(txf, xf0), ayf = __fsub_rn(tyf, yf0);
-  const float wxi[2] = {__fsub_rn(1.f, axi), axi}, wyi[2] = {__fsub_rn(1.f, ayi), ayi};
-  const float wxf[2] = {__fsub_rn(1.f, axf), axf}, wyf[2] = {__fsub_rn(1.f, ayf), ayf};
-  // in-range flags and clamped indices of the two columns and rows
-  bool ixi[2], iyi[2], ixf[2], iyf[2];
-  long long cxi[2], cyi[2], cxf[2], cyf[2];
+  r.xf0 = floorf(txf), r.yf0 = floorf(tyf);
+  r.axi = __fsub_rn(txi, xi0), r.ayi = __fsub_rn(tyi, yi0);
+  r.axf = __fsub_rn(txf, r.xf0), r.ayf = __fsub_rn(tyf, r.yf0);
+  r.same = xi0 == r.xf0 && yi0 == r.yf0;
+  corner_cells(xi0, yi0, g, r.cell);
+  if (!r.ok)
 #pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const float xa = __fadd_rn(xi0, (float)k), ya = __fadd_rn(yi0, (float)k);
-    const float xb = __fadd_rn(xf0, (float)k), yb = __fadd_rn(yf0, (float)k);
-    ixi[k] = xa >= 0.f && xa < (float)g.Wo;
-    iyi[k] = ya >= 0.f && ya < (float)g.Ho;
-    ixf[k] = xb >= 0.f && xb < (float)g.Wo;
-    iyf[k] = yb >= 0.f && yb < (float)g.Ho;
-    cxi[k] = ixi[k] ? (long long)xa : 0;
-    cyi[k] = iyi[k] ? (long long)ya : 0;
-    cxf[k] = ixf[k] ? (long long)xb : 0;
-    cyf[k] = iyf[k] ? (long long)yb : 0;
+    for (int k = 0; k < 4; ++k) r.cell[k] = -1;
+  return r;
+}
+
+// The cotangent channels-last for the gathers: gt (B, Ho, Wo, Cp), Cp = C
+// rounded up to CHUNK (the padding zero), from g (B, C, Ho, Wo); grid
+// (ceil(Ho Wo / THREADS), B).  A corner's CHUNK channels are then one
+// 16-byte load instead of CHUNK loads from CHUNK planes, which with the
+// model's large flows are CHUNK scattered L2 sectors.
+__global__ void __launch_bounds__(THREADS)
+splat_bwd_layout_kernel(const float* __restrict__ g, int C, int Cp, int HWo,
+                        float4* __restrict__ gt) {
+  const int t = blockIdx.x * THREADS + threadIdx.x, b = blockIdx.y;
+  if (t >= HWo) return;
+  const float* gc = g + (size_t)b * C * HWo + t;
+  float4* o = gt + ((size_t)b * HWo + t) * (Cp / CHUNK);
+  for (int c0 = 0; c0 < Cp; c0 += CHUNK) {
+    float v[CHUNK];
+#pragma unroll
+    for (int j = 0; j < CHUNK; ++j) v[j] = c0 + j < C ? gc[(size_t)(c0 + j) * HWo] : 0.f;
+    o[c0 / CHUNK] = make_float4(v[0], v[1], v[2], v[3]);
   }
-  float gx = 0.f, gy = 0.f;
-  for (int c = 0; c < C; ++c) {
-    const float* gc = gout + ((long long)b * C + c) * HWo;
-    auto at = [&](bool ok, long long yy, long long xx) {
-      return ok ? gc[yy * g.Wo + xx] : 0.f;
-    };
-    // d_inp: per column the row sum, then the column sum (the order of the
-    // reference's two contractions)
-    float din = 0.f;
+}
+static_assert(CHUNK == 4, "a float4 holds a chunk of channels");
+
+__device__ __forceinline__ float chan(const float4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// One channel's d_flow terms (the reference's order), added to gx and gy:
+// g00 .. g11 the cotangent at the flowgrad corners (x0 + kx, y0 + ky).
+__device__ __forceinline__ void flow_terms(const float (&wxf)[2], const float (&wyf)[2], float g00,
+                                           float g10, float g01, float g11, float v, float& gx,
+                                           float& gy) {
+  const float tfx0 = __fadd_rn(__fmul_rn(wyf[0], g00), __fmul_rn(wyf[1], g01));
+  const float tfx1 = __fadd_rn(__fmul_rn(wyf[0], g10), __fmul_rn(wyf[1], g11));
+  const float tfy0 = __fsub_rn(g01, g00), tfy1 = __fsub_rn(g11, g10);
+  gx = __fadd_rn(gx, __fmul_rn(__fsub_rn(tfx1, tfx0), v));
+  gy = __fadd_rn(gy, __fmul_rn(__fadd_rn(__fmul_rn(wxf[0], tfy0), __fmul_rn(wxf[1], tfy1)), v));
+}
+
+// (gx, gy) of a source on an edge branch, whose flowgrad corners differ from
+// its ingrad ones: every channel again, in order, at its own corners.  xs:
+// x at the source (plane stride HW); gtb: the batch element's channels-last
+// cotangent.  Out of the hot loop, so that a rare branch does not order the
+// other sources' loads behind it.
+template <typename TX, typename D>
+__device__ __noinline__ void edge_flow(const TX* xs, int HW, const float4* gtb, int q, int C,
+                                       const Geom& g, D div, float fx, float fy, float& gx,
+                                       float& gy) {
+  const BwdSrc r = bwd_src(fx, fy, true, g, div);
+  const float wxf[2] = {__fsub_rn(1.f, r.axf), r.axf}, wyf[2] = {__fsub_rn(1.f, r.ayf), r.ayf};
+  int cf[4];
+  corner_cells(r.xf0, r.yf0, g, cf);
+  gx = 0.f, gy = 0.f;
+  for (int c0 = 0; c0 < C; c0 += CHUNK) {
+    float4 F[4];
 #pragma unroll
-    for (int kx = 0; kx < 2; ++kx) {
-      const float col = __fadd_rn(
-          __fmul_rn(wyi[0], at(ixi[kx] && iyi[0], cyi[0], cxi[kx])),
-          __fmul_rn(wyi[1], at(ixi[kx] && iyi[1], cyi[1], cxi[kx])));
-      din = __fadd_rn(din, __fmul_rn(wxi[kx], col));
-    }
-    put(d_inp + ((long long)b * C + c) * HW + p, din);
-    // d_flow: the bilinear weight's derivative in x (and in y)
-    float tfx[2], tfy[2];
-#pragma unroll
-    for (int kx = 0; kx < 2; ++kx) {
-      const float g0 = at(ixf[kx] && iyf[0], cyf[0], cxf[kx]);
-      const float g1 = at(ixf[kx] && iyf[1], cyf[1], cxf[kx]);
-      tfx[kx] = __fadd_rn(__fmul_rn(wyf[0], g0), __fmul_rn(wyf[1], g1));
-      tfy[kx] = __fsub_rn(g1, g0);
-    }
-    const float v = to_f(x[((long long)b * C + c) * HW + p]);
-    gx = __fadd_rn(gx, __fmul_rn(__fsub_rn(tfx[1], tfx[0]), v));
-    gy = __fadd_rn(gy, __fmul_rn(__fadd_rn(__fmul_rn(wxf[0], tfy[0]),
-                                           __fmul_rn(wxf[1], tfy[1])), v));
+    for (int k = 0; k < 4; ++k)
+      F[k] = cf[k] >= 0 ? gtb[(size_t)cf[k] * q + c0 / CHUNK] : make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int j = 0; j < CHUNK && c0 + j < C; ++j)
+      flow_terms(wxf, wyf, chan(F[0], j), chan(F[1], j), chan(F[2], j), chan(F[3], j),
+                 to_f(xs[(size_t)(c0 + j) * HW]), gx, gy);
   }
-  dfl[p] = __fmul_rn(gx, dyy);
-  dfl[HW + p] = __fmul_rn(gy, dxx);
+}
+
+// The BWD_SPT sources (py, px ..) of batch element b (n of them in the row),
+// given their flow (flx, fly) and the first chunk of their x (x0).  NC: the
+// channel count where it is known when compiling (CHUNK, the model's), so
+// that the chunk loop and its channel tests unroll away; 0 for any C.
+template <typename TX, typename D, int NC>
+__device__ __forceinline__ void bwd_sources(const TX* __restrict__ x, const float4* __restrict__ gt,
+                                            int C, const Geom& g, D div, bool vec, int b, int py,
+                                            int px, int n, const float (&flx)[BWD_SPT],
+                                            const float (&fly)[BWD_SPT],
+                                            const float (&x0)[CHUNK][BWD_SPT],
+                                            TX* __restrict__ d_inp, float* __restrict__ d_flow) {
+  if (NC) C = NC;
+  const int q = (C + CHUNK - 1) / CHUNK;
+  const int HW = g.H * g.W, HWo = g.Ho * g.Wo, p = py * g.W + px;
+  float fx[BWD_SPT], fy[BWD_SPT];
+#pragma unroll
+  for (int s = 0; s < BWD_SPT; ++s) {
+    fx[s] = __fadd_rn((float)(px + s), flx[s]);
+    fy[s] = __fadd_rn((float)py, fly[s]);
+  }
+
+  const TX* xb = x + (size_t)b * C * HW + p;
+  TX* db = d_inp + (size_t)b * C * HW + p;
+  float gx[BWD_SPT], gy[BWD_SPT];
+#pragma unroll
+  for (int s = 0; s < BWD_SPT; ++s) gx[s] = 0.f, gy[s] = 0.f;
+  int edges = 0;  // sources whose flowgrad corners are not their ingrad ones
+  for (int c0 = 0; c0 < C; c0 += CHUNK) {
+    const int cc = min(CHUNK, C - c0);
+    const float4* gq = gt + (size_t)b * HWo * q + c0 / CHUNK;
+    float v[CHUNK][BWD_SPT], din[CHUNK][BWD_SPT];
+#pragma unroll
+    for (int j = 0; j < CHUNK; ++j) {
+      if (c0 == 0) {
+#pragma unroll
+        for (int s = 0; s < BWD_SPT; ++s) v[j][s] = x0[j][s];
+      } else if (j < cc) {
+        load_row(xb + (size_t)(c0 + j) * HW, n, vec, v[j]);
+      }
+    }
+    // every source's corners, then every gather (the chunk's channels at the
+    // ingrad corners), then the arithmetic
+    BwdSrc rs[BWD_SPT];
+    float4 Gs[BWD_SPT][4];
+#pragma unroll
+    for (int s = 0; s < BWD_SPT; ++s) rs[s] = bwd_src(fx[s], fy[s], s < n, g, div);
+#pragma unroll
+    for (int s = 0; s < BWD_SPT; ++s)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        Gs[s][k] = rs[s].cell[k] >= 0 ? __ldg(gq + (size_t)rs[s].cell[k] * q)
+                                      : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int s = 0; s < BWD_SPT; ++s) {
+      const BwdSrc& r = rs[s];
+      const float4 (&G)[4] = Gs[s];
+      const float wxi[2] = {__fsub_rn(1.f, r.axi), r.axi}, wyi[2] = {__fsub_rn(1.f, r.ayi), r.ayi};
+      const float wxf[2] = {__fsub_rn(1.f, r.axf), r.axf}, wyf[2] = {__fsub_rn(1.f, r.ayf), r.ayf};
+#pragma unroll
+      for (int j = 0; j < CHUNK; ++j) {
+        if (j >= cc) break;
+        // d_inp: per column the row sum, then the column sum (the order of
+        // the reference's two contractions)
+        float d = 0.f;
+#pragma unroll
+        for (int kx = 0; kx < 2; ++kx) {
+          const float col = __fadd_rn(__fmul_rn(wyi[0], chan(G[kx], j)),
+                                      __fmul_rn(wyi[1], chan(G[2 + kx], j)));
+          d = __fadd_rn(d, __fmul_rn(wxi[kx], col));
+        }
+        din[j][s] = r.ok ? d : 0.f;
+        // d_flow: the bilinear weight's derivative in x (and in y), at the
+        // flowgrad corners, here the ingrad ones (an edge source's is redone
+        // below)
+        flow_terms(wxf, wyf, chan(G[0], j), chan(G[1], j), chan(G[2], j), chan(G[3], j),
+                   v[j][s], gx[s], gy[s]);
+      }
+      edges |= (r.ok && !r.same) << s;
+    }
+#pragma unroll
+    for (int j = 0; j < CHUNK; ++j)
+      if (j < cc) store_row(db + (size_t)(c0 + j) * HW, n, vec, din[j]);
+  }
+  if (edges)
+#pragma unroll
+    for (int s = 0; s < BWD_SPT; ++s)
+      if (edges >> s & 1)
+        edge_flow(xb + s, HW, gt + (size_t)b * HWo * q, q, C, g, div, fx[s], fy[s], gx[s], gy[s]);
+  // the swapped freeze flags (quirk 3)
+  float ox[BWD_SPT], oy[BWD_SPT];
+#pragma unroll
+  for (int s = 0; s < BWD_SPT; ++s) {
+    const bool ok = s < n && isfinite(fx[s]) && isfinite(fy[s]);
+    ox[s] = ok ? __fmul_rn(gx[s], freeze(fy[s], (float)g.H, g.scale, g.oy)) : 0.f;
+    oy[s] = ok ? __fmul_rn(gy[s], freeze(fx[s], (float)g.W, g.scale, g.ox)) : 0.f;
+  }
+  float* dfl = d_flow + (size_t)b * 2 * HW + p;
+  store_row(dfl, n, vec, ox);
+  store_row(dfl + HW, n, vec, oy);
+}
+
+// cp.async of BYTES (8 or 16) from global to shared memory, per thread
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  if (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     static_cast<uint32_t>(__cvta_generic_to_shared(dst))), "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                     static_cast<uint32_t>(__cvta_generic_to_shared(dst))), "l"(src), "n"(BYTES)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The ring's slots are plane-major (flow x, flow y, then x channel by
+// channel), so a warp's vector reads of them are conflict-free; no thread
+// reads another's slots, so there is no barrier.
+template <typename TX, typename D, int NC>
+__global__ void __launch_bounds__(32 * BWD_ROWS, BWD_MIN_CTAS)
+splat_bwd_kernel(const TX* __restrict__ x, const float* __restrict__ flow,
+                 const float4* __restrict__ gt, int C, Geom g, D div, int vec, int steps,
+                 TX* __restrict__ d_inp, float* __restrict__ d_flow) {
+  constexpr int T = 32 * BWD_ROWS, FB = BWD_SPT * sizeof(float), XB = BWD_SPT * sizeof(TX);
+  constexpr int STAGE = T * (2 * FB + CHUNK * XB);
+  __shared__ __align__(16) unsigned char ring[2 * STAGE];
+  if (NC) C = NC;
+  const int tid = threadIdx.y * 32 + threadIdx.x;
+  const int px = (blockIdx.x * 32 + threadIdx.x) * BWD_SPT;
+  if (px >= g.W) return;
+  const int b = blockIdx.z, n = min(BWD_SPT, g.W - px), HW = g.H * g.W, cc0 = min(C, CHUNK);
+  const float* fb = flow + (size_t)b * 2 * HW + px;
+  const TX* xb = x + (size_t)b * C * HW + px;
+  auto row = [&](int k) { return (blockIdx.y * steps + k) * BWD_ROWS + threadIdx.y; };
+  // plane i of stage st: flow x, flow y, then x channels 0 .. CHUNK-1
+  auto slot = [&](int st, int i) {
+    return ring + st * STAGE + (i < 2 ? i * T * FB + tid * FB : 2 * T * FB + (i - 2) * T * XB + tid * XB);
+  };
+  auto fetch = [&](int k) {
+    const int py = row(k), st = k & 1;
+    if (py < g.H) {
+      cp_async<FB>(slot(st, 0), fb + py * g.W);
+      cp_async<FB>(slot(st, 1), fb + HW + py * g.W);
+      for (int j = 0; j < cc0; ++j) cp_async<XB>(slot(st, 2 + j), xb + (size_t)j * HW + py * g.W);
+    }
+    cp_async_commit();
+  };
+  if (vec) fetch(0);
+  for (int k = 0; k < steps; ++k) {
+    const int py = row(k);
+    if (py >= g.H) break;
+    float flx[BWD_SPT], fly[BWD_SPT], x0[CHUNK][BWD_SPT] = {};
+    if (vec) {
+      if (k + 1 < steps) {
+        fetch(k + 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      load_row(reinterpret_cast<const float*>(slot(k & 1, 0)), n, true, flx);
+      load_row(reinterpret_cast<const float*>(slot(k & 1, 1)), n, true, fly);
+#pragma unroll
+      for (int j = 0; j < CHUNK; ++j)
+        if (j < cc0) load_row(reinterpret_cast<const TX*>(slot(k & 1, 2 + j)), n, true, x0[j]);
+    } else {
+      load_row(fb + py * g.W, n, false, flx);
+      load_row(fb + HW + py * g.W, n, false, fly);
+#pragma unroll
+      for (int j = 0; j < CHUNK; ++j)
+        if (j < cc0) load_row(xb + (size_t)j * HW + py * g.W, n, false, x0[j]);
+    }
+    bwd_sources<TX, D, NC>(x, gt, C, g, div, vec, b, py, px, n, flx, fly, x0, d_inp, d_flow);
+  }
 }
 
 // The scatter body's shared-memory limit, raised to SMEM_MAX once per body
@@ -656,12 +944,77 @@ int launch_fwd(const void* x, const float* flow, unsigned char* scratch, void* o
   return (int)cudaGetLastError();
 }
 
+// The backward's scratch: the channels-last cotangent (B, Ho, Wo, Cp).
+long long bwd_scratch_bytes(int B, int C, int Ho, int Wo) {
+  return (long long)B * Ho * Wo * ((C + CHUNK - 1) / CHUNK) * CHUNK * sizeof(float);
+}
+
+// The SMs of a device into *sms: asked once per device (devices 0-63 keep
+// the count, others ask every time); a failed query returns its error.
+int sm_count(int device, int* sms) {
+  static std::atomic<int> known[64];
+  const bool keep = device >= 0 && device < 64;
+  int v = keep ? known[device].load() : 0;
+  if (v < 1) {
+    const cudaError_t err = cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return (int)err;
+    if (v < 1) return (int)cudaErrorInvalidDevice;
+    if (keep) known[device].store(v);
+  }
+  *sms = v;
+  return 0;
+}
+
+// Row groups a CTA of the backward walks: enough CTAs to fill every SM's
+// BWD_MIN_CTAS slots once, each walking as many groups as that leaves, at
+// most BWD_MAX_STEPS (2 at 128x128 b16, 7 at 448x1024 b2 on 132 SMs).
+int bwd_steps(int B, int H, int W, int sms) {
+  const long long groups = (long long)((W + 32 * BWD_SPT - 1) / (32 * BWD_SPT)) *
+                           ((H + BWD_ROWS - 1) / BWD_ROWS) * B;
+  const long long slots = (long long)BWD_MIN_CTAS * sms;
+  return (int)std::min<long long>(BWD_MAX_STEPS, std::max<long long>(1, (groups + slots - 1) / slots));
+}
+
 template <typename TX>
-int launch_bwd(const void* x, const float* flow, const float* gout, void* d_inp,
-               float* d_flow, int B, int C, Geom g, cudaStream_t st) {
-  const long long total = (long long)B * g.H * g.W;
-  splat_bwd_kernel<TX><<<(unsigned)((total + THREADS - 1) / THREADS), THREADS, 0, st>>>(
-      static_cast<const TX*>(x), flow, gout, C, g, total, static_cast<TX*>(d_inp), d_flow);
+int launch_bwd(const void* x, const float* flow, const float* gout, float4* gt, void* d_inp,
+               float* d_flow, int B, int C, Geom g, int device, cudaStream_t st) {
+  const int HWo = g.Ho * g.Wo, Cp = (C + CHUNK - 1) / CHUNK * CHUNK;
+  int sms = 0;
+  const int qerr = sm_count(device, &sms);
+  if (qerr) return qerr;
+  splat_bwd_layout_kernel<<<dim3((HWo + THREADS - 1) / THREADS, B), THREADS, 0, st>>>(
+      gout, C, Cp, HWo, gt);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // vector accesses of BWD_SPT sources need W % BWD_SPT == 0 and aligned bases
+  const uintptr_t xa = sizeof(TX) * BWD_SPT - 1, fa = sizeof(float) * BWD_SPT - 1;
+  const int vec = g.W % BWD_SPT == 0 && !(reinterpret_cast<uintptr_t>(x) & xa) &&
+                  !(reinterpret_cast<uintptr_t>(d_inp) & xa) &&
+                  !(reinterpret_cast<uintptr_t>(flow) & fa) &&
+                  !(reinterpret_cast<uintptr_t>(d_flow) & fa);
+  const int steps = bwd_steps(B, g.H, g.W, sms);
+  const dim3 grid((g.W + 32 * BWD_SPT - 1) / (32 * BWD_SPT),
+                  (g.H + BWD_ROWS * steps - 1) / (BWD_ROWS * steps), B);
+  const int scale = (int)g.scale;
+  const TX* xp = static_cast<const TX*>(x);
+  TX* dp = static_cast<TX*>(d_inp);
+  const dim3 block(32, BWD_ROWS);
+  if (scale & (scale - 1)) {
+    if (C == CHUNK)
+      splat_bwd_kernel<TX, DivRN, CHUNK><<<grid, block, 0, st>>>(xp, flow, gt, C, g, DivRN(), vec,
+                                                                steps, dp, d_flow);
+    else
+      splat_bwd_kernel<TX, DivRN, 0><<<grid, block, 0, st>>>(xp, flow, gt, C, g, DivRN(), vec,
+                                                            steps, dp, d_flow);
+  } else {
+    const DivPow2 div{1.f / g.scale};
+    if (C == CHUNK)
+      splat_bwd_kernel<TX, DivPow2, CHUNK><<<grid, block, 0, st>>>(xp, flow, gt, C, g, div, vec,
+                                                                  steps, dp, d_flow);
+    else
+      splat_bwd_kernel<TX, DivPow2, 0><<<grid, block, 0, st>>>(xp, flow, gt, C, g, div, vec,
+                                                              steps, dp, d_flow);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -736,20 +1089,36 @@ int ofd_splat(const void* x, const void* flow, int x_bf16, void* scratch, long l
                                  st);
 }
 
+// The backward's scratch in bytes for (B, C, H, W, scale): the wrapper
+// allocates it (uninitialised) and passes it to ofd_splat_bwd.
+long long ofd_splat_bwd_scratch_bytes(int B, int C, int H, int W, int scale) {
+  if (B < 1 || C < 1 || scale < 1 || H < scale || W < scale) return -1;
+  return bwd_scratch_bytes(B, C, H / scale, W / scale);
+}
+
 // Backward.  x and flow as above, g (B, C, H/scale, W/scale) float32;
-// d_inp (B, C, H, W) in x's dtype, d_flow (B, 2, H, W) float32.
-int ofd_splat_bwd(const void* x, const void* flow, const void* gout, int x_bf16,
-                  void* d_inp, void* d_flow, int B, int C, int H, int W, int scale, int ox,
-                  int oy, int device, void* stream) {
+// d_inp (B, C, H, W) in x's dtype, d_flow (B, 2, H, W) float32; scratch:
+// ofd_splat_bwd_scratch_bytes of 16-byte aligned device memory.  Two
+// launches (the channels-last cotangent, then the gathers).
+int ofd_splat_bwd(const void* x, const void* flow, const void* gout, int x_bf16, void* scratch,
+                  long long scratch_bytes, void* d_inp, void* d_flow, int B, int C, int H, int W,
+                  int scale, int ox, int oy, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if (B < 1 || C < 1 || scale < 1 || H < scale || W < scale || ox < 0 || ox >= scale ||
+      oy < 0 || oy >= scale || B > 65535 || (long long)H * W > INT_MAX / 2 ||
+      (H + BWD_ROWS - 1) / BWD_ROWS > 65535 ||
+      scratch_bytes != bwd_scratch_bytes(B, C, H / scale, W / scale) ||
+      (reinterpret_cast<uintptr_t>(scratch) & 15))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Geom g = make_geom(H, W, scale, ox, oy);
   const float* fl = static_cast<const float*>(flow);
   const float* go = static_cast<const float*>(gout);
+  float4* gt = static_cast<float4*>(scratch);
   float* df = static_cast<float*>(d_flow);
-  return x_bf16 ? launch_bwd<bf16>(x, fl, go, d_inp, df, B, C, g, st)
-                : launch_bwd<float>(x, fl, go, d_inp, df, B, C, g, st);
+  return x_bf16 ? launch_bwd<bf16>(x, fl, go, gt, d_inp, df, B, C, g, device, st)
+                : launch_bwd<float>(x, fl, go, gt, d_inp, df, B, C, g, device, st);
 }
 
 const char* ofd_cuda_error_string(int err) {

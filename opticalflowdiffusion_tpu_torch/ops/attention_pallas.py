@@ -26,7 +26,9 @@ d), per head:
 Layout: the kernels read qkv as (B, 3 * 128, N) with N fastest, which is how
 the 1x1 conv ``to_qkv`` lays it out; the public functions take JAX's (B, N,
 3 * 128), so the module passes a transposed view and nothing is copied.  A
-tensor in another layout is copied into it first.  ``middle_out`` returns a
+tensor in another layout is copied into it first, and pass A copies the k
+and v rows once more into a zero-padded buffer where its tensor map cannot
+read them in place (rows or batch stride no multiple of 16 bytes).  ``middle_out`` returns a
 (B, N, 128) view of a contiguous (B, 128, N) tensor, which the module's
 ``to_out`` reads as NCHW with no copy.
 """
@@ -36,6 +38,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from ..kernels import LA_MID_CTX, LA_MID_OUT
 
@@ -90,7 +93,7 @@ def _lib():
     lib = build.load("linear_attention")
     if not getattr(lib, "_ofd_mid_typed", False):
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.ofd_la_mid_ctx.argtypes = [vp, i, ll, vp, vp, vp, i, i, i, i, vp]
+        lib.ofd_la_mid_ctx.argtypes = [vp, i, i, ll, vp, vp, i, i, i, i, vp]
         lib.ofd_la_mid_ctx.restype = i
         lib.ofd_la_mid_out.argtypes = [vp, i, ll, vp, vp, i, i, i, vp]
         lib.ofd_la_mid_out.restype = i
@@ -100,10 +103,28 @@ def _lib():
     return lib
 
 
-def ctx_partitions(B: int, ntiles: int, device) -> int:
-    """CTAs per batch element of a context pass: two waves over the SMs."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(ntiles, -(-2 * sms // B)))
+def mid_plan(B: int, N: int, dtype=torch.bfloat16, sms: int = 132) -> int:
+    """Pass A's CTAs per batch element (``la_mid_ctx_kernel``, whose tiles
+    are 128-byte rows: 64 bf16 or 32 f32 positions): two CTAs an SM split
+    evenly over the batch, none without a tile."""
+    tile = 32 if dtype == torch.float32 else 64
+    return max(1, min(-(-N // tile), -(-2 * sms // B)))
+
+
+def _kv_rows(u: torch.Tensor):
+    """(kv, ld, batch stride): the k and v rows (channels 128-383) of a (B,
+    384, N) view whose last two axes are contiguous, as pass A's tensor map
+    reads them: rows of ld >= N elements, ld and the batch stride multiples
+    of 16 bytes, a 16-byte aligned base.  A view that is not so is copied
+    once into a zero-padded (B, 256, ld) buffer (positions past N are
+    ignored)."""
+    B, _, N = u.shape
+    q = 16 // u.element_size()
+    bs = u.stride(0) if B > 1 else 3 * HIDDEN * N   # a lone batch element's stride is free
+    if N % q == 0 and bs % q == 0 and u.data_ptr() % 16 == 0:
+        return u[:, HIDDEN:], N, bs
+    ld = -(-N // q) * q
+    return F.pad(u[:, HIDDEN:], (0, ld - N)), ld, 2 * HIDDEN * ld
 
 
 def _channels_first(qkv: torch.Tensor, heads: int, dim: int) -> torch.Tensor:
@@ -139,14 +160,16 @@ def middle_ctx(qkv: torch.Tensor, heads: int = HEADS, dim: int = HEAD_DIM) -> to
     u = _channels_first(qkv, heads, dim)
     B, _, N = u.shape
     dev = u.device
-    P = ctx_partitions(B, -(-N // 32), dev)
+    from .attention_fused import _sm_count  # attention_fused imports this module
+
+    P = mid_plan(B, N, u.dtype, _sm_count(dev))
+    kv, ld, bs = _kv_rows(u)
     part = torch.empty(B, P, PART, device=dev)
-    counter = torch.zeros(B, dtype=torch.int32, device=dev)
     ctx = torch.empty(B, HEADS, HEAD_DIM, HEAD_DIM, device=dev)
     lib = _lib()
     err = lib.ofd_la_mid_ctx(
-        u.data_ptr(), int(u.dtype == torch.bfloat16), u.stride(0), part.data_ptr(),
-        counter.data_ptr(), ctx.data_ptr(), B, N, P, dev.index,
+        kv.data_ptr(), int(u.dtype == torch.bfloat16), ld, bs, part.data_ptr(),
+        ctx.data_ptr(), B, N, P, dev.index,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(lib, err, LA_MID_CTX.name)
@@ -212,6 +235,6 @@ def linear_attention_middle(qkv: torch.Tensor, heads: int = HEADS, dim: int = HE
     return _Middle.apply(qkv, heads, dim)
 
 
-__all__ = ["BACKENDS", "ctx_partitions", "linear_attention_middle",
+__all__ = ["BACKENDS", "linear_attention_middle",
            "linear_attention_middle_plain", "middle_ctx", "middle_ctx_plain", "middle_out",
-           "middle_out_plain"]
+           "middle_out_plain", "mid_plan"]

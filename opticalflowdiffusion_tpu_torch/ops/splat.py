@@ -239,19 +239,23 @@ def splat_bwd_raw(inp: torch.Tensor, flow: torch.Tensor, g: torch.Tensor, scale:
     (xf, wxf), (yf, wyf) = corners(_transform(fx, W, scale, ox, sx, gate=False)), corners(
         _flowgrad_y(fy, H, scale, oy))
     ex = lambda w: w[:, None]
-    d_inp = None
+    # every sum starts from zero and adds its terms in order (the channels c
+    # = 0 .. C-1 too), as the kernel does, so that the two give the same bits
+    d_inp = torch.zeros(B, C, H, W, device=inp.device)
     for k in range(2):
         col = ex(wyi[0]) * gather(xi[k], yi[0]) + ex(wyi[1]) * gather(xi[k], yi[1])
-        term = ex(wxi[k]) * col
-        d_inp = term if d_inp is None else d_inp + term
+        d_inp = d_inp + ex(wxi[k]) * col
     tfx, tfy = [], []
     for k in range(2):
         g0, g1 = gather(xf[k], yf[0]), gather(xf[k], yf[1])
         tfx.append(ex(wyf[0]) * g0 + ex(wyf[1]) * g1)
         tfy.append(g1 - g0)
     v = inp.float()
-    gx = ((tfx[1] - tfx[0]) * v).sum(dim=1)
-    gy = ((ex(wxf[0]) * tfy[0] + ex(wxf[1]) * tfy[1]) * v).sum(dim=1)
+    tx = (tfx[1] - tfx[0]) * v
+    ty = (ex(wxf[0]) * tfy[0] + ex(wxf[1]) * tfy[1]) * v
+    gx, gy = torch.zeros_like(fx), torch.zeros_like(fy)
+    for c in range(C):
+        gx, gy = gx + tx[:, c], gy + ty[:, c]
     # quirk 3: the x channel takes the y freeze flag, and the y channel the x one
     d_flow = torch.stack([gx * _freeze(fy, H, scale, oy), gy * _freeze(fx, W, scale, ox)], 1)
     d_inp = torch.where(finite[:, None], d_inp, torch.zeros_like(d_inp))
@@ -272,7 +276,9 @@ def _lib():
         lib.ofd_splat_scratch_bytes.restype = ctypes.c_longlong
         lib.ofd_splat_windows.argtypes = [i] * 5 + [vp, vp]
         lib.ofd_splat_windows.restype = i
-        lib.ofd_splat_bwd.argtypes = [vp, vp, vp, i, vp, vp] + [i] * 8 + [vp]
+        lib.ofd_splat_bwd_scratch_bytes.argtypes = [i] * 5
+        lib.ofd_splat_bwd_scratch_bytes.restype = ctypes.c_longlong
+        lib.ofd_splat_bwd.argtypes = [vp, vp, vp, i, vp, ctypes.c_longlong, vp, vp] + [i] * 8 + [vp]
         lib.ofd_splat_bwd.restype = i
         lib.ofd_cuda_error_string.argtypes = [i]
         lib.ofd_cuda_error_string.restype = ctypes.c_char_p
@@ -352,20 +358,26 @@ def splat_fwd(inp: torch.Tensor, flow: torch.Tensor, scale: int = 1,
 def splat_bwd(inp: torch.Tensor, flow: torch.Tensor, g: torch.Tensor, scale: int = 1,
               offset: Sequence[int] = (0, 0)) -> Tuple[torch.Tensor, torch.Tensor]:
     """The backward kernel: (d_inp in inp's dtype, d_flow f32) for the
-    output cotangent ``g`` (B, C, Ho, Wo), as :func:`splat_bwd_raw`."""
+    output cotangent ``g`` (B, C, Ho, Wo), the bits of :func:`splat_bwd_raw`.
+    Two launches (the cotangent laid out channels-last into the scratch the
+    source states, then the gathers)."""
     B, C, H, W, scale, ox, oy, Ho, Wo = _check_args(inp, flow, scale, offset)
     dev = inp.device
     g = g.float().contiguous()
     if g.device != dev or tuple(g.shape) != (B, C, Ho, Wo):
         raise ValueError(f"g must be (B, C, Ho, Wo) = {(B, C, Ho, Wo)} on {dev}, "
                          f"got {tuple(g.shape)} on {g.device}")
+    if g.numel() == 0:            # H or W below the scale: nothing was splatted
+        return torch.zeros_like(inp), torch.zeros(B, 2, H, W, device=dev)
     d_inp = torch.empty_like(inp)
     d_flow = torch.empty(B, 2, H, W, dtype=torch.float32, device=dev)
     lib = _lib()
+    nbytes = lib.ofd_splat_bwd_scratch_bytes(B, C, H, W, scale)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     err = lib.ofd_splat_bwd(
         inp.data_ptr(), flow.data_ptr(), g.data_ptr(), int(inp.dtype == torch.bfloat16),
-        d_inp.data_ptr(), d_flow.data_ptr(), B, C, H, W, scale, ox, oy, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream,
+        scratch.data_ptr(), nbytes, d_inp.data_ptr(), d_flow.data_ptr(), B, C, H, W, scale, ox,
+        oy, dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(lib, err, SPLAT_BWD.name)
     SPLAT_BWD.launches += 1

@@ -41,7 +41,7 @@ KINDS = (
     ("linear_attention_bwd", ("la_bwd_", "la_reduce_kernel")),
     ("linear_attention", ("la_ctx_", "la_out_")),  # the passes, their f32 bodies, the combine
     ("flash_attention", ("flash_bf16_kernel", "flash_f32_kernel")),
-    ("splat_bwd", ("splat_bwd_kernel",)),
+    ("splat_bwd", ("splat_bwd_",)),  # the channels-last layout pass and the gathers
     ("splat", ("splat_max_kernel", "splat_scatter_kernel", "splat_finish_kernel")),
     ("conv_kernel", ("conv_bf16_kernel", "conv_f32_kernel")),
     ("optimizer", ("multi_tensor", "foreach", "adam")),

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of it, and not chip_smoke.py, imports
-JAX, flax, yaml or the JAX package.  And its flagship config holds the
-values that the JAX config composes."""
+"""The port stands alone: no module of it, and neither of the scripts that
+run it on the card (chip_smoke.py, chip_train_spread.py), imports JAX,
+flax, yaml or the JAX package.  And its flagship config holds the values
+that the JAX config composes."""
 
 import ast
 from pathlib import Path
@@ -13,7 +14,7 @@ from opticalflowdiffusion_tpu_torch.config import FLAGSHIP, FLAGSHIP_DATA
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "yaml", "opticalflowdiffusion_tpu"}
 PORT_FILES = sorted((ROOT / "opticalflowdiffusion_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"
+    ROOT / name for name in ("chip_smoke.py", "chip_train_spread.py")
 ]
 
 

@@ -451,6 +451,42 @@ def test_middle_kernels_match_plain_on_card(cuda_device, dtype, B, N):
     assert float((out.float() - out_p.float()).abs().max()) <= 1e-5 * out_mass + ulp
 
 
+def _middle_ctx_case(case, dtype, dev):
+    """qkv (B, N, 384) as views of (B, 384, N) that pass A must take:
+    ``short`` (N below one tile of 32 f32 or 64 bf16 positions), ``ragged``
+    (N no multiple of 8: rows that a tensor map cannot take), ``strided``
+    (the batch stride of a (B, 400, N) buffer), ``misaligned`` (a batch
+    stride of 385 N with N odd: neither rows nor batches 16-byte aligned)."""
+    B, N, C = {"short": (2, 20, 384), "ragged": (3, 1001, 384), "strided": (2, 1000, 400),
+               "misaligned": (2, 999, 385)}[case]
+    rng = np.random.default_rng(len(case))
+    a = torch.from_numpy(rng.standard_normal((B, C, N)).astype(np.float32)).to(dev, dtype)
+    return a[:, :384].transpose(1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["short", "ragged", "strided", "misaligned"])
+def test_middle_ctx_takes_short_ragged_and_strided_qkv_on_card(cuda_device, dtype, case):
+    """Row 7 reads k and v through a tensor map (rows and batch stride of a
+    multiple of 16 bytes, or a padded copy): at N below one tile, N no
+    multiple of 8 and on strided batch views it agrees with
+    middle_ctx_plain within 1e-5 of the terms' magnitude (TOL_MID of
+    chip_smoke.py), gives the same bits twice, and counts one launch a
+    call."""
+    t = _middle_ctx_case(case, dtype, cuda_device)
+    n0 = kernels.LA_MID_CTX.launches
+    ctx, ctx2 = pap.middle_ctx(t), pap.middle_ctx(t)
+    want = pap.middle_ctx_plain(t)
+    va = t.clone()
+    va[..., 256:] = va[..., 256:].abs()
+    mass = float(pap.middle_ctx_plain(va).max())
+    torch.cuda.synchronize()
+    assert kernels.LA_MID_CTX.launches == n0 + 2
+    assert torch.equal(ctx, ctx2)
+    assert float((ctx - want).abs().max()) <= 1e-5 * mass
+
+
 @pytest.mark.cuda
 def test_middle_kernels_refuse_what_they_cannot_take_on_card(cuda_device):
     t = _qkv_conv_layout(12, 1, 64, torch.float32, cuda_device)
@@ -685,6 +721,60 @@ def test_splat_kernel_is_bitwise_its_fixed_point_plain_on_card(cuda_device, dtyp
     assert kernels.SPLAT.launches == n0 + 2
     assert torch.equal(_bits(out), _bits(want)) and torch.equal(mask, wmask)
     assert torch.equal(_bits(out), _bits(again)) and torch.equal(mask, mask2)
+
+
+# (C, H, W, scale, offset) of the backward's bit-for-bit cases: channel
+# counts below, at and past its chunk of 4 (4 compiles apart from the
+# others); W even (vector accesses of 2 sources) and odd (29); scales 1, 2,
+# 3, 4 and 16 with offsets; the native size
+SPLAT_BWD_GEOMS = [(1, 64, 96, 1, (0, 0)), (3, 64, 96, 2, (1, 0)), (4, 64, 96, 3, (2, 1)),
+                   (4, 100, 70, 4, (3, 2)), (5, 37, 29, 3, (0, 2)), (9, 64, 96, 16, (15, 9)),
+                   (4, 448, 1024, 1, (0, 0))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,H,W,scale,offset", SPLAT_BWD_GEOMS)
+@pytest.mark.parametrize("kind", ["flow4", "flow40", "zero", "huge", "nonfinite"])
+def test_splat_bwd_is_bitwise_its_plain_version_on_card(cuda_device, dtype, C, H, W, scale,
+                                                        offset, kind):
+    """The backward kernel equals splat_bwd_raw bit for bit (values as
+    integers, so NaN bits and signed zeros count): the kernel rounds every
+    operation as the plain version does, in the same order.  Flows of 4 and
+    40 px with an infinite target, a zero flow, 1e6 px (every corner off the
+    output but column 0's), and inf, -inf and NaN values; one launch
+    counted a call."""
+    v, flow = _bitwise_splat_inputs(kind, dtype, cuda_device, 31 * scale + C + len(kind),
+                                    H=H, W=W, C=C)
+    g = torch.Generator(device=cuda_device).manual_seed(C + scale)
+    cot = torch.randn(2, C, H // scale, W // scale, generator=g, device=cuda_device)
+    n0 = kernels.SPLAT_BWD.launches
+    d_inp, d_flow = psplat_.splat_bwd(v, flow, cot, scale, offset)
+    w_inp, w_flow = psplat_.splat_bwd_raw(v, flow, cot, scale, offset)
+    torch.cuda.synchronize()
+    assert kernels.SPLAT_BWD.launches == n0 + 1
+    assert d_inp.dtype == dtype and d_flow.dtype == torch.float32
+    assert torch.equal(_bits(d_inp), _bits(w_inp)) and torch.equal(_bits(d_flow), _bits(w_flow))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_splat_bwd_takes_misaligned_tensors_on_card(cuda_device, dtype):
+    """Tensors that start one element past an aligned address (contiguous
+    views into a larger buffer) take the kernel's scalar accesses: the same
+    bits as splat_bwd_raw."""
+    dev = cuda_device
+    v0, flow0 = _bitwise_splat_inputs("flow4", dtype, dev, 5, H=64, W=96, C=4)
+    v = torch.empty(v0.numel() + 1, dtype=dtype, device=dev)[1:].view(v0.shape)
+    flow = torch.empty(flow0.numel() + 1, device=dev)[1:].view(flow0.shape)
+    v.copy_(v0)
+    flow.copy_(flow0)
+    cot = torch.randn(2, 4, 64, 96, generator=torch.Generator(device=dev).manual_seed(6),
+                      device=dev)
+    got = psplat_.splat_bwd(v, flow, cot)
+    want = psplat_.splat_bwd_raw(v0, flow0, cot)
+    torch.cuda.synchronize()
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, want))
 
 
 @pytest.mark.cuda

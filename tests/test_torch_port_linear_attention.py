@@ -115,6 +115,49 @@ def test_middle_wrappers_take_plain_versions_on_cpu():
         punet.LinearAttention(16, attn_backend="xla")
 
 
+# (B, N) of the unfused middle at every block of a 128x128 b8 and a native
+# b2 eval (chip_smoke.py's middle_phase), and edge sizes
+_MID = [(8, 16384), (8, 4096), (8, 1024), (8, 256), (2, 458752), (2, 114688), (2, 28672),
+        (2, 7168), (1, 1), (1, 20), (3, 1001), (16, 64)]
+
+
+@pytest.mark.parametrize("B,N", _MID)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_middle_ctx_plan_fits(B, N, dtype):
+    """Row 7's CTAs per batch element: 1 <= CTAs <= tiles of 128-byte rows
+    (64 bf16 or 32 f32 positions), about two CTAs an SM over the batch."""
+    ctas = pap.mid_plan(B, N, dtype)
+    tiles = -(-N // (64 if dtype == torch.bfloat16 else 32))
+    assert 1 <= ctas <= tiles
+    assert ctas == tiles or (ctas - 1) * B < 2 * 132 <= ctas * B
+
+
+def test_middle_ctx_plan_pins():
+    assert pap.mid_plan(2, 458752) == 132
+    assert pap.mid_plan(8, 256, torch.float32) == 8
+    assert pap.mid_plan(8, 256, torch.bfloat16) == 4
+    assert pap.mid_plan(8, 16384, torch.bfloat16, sms=100) == 25
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_middle_ctx_reads_kv_in_place_or_from_a_padded_copy(dtype):
+    """Pass A's tensor map reads the k and v rows in place where rows and
+    batch stride are multiples of 16 bytes (a (B, 400, N) buffer's view
+    too), else from one zero-padded copy of those rows."""
+    q = 16 // torch.empty((), dtype=dtype).element_size()
+    for C, N in ((384, 1000), (400, 1000), (384, 1001), (385, 999), (384, 20)):
+        a = torch.randn(2, C, N).to(dtype)
+        u = a[:, :384]
+        kv, ld, bs = pap._kv_rows(u)
+        assert kv.shape == (2, 256, ld) and ld % q == 0 and bs % q == 0 and ld - N < q
+        assert torch.equal(kv[..., :N], u[:, 128:]) and not kv[..., N:].any()
+        in_place = N % q == 0 and C * N % q == 0
+        assert (kv.data_ptr() == u[:, 128:].data_ptr()) == in_place
+        assert bs == (C * N if in_place else 256 * ld)
+    one = torch.randn(1, 384, 64).to(dtype)
+    assert pap._kv_rows(one)[2] == 384 * 64
+
+
 def test_fused_module_keeps_the_middle_under_its_old_name():
     assert paf.linear_attention_middle is pap.linear_attention_middle_plain
 

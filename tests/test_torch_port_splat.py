@@ -69,6 +69,31 @@ def test_splat_and_vjp_match_jax(scale, offset):
     assert np.abs(np.asarray(d_flow)).max() > 0
 
 
+@pytest.mark.parametrize("flow_scale", [4.0, 40.0])
+@pytest.mark.parametrize("C,H,W,scale,offset", [(1, 13, 18, 1, (0, 0)), (3, 13, 18, 2, (1, 0)),
+                                                (4, 37, 29, 3, (2, 1)), (5, 37, 29, 4, (3, 2)),
+                                                (9, 21, 34, 1, (0, 0)), (4, 37, 40, 16, (15, 9)),
+                                                (9, 37, 29, 3, (0, 2))])
+def test_splat_bwd_raw_matches_jax_at_any_channels_and_shapes(C, H, W, scale, offset,
+                                                              flow_scale):
+    """The plain backward (the kernel's reference, which it equals bit for
+    bit on the card) against JAX's VJP of the splat at channel counts below,
+    at and past the kernel's chunk of 4, sizes no multiple of 4 or of the
+    scale, scales 1-16 with offsets, and flows of 4 and 40 px (most targets
+    off the output) with a non-finite target: f32 sums of a few bilinear
+    terms in another order."""
+    inp, flow = _inputs(200 + 11 * C + scale, B=2, H=H, W=W, C=C, flow_scale=flow_scale)
+    out, vjp = jax.vjp(lambda i, f: splat.splat_raw(i, f, scale, *offset),
+                       jnp.asarray(inp), jnp.asarray(flow))
+    g = np.random.default_rng(C).standard_normal(out.shape).astype(np.float32)
+    d_inp, d_flow = vjp(jnp.asarray(g))
+    gi, gf = psplat.splat_bwd_raw(_nchw(inp), _nchw(flow), _nchw(g), scale, offset)
+    assert gi.shape == (2, C, H, W) and gf.shape == (2, 2, H, W)
+    _close(_nhwc(gi), d_inp)
+    _close(_nhwc(gf), d_flow)
+    assert float(gi[0, :, 0, 0].abs().max()) == 0.0      # the non-finite target
+
+
 @pytest.mark.parametrize("scale,offset", [(1, (0, 0)), (4, (3, 2))])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_splat_float64_sums_match_jax(scale, offset, dtype):
