@@ -128,8 +128,9 @@ it prints is one JSON object, flushed as it goes, apart from the card's
    launch at b16 and b2 and an empty kernel's (``device_times``); the splat
    backward's device time a call at each case of its phase and per train
    step on the two steps' captured inputs (``splat_bwd_device_times``);
-   row 7's device time a call at each qkv of its phase and summed over a
-   native b2 eval (``mid_ctx_device_times``).
+   the device times of rows 7 and 8 a call at each qkv of their phase and
+   summed over a native b2 eval (``mid_ctx_device_times``, row 8's keys
+   prefixed ``out_``).
 8. the kernels line: for each kernel its route, source, the TPU kernel it
    replaces, launches over all count windows, error, ms, plain ms, bound
    ms and what bounds it, library ms; for rows 6, 9 and 10 also
@@ -149,7 +150,9 @@ it prints is one JSON object, flushed as it goes, apart from the card's
    ``per_native_step`` (its 11 calls on a native step's inputs); for the
    splat backward ``device_ms`` (its 5 cases of a 128x128 b16 step),
    ``per_128x128_step`` and ``per_native_step`` (its 5 calls on each
-   step's own inputs: events, plain, bound and device ms).
+   step's own inputs: events, plain, bound and device ms); for rows 7 and
+   8 ``device_ms`` (torch.profiler, a native b2 eval's 8 blocks) and
+   ``bound_share`` (bound ms / device ms).
 9. the result line.
 
 Any failure raises and exits non-zero without the result line; so does a
@@ -1083,11 +1086,12 @@ def profiler_phase():
     CUDA-event ms taken first, before any trace); row 4's device ms a
     launch at b16 and b2; an empty kernel's launch; the splat backward's
     device ms a call at splat_bwd_phase's cases and a step on the captured
-    train steps' inputs; row 7's device ms a call (the pass and its
-    combine) at middle_phase's qkv, and summed over a native b2 eval's 8
-    blocks (bf16).  Returns {"splat": {label: row}, "bwd_kv1": {B: ms a
-    launch}, "empty_device_ms": ms, "splat_bwd": {label: row}, "mid_ctx":
-    {label: row}, "mid_ctx_native_eval_device_ms": ms}."""
+    train steps' inputs; the device ms of row 7 (the pass and its combine)
+    and of row 8 a call at middle_phase's qkv, and each summed over a
+    native b2 eval's 8 blocks (bf16).  Returns {"splat": {label: row},
+    "bwd_kv1": {B: ms a launch}, "empty_device_ms": ms, "splat_bwd": {label:
+    row}, "mid_ctx": {label: row}, "mid_ctx_native_eval_device_ms": ms,
+    "mid_out_native_eval_device_ms": ms}."""
     cases = []
     for i, (label, Bn, H, W, dtype, scale, zero) in enumerate(SPLAT_PROFILE_CASES):
         x, metric, flow = splat_inputs(Bn, H, W, dtype, 1300 + i)
@@ -1130,23 +1134,32 @@ def profiler_phase():
             sum(device_split(lambda a=a: sp.splat_bwd(*a))[0].values()) for a in st["calls"]),
             calls=len(st["calls"]), bound_ms=st["bound_ms"])
     phase("splat_bwd_device_times", per_case=bwd)
-    mid, mid_native = {}, 0.0
+    # rows 7 and 8: device ms a call at middle_phase's qkv (row 8 on row 7's
+    # ctx), and each summed over a native b2 eval's 8 blocks (bf16)
+    mid, mid_native, out_native = {}, 0.0, 0.0
     for Bn, shapes, at in ((B, SHAPES, "128x128"), (NATIVE_B, NATIVE_SHAPES, "448x1024")):
         for i, (N, count) in enumerate(mid_blocks(shapes).items()):
             for dtype in (torch.bfloat16, torch.float32):
                 qkv = mid_qkv(i, Bn, N, dtype)
                 with torch.no_grad():
                     split, per_call = device_split(lambda: am.middle_ctx(qkv), 10)
+                    cp = am.middle_ctx(qkv)
+                    out_split, out_per_call = device_split(lambda: am.middle_out(qkv, cp), 10)
                 row = dict(B=Bn, N=N, blocks=count, device_ms=sum(split.values()),
                            launches_per_call=per_call,
-                           bound_ms=max(mid_bound_ms(Bn, N, qkv.element_size())))
+                           bound_ms=max(mid_bound_ms(Bn, N, qkv.element_size())),
+                           out_device_ms=sum(out_split.values()),
+                           out_launches_per_call=out_per_call)
                 mid[f"{at}_b{Bn}_N{N}_{str(dtype).split('.')[1]}"] = row
                 if at == "448x1024" and dtype == torch.bfloat16:
                     mid_native += count * row["device_ms"]
-                del qkv
-    phase("mid_ctx_device_times", per_case=mid, native_eval_device_ms=mid_native)
+                    out_native += count * row["out_device_ms"]
+                del qkv, cp
+    phase("mid_ctx_device_times", per_case=mid, native_eval_device_ms=mid_native,
+          out_native_eval_device_ms=out_native)
     return {"splat": rows, "bwd_kv1": kv1, "empty_device_ms": empty, "splat_bwd": bwd,
-            "mid_ctx": mid, "mid_ctx_native_eval_device_ms": mid_native}
+            "mid_ctx": mid, "mid_ctx_native_eval_device_ms": mid_native,
+            "mid_out_native_eval_device_ms": out_native}
 
 
 def bwd_bound_ms(kernel, Bn, C, N, xbytes, f32_cores=False):
@@ -2077,8 +2090,9 @@ def main():
                         bound_ms=st["bound"], bound_by=st["bound_by"], library_ms=None,
                         per=f"the qkv of the 8 blocks of one 448x1024 b{NATIVE_B} UNet eval "
                             "(8 launches, bf16)")
-            if k is kernels.LA_MID_CTX:
-                vals["device_ms"] = prof["mid_ctx_native_eval_device_ms"]
+            dev = prof["mid_ctx_native_eval_device_ms" if k is kernels.LA_MID_CTX
+                       else "mid_out_native_eval_device_ms"]
+            vals.update(device_ms=dev, bound_share=st["bound"] / dev)
         elif k in bwd:
             st, nat = la_bwd[bwd[k]], la_bwd_native[bwd[k]]
             vals = dict(max_abs_err=max(st["err"], nat["err"]), ms=st["ms"],

@@ -1476,6 +1476,54 @@ la_out_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CU
 // A).  Each CTA writes one partial (m, s, sums) and la_ctx_combine_kernel
 // folds them in the order p = 0 .. P-1: no float atomics, the same bits on
 // every run.  Every mbarrier wait traps after ~10 s.
+//
+// Pass B (row 8; replaces _out_kernel, ops/attention_pallas.py:89, whose
+// pallas_call is at :180) is bound by its bytes too: q read and out written
+// once, 0.140 ms at B 2, N 458752 in bf16 and 0.281 in f32 (3.35 TB/s); its
+// 2 * 4096 FLOP a position take 0.112 ms on f32 CUDA cores (67 TFLOP/s),
+// 0.046 in split TF32 on the tensor cores (three products, 495 TFLOP/s).
+// Its first body (one CTA of 256 threads a 32-position tile) reached ~21%
+// of that: every CTA loaded the whole ctx and divided it by N (~470 MB of
+// L2 reads at that shape), q came in by scalar loads with nothing in
+// flight, half the threads ran the softmax serially over d, the product ran
+// on f32 CUDA cores (~80% of the byte bound alone), and a warp's stores
+// were 64-byte pieces.  This body is pass A's shape:
+// - persistent CTAs, grid (P, B) from the wrapper's mid_out_plan (three
+//   CTAs an SM, no second wave); each consumer warp
+//   loads ctx[b][h] / N once (a division, as the plain version's), split
+//   into TF32 hi and lo parts held in registers as the product's fixed
+//   operand for every tile the CTA walks;
+// - a producer warp keeps a ring of MO_STAGES q tiles full by TMA (a 3-d
+//   map over the q rows as (N, HD, B) with the batch stride, [HD][128-byte]
+//   boxes under the 128-byte swizzle, zero past N; a qkv whose rows or
+//   batch stride are no multiple of 16 bytes is copied once into a padded
+//   buffer by the wrapper);
+// - four consumer warps, warp h for head h, share nothing but the ring.  A
+//   lane reads, for two neighbouring positions at once (one 32-bit word in
+//   bf16, 8 bytes in f32), its k index's d values straight from the
+//   swizzled tile into B fragments of mma.sync m16n8k8 (K = d, N = 8
+//   positions, the k index t <-> d = 8 kk + 2 t and t + 4 <-> 8 kk + 2 t + 1
+//   permuted alike in A, which puts the rows a load reads in distinct bank
+//   groups), so a quad holds one position's DH values: the softmax over d
+//   is two quad shuffles for the max and two for the sum, ex2.approx in
+//   registers, every lane busy;
+// - out[e][pos] = sum_d (ctx / N)[d][e] q'[d][pos] runs on the tensor cores
+//   in split TF32, three products (q' and ctx / N are both f32 and neither
+//   is exact in TF32; a bf16 wgmma on a rounded q' would lose the f32
+//   numerics), M = 16 channels e, so the accumulator is channel-major like
+//   out;
+// - a warp stages its head's [DH][128-byte] output tile in shared memory
+//   (the same swizzle; its rows permuted, mo_row, so that the
+//   8- or 16-byte stores fall in distinct banks) and writes it with one TMA
+//   store of whole 128-byte rows, dropped past N.  An output whose rows
+//   are no multiple of 16 bytes goes to a padded buffer the wrapper copies
+//   out.  No atomics: the same bits on every run.
+// Three CTAs an SM (12 consumer warps) beat two CTAs of four stages at the
+// native shapes, and one CTA of six stages lost to both: the warps, not
+// the tiles in flight, hide the latency.
+// Measured (chip_smoke.py's profiler phase, NVIDIA H100 80GB HBM3, 700.00 W):
+// 0.1945 ms at (2, 458752) bf16 (72% of its bound), 0.370 f32 (76%), 0.579
+// a native b2 eval's 8 blocks (64% of 0.373; the first body 1.509).
 constexpr int MID_THREADS = 288;  // 8 consumer warps, then the producer warp
 constexpr int MID_ROW = 128;      // bytes of one channel row of a tile
 constexpr uint32_t MID_TILE = 2 * HD * MID_ROW;
@@ -1653,60 +1701,205 @@ la_mid_ctx_kernel(const __grid_constant__ CUtensorMap tkv, float* __restrict__ p
   }
 }
 
-constexpr int LDM = T + 1;  // [HD][T] f32 q tile of pass B
+// ---- pass B (row 8)
+constexpr int MO_WARPS = NH;                   // one consumer warp a head
+constexpr int MO_THREADS = 32 * (MO_WARPS + 1);  // then the producer warp
+constexpr uint32_t MO_TILE = HD * MID_ROW;     // a [HD][128 bytes] q tile
+constexpr uint32_t MO_OUT = DH * MID_ROW;      // a warp's [DH][128 bytes] output tile
+constexpr int MO_STAGES = 3;                   // q tiles in flight a CTA (three CTAs an SM)
+// the ring, the warps' output tiles, the full and empty barriers, the alignment slack
+constexpr size_t MO_SMEM = 1024 + (size_t)MO_STAGES * MO_TILE + (size_t)MO_WARPS * MO_OUT +
+                           (size_t)2 * MO_STAGES * 8;
+static_assert(3 * (MO_SMEM + 1024) <= 228 * 1024, "three pass-B CTAs must share an SM");
 
-// Pass B.  grid (ceil(N / T), B).  ctx (B, NH, DH, DH) f32 from pass A; out
-// (B, HD, N) in TX.
+// The output channel e (of a head's DH) of row m of an A fragment of m-tile
+// mt: rows g and g + 8 hold e = 16 mt + s(g) and 16 mt + 8 + s(g), with s a
+// permutation of 0 .. 7 under which a warp's stores to its swizzled output
+// tile fall in distinct banks (bf16: 8 bytes a lane, half a warp a wavefront,
+// rows 0 2 4 6 then 1 3 5 7; f32: 16 bytes, a quarter, rows 4 apart).
 template <typename TX>
-__global__ void __launch_bounds__(THREADS)
-la_mid_out_kernel(const TX* __restrict__ qkv, long long batch_stride,
-                  const float* __restrict__ ctx, TX* __restrict__ out, int N) {
-  __shared__ float qS[HD * LDM];       // q[j][t], then q'
-  __shared__ float ctxS[NH * DH * DH];  // ctx / N
-  const int b = blockIdx.y, n0 = blockIdx.x * T;
-  const int nvalid = min(T, N - n0);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const TX* q = qkv + (size_t)b * batch_stride + n0;
-  for (int i = tid; i < NH * DH * DH; i += THREADS)
-    ctxS[i] = ctx[(size_t)b * NH * DH * DH + i] / (float)N;
-  for (int i = tid; i < HD * T; i += THREADS) {
-    const int j = i / T, t = i % T;
-    qS[j * LDM + t] = t < nvalid ? to_f(q[(size_t)j * N + t]) : 0.f;
-  }
-  __syncthreads();
-  // softmax over d: thread (head tid / T, position tid % T)
-  if (tid < NH * T) {
-    float* qh = qS + (tid / T) * DH * LDM + tid % T;
-    float m = -INFINITY;
-    for (int d = 0; d < DH; ++d) m = fmaxf(m, qh[d * LDM]);
-    float sum = 0.f;
-    for (int d = 0; d < DH; ++d) {
-      const float e = expf(qh[d * LDM] - m);
-      qh[d * LDM] = e;
-      sum += e;
-    }
-    for (int d = 0; d < DH; ++d) qh[d * LDM] = qh[d * LDM] / sum * Q_SCALE;
-  }
-  __syncthreads();
-  // out[h * DH + e][t] for e = e0 .. e0 + 15: warp -> (h, e0), lane -> t
-  const int h = warp / 2, e0 = (warp % 2) * 16;
-  float acc[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
-  for (int d = 0; d < DH; ++d) {
-    const float qd = qS[(h * DH + d) * LDM + lane];
-    const float* crow = ctxS + h * DH * DH + d * DH + e0;
-#pragma unroll
-    for (int i = 0; i < 16; ++i) acc[i] = fmaf(qd, crow[i], acc[i]);
-  }
-  if (lane < nvalid) {
-    TX* o = out + (size_t)b * HD * N + (size_t)(h * DH + e0) * N + n0 + lane;
-#pragma unroll
-    for (int i = 0; i < 16; ++i) put(o + (size_t)i * N, acc[i]);
-  }
+__device__ __forceinline__ int mo_row(int mt, int m) {
+  const int g = m & 7;
+  const int s = sizeof(TX) == 2 ? (g < 4 ? 2 * g : 2 * g - 7) : ((g & 1) << 2) | (g >> 1);
+  return 16 * mt + (m & 8) + s;
+}
+// a lane's values at positions pos and pos + 1 (pos even) of row r, as f32
+__device__ __forceinline__ void mo_pair(const unsigned char* tile, int r, int pos, float (&v)[2],
+                                        float) {
+  const float2 u = *reinterpret_cast<const float2*>(tile + mid_at<float>(r, pos));
+  v[0] = u.x, v[1] = u.y;
+}
+__device__ __forceinline__ void mo_pair(const unsigned char* tile, int r, int pos, float (&v)[2],
+                                        bf16) {
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(tile + mid_at<bf16>(r, pos));
+  v[0] = __uint_as_float(u << 16);
+  v[1] = __uint_as_float(u & 0xffff0000u);
+}
+// positions pos .. pos + 3 (pos a multiple of 4) of row r, rounded once to TX
+__device__ __forceinline__ void mo_put(unsigned char* tile, int r, int pos, float a, float b,
+                                       float c, float d, float) {
+  *reinterpret_cast<float4*>(tile + mid_at<float>(r, pos)) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void mo_put(unsigned char* tile, int r, int pos, float a, float b,
+                                       float c, float d, bf16) {
+  *reinterpret_cast<uint2*>(tile + mid_at<bf16>(r, pos)) = make_uint2(pack_bf16(a, b),
+                                                                      pack_bf16(c, d));
 }
 
-static_assert(NH * T <= THREADS && WARPS * 16 == HD, "la_mid_out_kernel's thread layout");
+// Pass B.  grid (P, B) from the wrapper's mid_out_plan, MO_THREADS threads,
+// MO_SMEM bytes; tq maps the q rows
+// of qkv (channels 0 .. HD - 1) as (N, HD, B) in [HD][128-byte] boxes, tout
+// the output (B, HD, ldo) as (N, HD, B) in [DH][128-byte] boxes (stores past
+// N are dropped); ctx (B, NH, DH, DH) f32 from pass A.
+template <typename TX>
+__global__ void __launch_bounds__(MO_THREADS, 3)
+la_mid_out_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tout,
+                  const float* __restrict__ ctx, int N) {
+  constexpr int S = MO_STAGES;
+  constexpr int TN = MID_ROW / sizeof(TX);  // positions per tile
+  constexpr int NJ = TN / 16;               // pairs of n8 position tiles a tile
+  extern __shared__ unsigned char la_smem_raw[];
+  unsigned char* sm = align1024(la_smem_raw);
+  const int b = blockIdx.y, p = blockIdx.x, P = gridDim.x;
+  const int ntiles = (N + TN - 1) / TN;
+  const int my = (ntiles - 1 - p) / P + 1;  // tiles p, p + P, ... (p < ntiles)
+  const uint32_t base = smem_u32(sm);
+  const uint32_t full = base + S * MO_TILE + MO_WARPS * MO_OUT, empty = full + 8 * S;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, MO_WARPS);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp == MO_WARPS) {
+    // ---- producer: the q tiles
+    if (lane == 0)
+      for (int i = 0; i < my; ++i) {
+        const int s = i % S;
+        if (i >= S) mbar_wait(empty + 8 * s, (i / S - 1) & 1);
+        mbar_expect_tx(full + 8 * s, MO_TILE);
+        tma_load_3d(base + s * MO_TILE, &tq, full + 8 * s, (p + i * P) * TN, 0, b);
+      }
+    return;
+  }
+
+  // ---- consumers: warp h takes head h.  The fixed operand A (16 e x 8 d,
+  // two m-tiles, four k-steps) is ctx[b][h] / N in split TF32, its k index
+  // t <-> d = 8 kk + 2 t and t + 4 <-> d = 8 kk + 2 t + 1 (permuted alike in B)
+  const int h = warp, g = lane >> 2, t = lane & 3;
+  uint32_t ahi[2][4][4], alo[2][4][4];
+  {
+    const float* ch = ctx + ((size_t)b * NH + h) * DH * DH;
+    const float fn = (float)N;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int d = 8 * kk + 2 * t, e0 = mo_row<TX>(mt, g), e1 = mo_row<TX>(mt, g + 8);
+        split_tf32(ch[d * DH + e0] / fn, ahi[mt][kk][0], alo[mt][kk][0]);
+        split_tf32(ch[d * DH + e1] / fn, ahi[mt][kk][1], alo[mt][kk][1]);
+        split_tf32(ch[(d + 1) * DH + e0] / fn, ahi[mt][kk][2], alo[mt][kk][2]);
+        split_tf32(ch[(d + 1) * DH + e1] / fn, ahi[mt][kk][3], alo[mt][kk][3]);
+      }
+  }
+  const int rq = h * DH + 2 * t;  // the lane's q row of k-step 0
+  unsigned char* ot = sm + S * MO_TILE + warp * MO_OUT;  // the warp's output tile
+
+  for (int i = 0; i < my; ++i) {
+    const int s = i % S;
+    const unsigned char* tile = sm + s * MO_TILE;
+    if (lane == 0 && i > 0) bulk_wait_read();  // the last tile's store has read ot
+    mbar_wait_warp(full + 8 * s, (i / S) & 1);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      // positions 16 j + 2 n (c = 0) and 16 j + 2 n + 1 (c = 1) are the
+      // columns n of two n8 tiles; a lane holds the d values of its k index
+      // at position n = g, so a quad holds a position's DH values
+      float q[4][2][2];  // [kk][d = 8 kk + 2 t + hh][c]
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) mo_pair(tile, rq + 8 * kk + hh, 16 * j + 2 * g, q[kk][hh], TX());
+      // q' = softmax_d(q) * DH^-0.5: max and sum over the quad
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float m = -INFINITY;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) m = fmaxf(m, fmaxf(q[kk][0][c], q[kk][1][c]));
+        m = fmaxf(m, __shfl_xor_sync(FULL_MASK, m, 1));
+        m = fmaxf(m, __shfl_xor_sync(FULL_MASK, m, 2));
+        const float ml = m * L2E;
+        float sum = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            q[kk][hh][c] = ex2(fmaf(q[kk][hh][c], L2E, -ml));
+            sum += q[kk][hh][c];
+          }
+        sum += __shfl_xor_sync(FULL_MASK, sum, 1);
+        sum += __shfl_xor_sync(FULL_MASK, sum, 2);
+        const float f = Q_SCALE / sum;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) q[kk][hh][c] *= f;
+      }
+      // out[e][pos] = sum_d (ctx / N)[d][e] q'[d][pos] in split TF32: three
+      // products, the small ones first
+      float acc[2][2][4];  // [c][mt]
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) acc[c][mt][k] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t bhi[2][2], blo[2][2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          split_tf32(q[kk][0][c], bhi[c][0], blo[c][0]);
+          split_tf32(q[kk][1][c], bhi[c][1], blo[c][1]);
+        }
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) mma_tf32(acc[c][mt], alo[mt][kk], bhi[c]);
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) mma_tf32(acc[c][mt], ahi[mt][kk], blo[c]);
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) mma_tf32(acc[c][mt], ahi[mt][kk], bhi[c]);
+      }
+      // a lane's accumulators hold rows mo_row(mt, g) and mo_row(mt, g + 8)
+      // at positions 16 j + 4 t + (0, 1, 2, 3) = (c0 of c = 0, c0 of c = 1,
+      // c1 of c = 0, c1 of c = 1) (c2, c3 alike)
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        mo_put(ot, mo_row<TX>(mt, g), 16 * j + 4 * t, acc[0][mt][0], acc[1][mt][0],
+               acc[0][mt][1], acc[1][mt][1], TX());
+        mo_put(ot, mo_row<TX>(mt, g + 8), 16 * j + 4 * t, acc[0][mt][2], acc[1][mt][2],
+               acc[0][mt][3], acc[1][mt][3], TX());
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);  // the warp's reads of the stage are done
+    fence_async_smem();                          // the output tile, to the TMA store
+    __syncwarp();
+    if (lane == 0) {
+      tma_store_3d(&tout, smem_u32(ot), (p + i * P) * TN, h * DH, b);
+      bulk_commit();
+    }
+  }
+  if (lane == 0) bulk_wait_read();  // the last store has read ot before the CTA exits
+}
 
 // ------------------------------------------------------------------ backward
 //
@@ -3944,31 +4137,32 @@ int launch_bwd_kv2(const void* x, int x_bf16, int ld, const float* g_pre, const 
   return reduce_records(part, kv2_record(C), 0, B * P, (int)kv2_record(C), 1, out_w, st);
 }
 
-// the k and v rows (2 HD, from channel HD) of qkv as (ld, 2 HD, B) in TX
-// with batch stride bstride (elements), [2 HD][128 bytes] boxes under the
-// 128-byte swizzle; zero past ld
+// rows channels of qkv (or of an output) from p, as (n, rows, B) in TX with
+// row stride ld and batch stride bstride (elements), [box_rows][128 bytes]
+// boxes under the 128-byte swizzle; zero past n (loads), dropped (stores)
 template <typename TX>
-bool map_kv(CUtensorMap* map, const void* kv, int ld, long long bstride, int B) {
+bool map_rows(CUtensorMap* map, const void* p, int n, int ld, int rows, long long bstride, int B,
+              int box_rows) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)ld, (cuuint64_t)(2 * HD), (cuuint64_t)B};
+  const cuuint64_t dims[3] = {(cuuint64_t)n, (cuuint64_t)rows, (cuuint64_t)B};
   const cuuint64_t strides[2] = {(cuuint64_t)ld * sizeof(TX), (cuuint64_t)bstride * sizeof(TX)};
-  const cuuint32_t box[3] = {(cuuint32_t)(MID_ROW / sizeof(TX)), 2 * HD, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)(MID_ROW / sizeof(TX)), (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return fn(map, sizeof(TX) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-            3, const_cast<void*>(kv), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            3, const_cast<void*>(p), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The body's shared-memory limit, raised to the most a CTA may have once per
-// body and device (the CUDA call would otherwise cost every launch).
-template <typename TX>
-int mid_smem_once(int device) {
+// A kernel's shared-memory limit, raised to the most a CTA may have once per
+// kernel and device (the CUDA call would otherwise cost every launch).
+template <auto K>
+int smem_once(int device) {
   static std::atomic<unsigned long long> done{0};
   const unsigned long long bit = device < 64 ? 1ull << device : 0ull;
   if (bit && (done.load() & bit)) return 0;
-  const int err = set_smem(la_mid_ctx_kernel<TX>, SMEM_LIMIT);
+  const int err = set_smem(K, SMEM_LIMIT);
   if (err == 0) done.fetch_or(bit);
   return err;
 }
@@ -3983,19 +4177,31 @@ int launch_mid_ctx(const void* kv, int ld, long long bstride, float* part, float
       !aligned16(kv) || P < 1 || P > (N + tn - 1) / tn)
     return (int)cudaErrorInvalidValue;
   CUtensorMap tkv;
-  if (!map_kv<TX>(&tkv, kv, ld, bstride, B)) return (int)cudaErrorInvalidValue;
-  int err = mid_smem_once<TX>(device);
+  if (!map_rows<TX>(&tkv, kv, ld, ld, 2 * HD, bstride, B, 2 * HD)) return (int)cudaErrorInvalidValue;
+  int err = smem_once<la_mid_ctx_kernel<TX>>(device);
   if (err) return err;
   la_mid_ctx_kernel<TX><<<dim3(P, B), MID_THREADS, MID_SMEM, st>>>(tkv, part, N);
   err = (int)cudaGetLastError();
   return err ? err : combine(part, P, ctx, nullptr, nullptr, B, st);
 }
 
+// Pass B of the unfused middle.  P, the CTAs per batch element, is the
+// wrapper's mid_out_plan (1 <= P <= tiles).
 template <typename TX>
-int launch_mid_out(const void* qkv, long long batch_stride, const float* ctx, void* out, int B,
-                   int N, cudaStream_t st) {
-  la_mid_out_kernel<TX><<<dim3((N + T - 1) / T, B), THREADS, 0, st>>>(
-      static_cast<const TX*>(qkv), batch_stride, ctx, static_cast<TX*>(out), N);
+int launch_mid_out(const void* q, int ld, long long bstride, const float* ctx, void* out, int ldo,
+                   int B, int N, int P, int device, cudaStream_t st) {
+  const int qn = 16 / sizeof(TX), tn = MID_ROW / sizeof(TX);
+  if (B < 1 || B > 65535 || N < 1 || ld < N || ld % qn || bstride % qn ||
+      bstride < (long long)HD * ld || ldo < N || ldo % qn || !aligned16(q) || !aligned16(out) ||
+      P < 1 || P > (N + tn - 1) / tn)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tout;
+  if (!map_rows<TX>(&tq, q, N, ld, HD, bstride, B, HD) ||
+      !map_rows<TX>(&tout, out, N, ldo, HD, (long long)HD * ldo, B, DH))
+    return (int)cudaErrorInvalidValue;
+  int err = smem_once<la_mid_out_kernel<TX>>(device);
+  if (err) return err;
+  la_mid_out_kernel<TX><<<dim3(P, B), MO_THREADS, MO_SMEM, st>>>(tq, tout, ctx, N);
   return (int)cudaGetLastError();
 }
 
@@ -4099,13 +4305,14 @@ int ofd_la_bwd_kv2(const void* x, int x_bf16, int ld, const float* g_pre, const 
 }
 
 // The unfused middle's launchers, qkv_bf16 selecting bf16 (1) or f32 (0).
-// Pass A: kv points at the k rows (channel HD) of qkv (B, 3 HD, .) whose
-// rows are ld >= N long (ld and batch_stride in elements, multiples of 16
-// bytes, kv 16-byte aligned; positions past N are ignored); P, its CTAs per
-// batch element, is ops/attention_pallas.py::mid_plan; part (B, P, PART) f32
-// scratch; ctx (B, NH, DH, DH) f32.  Pass B:
-// qkv (B, 3 HD, N) with batch stride batch_stride (elements); out (B, HD, N)
-// in qkv's dtype.
+// Both read rows of qkv (B, 3 HD, .) that are ld >= N long (ld and
+// batch_stride in elements, multiples of 16 bytes, the pointer 16-byte
+// aligned; positions past N are ignored); P is their CTAs per batch element,
+// ops/attention_pallas.py::mid_plan for pass A and mid_out_plan for pass B.
+// Pass A: kv points at the k rows
+// (channel HD); part (B, P, PART) f32 scratch; ctx (B, NH, DH, DH) f32.
+// Pass B: q points at the q rows (channel 0); out (B, HD, ldo) in qkv's
+// dtype, ldo >= N a multiple of 16 bytes (positions past N are not written).
 int ofd_la_mid_ctx(const void* kv, int qkv_bf16, int ld, long long batch_stride, float* part,
                    float* ctx, int B, int N, int P, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -4116,13 +4323,14 @@ int ofd_la_mid_ctx(const void* kv, int qkv_bf16, int ld, long long batch_stride,
              : launch_mid_ctx<float>(kv, ld, batch_stride, part, ctx, B, N, P, device, st);
 }
 
-int ofd_la_mid_out(const void* qkv, int qkv_bf16, long long batch_stride, const float* ctx,
-                   void* out, int B, int N, int device, void* stream) {
+int ofd_la_mid_out(const void* q, int qkv_bf16, int ld, long long batch_stride, const float* ctx,
+                   void* out, int ldo, int B, int N, int P, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return qkv_bf16 ? launch_mid_out<bf16>(qkv, batch_stride, ctx, out, B, N, st)
-                  : launch_mid_out<float>(qkv, batch_stride, ctx, out, B, N, st);
+  return qkv_bf16
+             ? launch_mid_out<bf16>(q, ld, batch_stride, ctx, out, ldo, B, N, P, device, st)
+             : launch_mid_out<float>(q, ld, batch_stride, ctx, out, ldo, B, N, P, device, st);
 }
 
 const char* ofd_cuda_error_string(int err) {

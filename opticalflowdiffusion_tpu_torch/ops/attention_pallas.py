@@ -26,11 +26,13 @@ d), per head:
 Layout: the kernels read qkv as (B, 3 * 128, N) with N fastest, which is how
 the 1x1 conv ``to_qkv`` lays it out; the public functions take JAX's (B, N,
 3 * 128), so the module passes a transposed view and nothing is copied.  A
-tensor in another layout is copied into it first, and pass A copies the k
-and v rows once more into a zero-padded buffer where its tensor map cannot
-read them in place (rows or batch stride no multiple of 16 bytes).  ``middle_out`` returns a
-(B, N, 128) view of a contiguous (B, 128, N) tensor, which the module's
-``to_out`` reads as NCHW with no copy.
+tensor in another layout is copied into it first, and each pass copies the
+rows it reads (k and v, or q) once more into a zero-padded buffer where its
+tensor map cannot read them in place (rows or batch stride no multiple of 16
+bytes).  ``middle_out`` returns a (B, N, 128) view of a contiguous (B, 128,
+N) tensor, which the module's ``to_out`` reads as NCHW with no copy; where a
+row of N values is no multiple of 16 bytes, pass B writes a padded buffer
+and the wrapper copies it into that tensor once.
 """
 
 from __future__ import annotations
@@ -95,7 +97,7 @@ def _lib():
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.ofd_la_mid_ctx.argtypes = [vp, i, i, ll, vp, vp, i, i, i, i, vp]
         lib.ofd_la_mid_ctx.restype = i
-        lib.ofd_la_mid_out.argtypes = [vp, i, ll, vp, vp, i, i, i, vp]
+        lib.ofd_la_mid_out.argtypes = [vp, i, i, ll, vp, vp, i, i, i, i, i, vp]
         lib.ofd_la_mid_out.restype = i
         lib.ofd_cuda_error_string.argtypes = [i]
         lib.ofd_cuda_error_string.restype = ctypes.c_char_p
@@ -111,20 +113,39 @@ def mid_plan(B: int, N: int, dtype=torch.bfloat16, sms: int = 132) -> int:
     return max(1, min(-(-N // tile), -(-2 * sms // B)))
 
 
-def _kv_rows(u: torch.Tensor):
-    """(kv, ld, batch stride): the k and v rows (channels 128-383) of a (B,
-    384, N) view whose last two axes are contiguous, as pass A's tensor map
-    reads them: rows of ld >= N elements, ld and the batch stride multiples
+def mid_out_plan(B: int, N: int, dtype=torch.bfloat16, sms: int = 132) -> int:
+    """Pass B's CTAs per batch element (``la_mid_out_kernel``, the same
+    tiles): three CTAs an SM, no more in all than fit at once (no second
+    wave), none without a tile."""
+    tile = 32 if dtype == torch.float32 else 64
+    return max(1, min(-(-N // tile), 3 * sms // B))
+
+
+def _rows(u: torch.Tensor, lo: int, n: int):
+    """(rows, ld, batch stride): the channels lo .. lo + n - 1 of a (B, 384,
+    N) view whose last two axes are contiguous, as the passes' tensor maps
+    read them: rows of ld >= N elements, ld and the batch stride multiples
     of 16 bytes, a 16-byte aligned base.  A view that is not so is copied
-    once into a zero-padded (B, 256, ld) buffer (positions past N are
+    once into a zero-padded (B, n, ld) buffer (positions past N are
     ignored)."""
     B, _, N = u.shape
     q = 16 // u.element_size()
     bs = u.stride(0) if B > 1 else 3 * HIDDEN * N   # a lone batch element's stride is free
     if N % q == 0 and bs % q == 0 and u.data_ptr() % 16 == 0:
-        return u[:, HIDDEN:], N, bs
+        return u[:, lo:lo + n], N, bs
     ld = -(-N // q) * q
-    return F.pad(u[:, HIDDEN:], (0, ld - N)), ld, 2 * HIDDEN * ld
+    return F.pad(u[:, lo:lo + n], (0, ld - N)), ld, n * ld
+
+
+def _out_rows(B: int, N: int, dtype, device):
+    """(buffer, ldo): pass B's output (B, 128, ldo), which its tensor map
+    writes in rows of a multiple of 16 bytes.  Where N values make such a
+    row, ldo = N and the buffer is the contiguous output; else ldo is N
+    rounded up to one and the wrapper copies the first N positions of each
+    row out once."""
+    q = 16 // torch.empty((), dtype=dtype).element_size()
+    ldo = -(-N // q) * q
+    return torch.empty(B, HIDDEN, ldo, device=device, dtype=dtype), ldo
 
 
 def _channels_first(qkv: torch.Tensor, heads: int, dim: int) -> torch.Tensor:
@@ -163,7 +184,7 @@ def middle_ctx(qkv: torch.Tensor, heads: int = HEADS, dim: int = HEAD_DIM) -> to
     from .attention_fused import _sm_count  # attention_fused imports this module
 
     P = mid_plan(B, N, u.dtype, _sm_count(dev))
-    kv, ld, bs = _kv_rows(u)
+    kv, ld, bs = _rows(u, HIDDEN, 2 * HIDDEN)
     part = torch.empty(B, P, PART, device=dev)
     ctx = torch.empty(B, HEADS, HEAD_DIM, HEAD_DIM, device=dev)
     lib = _lib()
@@ -191,14 +212,21 @@ def middle_out(qkv: torch.Tensor, ctx: torch.Tensor, heads: int = HEADS,
             or not ctx.is_contiguous()):
         raise ValueError(f"ctx must be a contiguous float32 {want} tensor on {u.device}, got "
                          f"{ctx.dtype} {tuple(ctx.shape)} on {ctx.device}")
-    out = torch.empty(B, HIDDEN, N, device=u.device, dtype=u.dtype)
+    dev = u.device
+    from .attention_fused import _sm_count
+
+    q, ld, bs = _rows(u, 0, HIDDEN)
+    out, ldo = _out_rows(B, N, u.dtype, dev)
     lib = _lib()
     err = lib.ofd_la_mid_out(
-        u.data_ptr(), int(u.dtype == torch.bfloat16), u.stride(0), ctx.data_ptr(),
-        out.data_ptr(), B, N, u.device.index, torch.cuda.current_stream(u.device).cuda_stream,
+        q.data_ptr(), int(u.dtype == torch.bfloat16), ld, bs, ctx.data_ptr(), out.data_ptr(),
+        ldo, B, N, mid_out_plan(B, N, u.dtype, _sm_count(dev)), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(lib, err, LA_MID_OUT.name)
     LA_MID_OUT.launches += 1
+    if ldo != N:
+        out = out[..., :N].contiguous()
     return out.transpose(1, 2)
 
 
@@ -237,4 +265,4 @@ def linear_attention_middle(qkv: torch.Tensor, heads: int = HEADS, dim: int = HE
 
 __all__ = ["BACKENDS", "linear_attention_middle",
            "linear_attention_middle_plain", "middle_ctx", "middle_ctx_plain", "middle_out",
-           "middle_out_plain", "mid_plan"]
+           "middle_out_plain", "mid_out_plan", "mid_plan"]

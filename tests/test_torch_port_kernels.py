@@ -487,6 +487,49 @@ def test_middle_ctx_takes_short_ragged_and_strided_qkv_on_card(cuda_device, dtyp
     assert float((ctx - want).abs().max()) <= 1e-5 * mass
 
 
+def _middle_out_case(case, dtype, dev):
+    """qkv (B, N, 384) that pass B must take: the four of _middle_ctx_case
+    (``ragged`` and ``misaligned`` also write through a padded output),
+    ``b1`` (B = 1), ``one_tile`` (N of exactly one tile: 64 bf16 or 32 f32
+    positions), ``one_tile_plus_one`` and ``uneven`` (N = 12810 at B = 2:
+    201 bf16 or 401 f32 tiles over 198 CTAs, some of which take one tile
+    fewer than the others)."""
+    if case in ("short", "ragged", "strided", "misaligned"):
+        return _middle_ctx_case(case, dtype, dev)
+    tile = 64 if dtype == torch.bfloat16 else 32
+    B, N = {"b1": (1, 1000), "one_tile": (2, tile), "one_tile_plus_one": (2, tile + 1),
+            "uneven": (2, 12810)}[case]
+    return _qkv_conv_layout(13, B, N, dtype, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["short", "ragged", "strided", "misaligned", "b1", "one_tile",
+                                  "one_tile_plus_one", "uneven"])
+def test_middle_out_takes_edge_qkv_on_card(cuda_device, dtype, case):
+    """Row 8 reads q through a tensor map (rows and batch stride of a
+    multiple of 16 bytes, or a padded copy) and writes its output through
+    one (in place where a row of N values is a multiple of 16 bytes, else
+    through a padded buffer copied out once): at each case it agrees with
+    middle_out_plain within 1e-5 of the terms' magnitude plus one bf16 ulp
+    of the largest output for bf16 (TOL_MID of chip_smoke.py), gives the
+    same bits twice, counts one launch a call, and returns a (B, N, 128)
+    view of a contiguous (B, 128, N) tensor."""
+    t = _middle_out_case(case, dtype, cuda_device)
+    B, N = t.shape[:2]
+    ctx = pap.middle_ctx_plain(t)
+    n0 = kernels.LA_MID_OUT.launches
+    out, out2 = pap.middle_out(t, ctx), pap.middle_out(t, ctx)
+    want = pap.middle_out_plain(t, ctx)
+    mass = float(pap.middle_out_plain(t, ctx.abs()).float().max())
+    torch.cuda.synchronize()
+    assert kernels.LA_MID_OUT.launches == n0 + 2
+    assert torch.equal(out, out2)
+    assert out.shape == (B, N, 128) and out.dtype == dtype and out.transpose(1, 2).is_contiguous()
+    ulp = 2.0 ** -7 * float(want.float().abs().max()) if dtype == torch.bfloat16 else 0.0
+    assert float((out.float() - want.float()).abs().max()) <= 1e-5 * mass + ulp
+
+
 @pytest.mark.cuda
 def test_middle_kernels_refuse_what_they_cannot_take_on_card(cuda_device):
     t = _qkv_conv_layout(12, 1, 64, torch.float32, cuda_device)
@@ -497,6 +540,13 @@ def test_middle_kernels_refuse_what_they_cannot_take_on_card(cuda_device):
             cuda_device)(torch.randn(1, 64, 4, 4, device=cuda_device))
     with pytest.raises(TypeError):
         pap.middle_ctx(t.half())
+    ctx = pap.middle_ctx(t)
+    with pytest.raises(TypeError):
+        pap.middle_out(t.half(), ctx)
+    with pytest.raises(ValueError):
+        pap.middle_out(t, ctx[:, :2])
+    with pytest.raises(ValueError):
+        pap.middle_out(t, ctx.to(torch.bfloat16))
 
 
 @pytest.mark.cuda

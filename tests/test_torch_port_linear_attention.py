@@ -13,6 +13,7 @@ and chip_smoke.py.
 """
 
 import dataclasses
+import functools
 import json
 
 import jax
@@ -20,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from opticalflowdiffusion_tpu.config import compose
@@ -139,23 +141,107 @@ def test_middle_ctx_plan_pins():
     assert pap.mid_plan(8, 16384, torch.bfloat16, sms=100) == 25
 
 
+@pytest.mark.parametrize("lo,n", [(128, 256), (0, 128)], ids=["kv", "q"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_middle_ctx_reads_kv_in_place_or_from_a_padded_copy(dtype):
-    """Pass A's tensor map reads the k and v rows in place where rows and
-    batch stride are multiples of 16 bytes (a (B, 400, N) buffer's view
-    too), else from one zero-padded copy of those rows."""
+def test_middle_ctx_reads_kv_in_place_or_from_a_padded_copy(dtype, lo, n):
+    """The passes' tensor maps read their rows (pass A the k and v rows,
+    pass B the q rows) in place where rows and batch stride are multiples
+    of 16 bytes (a (B, 400, N) buffer's view too), else from one zero-padded
+    (B, n, ld) copy of those rows."""
     q = 16 // torch.empty((), dtype=dtype).element_size()
-    for C, N in ((384, 1000), (400, 1000), (384, 1001), (385, 999), (384, 20)):
+    for C, N in ((384, 1000), (400, 1000), (384, 1001), (385, 999), (384, 20), (384, 12810)):
         a = torch.randn(2, C, N).to(dtype)
         u = a[:, :384]
-        kv, ld, bs = pap._kv_rows(u)
-        assert kv.shape == (2, 256, ld) and ld % q == 0 and bs % q == 0 and ld - N < q
-        assert torch.equal(kv[..., :N], u[:, 128:]) and not kv[..., N:].any()
+        rows, ld, bs = pap._rows(u, lo, n)
+        assert rows.shape == (2, n, ld) and ld % q == 0 and bs % q == 0 and ld - N < q
+        assert torch.equal(rows[..., :N], u[:, lo:lo + n]) and not rows[..., N:].any()
         in_place = N % q == 0 and C * N % q == 0
-        assert (kv.data_ptr() == u[:, 128:].data_ptr()) == in_place
-        assert bs == (C * N if in_place else 256 * ld)
+        assert (rows.data_ptr() == u[:, lo:].data_ptr()) == in_place
+        assert bs == (C * N if in_place else n * ld)
+        assert bs >= n * ld   # the launchers refuse batches that overlap
     one = torch.randn(1, 384, 64).to(dtype)
-    assert pap._kv_rows(one)[2] == 384 * 64
+    assert pap._rows(one, lo, n)[2] == 384 * 64
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_middle_out_writes_in_place_or_through_a_padded_buffer(dtype):
+    """Pass B's tensor map writes rows of a multiple of 16 bytes: where N
+    values make one, its buffer is the contiguous (B, 128, N) output; else
+    a (B, 128, ldo) buffer, ldo the next such length, whose first N
+    positions the wrapper copies out once."""
+    q = 16 // torch.empty((), dtype=dtype).element_size()
+    for N in (1, 20, 64, 999, 1000, 1001, 12810, 458752):
+        out, ldo = pap._out_rows(3, N, dtype, "cpu")
+        assert out.shape == (3, 128, ldo) and out.dtype == dtype and out.is_contiguous()
+        assert ldo % q == 0 and N <= ldo < N + q
+        assert (ldo == N) == (N % q == 0)
+
+
+@pytest.mark.parametrize("B,N", _MID)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_middle_out_plan_fits(B, N, dtype):
+    """Row 8's CTAs per batch element: 1 <= CTAs <= tiles of 128-byte rows,
+    as many as three CTAs an SM hold at once over the batch and no more
+    (a CTA past them would wait for a second wave)."""
+    ctas = pap.mid_out_plan(B, N, dtype)
+    tiles = -(-N // (64 if dtype == torch.bfloat16 else 32))
+    assert 1 <= ctas <= tiles
+    assert ctas == tiles or ctas * B <= 3 * 132 < (ctas + 1) * B
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_middle_out_plan_pins(dtype):
+    """Pass B walks pass A's tiles with three CTAs an SM; where the tiles do
+    not divide evenly, some CTAs take one tile fewer than the others (the
+    card tests' N = 12810)."""
+    tile = 64 if dtype == torch.bfloat16 else 32
+    assert pap.mid_out_plan(2, 458752, dtype) == 198
+    assert pap.mid_out_plan(8, 16384, dtype) == 49
+    assert pap.mid_out_plan(1, 20, dtype) == 1
+    assert pap.mid_out_plan(2, tile, dtype) == 1 and pap.mid_out_plan(2, tile + 1, dtype) == 2
+    assert pap.mid_out_plan(8, 16384, dtype, sms=100) == 37
+    P = pap.mid_out_plan(2, 12810, dtype)
+    tiles = -(-12810 // tile)
+    per_cta = [(tiles - 1 - p) // P + 1 for p in range(P)]   # the kernel's split
+    assert P == min(tiles, 198) and sum(per_cta) == tiles
+    assert max(per_cta) - min(per_cta) == 1
+
+
+@pytest.mark.parametrize("B,N,block_n", [(2, 512, 256), (1, 200, 128)])
+def test_middle_out_plain_matches_pallas_out_kernel_interpret(B, N, block_n):
+    """``middle_out_plain`` against JAX's pass B alone: a ``pallas_call`` of
+    ``_out_kernel`` in interpret mode on the same f32 ctx (per head, laid
+    out block-diagonal (128, 128) as JAX's pass A leaves it), q zero-padded
+    to a block multiple as ``_linear_attention_middle_pallas`` pads it.
+    Both take the softmax over d and the product in f32 in another order:
+    1e-5 of the largest sum of the terms' magnitudes (sum_d q' |ctx| / N),
+    chip_smoke.py's TOL_MID rule, and 1e-5 of the output's largest value."""
+    qkv = _qkv(8, B, N)
+    t = torch.from_numpy(qkv)
+    ctx = pap.middle_ctx_plain(t)
+    bd = np.zeros((B, 128, 128), np.float32)
+    for h in range(4):
+        bd[:, 32 * h:32 * h + 32, 32 * h:32 * h + 32] = ctx[:, h].numpy()
+    Np = -(-N // block_n) * block_n
+    q = np.pad(qkv[..., :128], ((0, 0), (0, Np - N), (0, 0)))
+    sel = jap._head_selector(4, 32)
+    lsel = jnp.where((jnp.arange(128) % 32 == 0)[:, None], sel, 0.0)
+    spec = lambda shape, index: pl.BlockSpec(shape, index, memory_space=pltpu.VMEM)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(pl.pallas_call(
+            functools.partial(jap._out_kernel, dim=32, n_total=N),
+            grid=(B, Np // block_n),
+            in_specs=[spec((1, block_n, 128), lambda b, n: (b, n, 0)),
+                      spec((1, 128, 128), lambda b, n: (b, 0, 0)),
+                      spec((128, 4), lambda b, n: (0, 0)),
+                      spec((128, 4), lambda b, n: (0, 0))],
+            out_specs=spec((1, block_n, 128), lambda b, n: (b, n, 0)),
+            out_shape=jax.ShapeDtypeStruct((B, Np, 128), jnp.float32),
+        )(jnp.asarray(q), jnp.asarray(bd), sel, lsel))[:, :N]
+    got = pap.middle_out_plain(t, ctx).numpy()
+    mass = float(pap.middle_out_plain(t, ctx.abs()).max())
+    assert np.abs(got - want).max() <= 1e-5 * mass
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
 
 
 def test_fused_module_keeps_the_middle_under_its_old_name():
