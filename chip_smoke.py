@@ -4,7 +4,7 @@
 
 Budget: under 10 minutes on one H100, the kernel build included (one plain
 ``nvcc`` call per source, all started together; seconds each).  A run takes
-about four minutes on an H100.  Every line
+about five and a half minutes on an H100.  Every line
 it prints is one JSON object, flushed as it goes, apart from the card's
 ``nvidia-smi`` line.  Phases:
 
@@ -30,7 +30,8 @@ it prints is one JSON object, flushed as it goes, apart from the card's
      bit at 64x96 over scales 1-16 with offsets, at 1, 3, 5 and 9 channels
      and at sizes no multiple of the tile or the scale (100x70, 37x29),
      with flows of 4 and 40 px, zero, 1e6 px with 1e-20 weights and
-     non-finite values, the zero flow at scale 16 at 128x128 b16 and the
+     non-finite values, at 16 and 17 channels at 128x128 over scales 1-16
+     (the latent model's pyramid splats), the zero flow at scale 16 at 128x128 b16 and the
      tiny-weight flow at 448x1024;
    - the three backward passes of the linear-attention block at every
      (N, C) of a 128x128 b16 train step that takes them (N >= 1024: five
@@ -119,7 +120,25 @@ it prints is one JSON object, flushed as it goes, apart from the card's
    its 11 splats' inputs and the splat backward on its 5; a count window of 2
    warm-up and 3 timed steps with exact launches, native train samples/s and
    the window's peak memory.
-7. profiler: device times from ``torch.profiler``, after the last
+7. flow_diffuser_configs: every other configuration of
+   ``flow_diffuser.yaml`` at the flagship's width (UNet 64, bf16, 128x128,
+   weights from the seed, output conv not zeroed): ``target: target``,
+   ``target: flow``, ``noiser: flow``, the single-forward model with the
+   joint and the flow target, ``diffusion_flow_weight: 1``, and the AE
+   chain (FlowPred trained 3 steps at b16 through ``train.py``, its
+   checkpoint, the latent joint model loading its Autoencoder through
+   ``ae``, held bit for bit to the trained one).  For each (FlowPred too):
+   one 128x128 b16 train step with every kernel against the same step with
+   every plain version (``TOL_TRAIN_CONFIGS``, from
+   ``chip_train_spread.py --configs``), the model's flow (FlowPred's
+   reconstruction) with the kernels against the plain versions; then a
+   count window each for a sampler run (DDIM-50 at b8, the ancestral loop
+   at T = 1000 at b2 under flow noise, one forward at b8 for the
+   single-forward models: steps/s and frames/s) and for 2 train steps
+   (finite losses and gradient norms), in which every kernel on the path
+   must launch and no other; last the flow target at native 448x1024,
+   DDIM-50 b2, through the flash kernel (50 launches).
+8. profiler: device times from ``torch.profiler``, after the last
    host-clock window, so that no profiler trace runs before one: the
    splat forward by pass and its launches per call at 128x128 b8 and
    448x1024 b2 (bf16, f32) and at the pyramid loss's f32 scales 2-16 at
@@ -131,7 +150,7 @@ it prints is one JSON object, flushed as it goes, apart from the card's
    the device times of rows 7 and 8 a call at each qkv of their phase and
    summed over a native b2 eval (``mid_ctx_device_times``, row 8's keys
    prefixed ``out_``).
-8. the kernels line: for each kernel its route, source, the TPU kernel it
+9. the kernels line: for each kernel its route, source, the TPU kernel it
    replaces, launches over all count windows, error, ms, plain ms, bound
    ms and what bounds it, library ms; for rows 6, 9 and 10 also
    ``vs_library`` (ms / library ms) and ``bound_share`` (bound ms / ms),
@@ -153,7 +172,7 @@ it prints is one JSON object, flushed as it goes, apart from the card's
    step's own inputs: events, plain, bound and device ms); for rows 7 and
    8 ``device_ms`` (torch.profiler, a native b2 eval's 8 blocks) and
    ``bound_share`` (bound ms / device ms).
-9. the result line.
+10. the result line.
 
 Any failure raises and exits non-zero without the result line; so does a
 run without a CUDA device or without the port's package beside this file.
@@ -178,7 +197,8 @@ from opticalflowdiffusion_tpu_torch import kernels
 from opticalflowdiffusion_tpu_torch import train as train_entry
 from opticalflowdiffusion_tpu_torch.algorithms.base import to_batch
 from opticalflowdiffusion_tpu_torch.algorithms.flow_diffuser import FlowDiffuser
-from opticalflowdiffusion_tpu_torch.config import FLAGSHIP, NATIVE
+from opticalflowdiffusion_tpu_torch.algorithms.flow_pred import FlowPred
+from opticalflowdiffusion_tpu_torch.config import FLAGSHIP, FLOW_PRED, NATIVE
 from opticalflowdiffusion_tpu_torch.kernels import build as kbuild
 from opticalflowdiffusion_tpu_torch.models import unet as unet_mod
 from opticalflowdiffusion_tpu_torch.ops import attention_fused as af
@@ -906,6 +926,9 @@ SPLAT_BITWISE_GEOMS = ((4, 64, 96, 1, (0, 0)), (4, 64, 96, 2, (1, 0)), (4, 64, 9
                        (9, 64, 96, 16, (0, 0)), (4, 100, 70, 3, (2, 1)),
                        (5, 100, 70, 1, (0, 0)), (1, 37, 29, 3, (0, 2)))
 SPLAT_BITWISE_KINDS = ("flow4", "flow40", "zero", "huge", "nonfinite")
+# the latent model's pyramid splats: 16 latent channels (17 with the weight
+# channel that the warp appends) at 128x128, scales 1-16
+LATENT_SPLAT_GEOMS = tuple((C, 128, 128, s, (0, 0)) for C in (16, 17) for s in (1, 2, 4, 8, 16))
 
 
 def bitwise_splat_inputs(kind, Bn, H, W, dtype, seed, C=4):
@@ -942,7 +965,8 @@ def splat_bitwise_phase():
     at b2 over SPLAT_BITWISE_GEOMS x SPLAT_BITWISE_KINDS in bf16 and f32;
     the zero flow at scale 16 at 128x128 b16 (256 sources a target); the
     tiny-weight flow at 448x1024.  Returns the number of cases."""
-    cases = [(k, 2, C, H, W, sc, off, dt) for C, H, W, sc, off in SPLAT_BITWISE_GEOMS
+    cases = [(k, 2, C, H, W, sc, off, dt)
+             for C, H, W, sc, off in SPLAT_BITWISE_GEOMS + LATENT_SPLAT_GEOMS
              for k in SPLAT_BITWISE_KINDS for dt in (torch.bfloat16, torch.float32)]
     cases += [("zero", TRAIN_B, 4, 128, 128, 16, (0, 0), torch.float32),
               ("huge", 1, 4, NATIVE.height, NATIVE.width, 1, (0, 0), torch.float32)]
@@ -1996,6 +2020,282 @@ def native_train_phase():
     del algo, state, step, batch
     return counted
 
+# FlowDiffuser's other configurations (flow_diffuser.yaml), each at the
+# flagship's width (UNet 64, bf16, 128x128, weights from the seed, output
+# conv not zeroed): (label, config fields); the latent model loads the
+# Autoencoder of a FlowPred run of FLOWPRED_STEPS steps (AE chain)
+CONFIGS = (("target", dict(target="target")), ("flow", dict(target="flow")),
+           ("flownoise", dict(noiser="flow")), ("single_joint", dict(is_diffusion=False)),
+           ("single_flow", dict(is_diffusion=False, target="flow")),
+           ("flowloss", dict(diffusion_flow_weight=1.0)), ("latent", dict(latent=True)))
+FLOWPRED_STEPS = 3
+CONFIG_TRAIN_STEPS = 2
+# sampler runs: DDIM-50 at b8 (image noise), the ancestral loop at the yaml's
+# T = 1000 at b2 (flow noise: the parity flownoise stage's sampler), one
+# forward at b8 (the single-forward models)
+CONFIG_DDIM, CONFIG_B, FLOWNOISE_B = 50, 8, 2
+# the flow target at native 448x1024: DDIM-50 at b2, through row 6
+NATIVE_FLOW_B = 2
+# the kernels each window of a configuration must launch (rows 1-2 in every
+# UNet eval, the AE's included; rows 3-5 in every train step; the splat
+# forward wherever a frame is warped: UnetWithWarp, the preprocess of the
+# target and joint targets, the pyramid loss, the flow target's final warp;
+# its backward wherever a train step differentiates a warp); every other
+# kernel must launch no time at 128x128 under cuDNN
+FWD_KERNELS = ("linear_attention_ctx", "linear_attention_out")
+BWD_KERNELS = ("linear_attention_bwd_q", "linear_attention_bwd_kv1", "linear_attention_bwd_kv2")
+# a train step with every kernel vs every plain version, per configuration
+# (loss, gradients): the flagship's pins (TOL_TRAIN bf16), or wider ones
+# where a configuration's spread over seeds 0-4 needs it
+# (chip_train_spread.py --configs, on an H100: the largest loss and gradient
+# differences target 9.39e-4 and 1.81e-2, latent 1.06e-3 and 7.2e-3,
+# single_joint 1.99e-3 and 0.338).  The single-forward joint model's only
+# loss term is the full-resolution splat of the conditioning by a flow that
+# the random UNet puts at ~200 px: a bf16 rounding that moves the flow
+# moves where its gradient is read (the pyramid of the diffusion models
+# averages that out)
+TOL_TRAIN_CONFIGS = {"target": (1.5e-3, 3e-2), "latent": (1.5e-3, 2e-2),
+                     "single_joint": (3e-3, 0.5)}
+# FlowPred's reconstruction (a frame in [0, 1], bf16 through two UNets) with
+# the kernels vs the plain versions of the kernels, relative to its scale
+# (max, mean): bf16's ulp at 1 is 2^-8, and the f32 sums of the linear
+# attention in another order flip roundings that the decoder carries to a
+# few pixels (0.0552 and 0.0527 max, 0.0037 and 0.0034 mean in two runs of
+# seed 0 on an H100)
+TOL_RECON = (0.1, 0.01)
+
+
+def config_algo(fields, sampling_timesteps=CONFIG_DDIM, seed=SEED):
+    """A FlowDiffuser configuration at the flagship's width and size."""
+    if fields.get("noiser") == "flow":
+        sampling_timesteps = None                   # the ancestral loop
+    cfg = dataclasses.replace(FLAGSHIP, zero_init=False, sampling_timesteps=sampling_timesteps,
+                              **fields)
+    return FlowDiffuser(cfg, device="cuda", generator=torch.Generator().manual_seed(seed))
+
+
+def on_path(algo, window):
+    """The kernels that ``window`` ('train' or 'sample') of ``algo`` must
+    launch at 128x128 under cuDNN."""
+    names = set(FWD_KERNELS)
+    warps = getattr(algo, "target", "joint") != "flow" or window == "sample"
+    if window == "train":
+        names |= set(BWD_KERNELS)
+        if warps:
+            names.add("splat_bwd")
+    if warps:
+        names.add("splat_fwd")
+    return names
+
+
+def check_launches(label, launches, must):
+    """Every kernel in ``must`` launched, every other one not."""
+    missing = sorted(k for k in must if launches[k] == 0)
+    extra = sorted(k for k, n in launches.items() if n and k not in must)
+    check(not missing and not extra,
+          f"{label}: kernels of the path not launched {missing}, off the path launched {extra}")
+
+
+def config_step_vs_plain(algo, label, batch, tol=None):
+    """One train step's loss and gradients of ``algo`` (FlowDiffuser or
+    FlowPred) with every kernel against the same step with every plain
+    version (the same weights, batch and draws), as step_vs_plain holds the
+    flagship."""
+    algo.module.train()
+    loss_k, g_k = step_grads(algo, batch, 11)
+    with plain_versions(attention="passes", splat=True):
+        loss_p, g_p = step_grads(algo, batch, 11)
+    algo.module.eval()
+    rel = {k: float((g_k[k] - g_p[k]).norm()) / float(g_p[k].norm())
+           for k in g_p if float(g_p[k].norm()) > 0}
+    worst = max(rel, key=rel.get)
+    total = float(torch.sqrt(sum((g_k[k] - g_p[k]).square().sum() for k in g_p))
+                  / torch.sqrt(sum(g.square().sum() for g in g_p.values())))
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    tol_loss, tol_grad = tol or TOL_TRAIN_CONFIGS.get(label, TOL_TRAIN["bf16"])
+    phase("config_train_step_vs_plain", config=label, B=batch[0].shape[0],
+          H=batch[0].shape[2], W=batch[0].shape[3], loss=loss_k, plain_loss=loss_p,
+          loss_rel=loss_rel, grad_leaves=len(rel), grad_global_rel=total,
+          grad_worst_leaf=worst, grad_worst_rel=rel[worst], pins=[tol_loss, tol_grad])
+    check(np.isfinite(loss_k) and all(torch.isfinite(g).all() for g in g_k.values()),
+          f"{label}: non-finite loss or gradient")
+    check(loss_rel <= tol_loss and total <= tol_grad,
+          f"{label}: train step with kernels disagrees with the plain versions: "
+          f"loss {loss_rel}, gradients {total}")
+    return loss_rel, total
+
+
+def config_forward_vs_plain(label, fwd, tol=TOL_FLOW):
+    """``fwd()`` (the model's flow, or FlowPred's reconstruction) with the
+    kernels against the same with the plain versions of the kernels (the
+    linear attention's passes, the splat): within ``tol`` of its scale."""
+    with torch.no_grad():
+        out_k = fwd()
+        with plain_versions(attention="passes", splat=True):
+            out_p = fwd()
+    torch.cuda.synchronize()
+    scale = float(out_p.abs().max())
+    e = err(out_k, out_p)
+    phase("config_forward_vs_plain", config=label, shape=list(out_k.shape), max_abs=e[0],
+          mean_abs=e[1], scale=scale, pins=list(tol))
+    check(torch.isfinite(out_k).all() and scale > 0, f"{label}: forward not finite")
+    check(e[0] <= tol[0] * scale and e[1] <= tol[1] * scale,
+          f"{label}: forward with kernels disagrees with the plain versions: {e}, scale {scale}")
+
+
+def model_flow(algo, cond):
+    """The model's flow head for ``cond``: at t = 500 from a normal state
+    (the diffusion models), or the single forward."""
+    Bn, _, H, W = cond.shape
+    if not algo.is_diffusion:
+        return lambda: algo._forward(cond, additional_out=True)[:, -2:]
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(Bn, algo.channels, H, W, generator=g, device="cuda")
+    tt = torch.full((Bn,), 500, dtype=torch.long, device="cuda")
+    return lambda: algo.model_fn(x, cond, tt, additional_out=True)[:, -2:]
+
+
+def config_sample(label, algo, items, must, native=False):
+    """One count window: preprocess and sample (or the one forward), the
+    outputs' shapes and finiteness, the launches.  Returns (result,
+    launches)."""
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    _, cond, _ = algo.preprocess(to_batch(items, algo.device))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    samples, flow = algo.sample(cond, generator=gen)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    Bn, _, H, W = cond.shape
+    if algo.is_diffusion:
+        steps = algo.sched.sampling_timesteps
+        sampler = "ddim" if algo.sched.is_ddim_sampling else "ancestral"
+    else:
+        steps, sampler = 1, "single_forward"
+    finite = ~torch.isnan(samples)
+    res = {"config": label, "batch": Bn, "height": H, "width": W, "sampler": sampler,
+           "denoise_steps": steps, "seconds": sec, "denoise_steps_per_s": steps / sec,
+           "frames_per_s": Bn / sec, "samples_shape": list(samples.shape),
+           "flow_shape": list(flow.shape), "nan_share": float((~finite).float().mean()),
+           "finite_values_finite": bool(torch.isfinite(samples[finite]).all()
+                                        and torch.isfinite(flow).all())}
+    phase("config_sample", launches=launches, **res)
+    check(res["samples_shape"] == [Bn, algo.dim, H, W] and res["flow_shape"] == [Bn, 2, H, W],
+          f"{label}: wrong sample shapes")
+    check(res["finite_values_finite"], f"{label}: non-finite samples")
+    check_launches(label + " sample", launches, must)
+    if native:
+        check(launches["flash_attention"] == steps, f"{label}: flash launches {launches}")
+    return res, launches
+
+
+def config_train(label, algo, batch, must):
+    """CONFIG_TRAIN_STEPS train steps (augment, loss, backward, clip, Adam)
+    in one count window: finite losses and gradients, the launches."""
+    cfg = algo.cfg
+    state = TrainState(algo.module, make_optimizer(algo.module.parameters(), cfg.lr,
+                                                   cfg.weight_decay, 100.0))
+    step = make_train_step(algo.loss_fn, with_grad_stats=True)
+    algo.module.train()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    losses, grads_finite = [], True
+    t = time.perf_counter()
+    for _ in range(CONFIG_TRAIN_STEPS):
+        m = step(state, batch, gen)
+        losses.append(float(m["train/loss"]))
+        grads_finite &= all(np.isfinite(float(v)) for k, v in m.items() if "grad_norm" in k)
+    torch.cuda.synchronize()
+    sec = (time.perf_counter() - t) / CONFIG_TRAIN_STEPS
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    algo.module.eval()
+    phase("config_train_steps", config=label, B=batch[0].shape[0], steps=CONFIG_TRAIN_STEPS,
+          losses=losses, grads_finite=grads_finite, ms_per_step_first_two=1e3 * sec,
+          launches=launches)
+    check(all(np.isfinite(losses)) and grads_finite, f"{label}: non-finite loss or gradients")
+    check_launches(label + " train", launches, must)
+    return launches
+
+
+def flow_diffuser_configs_phase():
+    """Every other configuration of flow_diffuser.yaml, and the AE chain
+    (FlowPred trained for a few steps at b16, its checkpoint, the latent
+    joint model loading it through ``ae``): for each, a train step with
+    kernels against plain (config_step_vs_plain), the model's forward with
+    kernels against plain, a sampler run, CONFIG_TRAIN_STEPS train steps;
+    then the flow target at native 448x1024 (DDIM-50 b2, row 6).  Returns
+    the launches of all its count windows."""
+    totals = {k.name: 0 for k in kernels.KERNELS}
+
+    def add(launches):
+        for k, n in launches.items():
+            totals[k] += n
+
+    batch = train_batch()
+    _, data = build_flagship(SEED, "cuda")
+    items = [data[i] for i in range(CONFIG_B)]
+    root = Path(tempfile.mkdtemp(prefix="ofd_ae_chain_"))
+    try:
+        # the AE chain: FlowPred through the training entry point
+        t = time.perf_counter()
+        kernels.reset_counts()
+        exp = train_entry.build(FLOWPRED_STEPS, algorithm="flow_pred", out=str(root),
+                                batch=TRAIN_B, log_every=1)
+        exp.train()
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+        add(launches)
+        phase("config_flow_pred_run", steps=exp.state.step, checkpoints=exp.ckpt.steps(),
+              loss=exp.last_train.get("train/loss"), val_loss=exp.last_val.get("val/loss"),
+              seconds=time.perf_counter() - t, launches=launches)
+        check(exp.ckpt.steps() == [FLOWPRED_STEPS]
+              and np.isfinite(exp.last_train["train/loss"]), "FlowPred run: no checkpoint")
+        check_launches("flow_pred run", launches,
+                       set(FWD_KERNELS) | set(BWD_KERNELS) | {"splat_fwd", "splat_bwd"})
+        trained_ae = {k: v.detach().clone() for k, v in exp.state.module.ae.state_dict().items()}
+        del exp
+        fp = FlowPred(FLOW_PRED, device="cuda", generator=torch.Generator().manual_seed(SEED))
+        config_step_vs_plain(fp, "flow_pred", batch)
+        img, _, flw = batch
+        config_forward_vs_plain("flow_pred", lambda: fp.module(img[:CONFIG_B], flw[:CONFIG_B]),
+                                TOL_RECON)
+        del fp
+
+        for label, fields in CONFIGS:
+            if fields.get("latent"):
+                fields = dict(fields, ae=str(root))
+            algo = config_algo(fields)
+            if algo.latent:
+                same = all(torch.equal(v, trained_ae[k]) for k, v in algo.ae.state_dict().items())
+                phase("config_latent_ae_loaded", bit_for_bit=same, ae=str(root))
+                check(same, "the latent model's Autoencoder differs from the FlowPred run's")
+            config_step_vs_plain(algo, label, batch)
+            n = FLOWNOISE_B if algo.cfg.noiser == "flow" else CONFIG_B
+            _, cond, _ = algo.preprocess(to_batch(items[:n], algo.device))
+            config_forward_vs_plain(label, model_flow(algo, cond))
+            _, launches = config_sample(label, algo, items[:n], on_path(algo, "sample"))
+            add(launches)
+            add(config_train(label, algo, batch, on_path(algo, "train")))
+            del algo, cond
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    algo = config_algo(dict(target="flow"))
+    native = batch_items(SEED, NATIVE_FLOW_B, NATIVE.height, NATIVE.width)
+    _, c, _ = algo.preprocess(to_batch(native, algo.device))
+    with torch.no_grad():                           # a warm-up UNet eval at this shape
+        algo.model_fn(torch.randn((NATIVE_FLOW_B, 2) + tuple(c.shape[2:]), device="cuda"), c,
+                      torch.full((NATIVE_FLOW_B,), 999, dtype=torch.long, device="cuda"))
+    del c
+    must = on_path(algo, "sample") | {"flash_attention"}
+    _, launches = config_sample("flow_native", algo, native, must, native=True)
+    add(launches)
+    phase("launch_counts_configs", launches=totals)
+    return totals
+
 
 def main():
     smi = device_phase()
@@ -2013,7 +2313,8 @@ def main():
     splat_bwd_row, splat_bwd_err = splat_bwd_phase()
     conv_rows_, conv_err = conv_phase()
     launches = slice_phase()
-    for window in (middle_modules_phase, train_phase, native_train_phase):
+    for window in (middle_modules_phase, train_phase, native_train_phase,
+                   flow_diffuser_configs_phase):
         for k, n in window().items():
             launches[k] += n
     phase("launch_counts_all_paths", launches=launches)

@@ -10,6 +10,12 @@ value, so one seed is one draw.  This script runs the same check at
 largest and mean loss difference per backend, and whether the repeats gave
 the same numbers.
 
+``--configs`` runs instead the check of FlowDiffuser's other
+configurations and of FlowPred (``config_step_vs_plain``, chip_smoke.py's
+``CONFIGS``; the latent model with its Autoencoder drawn from the seed) at
+each seed, once, and prints the largest loss and gradient differences per
+configuration against the flagship's pins.
+
 ``--splat-sums float32`` takes the plain splat's sums in float32, whose GPU
 atomics sum in a varying order (chip_smoke.py's reference before it took
 them in float64), to show what that order does to the reference.
@@ -17,6 +23,7 @@ them in float64), to show what that order does to the reference.
 Usage (from the root of a checkout, one card)::
 
     python3 chip_train_spread.py [--seeds 5] [--reps 2] [--splat-sums float64]
+    python3 chip_train_spread.py --configs [--seeds 5]
 """
 
 import argparse
@@ -32,9 +39,13 @@ def main():
     ap.add_argument("--seeds", type=int, default=5)
     ap.add_argument("--reps", type=int, default=2)
     ap.add_argument("--splat-sums", choices=("float64", "float32"), default="float64")
+    ap.add_argument("--configs", action="store_true",
+                    help="the other configurations' train-step check instead")
     args = ap.parse_args()
     cs.device_phase()
     cs.build_phase()
+    if args.configs:
+        return configs_spread(args.seeds)
     if args.splat_sums == "float32":
         raw = cs.sp.splat_raw
         cs.sp.splat_raw = lambda *a, acc_dtype=None, **k: raw(*a, **k)
@@ -71,6 +82,31 @@ def main():
                             "repeats_equal": all(len(set(c)) == 1 for c in per_case)}
     cs.emit({"summary": summary, "splat_sums": args.splat_sums, "seeds": args.seeds,
              "reps": args.reps, "pin": cs.TOL_TRAIN["bf16"][0]})
+
+
+def configs_spread(seeds):
+    """config_step_vs_plain over ``seeds`` for every configuration and
+    FlowPred, with no pin; a summary per configuration."""
+    out = {}
+    for seed in range(seeds):
+        cs.SEED = seed
+        batch = cs.train_batch(seed)
+        algos = [("flow_pred", lambda: cs.FlowPred(cs.FLOW_PRED, device="cuda",
+                                                    generator=cs.torch.Generator().manual_seed(seed)))]
+        algos += [(label, lambda f=fields: cs.config_algo(f, seed=seed))
+                  for label, fields in cs.CONFIGS]
+        for label, make in algos:
+            algo = make()
+            loss_rel, grad_rel = cs.config_step_vs_plain(algo, label, batch,
+                                                         tol=(float("inf"), float("inf")))
+            del algo
+            cs.emit({"case": "config_train_step_vs_plain", "config": label, "seed": seed,
+                     "loss_rel": loss_rel, "grad_global_rel": grad_rel})
+            out.setdefault(label, []).append((loss_rel, grad_rel))
+    cs.emit({"summary": {label: {"loss_rel_max": max(r[0] for r in rows),
+                                 "grad_global_rel_max": max(r[1] for r in rows)}
+                         for label, rows in out.items()},
+             "seeds": seeds, "pins": cs.TOL_TRAIN["bf16"]})
 
 
 if __name__ == "__main__":

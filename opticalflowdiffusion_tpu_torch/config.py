@@ -33,7 +33,14 @@ class FlowDiffuserConfig:
     ``_remat``: recompute the UnetWithWarp closure in the backward), and the
     JAX package's ``OFD_CONV_BACKEND`` as ``conv_backend`` (``cudnn`` is its
     default XLA lowering, ``rows`` its ``pallas``, ``fold`` its ``fold``;
-    ``ops/conv.py``)."""
+    ``ops/conv.py``).  ``target`` is ``joint``, ``target`` or ``flow``;
+    ``noiser`` is ``image`` or ``flow`` (the permutation-warp forward
+    process); ``flow_weight`` weighs the flow term of the single-forward
+    model's loss (``is_diffusion`` false) and ``diffusion_flow_weight`` the
+    direct flow MSE of the diffusion loss (the yaml's ``+`` knob, default
+    0).  ``ae`` is the directory of a port run whose newest checkpoint holds
+    the frozen Autoencoder of latent mode (``latent``), under the ``ae.``
+    prefix (``utils/ckpt.py``); None draws it from the seed."""
 
     image_size: int = 128
     latent_dim: int = 16
@@ -53,6 +60,24 @@ class FlowDiffuserConfig:
     weight_decay: float = 1e-6
     conv_backend: str = "cudnn"
     remat: bool = False
+    flow_weight: float = 0.0
+    diffusion_flow_weight: float = 0.0
+    ae: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class FlowPredConfig:
+    """``algorithm/flow_pred.yaml`` (its ``image_size: 128,128`` as one side)
+    plus ``runtime.precision`` and the conv lowering: the flow-equivariant
+    Autoencoder trained with ``ae_frac`` identity mixing."""
+
+    image_size: int = 128
+    lr: float = 4e-5
+    weight_decay: float = 1e-6
+    latent_dim: int = 16
+    ae_frac: float = 0.1
+    precision: str = "bf16"
+    conv_backend: str = "cudnn"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,9 +116,10 @@ class ServingConfig:
 
 
 FLAGSHIP = FlowDiffuserConfig()
+FLOW_PRED = FlowPredConfig()
 FLAGSHIP_DATA = ArtificialDataConfig()
 MATRIX_FLOW = TrainingConfig()
 NATIVE = ServingConfig()
 
-__all__ = ["ArtificialDataConfig", "FlowDiffuserConfig", "ServingConfig", "TrainingConfig",
-           "FLAGSHIP", "FLAGSHIP_DATA", "MATRIX_FLOW", "NATIVE"]
+__all__ = ["ArtificialDataConfig", "FlowDiffuserConfig", "FlowPredConfig", "ServingConfig",
+           "TrainingConfig", "FLAGSHIP", "FLAGSHIP_DATA", "FLOW_PRED", "MATRIX_FLOW", "NATIVE"]

@@ -1,1 +1,1 @@
-"""Experiment runner (JAX ``experiments/``): the train loop of the flagship."""
+"""Experiment runner (JAX ``experiments/``): the train loop of FlowDiffuser and FlowPred."""

@@ -9,10 +9,18 @@ frameworks the same random numbers.
 
 Ported: the three beta schedules, ``make_schedule``, ``extract``, the
 ``predict_*`` functions, ``q_posterior``, ``model_predictions``, the
-training losses ``q_sample``, ``pyramid_loss`` and ``p_losses``, and the
-samplers ``p_sample_loop``, ``ddim_sample``, ``dpmpp_sample`` and ``sample``,
-all with ``noise_space='image'``.  The flow-noise forward process is not
-ported yet and raises.
+training losses ``q_sample``, ``pyramid_loss`` and ``p_losses`` (with an
+extra target such as the ``target`` target's flow head, self-conditioning
+and offset noise), the samplers ``p_sample_loop``, ``ddim_sample``,
+``dpmpp_sample`` and ``sample`` (each strips and returns the model's extra
+output channels with ``additional_channels``), and ``interpolate``.
+
+``noise_space='flow'`` is JAX's permutation-warp forward process: x_0 is
+permute-warped (``ops/warp.py::permute_warp``) by a Gaussian flow whose
+scale in pixels is the additive process's noise-to-signal ratio
+sqrt(1 - a_t) / sqrt(a_t) (``_flow_sigma``), so the noise is (B, 2, H, W);
+the ancestral sampler perturbs the posterior mean the same way.  It needs
+``objective='pred_x0'`` and has no DPM++ (both raise, as in JAX).
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..ops.warp import nan_mse_stats
+from ..ops.warp import nan_mse_stats, permute_warp
 
 ModelFn = Callable[..., torch.Tensor]
 
@@ -114,8 +122,13 @@ def make_schedule(
             "sampler='dpmpp' requires sampling_timesteps >= 2 "
             "(use sampler='ddim' for single-step sampling)"
         )
-    if noise_space != "image":
-        raise NotImplementedError("noise_space='flow' is not ported yet")
+    if noise_space not in ("image", "flow"):
+        raise ValueError(f"unknown noise_space {noise_space!r}")
+    if noise_space == "flow" and objective != "pred_x0":
+        raise NotImplementedError(
+            "noise_space='flow' requires objective='pred_x0': the flow-noise forward "
+            "process has no epsilon/v target"
+        )
     betas = _SCHEDULES[beta_schedule](timesteps)
     alphas = 1.0 - betas
     ac = np.cumprod(alphas)
@@ -193,9 +206,16 @@ def q_posterior(sched, x_start, x_t, t):
 
 def model_predictions(sched: Schedule, model_fn: ModelFn, x, t,
                       clip_x_start: bool = False, rederive_pred_noise: bool = False,
-                      external_cond=None):
-    """(pred_noise, pred_x_start)."""
-    out = model_fn(x, external_cond, t)
+                      external_cond=None, x_self_cond=None, additional_channels: int = 0):
+    """(pred_noise, pred_x_start); with ``additional_channels`` the model's
+    last channels are split off and returned third.  ``x_self_cond`` goes to
+    the model as its fourth argument when given."""
+    out = (model_fn(x, external_cond, t) if x_self_cond is None
+           else model_fn(x, external_cond, t, x_self_cond))
+    additional = None
+    if additional_channels:
+        additional = out[:, -additional_channels:]
+        out = out[:, :-additional_channels]
     clip = (lambda v: v.clamp(-1.0, 1.0)) if clip_x_start else (lambda v: v)
     if sched.objective == "pred_noise":
         pred_noise = out
@@ -208,11 +228,36 @@ def model_predictions(sched: Schedule, model_fn: ModelFn, x, t,
     else:
         x_start = clip(predict_start_from_v(sched, x, t, out))
         pred_noise = predict_noise_from_start(sched, x, t, x_start)
+    if additional_channels:
+        return pred_noise, x_start, additional
     return pred_noise, x_start
 
 
+def noise_shape(sched: Schedule, shape: Sequence[int]) -> Tuple[int, ...]:
+    """The forward-process noise of a state of ``shape`` (B, C, H, W): a
+    flow (B, 2, H, W) under flow noise, else the state's shape."""
+    if sched.noise_space == "flow":
+        return (shape[0], 2) + tuple(shape[2:])
+    return tuple(shape)
+
+
+def _flow_sigma(sched: Schedule, t, x):
+    """The flow noise's scale (B, 2, 1, 1) for ``permute_warp``'s
+    normalised units (1.0 = the full extent), x then y: the noise-to-signal
+    ratio sqrt(1 - a_t) / sqrt(a_t) in pixels over W and H."""
+    H, W = x.shape[2], x.shape[3]
+    nsr = extract(sched.sqrt_one_minus_alphas_cumprod
+                  / torch.clamp(sched.sqrt_alphas_cumprod, min=1e-6), t, x.dim())
+    per_axis = torch.tensor([1.0 / W, 1.0 / H], dtype=torch.float32, device=nsr.device)
+    return nsr * per_axis.view(1, 2, 1, 1)
+
+
 def q_sample(sched: Schedule, x_start, t, noise):
-    """The forward process x_t = sqrt(a_t) x_0 + sqrt(1 - a_t) noise."""
+    """The forward process: x_t = sqrt(a_t) x_0 + sqrt(1 - a_t) noise, or
+    under flow noise x_0 permute-warped by ``_flow_sigma * noise`` (noise
+    (B, 2, H, W))."""
+    if sched.noise_space == "flow":
+        return permute_warp(x_start, _flow_sigma(sched, t, x_start) * noise)
     nd = x_start.dim()
     return (extract(sched.sqrt_alphas_cumprod, t, nd) * x_start
             + extract(sched.sqrt_one_minus_alphas_cumprod, t, nd) * noise)
@@ -245,20 +290,61 @@ def pyramid_loss(image_out, target, flow_tgt=None, external_cond=None, flow_out=
 
 def p_losses(sched: Schedule, model_fn: ModelFn, x_start, t, noise, external_cond=None,
              warp_fn: Optional[Callable] = None, image_channels: int = 3,
-             model_out_override=None, flow_loss_weight: float = 0.0):
+             model_out_override=None, flow_loss_weight: float = 0.0, additional_tgt=None,
+             self_condition: bool = False, offset_noise_strength: float = 0.0,
+             generator: Optional[torch.Generator] = None, self_cond_coin=None,
+             offset_noise=None):
     """The training loss of one batch at timesteps ``t`` (B,) with the
     forward-process ``noise`` (the caller draws both; JAX draws them from
     its key unless given).  For the joint target (image + flow channels) the
-    pyramid loss of the image and the flow; ``model_out_override`` replaces
-    the model's output (the validation's ideal loss)."""
+    pyramid loss of the image and the flow; with ``additional_tgt`` (B, k,
+    H, W) the model's last k channels are its prediction (the ``target``
+    target's flow head) and enter the pyramid loss as the flow.
+    ``model_out_override`` replaces the model's output (the validation's
+    ideal loss): a tensor, or a pair (output, extra channels).  With
+    ``self_condition`` a fair coin (``self_cond_coin``, else drawn from
+    ``generator``) feeds the model its own detached x_0 prediction, else
+    zeros; ``offset_noise_strength`` adds that multiple of a per-(batch,
+    channel) normal draw (``offset_noise``, (B, C, 1, 1), else drawn from
+    ``generator``) to the noise."""
+    dev = generator.device if generator is not None else x_start.device
+    if offset_noise_strength > 0.0:
+        if offset_noise is None:
+            offset_noise = torch.randn(x_start.shape[:2] + (1, 1), generator=generator,
+                                       device=dev)
+        noise = noise + offset_noise_strength * offset_noise.to(noise.device)
     x = q_sample(sched, x_start, t, noise)
-    model_out = model_fn(x, external_cond, t) if model_out_override is None else model_out_override
+    x_self_cond = None
+    if self_condition:
+        if self_cond_coin is None:
+            self_cond_coin = bool(torch.rand((), generator=generator, device=dev) < 0.5)
+        if self_cond_coin:
+            with torch.no_grad():
+                x_self_cond = model_predictions(sched, model_fn, x, t,
+                                                external_cond=external_cond)[1].detach()
+        else:
+            x_self_cond = torch.zeros_like(x)
+    additional_out = None
+    if model_out_override is not None:
+        model_out = model_out_override
+        if isinstance(model_out, tuple):
+            model_out, additional_out = model_out
+    else:
+        model_out = (model_fn(x, external_cond, t) if x_self_cond is None
+                     else model_fn(x, external_cond, t, x_self_cond))
+        if additional_tgt is not None:
+            k = additional_tgt.shape[1]
+            additional_out = model_out[:, -k:]
+            model_out = model_out[:, :-k]
     if sched.objective == "pred_noise":
         target = noise
     elif sched.objective == "pred_x0":
         target = x_start
     else:
         target = predict_v(sched, x_start, t, noise)
+    if additional_tgt is not None:
+        return pyramid_loss(model_out, target, additional_tgt, external_cond, additional_out,
+                            warp_fn, flow_loss_weight=flow_loss_weight)
     if target.shape[1] == image_channels + 2:      # joint target (image + flow)
         c = image_channels
         return pyramid_loss(model_out[:, :c], target[:, :c], target[:, c:], external_cond,
@@ -270,36 +356,71 @@ def _randn(shape, generator, device) -> torch.Tensor:
     return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
 
 
+def _ancestral_step(sched: Schedule, mean, log_var, t: int, noise):
+    """x_{t-1} from the posterior mean: plus sigma * noise, or under flow
+    noise the mean permute-warped by sigma * noise (B, 2, H, W); the mean
+    itself at t = 0 (``noise`` None)."""
+    if t == 0:
+        return mean
+    if sched.noise_space == "flow":
+        return permute_warp(mean, torch.exp(0.5 * log_var) * noise)
+    return mean + torch.exp(0.5 * log_var) * noise
+
+
+def _strided(traj: List[torch.Tensor], adds: List[torch.Tensor], S: int, return_every: int):
+    """A DDIM/DPM++ trajectory (B, K, ...) of x_T, every k-th state and
+    always the final one, and the extra channels of the same steps (the
+    first step's beside x_T)."""
+    idx = list(range(0, S + 1, max(1, int(return_every))))
+    if idx[-1] != S:
+        idx.append(S)
+    out = torch.stack([traj[k] for k in idx], dim=1)
+    if not adds:
+        return out
+    return out, torch.stack([adds[max(k - 1, 0)] for k in idx], dim=1)
+
+
 def p_sample_loop(sched: Schedule, model_fn: ModelFn, shape: Sequence[int],
                   external_cond=None, generator: Optional[torch.Generator] = None,
                   x_T=None, noises: Optional[Sequence[torch.Tensor]] = None,
-                  return_every: Optional[int] = None, device="cuda"):
+                  return_every: Optional[int] = None, device="cuda",
+                  additional_channels: int = 0):
     """Ancestral sampling over all T steps.
 
     Returns the final state, or with ``return_every=k`` a trajectory
     (B, T//k + 1, ...) holding x_T and the state after every k steps.
-    ``noises[i]`` is the noise of the i-th step (t = T-1-i)."""
+    ``noises[i]`` is the noise of the i-th step (t = T-1-i): the state's
+    shape, or (B, 2, H, W) under flow noise.  With ``additional_channels``
+    returns a pair: that and the model's extra channels, of the last step
+    or (B, T//k, ...) of the last step of every k."""
     T = sched.num_timesteps
     img = _randn(shape, generator, device) if x_T is None else x_T.float()
     traj: List[torch.Tensor] = [img]
+    adds: List[torch.Tensor] = []
+    additional = None
     if return_every is not None and T % int(return_every):
         raise ValueError("return_every must divide num_timesteps")
+    nshape = noise_shape(sched, shape)
     for i, t in enumerate(range(T - 1, -1, -1)):
         bt = torch.full((shape[0],), t, dtype=torch.long, device=img.device)
-        _, x_start = model_predictions(sched, model_fn, img, bt,
-                                       external_cond=external_cond)
-        x_start = x_start.clamp(-1.0, 1.0)
+        pred = model_predictions(sched, model_fn, img, bt, external_cond=external_cond,
+                                 additional_channels=additional_channels)
+        x_start = pred[1].clamp(-1.0, 1.0)
+        if additional_channels:
+            additional = pred[2]
         mean, _, log_var = q_posterior(sched, x_start, img, bt)
+        noise = None
         if t > 0:
-            noise = _randn(shape, generator, device) if noises is None else noises[i]
-            img = mean + torch.exp(0.5 * log_var) * noise
-        else:
-            img = mean
+            noise = _randn(nshape, generator, device) if noises is None else noises[i]
+        img = _ancestral_step(sched, mean, log_var, t, noise)
         if return_every is not None and (i + 1) % int(return_every) == 0:
             traj.append(img)
+            if additional_channels:
+                adds.append(additional)
     if return_every is None:
-        return img
-    return torch.stack(traj, dim=1)
+        return (img, additional) if additional_channels else img
+    out = torch.stack(traj, dim=1)
+    return (out, torch.stack(adds, dim=1)) if additional_channels else out
 
 
 def linspace_int(start: float, stop: float, num: int) -> List[int]:
@@ -328,22 +449,29 @@ def linspace_int(start: float, stop: float, num: int) -> List[int]:
 def ddim_sample(sched: Schedule, model_fn: ModelFn, shape: Sequence[int],
                 external_cond=None, generator: Optional[torch.Generator] = None,
                 x_T=None, noises: Optional[Sequence[torch.Tensor]] = None,
-                return_every: Optional[int] = None, device="cuda"):
+                return_every: Optional[int] = None, device="cuda",
+                additional_channels: int = 0):
     """DDIM over ``sched.sampling_timesteps`` steps.  With eta = 0 (the
     flagship) no noise is drawn.  ``return_every=k`` returns (B, K, ...)
-    with x_T, every k-th state and always the final one."""
+    with x_T, every k-th state and always the final one.  With
+    ``additional_channels`` returns a pair: that and the model's extra
+    channels (of the last step, or of the trajectory's steps)."""
     T, S, eta = sched.num_timesteps, sched.sampling_timesteps, sched.ddim_sampling_eta
     times = linspace_int(-1, T - 1, S + 1)[::-1]
     img = _randn(shape, generator, device) if x_T is None else x_T.float()
     traj: List[torch.Tensor] = [img]
+    adds: List[torch.Tensor] = []
     ac = sched.alphas_cumprod
     one = torch.ones((), device=img.device)
     for i, (t, t_next) in enumerate(zip(times[:-1], times[1:])):
         bt = torch.full((shape[0],), t, dtype=torch.long, device=img.device)
-        pred_noise, x_start = model_predictions(
+        pred = model_predictions(
             sched, model_fn, img, bt, clip_x_start=True, rederive_pred_noise=True,
-            external_cond=external_cond,
+            external_cond=external_cond, additional_channels=additional_channels,
         )
+        pred_noise, x_start = pred[0], pred[1]
+        if additional_channels:
+            adds.append(pred[2])
         if t_next < 0:
             img = x_start
         else:
@@ -356,17 +484,14 @@ def ddim_sample(sched: Schedule, model_fn: ModelFn, shape: Sequence[int],
                 img = img + sigma * noise
         traj.append(img)
     if return_every is None:
-        return img
-    idx = list(range(0, S + 1, max(1, int(return_every))))
-    if idx[-1] != S:
-        idx.append(S)
-    return torch.stack([traj[k] for k in idx], dim=1)
+        return (img, adds[-1]) if additional_channels else img
+    return _strided(traj, adds, S, return_every)
 
 
 def dpmpp_sample(sched: Schedule, model_fn: ModelFn, shape: Sequence[int],
                  external_cond=None, generator: Optional[torch.Generator] = None,
                  x_T=None, noises=None, return_every: Optional[int] = None,
-                 device="cuda"):
+                 device="cuda", additional_channels: int = 0):
     """DPM-Solver++(2M) over ``sched.sampling_timesteps`` model calls (JAX
     ``dpmpp_sample``): a second-order multistep integrator of the
     probability-flow ODE in data-prediction space on the trailing grid
@@ -374,12 +499,14 @@ def dpmpp_sample(sched: Schedule, model_fn: ModelFn, shape: Sequence[int],
     and the final step; the final state is the last x0.  Deterministic: only
     x_T is drawn (``noises`` is ignored).  The step coefficients are float32
     scalars computed on the host from the schedule, as JAX computes them in
-    float32.  ``return_every=k`` returns (B, K, ...) as ``ddim_sample``."""
+    float32.  ``return_every=k`` and ``additional_channels`` as
+    ``ddim_sample``."""
     del noises
     T, S = sched.num_timesteps, sched.sampling_timesteps
     times = linspace_int(0, T - 1, S)[::-1] + [-1]
     img = _randn(shape, generator, device) if x_T is None else x_T.float()
     traj: List[torch.Tensor] = [img]
+    adds: List[torch.Tensor] = []
     ac = sched.alphas_cumprod.detach().cpu()
 
     def lam(t):
@@ -389,8 +516,12 @@ def dpmpp_sample(sched: Schedule, model_fn: ModelFn, shape: Sequence[int],
     prev_x0, prev_lam = None, None
     for t, t_next in zip(times[:-1], times[1:]):
         bt = torch.full((shape[0],), t, dtype=torch.long, device=img.device)
-        _, x0 = model_predictions(sched, model_fn, img, bt, clip_x_start=True,
-                                  external_cond=external_cond)
+        pred = model_predictions(sched, model_fn, img, bt, clip_x_start=True,
+                                 external_cond=external_cond,
+                                 additional_channels=additional_channels)
+        x0 = pred[1]
+        if additional_channels:
+            adds.append(pred[2])
         lam_t = lam(t)
         if t_next < 0:
             img = x0
@@ -409,16 +540,13 @@ def dpmpp_sample(sched: Schedule, model_fn: ModelFn, shape: Sequence[int],
         prev_x0, prev_lam = x0, lam_t
         traj.append(img)
     if return_every is None:
-        return img
-    idx = list(range(0, S + 1, max(1, int(return_every))))
-    if idx[-1] != S:
-        idx.append(S)
-    return torch.stack([traj[k] for k in idx], dim=1)
+        return (img, adds[-1]) if additional_channels else img
+    return _strided(traj, adds, S, return_every)
 
 
 def sample(sched: Schedule, model_fn: ModelFn, shape: Sequence[int], external_cond=None,
            generator: Optional[torch.Generator] = None, x_T=None, noises=None,
-           return_every: Optional[int] = None, device="cuda"):
+           return_every: Optional[int] = None, device="cuda", additional_channels: int = 0):
     """DPM-Solver++(2M) for ``sampler='dpmpp'``; DDIM when
     ``sampling_timesteps < T`` (or ``sampler='ddim'``); the ancestral loop
     otherwise."""
@@ -429,13 +557,41 @@ def sample(sched: Schedule, model_fn: ModelFn, shape: Sequence[int], external_co
     else:
         fn = p_sample_loop
     return fn(sched, model_fn, shape, external_cond, generator, x_T, noises,
-              return_every, device)
+              return_every, device, additional_channels)
+
+
+def interpolate(sched: Schedule, model_fn: ModelFn, x1, x2, t: Optional[int] = None,
+                lam: float = 0.5, external_cond=None,
+                generator: Optional[torch.Generator] = None, x_T=None,
+                noises: Optional[Sequence[torch.Tensor]] = None, device="cuda"):
+    """Interpolation of two states (JAX ``interpolate``): both noised to
+    step ``t`` (default T - 1) by the forward process, mixed as
+    (1 - lam) x_t1 + lam x_t2, then denoised by the ancestral steps t - 1
+    down to 0.  ``x_T`` is the pair of forward-process noises of x1 and x2,
+    ``noises[i]`` the noise of the i-th step (t - 1 - i); drawn from
+    ``generator`` when not given."""
+    t = sched.num_timesteps - 1 if t is None else int(t)
+    nshape = noise_shape(sched, x1.shape)
+    n1, n2 = ((_randn(nshape, generator, device), _randn(nshape, generator, device))
+              if x_T is None else x_T)
+    bt = torch.full((x1.shape[0],), t, dtype=torch.long, device=x1.device)
+    img = (1 - lam) * q_sample(sched, x1, bt, n1) + lam * q_sample(sched, x2, bt, n2)
+    for i, step in enumerate(range(t - 1, -1, -1)):
+        bt = torch.full((x1.shape[0],), step, dtype=torch.long, device=x1.device)
+        _, x_start = model_predictions(sched, model_fn, img, bt, external_cond=external_cond)
+        x_start = x_start.clamp(-1.0, 1.0)
+        mean, _, log_var = q_posterior(sched, x_start, img, bt)
+        noise = None
+        if step > 0:
+            noise = _randn(nshape, generator, device) if noises is None else noises[i]
+        img = _ancestral_step(sched, mean, log_var, step, noise)
+    return img
 
 
 __all__ = [
     "Schedule", "make_schedule", "extract", "model_predictions", "q_posterior",
     "predict_start_from_noise", "predict_noise_from_start", "predict_v", "p_losses",
-    "pyramid_loss", "q_sample",
+    "pyramid_loss", "q_sample", "noise_shape", "interpolate",
     "predict_start_from_v", "p_sample_loop", "ddim_sample", "dpmpp_sample",
     "linspace_int", "sample",
 ]

@@ -10,9 +10,11 @@ normalisation statistics in float32, the UNet output in float32.
 
 The same module serves and trains: nothing on its path runs under
 ``torch.no_grad``, and its linear-attention blocks are differentiable on the
-card (``ops/attention_fused.py``).  Only what the flagship FlowDiffuser runs
-is ported: sinusoidal time embedding, no self-conditioning, no learned
-variance.
+card (``ops/attention_fused.py``).  The UNet takes JAX's options: no time
+input (``time_in=False``: no ``time_mlp``, ResnetBlocks without ``mlp``),
+any ``dim_mults``, self-conditioning, learned variance (``out_dim`` None),
+and the learned or random Fourier time embedding
+(``RandomOrLearnedSinusoidalPosEmb``, ``time_mlp.0.weights``).
 
 ``conv_backend`` (``ops/conv.py``: ``cudnn``, ``rows`` or ``fold``; JAX's
 ``OFD_CONV_BACKEND``) picks the lowering of every conv.  Under ``rows`` and
@@ -146,28 +148,31 @@ class ResnetBlock(nn.Module):
     """Two Blocks with the time scale/shift and a 1x1 residual conv (JAX
     ``ResnetBlock``); under the ``rows`` and ``fold`` backends the first
     Block's norm, scale/shift and SiLU ride in the second Block's conv
-    (defer-norm)."""
+    (defer-norm).  ``time_emb_dim`` None: no time input and no ``mlp``."""
 
-    def __init__(self, dim: int, dim_out: int, time_emb_dim: int, groups: int = 8,
+    def __init__(self, dim: int, dim_out: int, time_emb_dim: Optional[int], groups: int = 8,
                  dtype=torch.float32, backend: str = "cudnn"):
         super().__init__()
         self.dtype = dtype
         self.fuse_gn = backend != "cudnn"
-        self.mlp = nn.Sequential(nn.SiLU(), nn.Linear(time_emb_dim, dim_out * 2))
+        self.mlp = (nn.Sequential(nn.SiLU(), nn.Linear(time_emb_dim, dim_out * 2))
+                    if time_emb_dim is not None else None)
         self.block1 = Block(dim, dim_out, groups, dtype, backend)
         self.block2 = Block(dim_out, dim_out, groups, dtype, backend)
         self.res_conv = (Conv(dim, dim_out, 1, dtype=dtype, backend=backend)
                          if dim != dim_out else None)
 
-    def forward(self, x, time_emb):
-        lin = self.mlp[1]
-        t = F.linear(F.silu(time_emb), lin.weight.to(self.dtype), lin.bias.to(self.dtype))
-        scale, shift = t[:, :, None, None].chunk(2, dim=1)
+    def forward(self, x, time_emb=None):
+        scale_shift = None
+        if self.mlp is not None:
+            lin = self.mlp[1]
+            t = F.linear(F.silu(time_emb), lin.weight.to(self.dtype), lin.bias.to(self.dtype))
+            scale_shift = t[:, :, None, None].chunk(2, dim=1)
         if self.fuse_gn:
-            h, a, b = self.block1(x, (scale, shift), defer_norm=True)
+            h, a, b = self.block1(x, scale_shift, defer_norm=True)
             h = self.block2(h, in_affine=(a, b))
         else:
-            h = self.block2(self.block1(x, (scale, shift)))
+            h = self.block2(self.block1(x, scale_shift))
         if self.res_conv is not None:
             x = self.res_conv(x)
         return h + x
@@ -283,6 +288,21 @@ def sinusoidal_pos_emb(t: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
+class RandomOrLearnedSinusoidalPosEmb(nn.Module):
+    """The learned (or, with ``is_random``, fixed random) Fourier time
+    embedding: [t, sin(2 pi t w), cos(2 pi t w)] with ``weights`` w
+    (dim // 2,); the random weights take no gradient."""
+
+    def __init__(self, dim: int, is_random: bool = False):
+        super().__init__()
+        self.weights = nn.Parameter(torch.randn(dim // 2), requires_grad=not is_random)
+
+    def forward(self, t):
+        t = t.float()[:, None]
+        freqs = t * self.weights[None, :] * 2 * math.pi
+        return torch.cat([t, torch.sin(freqs), torch.cos(freqs)], dim=-1)
+
+
 def Downsample(dim: int, dim_out: int, dtype=torch.float32, **conv) -> nn.Sequential:
     """Pixel-unshuffle (channel order (c, dy, dx), as the reference) + 1x1."""
     return nn.Sequential(nn.PixelUnshuffle(2), Conv(dim * 4, dim_out, 1, dtype=dtype, **conv))
@@ -296,25 +316,43 @@ def Upsample(dim: int, dim_out: int, dtype=torch.float32, **conv) -> nn.Sequenti
 
 class Unet(nn.Module):
     """The reference UNet; ``channels`` counts the full input (x plus the
-    concatenated external conditioning).  ``conv_backend`` lowers its convs
-    (module docstring)."""
+    concatenated external conditioning), twice that with
+    ``self_condition`` (the self-conditioning input, zeros when none is
+    given, goes before x).  ``out_dim`` None: ``channels``, twice that with
+    ``learned_variance``.  ``time_in=False`` takes no time (no
+    ``time_mlp``, no ResnetBlock ``mlp``).  ``conv_backend`` lowers its
+    convs (module docstring)."""
 
-    def __init__(self, dim: int, out_dim: int, channels: int = 3,
+    def __init__(self, dim: int, out_dim: Optional[int] = None, channels: int = 3,
                  dim_mults: Sequence[int] = (1, 2, 4, 8), resnet_block_groups: int = 8,
                  zero_init_final: bool = False, dtype=torch.float32,
-                 conv_backend: str = "cudnn"):
+                 conv_backend: str = "cudnn", time_in: bool = True,
+                 self_condition: bool = False, learned_variance: bool = False,
+                 learned_sinusoidal_cond: bool = False, random_fourier_features: bool = False,
+                 learned_sinusoidal_dim: int = 16):
         super().__init__()
         if conv_backend not in BACKENDS:
             raise ValueError(f"conv_backend {conv_backend!r} is not one of {BACKENDS}")
         self.dim, self.dtype = dim, dtype
         self.zero_init_final = zero_init_final
+        self.time_in, self.self_condition = time_in, self_condition
+        self.fourier = learned_sinusoidal_cond or random_fourier_features
+        out_dim = out_dim or channels * (2 if learned_variance else 1)
         G = resnet_block_groups
-        time_dim = dim * 4
+        time_dim = dim * 4 if time_in else None
         conv = dict(backend=conv_backend)
         res = dict(dtype=dtype, backend=conv_backend)
-        self.init_conv = Conv(channels, dim, 7, dtype=dtype, **conv)
-        self.time_mlp = nn.Sequential(nn.Identity(), nn.Linear(dim, time_dim),
-                                      nn.GELU(), nn.Linear(time_dim, time_dim))
+        self.init_conv = Conv(channels * (2 if self_condition else 1), dim, 7, dtype=dtype,
+                              **conv)
+        if time_in:
+            if self.fourier:
+                emb = RandomOrLearnedSinusoidalPosEmb(learned_sinusoidal_dim,
+                                                      random_fourier_features)
+                emb_dim = learned_sinusoidal_dim + 1
+            else:
+                emb, emb_dim = nn.Identity(), dim
+            self.time_mlp = nn.Sequential(emb, nn.Linear(emb_dim, time_dim),
+                                          nn.GELU(), nn.Linear(time_dim, time_dim))
         dims = [dim] + [dim * m for m in dim_mults]
         in_out = list(zip(dims[:-1], dims[1:]))
         R = len(in_out)
@@ -343,16 +381,27 @@ class Unet(nn.Module):
         self.final_res_block = ResnetBlock(dim * 2, dim, time_dim, G, **res)
         self.final_conv = Conv(dim, out_dim, 1, dtype=dtype, **conv)
 
-    def forward(self, x, external_cond: Optional[torch.Tensor], time: torch.Tensor):
+    def forward(self, x, external_cond: Optional[torch.Tensor] = None,
+                time: Optional[torch.Tensor] = None, x_self_cond: Optional[torch.Tensor] = None):
         if external_cond is not None:
             x = torch.cat([x, external_cond], dim=1)
+        if self.self_condition:
+            if x_self_cond is None:
+                x_self_cond = torch.zeros_like(x)
+            x = torch.cat([x_self_cond, x], dim=1)
         x = self.init_conv(x.to(self.dtype))
         r = x
-        lin1, lin2 = self.time_mlp[1], self.time_mlp[3]
-        cdt = self.dtype
-        t = sinusoidal_pos_emb(time, self.dim).to(cdt)
-        t = F.linear(t, lin1.weight.to(cdt), lin1.bias.to(cdt))
-        t = F.linear(F.gelu(t), lin2.weight.to(cdt), lin2.bias.to(cdt))
+        t = None
+        if self.time_in:
+            if time is None:
+                raise ValueError("when Unet takes time arg, time must be passed in")
+            lin1, lin2 = self.time_mlp[1], self.time_mlp[3]
+            cdt = self.dtype
+            emb = self.time_mlp[0](time) if self.fourier else sinusoidal_pos_emb(time, self.dim)
+            t = F.linear(emb.to(cdt), lin1.weight.to(cdt), lin1.bias.to(cdt))
+            t = F.linear(F.gelu(t), lin2.weight.to(cdt), lin2.bias.to(cdt))
+        elif time is not None:
+            raise ValueError("this Unet does not take time arg")
 
         hs = []
         for block1, block2, attn, down in self.downs:
@@ -375,7 +424,8 @@ class Unet(nn.Module):
 def init_weights(model: nn.Module, generator: torch.Generator,
                  zero_init_final: Optional[bool] = None) -> nn.Module:
     """Draw every parameter from ``generator``: kernels ~ N(0, 1/fan_in),
-    biases ~ N(0, 0.02^2), norm gains ~ 1 + N(0, 0.02^2).  The UNet's output
+    biases ~ N(0, 0.02^2), norm gains ~ 1 + N(0, 0.02^2), Fourier weights ~
+    N(0, 1).  The UNet's output
     conv is zeroed when ``zero_init_final`` (default: the model's own flag).
     Parameters are drawn on the CPU, so a seed gives the same weights on
     every device."""
@@ -385,6 +435,8 @@ def init_weights(model: nn.Module, generator: torch.Generator,
             if p.dim() >= 2 and leaf == "weight":
                 fan_in = p[0].numel()
                 v = torch.randn(p.shape, generator=generator) / math.sqrt(fan_in)
+            elif leaf == "weights":          # the Fourier time embedding's
+                v = torch.randn(p.shape, generator=generator)
             elif leaf == "bias":
                 v = torch.randn(p.shape, generator=generator) * 0.02
             else:
@@ -401,5 +453,5 @@ def init_weights(model: nn.Module, generator: torch.Generator,
 __all__ = [
     "Unet", "Conv", "WSConv", "ChanLayerNorm", "GroupNorm", "Block", "ResnetBlock",
     "LinearAttention", "LinearAttentionBlock", "Attention", "PreNormResidual", "Downsample",
-    "Upsample", "sinusoidal_pos_emb", "init_weights",
+    "RandomOrLearnedSinusoidalPosEmb", "Upsample", "sinusoidal_pos_emb", "init_weights",
 ]

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .splat import _softsplat
@@ -36,6 +37,41 @@ def warp_forward_flow(first: torch.Tensor, flow: torch.Tensor, scale: int = 1,
     return img
 
 
+def permute_warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """One-to-one (permutation) warp of ``img`` (B, C, H, W) by ``flow``
+    (B, 2, H, W; channel 0 is x) in normalised units (1.0 = the full
+    extent), as JAX's ``permute_warp``: each source pixel's destination is
+    its pixel centre plus the flow, wrapped torus-style; the sources, sorted
+    (stably) by the row-major key ``floor(ty * H) * 2 + tx``, fill the
+    output in raster order.  Zero flow is the identity exactly.  The values
+    have a gradient (the permuted cotangents), the flow has none.
+
+    The key is JAX's term for term as XLA compiles it: the grid term
+    ``(x + 0.5) / W`` is (x + 0.5) times the float32 reciprocal of W (XLA's
+    rewrite of a division by a constant), and its sum with the flow is one
+    fused multiply-add, rounded to float32 once.  The product is exact in
+    float64, so the port takes the sum there and rounds it to float32 (a
+    second rounding, off only where the float64 sum lands on a float32 tie:
+    about 2^-29 of the keys).  A different rounding or order of operations
+    moves keys across rank boundaries."""
+    B, C, H, W = img.shape
+    dev = img.device
+
+    def grid(n):
+        x = np.arange(n, dtype=np.float32) + np.float32(0.5)
+        return torch.from_numpy(x.astype(np.float64) * np.float64(np.float32(1) / np.float32(n)))
+
+    flow = flow.detach().double()
+    tx = (grid(W).to(dev).view(1, 1, W) + flow[:, 0]).float()
+    ty = (grid(H).to(dev).view(1, H, 1) + flow[:, 1]).float()
+    tx = tx - torch.floor(tx)
+    ty = ty - torch.floor(ty)
+    key = torch.floor(ty * H) * 2.0 + tx
+    order = torch.argsort(key.reshape(B, H * W), dim=-1, stable=True)
+    flat = img.reshape(B, C, H * W)
+    return torch.gather(flat, 2, order[:, None, :].expand(B, C, H * W)).reshape(B, C, H, W)
+
+
 def _finite_pair_mask(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return ~(torch.isnan(pred) | torch.isnan(target))
 
@@ -54,4 +90,4 @@ def nan_mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return s / torch.clamp(n, min=1)
 
 
-__all__ = ["nan_mse", "nan_mse_stats", "warp_forward_flow"]
+__all__ = ["nan_mse", "nan_mse_stats", "permute_warp", "warp_forward_flow"]

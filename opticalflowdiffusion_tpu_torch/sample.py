@@ -1,8 +1,10 @@
-"""Serving entry point: sample the flagship FlowDiffuser on a batch.
+"""Serving entry point: sample FlowDiffuser on a batch.
 
     python -m opticalflowdiffusion_tpu_torch.sample --batch 8 --seed 0 \\
         [--sampling-timesteps 50] [--sampler {auto,ddim,ancestral,dpmpp}] \\
-        [--height 448 --width 1024] [--conv-backend {cudnn,rows,fold}] [--device cuda]
+        [--height 448 --width 1024] [--conv-backend {cudnn,rows,fold}] [--device cuda] \\
+        [--target {joint,target,flow}] [--noiser {image,flow}] [--no-diffusion] \\
+        [--latent [--ae DIR] [--latent-dim 16]]
 
 Builds the flagship (trained at 128x128, joint target, UNet width 64, bf16
 compute) with weights drawn from ``--seed`` (output conv not zeroed, so the
@@ -15,6 +17,11 @@ otherwise (``dpmpp``: DPM-Solver++(2M)).  ``--height``/``--width`` (default:
 the model's 128) sample at another resolution, such as the native Sintel
 448x1024: the frames are rendered square at the larger side and cropped.
 ``--conv-backend`` lowers the UNet's convs (``ops/conv.py``; default cudnn).
+The model flags are ``train.py``'s: another target, the flow-noise process
+(sampled with the ancestral loop), the single-forward model (one forward,
+``denoise_steps`` 1) or latent mode (the samples are latents; ``--ae``
+loads the Autoencoder of a ``flow_pred`` run, else it is drawn from the
+seed).
 """
 
 from __future__ import annotations
@@ -28,27 +35,24 @@ import torch
 
 from .algorithms.base import to_batch
 from .algorithms.flow_diffuser import FlowDiffuser
-from .config import FLAGSHIP, FLAGSHIP_DATA
+from .config import FLAGSHIP_DATA
 from .data.artificial import ArtificialDataset
 from .ops.conv import BACKENDS
+from .train import add_model_flags, model_config, model_flags
 
 SAMPLERS = ("auto", "ddim", "ancestral", "dpmpp")
 
 
 def build(seed: int, device: str, sampling_timesteps=None, image_size=None,
           unet_dim=None, sampler: str = "auto", conv_backend: str = "cudnn",
-          remat: bool = False):
-    """(FlowDiffuser, ArtificialDataset) of the flagship, weights from ``seed``
+          remat: bool = False, **model):
+    """(FlowDiffuser, ArtificialDataset) of the flagship, or with ``model``
+    (``train.MODEL_FIELDS``) another configuration, weights from ``seed``
     (``remat`` for training it)."""
-    cfg = dataclasses.replace(FLAGSHIP, zero_init=False,
-                              sampling_timesteps=sampling_timesteps, sampler=sampler,
-                              conv_backend=conv_backend, remat=remat)
-    data_cfg = FLAGSHIP_DATA
-    if image_size is not None:
-        cfg = dataclasses.replace(cfg, image_size=image_size)
-        data_cfg = dataclasses.replace(data_cfg, image_size=image_size)
-    if unet_dim is not None:
-        cfg = dataclasses.replace(cfg, unet_dim=unet_dim)
+    cfg = model_config(zero_init=False, sampler=sampler, conv_backend=conv_backend,
+                       remat=remat, image_size=image_size, unet_dim=unet_dim, **model)
+    cfg = dataclasses.replace(cfg, sampling_timesteps=sampling_timesteps)
+    data_cfg = dataclasses.replace(FLAGSHIP_DATA, image_size=cfg.image_size)
     gen = torch.Generator().manual_seed(seed)
     algo = FlowDiffuser(cfg, device=device, generator=gen)
     return algo, ArtificialDataset(dataclasses.replace(data_cfg, seed=seed))
@@ -64,31 +68,40 @@ def batch_items(seed: int, batch: int, height: int, width: int):
 
 def run(batch: int, seed: int, device: str, sampling_timesteps=None,
         image_size=None, unet_dim=None, sampler: str = "auto",
-        height=None, width=None, conv_backend: str = "cudnn") -> dict:
+        height=None, width=None, conv_backend: str = "cudnn", **model) -> dict:
     algo, _ = build(seed, device, sampling_timesteps, image_size, unet_dim, sampler,
-                    conv_backend)
+                    conv_backend, **model)
     H = height or algo.image_size
     W = width or algo.image_size
     _, cond, _ = algo.preprocess(to_batch(batch_items(seed, batch, H, W), algo.device))
     gen = torch.Generator(device=algo.device).manual_seed(seed)
     sync = torch.cuda.synchronize if algo.device.type == "cuda" else (lambda: None)
-    x = torch.randn((batch, algo.channels, H, W), generator=gen, device=algo.device)
-    t = torch.full((batch,), algo.sched.num_timesteps - 1, dtype=torch.long,
-                   device=algo.device)
-    with torch.no_grad():
-        algo.module(x, cond, t)                     # warm-up
+    with torch.no_grad():                           # warm-up: one model eval
+        if algo.is_diffusion:
+            x = torch.randn((batch, algo.channels, H, W), generator=gen, device=algo.device)
+            t = torch.full((batch,), algo.sched.num_timesteps - 1, dtype=torch.long,
+                           device=algo.device)
+            algo.model_fn(x, cond, t)
+        else:
+            algo.sample(cond)
     sync()
     t0 = time.perf_counter()
     samples, flow = algo.sample(cond, generator=gen.manual_seed(seed))
     sync()
     seconds = time.perf_counter() - t0
-    steps = algo.sched.sampling_timesteps
-    if algo.sched.sampler != "auto":
-        used = algo.sched.sampler
+    if not algo.is_diffusion:
+        steps, used = 1, "single_forward"
     else:
-        used = "ddim" if algo.sched.is_ddim_sampling else "ancestral"
+        steps = algo.sched.sampling_timesteps
+        if algo.sched.sampler != "auto":
+            used = algo.sched.sampler
+        else:
+            used = "ddim" if algo.sched.is_ddim_sampling else "ancestral"
     return {
         "device": str(algo.device),
+        "target": algo.target,
+        "noiser": algo.cfg.noiser,
+        "latent": algo.latent,
         "batch": batch,
         "height": H,
         "width": W,
@@ -118,10 +131,11 @@ def main(argv=None) -> None:
                     help="sample width (default: the model's image_size)")
     ap.add_argument("--conv-backend", choices=BACKENDS, default="cudnn")
     ap.add_argument("--device", default="cuda")
+    add_model_flags(ap)
     args = ap.parse_args(argv)
     print(json.dumps(run(args.batch, args.seed, args.device, args.sampling_timesteps,
                          sampler=args.sampler, height=args.height, width=args.width,
-                         conv_backend=args.conv_backend)))
+                         conv_backend=args.conv_backend, **model_flags(args))))
 
 
 if __name__ == "__main__":

@@ -1,10 +1,13 @@
-"""Training entry point: train the flagship FlowDiffuser on the artificial dataset.
+"""Training entry point: train FlowDiffuser (or FlowPred) on the artificial dataset.
 
     python -m opticalflowdiffusion_tpu_torch.train --steps 20 [--batch 16] \\
         [--image-size 128] [--unet-dim 64] [--seed 0] [--device cuda] \\
         [--out outputs/train] [--resume] [--check-interval N] \\
         [--ckpt-every N] [--val-batch 8] [--sampling-timesteps S] \\
-        [--conv-backend {cudnn,rows,fold}] [--remat]
+        [--conv-backend {cudnn,rows,fold}] [--remat] \\
+        [--algorithm {flow_diffuser,flow_pred}] [--target {joint,target,flow}] \\
+        [--noiser {image,flow}] [--no-diffusion] [--flow-weight W] \\
+        [--diffusion-flow-weight W] [--latent --ae DIR] [--latent-dim 16]
 
 The counterpart of ``main.py experiment=matrix_flow algorithm=flow_diffuser
 dataset=artificial``: the flagship (UNet width 64, dim_mults (1, 2, 4, 8),
@@ -22,6 +25,16 @@ UnetWithWarp closure in the backward (JAX's ``runtime.remat=true``, which the
 native 448x1024 training row sets).  Prints one JSON line with the last
 train and validation metrics and the samples per second of the run
 (validation and checkpoint writes included).
+
+The model flags select FlowDiffuser's other configurations
+(``flow_diffuser.yaml``): ``--target``, ``--noiser flow`` (the
+permutation-warp forward process), ``--no-diffusion`` (the single-forward
+model), ``--flow-weight`` (its flow term), ``--diffusion-flow-weight`` (the
+direct flow MSE of the diffusion loss) and ``--latent`` (the model on the
+latents of a frozen Autoencoder: ``--ae`` names the output directory of a
+``--algorithm flow_pred`` run, whose newest checkpoint holds it; without
+``--ae`` it is drawn from the seed).  ``--algorithm flow_pred`` trains that
+Autoencoder (``algorithm/flow_pred.yaml``: lr 4e-5, ``--latent-dim``).
 """
 
 from __future__ import annotations
@@ -33,32 +46,73 @@ import time
 
 import torch
 
-from .config import FLAGSHIP, FLAGSHIP_DATA, MATRIX_FLOW
-from .experiments.matrix_flow import MatrixFlowExperiment
+from .algorithms.flow_diffuser import TARGETS
+from .config import FLAGSHIP, FLAGSHIP_DATA, FLOW_PRED, MATRIX_FLOW
+from .experiments.matrix_flow import ALGORITHMS, MatrixFlowExperiment
 from .ops.conv import BACKENDS
+
+# the fields of FlowDiffuserConfig that the model flags set
+MODEL_FIELDS = ("target", "noiser", "is_diffusion", "flow_weight", "diffusion_flow_weight",
+                "latent", "ae", "latent_dim")
+
+
+def model_config(algorithm: str = "flow_diffuser", **fields):
+    """The algorithm's config: the flagship's (or ``flow_pred.yaml``'s) with
+    the given fields replaced; a field given as None keeps its default."""
+    base = FLOW_PRED if algorithm == "flow_pred" else FLAGSHIP
+    return dataclasses.replace(base, **{k: v for k, v in fields.items() if v is not None})
 
 
 def build(steps: int, batch: int = MATRIX_FLOW.batch_size, image_size=None, unet_dim=None,
           seed: int = 0, device: str = "cuda", out: str = "outputs/train",
           check_interval=None, ckpt_every=None, val_batch=None,
           sampling_timesteps=None, log_every=None,
-          conv_backend: str = "cudnn", remat: bool = False) -> MatrixFlowExperiment:
-    """The experiment of one run, not yet trained."""
-    algo = dataclasses.replace(FLAGSHIP, sampling_timesteps=sampling_timesteps,
-                               conv_backend=conv_backend, remat=remat)
-    data = FLAGSHIP_DATA
-    if image_size is not None:
-        algo = dataclasses.replace(algo, image_size=image_size)
-        data = dataclasses.replace(data, image_size=image_size)
-    if unet_dim is not None:
-        algo = dataclasses.replace(algo, unet_dim=unet_dim)
+          conv_backend: str = "cudnn", remat: bool = False, algorithm: str = "flow_diffuser",
+          **model) -> MatrixFlowExperiment:
+    """The experiment of one run, not yet trained.  ``model`` holds config
+    fields of the algorithm (``MODEL_FIELDS``; FlowPred's ``latent_dim``)."""
+    if algorithm == "flow_pred":
+        algo = model_config(algorithm, image_size=image_size, conv_backend=conv_backend,
+                            **model)
+    else:
+        algo = model_config(algorithm, conv_backend=conv_backend, remat=remat,
+                            image_size=image_size, unet_dim=unet_dim, **model)
+        algo = dataclasses.replace(algo, sampling_timesteps=sampling_timesteps)
+    data = dataclasses.replace(FLAGSHIP_DATA, image_size=algo.image_size)
     train = dataclasses.replace(
         MATRIX_FLOW, batch_size=batch, max_steps=steps, seed=seed,
         check_interval=check_interval or min(MATRIX_FLOW.check_interval, steps),
         every_n_train_steps=ckpt_every or MATRIX_FLOW.every_n_train_steps,
         val_batch_size=val_batch or MATRIX_FLOW.val_batch_size,
         log_every=log_every or min(MATRIX_FLOW.log_every, steps))
-    return MatrixFlowExperiment(algo, train, dataclasses.replace(data, seed=seed), out, device)
+    return MatrixFlowExperiment(algo, train, dataclasses.replace(data, seed=seed), out, device,
+                                algorithm)
+
+
+def add_model_flags(ap: argparse.ArgumentParser) -> None:
+    """The flags of FlowDiffuser's configurations (and FlowPred's latent
+    width), shared with ``sample.py``."""
+    ap.add_argument("--target", choices=TARGETS, default=None)
+    ap.add_argument("--noiser", choices=("image", "flow"), default=None)
+    ap.add_argument("--no-diffusion", action="store_true",
+                    help="the single-forward model (is_diffusion: false)")
+    ap.add_argument("--flow-weight", type=float, default=None)
+    ap.add_argument("--diffusion-flow-weight", type=float, default=None)
+    ap.add_argument("--latent", action="store_true",
+                    help="run on the latents of a frozen Autoencoder")
+    ap.add_argument("--ae", default=None,
+                    help="output directory of a flow_pred run holding the Autoencoder")
+    ap.add_argument("--latent-dim", type=int, default=None)
+
+
+def model_flags(a: argparse.Namespace) -> dict:
+    """The config fields that the model flags set (None: the default)."""
+    if getattr(a, "algorithm", "flow_diffuser") == "flow_pred":
+        return {"latent_dim": a.latent_dim}
+    return {"target": a.target, "noiser": a.noiser,
+            "is_diffusion": False if a.no_diffusion else None, "flow_weight": a.flow_weight,
+            "diffusion_flow_weight": a.diffusion_flow_weight,
+            "latent": True if a.latent else None, "ae": a.ae, "latent_dim": a.latent_dim}
 
 
 def run(steps: int, resume: bool = False, **kwargs) -> dict:
@@ -70,13 +124,17 @@ def run(steps: int, resume: bool = False, **kwargs) -> dict:
     if exp.device.type == "cuda":
         torch.cuda.synchronize(exp.device)
     seconds = time.perf_counter() - t0
+    cfg = exp.algo_cfg
+    fields = MODEL_FIELDS if exp.algorithm.name == "flow_diffuser" else ("latent_dim",)
     return {
         "device": str(exp.device),
+        "algorithm": exp.algorithm.name,
         "batch": exp.cfg.batch_size,
-        "image_size": exp.algo_cfg.image_size,
-        "unet_dim": exp.algo_cfg.unet_dim,
-        "conv_backend": exp.algo_cfg.conv_backend,
-        "remat": exp.algo_cfg.remat,
+        "image_size": cfg.image_size,
+        "unet_dim": getattr(cfg, "unet_dim", None),
+        "conv_backend": cfg.conv_backend,
+        "remat": getattr(cfg, "remat", False),
+        **{k: getattr(cfg, k) for k in fields},
         "start_step": start,
         "step": exp.state.step,
         "checkpoints": exp.ckpt.steps(),
@@ -105,12 +163,15 @@ def main(argv=None) -> None:
     ap.add_argument("--conv-backend", choices=BACKENDS, default="cudnn")
     ap.add_argument("--remat", action="store_true",
                     help="recompute the UnetWithWarp closure in the backward")
+    ap.add_argument("--algorithm", choices=tuple(ALGORITHMS), default="flow_diffuser")
+    add_model_flags(ap)
     a = ap.parse_args(argv)
     print(json.dumps(run(a.steps, a.resume, batch=a.batch, image_size=a.image_size,
                          unet_dim=a.unet_dim, seed=a.seed, device=a.device, out=a.out,
                          check_interval=a.check_interval, ckpt_every=a.ckpt_every,
                          val_batch=a.val_batch, sampling_timesteps=a.sampling_timesteps,
-                         conv_backend=a.conv_backend, remat=a.remat)))
+                         conv_backend=a.conv_backend, remat=a.remat, algorithm=a.algorithm,
+                         **model_flags(a))))
 
 
 if __name__ == "__main__":

@@ -4,7 +4,9 @@ One directory per step, ``<dir>/<step>/state.pt``: a ``torch.save`` of the
 module's state_dict, the optimizer's state, the step and the training
 generator's state.  A checkpoint is written to a temporary name and renamed,
 so a directory that exists is complete.  ``every_n_train_steps`` sets the
-cadence and the newest ``MAX_TO_KEEP`` are kept.
+cadence and the newest ``MAX_TO_KEEP`` are kept.  :func:`load_params_from_run`
+reads a sub-tree of another run's newest checkpoint (the frozen Autoencoder
+of the latent FlowDiffuser, JAX's ``load_params_from_run``).
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ from __future__ import annotations
 import os
 import shutil
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -80,4 +82,18 @@ class CheckpointManager:
         return state.step
 
 
-__all__ = ["CheckpointManager"]
+def load_params_from_run(run_dir, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The module state_dict entries under ``prefix`` (stripped) of the
+    newest checkpoint of a port run, whose output directory is ``run_dir``."""
+    mgr = CheckpointManager(Path(run_dir) / "checkpoints")
+    step = mgr.latest_step()
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint under {mgr.directory}")
+    ck = torch.load(mgr.directory / str(step) / FILE, map_location="cpu", weights_only=True)
+    out = {k[len(prefix):]: v for k, v in ck["module"].items() if k.startswith(prefix)}
+    if not out:
+        raise KeyError(f"the checkpoint {mgr.directory / str(step)} holds no {prefix!r} entries")
+    return out
+
+
+__all__ = ["CheckpointManager", "load_params_from_run"]

@@ -16,7 +16,7 @@ leaf.  The same holds for the unfused ``LinearAttention`` and
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -63,7 +63,16 @@ def _to_jax(kind: str, a: np.ndarray, shape) -> np.ndarray:
     return a.reshape(shape)
 
 
-def _table(params: Tree, dim_mults: Sequence[int]) -> List[Row]:
+def _levels(params: Tree) -> int:
+    """The UNet's number of levels (``len(dim_mults)``): its
+    LinearAttentionBlocks are two a level."""
+    return sum(k.startswith("LinearAttentionBlock_") for k in params) // 2
+
+
+def _table(params: Tree, dim_mults: Optional[Sequence[int]] = None) -> List[Row]:
+    """Rows of a JAX ``Unet`` tree.  The tree says which options it has:
+    the time MLP (``time_in``), the Fourier embedding's weights and the
+    levels (``dim_mults`` only checks their count)."""
     rows: List[Row] = []
 
     def conv(path, key):
@@ -97,10 +106,16 @@ def _table(params: Tree, dim_mults: Sequence[int]) -> List[Row]:
             ((name, "postnorm_g"), key + ".fn.fn.to_out.1.g", "gain"),
         ])
 
-    R = len(dim_mults)
+    R = _levels(params)
+    if dim_mults is not None and len(dim_mults) != R:
+        raise ValueError(f"the tree has {R} levels, dim_mults {tuple(dim_mults)}")
     conv(("Conv_0",), "init_conv")
-    dense(("Dense_0",), "time_mlp.1")
-    dense(("Dense_1",), "time_mlp.3")
+    if "RandomOrLearnedSinusoidalPosEmb_0" in params:
+        rows.append((("RandomOrLearnedSinusoidalPosEmb_0", "weights"), "time_mlp.0.weights",
+                     "vec"))
+    if "Dense_0" in params:                  # time_in
+        dense(("Dense_0",), "time_mlp.1")
+        dense(("Dense_1",), "time_mlp.3")
     rb, lab, cv = 0, 0, 1
     for i in range(R):
         for j in range(2):
@@ -186,24 +201,44 @@ def to_jax(sd: Mapping[str, torch.Tensor], template: Tree, rows: Sequence[Row],
 
 
 def params_from_jax(params: Tree, prefix: str = "",
-                    dim_mults: Sequence[int] = (1, 2, 4, 8)) -> Dict[str, torch.Tensor]:
-    """State_dict of ``models/unet.py::Unet`` from the JAX ``Unet`` params."""
+                    dim_mults: Optional[Sequence[int]] = None) -> Dict[str, torch.Tensor]:
+    """State_dict of ``models/unet.py::Unet`` from the JAX ``Unet`` params
+    (any ``time_in``, ``dim_mults``, stem and output widths, the Fourier
+    embedding)."""
     return from_jax(params, _table(params, dim_mults), prefix)
 
 
 def flow_diffuser_state_dict(params: Tree) -> Dict[str, torch.Tensor]:
-    """State_dict of ``algorithms/flow_diffuser.py::UnetWithWarp`` from the
-    JAX UnetWithWarp params (tree ``{"model": <unet>}``)."""
-    return params_from_jax(params["model"], prefix="model.")
+    """State_dict of FlowDiffuser's module from its JAX params: the
+    UnetWithWarp tree ``{"model": <unet>}`` (keys ``model.*``), or the plain
+    ``Unet`` tree of the ``flow`` target (no prefix)."""
+    if "model" in params:
+        return params_from_jax(params["model"], prefix="model.")
+    return params_from_jax(params)
+
+
+def autoencoder_state_dict(params: Tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """State_dict of ``models/autoencoder.py::Autoencoder`` from the JAX
+    Autoencoder params (``model_enc``, ``model_dec``: two UNets)."""
+    return {**params_from_jax(params["model_enc"], prefix + "model_enc."),
+            **params_from_jax(params["model_dec"], prefix + "model_dec.")}
 
 
 def jax_layout(sd: Mapping[str, torch.Tensor], template: Tree, prefix: str = "model.",
-               dim_mults: Sequence[int] = (1, 2, 4, 8)) -> Dict:
+               dim_mults: Optional[Sequence[int]] = None) -> Dict:
     """The JAX ``Unet`` tree of ``template`` (names and shapes) holding the
     values of the port state_dict ``sd`` (parameters or their gradients),
     as float32 numpy arrays."""
     return to_jax(sd, template, _table(template, dim_mults), prefix)
 
 
-__all__ = ["flow_diffuser_state_dict", "from_jax", "jax_layout", "linear_attention_rows",
-           "params_from_jax", "to_jax"]
+def autoencoder_jax_layout(sd: Mapping[str, torch.Tensor], template: Tree,
+                           prefix: str = "") -> Dict:
+    """The JAX Autoencoder tree of ``template`` from the port state_dict
+    ``sd`` (the inverse of :func:`autoencoder_state_dict`)."""
+    return {name: jax_layout(sd, template[name], prefix + name + ".")
+            for name in ("model_enc", "model_dec")}
+
+
+__all__ = ["autoencoder_jax_layout", "autoencoder_state_dict", "flow_diffuser_state_dict",
+           "from_jax", "jax_layout", "linear_attention_rows", "params_from_jax", "to_jax"]

@@ -38,6 +38,16 @@ def test_port_files_exist():
     assert all(p.exists() for p in PORT_FILES)
 
 
+def test_configs_modules_are_checked():
+    """The modules of FlowDiffuser's other configurations and latent mode
+    are among the files checked above."""
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for mod in ("algorithms/flow_pred.py", "models/autoencoder.py",
+                "training/ae_pretrain.py", "training/__init__.py", "ops/warp.py",
+                "experiments/matrix_flow.py", "utils/ckpt.py"):
+        assert f"opticalflowdiffusion_tpu_torch/{mod}" in names, mod
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
