@@ -4,7 +4,7 @@
 
 Budget: under 10 minutes on one H100, the kernel build included (one plain
 ``nvcc`` call per source, all started together; seconds each).  A run takes
-about five and a half minutes on an H100.  Every line
+about six minutes on an H100.  Every line
 it prints is one JSON object, flushed as it goes, apart from the card's
 ``nvidia-smi`` line.  Phases:
 
@@ -93,7 +93,9 @@ it prints is one JSON object, flushed as it goes, apart from the card's
    plain splat sums in float64, so the reference is the same every run),
    and rows 3, 4 and 5 against their plain versions on the activations
    captured from that step's block backwards (``kernel_vs_plain`` lines at
-   ``train_activations_128x128_b16``, TOL_BWD), and the splat forward bit
+   ``train_activations_128x128_b16``, TOL_BWD), rows 1 and 2 on the inputs
+   of its block forwards (``fwd_on_activations``: TOL_CTX, TOL_OUT, as
+   la_phase holds them), and the splat forward bit
    for bit against ``splat_fixed_plain`` on the inputs of that step's 10
    splats (``splat_on_step_inputs``, with their times), and the splat
    backward bit for bit against ``splat_bwd_raw`` on the inputs of its 5
@@ -137,8 +139,27 @@ it prints is one JSON object, flushed as it goes, apart from the card's
    single-forward models: steps/s and frames/s) and for 2 train steps
    (finite losses and gradient norms), in which every kernel on the path
    must launch and no other; last the flow target at native 448x1024,
-   DDIM-50 b2, through the flash kernel (50 launches).
-8. profiler: device times from ``torch.profiler``, after the last
+   DDIM-50 b2, through the flash kernel (50 launches).  Each
+   configuration's train step (FlowPred's too) also holds rows 1-5 to their
+   plain versions on its own block inputs and the splat forward and
+   backward bit for bit on its own splat inputs (``check_captured``).
+8. learner: FlowLearner at the bench's shape (128x128 b16, the reference's
+   ten pyramid levels, UNet 64, weights from the seed, output conv not
+   zeroed), f32 and bf16: one train step with every kernel against the same
+   step with every plain version (the loss within TOL_LEARNER; the
+   gradient, whose spread over seeds is 0.86-14x its norm, is recorded and
+   not pinned), with rows 1-5 on that step's own block inputs and the
+   splat forward (1664 calls) and backward (832) bit for bit on its own
+   inputs, over all 832 distinct (level, offset) pairs; the kernel step's
+   gradient against itself repeated and with the first frame nudged by one
+   ulp, at flow_max 20 and 2 (``learner_gradient_sensitivity``); then a count window of 1 + 3 steps whose launches
+   must be exactly 8 of rows 1-2, 6 of rows 3-5, 1664 splat forwards and 832
+   backwards a step, and the samples/s of the 3 (``learner_train_steps``).
+9. parity_smoke: ``training/parity.py::run_parity`` on the card, 20 steps
+   each of the joint and learner stages at 32x32 b16, f32: the initial
+   metrics, which depend on the data alone, within 1e-3 of JAX's recorded
+   ones, finite final metrics, every kernel of both paths launched.
+10. profiler: device times from ``torch.profiler``, after the last
    host-clock window, so that no profiler trace runs before one: the
    splat forward by pass and its launches per call at 128x128 b8 and
    448x1024 b2 (bf16, f32) and at the pyramid loss's f32 scales 2-16 at
@@ -149,8 +170,9 @@ it prints is one JSON object, flushed as it goes, apart from the card's
    step on the two steps' captured inputs (``splat_bwd_device_times``);
    the device times of rows 7 and 8 a call at each qkv of their phase and
    summed over a native b2 eval (``mid_ctx_device_times``, row 8's keys
-   prefixed ``out_``).
-9. the kernels line: for each kernel its route, source, the TPU kernel it
+   prefixed ``out_``); one f32 learner step's device-busy time against its
+   wall time, by kernel kind (``learner_step_device_time``).
+11. the kernels line: for each kernel its route, source, the TPU kernel it
    replaces, launches over all count windows, error, ms, plain ms, bound
    ms and what bounds it, library ms; for rows 6, 9 and 10 also
    ``vs_library`` (ms / library ms) and ``bound_share`` (bound ms / ms),
@@ -171,8 +193,9 @@ it prints is one JSON object, flushed as it goes, apart from the card's
    ``per_128x128_step`` and ``per_native_step`` (its 5 calls on each
    step's own inputs: events, plain, bound and device ms); for rows 7 and
    8 ``device_ms`` (torch.profiler, a native b2 eval's 8 blocks) and
-   ``bound_share`` (bound ms / device ms).
-10. the result line.
+   ``bound_share`` (bound ms / device ms); every row also
+   ``learner_launches_per_step``.
+12. the result line.
 
 Any failure raises and exits non-zero without the result line; so does a
 run without a CUDA device or without the port's package beside this file.
@@ -182,6 +205,7 @@ import concurrent.futures
 import contextlib
 import copy
 import dataclasses
+import io
 import json
 import shutil
 import subprocess
@@ -193,12 +217,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from opticalflowdiffusion_tpu_torch import kernels
+from opticalflowdiffusion_tpu_torch import kernels, profile_step
 from opticalflowdiffusion_tpu_torch import train as train_entry
 from opticalflowdiffusion_tpu_torch.algorithms.base import to_batch
 from opticalflowdiffusion_tpu_torch.algorithms.flow_diffuser import FlowDiffuser
+from opticalflowdiffusion_tpu_torch.algorithms.flow_learner import FlowLearner
 from opticalflowdiffusion_tpu_torch.algorithms.flow_pred import FlowPred
-from opticalflowdiffusion_tpu_torch.config import FLAGSHIP, FLOW_PRED, NATIVE
+from opticalflowdiffusion_tpu_torch.config import FLAGSHIP, FLOW_LEARNER, FLOW_PRED, NATIVE
 from opticalflowdiffusion_tpu_torch.kernels import build as kbuild
 from opticalflowdiffusion_tpu_torch.models import unet as unet_mod
 from opticalflowdiffusion_tpu_torch.ops import attention_fused as af
@@ -210,8 +235,10 @@ from opticalflowdiffusion_tpu_torch.experiments.base import to_device
 from opticalflowdiffusion_tpu_torch.parallel.train import (
     TrainState, make_optimizer, make_train_step,
 )
+from opticalflowdiffusion_tpu_torch.ops import pyramid as pyr
 from opticalflowdiffusion_tpu_torch.sample import batch_items
 from opticalflowdiffusion_tpu_torch.sample import build as build_flagship
+from opticalflowdiffusion_tpu_torch.training import parity
 
 T0 = time.perf_counter()
 B = 8
@@ -990,14 +1017,30 @@ def splat_bitwise_phase():
     return len(cases)
 
 
+def clone_once():
+    """``keep(t)``: a detached copy of ``t``, one per tensor and version
+    within a capture window (the pyramid hands one packed input and one
+    flow to each of its 832 offsets); the window holds the original, so its
+    address is not reused while the window lasts."""
+    cache = {}
+
+    def keep(t):
+        key = (t.data_ptr(), t._version, tuple(t.shape), t.dtype, tuple(t.stride()))
+        if key not in cache:
+            cache[key] = (t, t.detach().clone())
+        return cache[key][1]
+
+    return keep
+
+
 @contextlib.contextmanager
 def captured_splat_bwd():
     """The arguments of every splat backward kernel call inside the window,
     detached copies, in call order."""
-    calls, original = [], sp.splat_bwd
+    calls, original, keep = [], sp.splat_bwd, clone_once()
 
     def capture(inp, flow, g, scale=1, offset=(0, 0)):
-        calls.append((inp.detach().clone(), flow.detach().clone(), g.detach().clone(),
+        calls.append((keep(inp), keep(flow), g.detach().clone(),
                       int(scale), tuple(int(o) for o in offset)))
         return original(inp, flow, g, scale, offset)
 
@@ -1008,16 +1051,19 @@ def captured_splat_bwd():
         sp.splat_bwd = original
 
 
-def splat_bwd_on_step_inputs(calls, label, launched):
+def splat_bwd_on_step_inputs(calls, label, launched, expected=TRAIN_EXPECTED["splat_bwd"],
+                             timed=True):
     """The splat backward kernel bit for bit against splat_bwd_raw on the
     (inp, flow, g) of every backward splat of a train step (``calls`` from
-    captured_splat_bwd; all ``launched`` of the step's launches, 5), with the
-    kernel's and splat_bwd_raw's CUDA-event times and the bytes bound summed
-    over the step.  Returns the per-step sums, whether every call was bit
-    for bit, and the calls (profiler_phase takes their device time)."""
-    check(len(calls) == launched == TRAIN_EXPECTED["splat_bwd"],
+    captured_splat_bwd; all ``launched`` of the step's launches,
+    ``expected``: the flagship's 5), with the kernel's and splat_bwd_raw's
+    CUDA-event times and the bytes bound summed over the step (not with
+    ``timed`` False).  Returns the per-step sums, whether every call was bit
+    for bit, the calls (profiler_phase takes their device time) and the
+    distinct (scale, offset) pairs."""
+    check(len(calls) == launched == expected,
           f"{label}: captured {len(calls)} splat backward calls of the step's {launched} "
-          f"launches, expected {TRAIN_EXPECTED['splat_bwd']}")
+          f"launches, expected {expected}")
     rows, bad = [], []
     kernel_ms = plain_ms = bound = 0.0
     for i, (inp, flow, g, scale, off) in enumerate(calls):
@@ -1026,6 +1072,8 @@ def splat_bwd_on_step_inputs(calls, label, launched):
         torch.cuda.synchronize()
         if not exact:
             bad.append(i)
+        if not timed:
+            continue
         ms = cuda_ms(lambda: sp.splat_bwd(inp, flow, g, scale, off), 10)
         pms = cuda_ms(lambda: sp.splat_bwd_raw(inp, flow, g, scale, off), 3, 1)
         b = splat_bwd_bound_ms(inp, g)
@@ -1034,22 +1082,24 @@ def splat_bwd_on_step_inputs(calls, label, launched):
         rows.append(dict(shape=list(inp.shape), dtype=str(inp.dtype).split(".")[1],
                          scale=scale, offset=list(off), ms=round(ms, 5), bound_ms=b,
                          max_abs_flow_px=float(flow[finite].abs().max()) if finite.any() else 0.0))
+    pairs = sorted({(scale, off) for _, _, _, scale, off in calls})
     phase("splat_bwd_on_step_inputs", at=label, calls=len(calls), bitwise_failed=bad,
-          kernel_ms_per_step=kernel_ms, plain_ms_per_step=plain_ms, bound_ms_per_step=bound,
-          per_call=rows)
+          distinct_scale_offsets=len(pairs), kernel_ms_per_step=kernel_ms if timed else None,
+          plain_ms_per_step=plain_ms if timed else None,
+          bound_ms_per_step=bound if timed else None, per_call=rows)
     check(not bad, f"splat_bwd differs from splat_bwd_raw on the {label} inputs: {bad}")
-    return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound, bitwise=not bad, calls=calls)
+    return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound, bitwise=not bad, calls=calls,
+                pairs=len(pairs))
 
 
 @contextlib.contextmanager
 def captured_splats():
     """The arguments of every forward splat kernel call inside the window,
     detached copies, in call order."""
-    calls, original = [], sp.splat_fwd
+    calls, original, keep = [], sp.splat_fwd, clone_once()
 
     def capture(inp, flow, scale=1, offset=(0, 0)):
-        calls.append((inp.detach().clone(), flow.detach().clone(), int(scale),
-                      tuple(int(o) for o in offset)))
+        calls.append((keep(inp), keep(flow), int(scale), tuple(int(o) for o in offset)))
         return original(inp, flow, scale, offset)
 
     sp.splat_fwd = capture
@@ -1059,13 +1109,14 @@ def captured_splats():
         sp.splat_fwd = original
 
 
-def splat_on_step_inputs(calls, label, launched):
+def splat_on_step_inputs(calls, label, launched, timed=True):
     """The forward splat kernel bit for bit against splat_fixed_plain on the
     (inp, flow) of every splat of a train step (``calls`` from
     captured_splats; all ``launched`` of the step's launches), with the
     modelled share of corners beyond the windows per call
-    and the kernel's and splat_raw's CUDA-event times summed over the step.
-    Returns the per-step sums."""
+    and the kernel's and splat_raw's CUDA-event times summed over the step
+    (not with ``timed`` False).  Returns the per-step sums and the
+    distinct (scale, offset) pairs."""
     check(0 < len(calls) == launched,
           f"{label}: captured {len(calls)} splat calls of the step's {launched} launches")
     rows, bad = [], []
@@ -1076,6 +1127,9 @@ def splat_on_step_inputs(calls, label, launched):
         torch.cuda.synchronize()
         if not (bitwise_equal(a, f) and bool(torch.equal(ma, mf))):
             bad.append(i)
+        if not timed:
+            del a, ma, f, mf
+            continue
         ms = cuda_ms(lambda: sp.splat_fwd(inp, flow, scale, off), 10)
         pms = cuda_ms(lambda: sp.splat_raw(inp, flow, scale, off), 3, 1)
         kernel_ms, plain_ms = kernel_ms + ms, plain_ms + pms
@@ -1085,10 +1139,12 @@ def splat_on_step_inputs(calls, label, launched):
                          max_abs_flow_px=float(flow[finite].abs().max()) if finite.any() else 0.0,
                          escape_share_modelled=splat_escape_share(flow, scale, off)))
         del a, ma, f, mf
+    pairs = sorted({(scale, off) for _, _, scale, off in calls})
     phase("splat_on_step_inputs", at=label, calls=len(calls), bitwise_failed=bad,
-          kernel_ms_per_step=kernel_ms, plain_ms_per_step=plain_ms, per_call=rows)
+          distinct_scale_offsets=len(pairs), kernel_ms_per_step=kernel_ms if timed else None,
+          plain_ms_per_step=plain_ms if timed else None, per_call=rows)
     check(not bad, f"splat kernel differs from splat_fixed_plain on the {label} inputs: {bad}")
-    return dict(ms=kernel_ms, plain_ms=plain_ms, calls=len(calls))
+    return dict(ms=kernel_ms, plain_ms=plain_ms, calls=len(calls), pairs=len(pairs))
 
 
 # the splat forward by pass: (label, B, H, W, dtype, scale, zero flow) on the
@@ -1181,9 +1237,38 @@ def profiler_phase():
                 del qkv, cp
     phase("mid_ctx_device_times", per_case=mid, native_eval_device_ms=mid_native,
           out_native_eval_device_ms=out_native)
-    return {"splat": rows, "bwd_kv1": kv1, "empty_device_ms": empty, "splat_bwd": bwd,
-            "mid_ctx": mid, "mid_ctx_native_eval_device_ms": mid_native,
+    learner = learner_step_device_time()
+    return {"learner": learner, "splat": rows, "bwd_kv1": kv1, "empty_device_ms": empty,
+            "splat_bwd": bwd, "mid_ctx": mid, "mid_ctx_native_eval_device_ms": mid_native,
             "mid_out_native_eval_device_ms": out_native}
+
+
+def learner_step_device_time():
+    """One f32 FlowLearner train step (learner_train_steps' state) under
+    torch.profiler: the device-busy ms (the union of its device events'
+    intervals), the kernel ms by kind (profile_step.py's kinds) and the
+    device events, against the step's wall ms from the host-clock window.
+    Frees the state."""
+    st = LEARNER_PROFILE
+    step, state, batch, gen = st["step"], st["state"], st["batch"], st["gen"]
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        step(state, batch, gen)
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kinds = {}
+    for e in evs:
+        kind = profile_step.kind_of(e.name)
+        kinds[kind] = kinds.get(kind, 0.0) + e.time_range.elapsed_us() / 1e3
+    device_ms = profile_step.busy_us([(e.time_range.start, e.time_range.end) for e in evs]) / 1e3
+    row = dict(wall_ms=st["wall_ms"], device_ms=device_ms,
+               idle_share=1.0 - device_ms / st["wall_ms"], device_events=len(evs),
+               device_ms_by_kind=kinds)
+    phase("learner_step_device_time", precision="float32", B=batch[0].shape[0],
+          H=batch[0].shape[2], W=batch[0].shape[3], **row)
+    LEARNER_PROFILE.clear()
+    return row
 
 
 def bwd_bound_ms(kernel, Bn, C, N, xbytes, f32_cores=False):
@@ -1761,6 +1846,60 @@ def bwd_on_activations(calls, label):
               f"activations: {e}")
 
 
+@contextlib.contextmanager
+def captured_block_fwd():
+    """The arguments of every forward of the fused block on the kernels
+    (``af._forward``: rows 1 and 2) inside the window, detached copies, in
+    call order."""
+    calls, original = [], af._forward
+
+    def capture(*args):
+        calls.append(tuple(a.detach().clone() for a in args))
+        return original(*args)
+
+    af._forward = capture
+    try:
+        yield calls
+    finally:
+        af._forward = original
+
+
+def fwd_on_activations(calls, label):
+    """Rows 1 and 2 against ctx_plain and out_plain on the inputs that
+    reached each block's forward in a train step (``calls`` from
+    captured_block_fwd), as la_phase holds them: the context (and m, s)
+    within TOL_CTX of its scale; the output, fed the plain context, within
+    TOL_OUT of the residual branch's scale plus one bf16 ulp of its largest
+    value for bf16 x.  A kernel fault shows here apart from the draw of the
+    step's random-weight loss.  One kernel_vs_plain line per row."""
+    ctx_rel, out_rel, shapes = [], [], []
+    with torch.no_grad():
+        for x, g_pre, w_qkv, w_out, b_out, g_post in calls:
+            w16 = w_qkv.to(torch.bfloat16).contiguous()
+            g32 = g_pre.float().contiguous()
+            w_kv, w_q = w16[af.HIDDEN:], w16[:af.HIDDEN]
+            c_k, m_k, s_k = af.linear_attention_ctx(x, g32, w_kv)
+            c_p, m_p, s_p = af.ctx_plain(x, g32, w_kv)
+            ctx_rel.append(max(err(c_k, c_p)[0] / max(float(c_p.abs().max()), 1e-30),
+                               err(m_k, m_p)[0] / max(float(m_p.abs().max()), 1e-30),
+                               float(((s_k - s_p).abs() / s_p).max())))
+            args = (x, g32, w_q, c_p, w_out.to(torch.bfloat16).contiguous(),
+                    b_out.float().contiguous(), g_post.float().contiguous())
+            y_k, y_p = af.linear_attention_out(*args), af.out_plain(*args)
+            rounding = 2.0 ** -7 if x.dtype == torch.bfloat16 else 0.0
+            scale = max(float((y_p.float() - x.float()).abs().max()), 1e-30)
+            allowed = TOL_OUT * scale + rounding * float(y_p.float().abs().max())
+            out_rel.append(err(y_k, y_p)[0] / allowed * TOL_OUT)
+            shapes.append(list(x.shape))
+            del c_k, m_k, s_k, c_p, m_p, s_p, y_k, y_p
+    torch.cuda.synchronize()
+    for k, e, tol in (("ctx", ctx_rel, TOL_CTX), ("out", out_rel, TOL_OUT)):
+        phase("kernel_vs_plain", kernel=f"linear_attention_{k}", at=label, blocks=len(e),
+              shapes=shapes, max_rel=max(e), pin=tol, per_block=[sig(v) for v in e])
+        check(max(e) <= tol, f"linear_attention_{k} disagrees with its plain version on the "
+              f"{label} activations: {e}")
+
+
 # the splat kernels on the captured inputs of one train step, by "HxW_bB"
 STEP_SPLATS = {}
 STEP_SPLAT_BWD = {}
@@ -1802,8 +1941,9 @@ def step_vs_plain(precision, batch, conv_backend="cudnn", remat=False, tol=None)
     conv kernels are exact f32).  With ``remat`` the UnetWithWarp closure
     is rematerialised.  Where the bottleneck takes the flash kernel (N >=
     2048: the native batch) the plain step runs its plain recurrence.  The
-    cuDNN bf16 step also holds rows 3-5 to their plain versions on its own
-    block activations (bwd_on_activations), the splat kernel bit for bit
+    cuDNN bf16 step also holds rows 1-2 (fwd_on_activations) and rows 3-5
+    (bwd_on_activations) to their plain versions on its own block
+    activations, the splat kernel bit for bit
     to splat_fixed_plain on its splats' own inputs (splat_on_step_inputs),
     and the splat backward bit for bit to splat_bwd_raw on its own inputs
     (splat_bwd_on_step_inputs)."""
@@ -1817,6 +1957,7 @@ def step_vs_plain(precision, batch, conv_backend="cudnn", remat=False, tol=None)
     with tf32(not (conv and precision == "float32")):
         with contextlib.ExitStack() as stack:
             if capture:
+                fwd_calls = stack.enter_context(captured_block_fwd())
                 calls = stack.enter_context(captured_block_bwd())
                 splat_calls = stack.enter_context(captured_splats())
                 splat_bwd_calls = stack.enter_context(captured_splat_bwd())
@@ -1826,12 +1967,13 @@ def step_vs_plain(precision, batch, conv_backend="cudnn", remat=False, tol=None)
                         kernels.SPLAT_BWD.launches - launched[1])
         if capture:
             label = f"{batch[0].shape[2]}x{batch[0].shape[3]}_b{batch[0].shape[0]}"
+            fwd_on_activations(fwd_calls, "train_activations_" + label)
             bwd_on_activations(calls, "train_activations_" + label)
             STEP_SPLATS[label] = splat_on_step_inputs(splat_calls, "train_step_" + label,
                                                       launched[0])
             STEP_SPLAT_BWD[label] = splat_bwd_on_step_inputs(splat_bwd_calls,
                                                              "train_step_" + label, launched[1])
-            del calls, splat_calls, splat_bwd_calls
+            del fwd_calls, calls, splat_calls, splat_bwd_calls
         flash = batch[0].shape[2] * batch[0].shape[3] // 64 >= fa.FLASH_MIN_N
         with plain_versions(attention="passes", splat=True, conv=conv, flash=flash):
             loss_p, g_p = step_grads(algo, batch, 11)
@@ -2096,21 +2238,59 @@ def check_launches(label, launches, must):
           f"{label}: kernels of the path not launched {missing}, off the path launched {extra}")
 
 
-def config_step_vs_plain(algo, label, batch, tol=None):
+@contextlib.contextmanager
+def captured_step():
+    """The captures of one train step: the blocks' forward and backward
+    inputs, the splat forward's and backward's, and the splat launches of
+    the window (set on exit)."""
+    with contextlib.ExitStack() as stack:
+        cap = dict(fwd=stack.enter_context(captured_block_fwd()),
+                   bwd=stack.enter_context(captured_block_bwd()),
+                   splats=stack.enter_context(captured_splats()),
+                   splat_bwd=stack.enter_context(captured_splat_bwd()))
+        before = (kernels.SPLAT.launches, kernels.SPLAT_BWD.launches)
+        yield cap
+        cap["launched"] = (kernels.SPLAT.launches - before[0],
+                           kernels.SPLAT_BWD.launches - before[1])
+
+
+def check_captured(cap, label, timed=True):
+    """Rows 1-2 and 3-5 against their plain versions on a step's own block
+    inputs, the splat forward bit for bit against splat_fixed_plain and its
+    backward against splat_bwd_raw on the step's own splat inputs (those
+    that the step launched; a step without a warp launches none).  Returns
+    (distinct forward, distinct backward (scale, offset) pairs)."""
+    fwd_on_activations(cap["fwd"], "train_activations_" + label)
+    if cap["bwd"]:
+        bwd_on_activations(cap["bwd"], "train_activations_" + label)
+    fwd_pairs = bwd_pairs = 0
+    if cap["launched"][0] or cap["splats"]:
+        fwd_pairs = splat_on_step_inputs(cap["splats"], "train_step_" + label,
+                                         cap["launched"][0], timed)["pairs"]
+    if cap["launched"][1] or cap["splat_bwd"]:
+        bwd_pairs = splat_bwd_on_step_inputs(cap["splat_bwd"], "train_step_" + label,
+                                             cap["launched"][1], cap["launched"][1],
+                                             timed)["pairs"]
+    return fwd_pairs, bwd_pairs
+
+
+def config_step_vs_plain(algo, label, batch, tol=None, capture=True):
     """One train step's loss and gradients of ``algo`` (FlowDiffuser or
     FlowPred) with every kernel against the same step with every plain
     version (the same weights, batch and draws), as step_vs_plain holds the
-    flagship."""
+    flagship; with ``capture`` also the kernels against their plain
+    versions on that step's own inputs (check_captured: rows 1-5, the splat
+    forward and backward bit for bit)."""
     algo.module.train()
-    loss_k, g_k = step_grads(algo, batch, 11)
+    with captured_step() if capture else contextlib.nullcontext() as cap:
+        loss_k, g_k = step_grads(algo, batch, 11)
+    if capture:
+        check_captured(cap, f"{label}_128x128_b{batch[0].shape[0]}")
+        del cap
     with plain_versions(attention="passes", splat=True):
         loss_p, g_p = step_grads(algo, batch, 11)
     algo.module.eval()
-    rel = {k: float((g_k[k] - g_p[k]).norm()) / float(g_p[k].norm())
-           for k in g_p if float(g_p[k].norm()) > 0}
-    worst = max(rel, key=rel.get)
-    total = float(torch.sqrt(sum((g_k[k] - g_p[k]).square().sum() for k in g_p))
-                  / torch.sqrt(sum(g.square().sum() for g in g_p.values())))
+    rel, worst, total = grad_diff(g_k, g_p)
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     tol_loss, tol_grad = tol or TOL_TRAIN_CONFIGS.get(label, TOL_TRAIN["bf16"])
     phase("config_train_step_vs_plain", config=label, B=batch[0].shape[0],
@@ -2297,6 +2477,224 @@ def flow_diffuser_configs_phase():
     return totals
 
 
+# FlowLearner at the bench's shape (bench.py's flow_learner rows: 128x128
+# b16 at the reference's ten pyramid levels, f32 and bf16), weights from the
+# seed with the output conv not zeroed, on the train rows' standard-normal
+# batch.  A step splats the image at all 832 (level, offset) pairs and the
+# target at as many (no backward), and takes the splat backward at each pair
+LEARNER_PRECISIONS = ("float32", "bf16")
+LEARNER_PAIRS = sum(L * L for L in pyr.DEFAULT_LEVELS)
+LEARNER_EXPECTED = {"linear_attention_ctx": 8, "linear_attention_out": 8,
+                    "linear_attention_bwd_q": 6, "linear_attention_bwd_kv1": 6,
+                    "linear_attention_bwd_kv2": 6, "splat_fwd": 2 * LEARNER_PAIRS,
+                    "splat_bwd": LEARNER_PAIRS}
+LEARNER_WARMUP, LEARNER_TIMED = 1, 3
+# the learner step with every kernel vs every plain version: the loss pins
+# from chip_train_spread.py --learner over seeds 0-4 on an H100 (largest
+# 9.13e-5 f32, 9.04e-4 bf16), taken before this check ran with them.  The
+# gradient is not pinned: it moves by 0.86-14x its norm there (0.35-5.4x at
+# parity's flow_max 2, LEARNER_FLOW_MAX_SMALL), far wider than C6's 0.338;
+# learner_gradient_sensitivity measures what a one-ulp nudge of the input
+# does to it on the kernels alone.  The step relies on the checks on its own
+# inputs instead
+TOL_LEARNER = {"float32": (5e-4, None), "bf16": (2e-3, None)}
+LEARNER_FLOW_MAX_SMALL = 2.0
+# the parity harness on the card: 20 steps of the joint and learner stages
+# at 32x32 (training/parity.py's settings), the initial metrics over JAX's 2
+# validation batches, the final ones over 1
+PARITY_SMOKE_STEPS = 20
+# the f32 learner's timed step, kept for the profiler phase
+LEARNER_PROFILE = {}
+
+
+def grad_diff(g_k, g_p):
+    """(per-leaf relative difference, worst leaf, global relative norm) of
+    two gradient dicts."""
+    rel = {k: float((g_k[k] - g_p[k]).norm()) / float(g_p[k].norm())
+           for k in g_p if float(g_p[k].norm()) > 0}
+    total = float(torch.sqrt(sum((g_k[k] - g_p[k]).square().sum() for k in g_p))
+                  / torch.sqrt(sum(g.square().sum() for g in g_p.values())))
+    return rel, max(rel, key=rel.get), total
+
+
+def learner_algo(precision, flow_max=FLOW_LEARNER.flow_max):
+    """FlowLearner at the bench's shape, weights from SEED, output conv not
+    zeroed."""
+    cfg = dataclasses.replace(FLOW_LEARNER, precision=precision, zero_init=False,
+                              flow_max=flow_max)
+    return FlowLearner(cfg, device="cuda", generator=torch.Generator().manual_seed(SEED))
+
+
+def learner_step_vs_plain(precision, batch, tol=None, capture=True,
+                          flow_max=FLOW_LEARNER.flow_max):
+    """One FlowLearner train step (augment, UNet, the pyramid, backward)
+    with every kernel against the same step with every plain version: the
+    loss and the global relative gradient norm within TOL_LEARNER (at
+    the gradient's None pin is not checked); with
+    ``capture`` the step's own inputs checked (check_captured, the splats
+    untimed: rows 1-5, the splat forward at every one of its 1664 calls and
+    the backward at its 832 bit for bit), over all 832 (level, offset)
+    pairs.  Returns (loss_rel, grad_global_rel)."""
+    algo = learner_algo(precision, flow_max)
+    algo.module.train()
+    with captured_step() if capture else contextlib.nullcontext() as cap:
+        loss_k, g_k = step_grads(algo, batch, 11)
+    pairs = None
+    if capture:
+        launched = cap["launched"]
+        pairs = check_captured(cap, f"learner_{precision}_128x128_b{batch[0].shape[0]}",
+                               timed=False)
+        del cap
+        check(launched == (LEARNER_EXPECTED["splat_fwd"], LEARNER_EXPECTED["splat_bwd"])
+              and pairs == (LEARNER_PAIRS, LEARNER_PAIRS),
+              f"learner step: splat launches {launched}, distinct pairs {pairs}")
+    with plain_versions(attention="passes", splat=True):
+        loss_p, g_p = step_grads(algo, batch, 11)
+    rel, worst, total = grad_diff(g_k, g_p)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    tol_loss, tol_grad = tol or TOL_LEARNER[precision]
+    phase("learner_train_step_vs_plain", precision=precision, B=batch[0].shape[0],
+          H=batch[0].shape[2], W=batch[0].shape[3], flow_max=flow_max,
+          levels=list(algo.levels),
+          loss=loss_k, plain_loss=loss_p, loss_rel=loss_rel, grad_leaves=len(rel),
+          grad_global_rel=total, grad_worst_leaf=worst, grad_worst_rel=rel[worst],
+          pins=[tol_loss, tol_grad], distinct_pairs_checked=pairs)
+    check(np.isfinite(loss_k) and all(torch.isfinite(g).all() for g in g_k.values()),
+          f"learner step ({precision}): non-finite loss or gradient")
+    check(loss_rel <= tol_loss and (tol_grad is None or total <= tol_grad),
+          f"learner step ({precision}, flow_max {flow_max}) with kernels disagrees with the "
+          f"plain versions: loss {loss_rel}, gradients {total}")
+    del algo, g_k, g_p
+    return loss_rel, total
+
+
+def learner_gradient_sensitivity(precision, batch):
+    """The kernel step's gradient against itself: once more on the same
+    batch (the splat's sums are the same bits on every run; cuDNN's backward
+    need not be) and on the batch with the first frame nudged by one float32
+    ulp, at flow_max 20 and 2: the global relative gradient difference each
+    gives, the yardstick for the kernels-vs-plain spread.  Finite values
+    only are checked."""
+    row = {}
+    for flow_max in (FLOW_LEARNER.flow_max, LEARNER_FLOW_MAX_SMALL):
+        algo = learner_algo(precision, flow_max)
+        algo.module.train()
+        nudged = (torch.nextafter(batch[0], torch.full_like(batch[0], float("inf"))),) + batch[1:]
+        loss_a, g_a = step_grads(algo, batch, 11)
+        loss_b, g_b = step_grads(algo, batch, 11)
+        loss_c, g_c = step_grads(algo, nudged, 11)
+        row[f"flow_max{flow_max:g}"] = dict(
+            repeat_loss_rel=abs(loss_b - loss_a) / abs(loss_a),
+            repeat_grad_global_rel=grad_diff(g_b, g_a)[2],
+            nudged_loss_rel=abs(loss_c - loss_a) / abs(loss_a),
+            nudged_grad_global_rel=grad_diff(g_c, g_a)[2])
+        check(all(np.isfinite(v) for v in row[f"flow_max{flow_max:g}"].values()),
+              f"learner gradient sensitivity ({precision}): {row}")
+        del algo, g_a, g_b, g_c
+    phase("learner_gradient_sensitivity", precision=precision, B=batch[0].shape[0],
+          H=batch[0].shape[2], W=batch[0].shape[3], **row)
+    return row
+
+
+def learner_train_steps(precision, batch):
+    """One count window of LEARNER_WARMUP + LEARNER_TIMED steps (augment,
+    loss, backward, clip, Adam): every kernel's launches exactly
+    LEARNER_EXPECTED a step (none of the others), and the train samples/s
+    of the timed steps (host clock, synchronised).  Returns the launches."""
+    algo = learner_algo(precision)
+    cfg = algo.cfg
+    state = TrainState(algo.module, make_optimizer(algo.module.parameters(), cfg.lr,
+                                                   cfg.weight_decay, 100.0))
+    step = make_train_step(algo.loss_fn)
+    algo.module.train()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    for _ in range(LEARNER_WARMUP):
+        step(state, batch, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LEARNER_TIMED):
+        metrics = step(state, batch, gen)
+    torch.cuda.synchronize()
+    sec = (time.perf_counter() - t0) / LEARNER_TIMED
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    n = LEARNER_WARMUP + LEARNER_TIMED
+    expected = {k.name: n * LEARNER_EXPECTED.get(k.name, 0) for k in kernels.KERNELS}
+    loss = float(metrics["train/loss"])
+    phase("learner_train_steps", precision=precision, B=batch[0].shape[0],
+          H=batch[0].shape[2], W=batch[0].shape[3], steps=n, timed=LEARNER_TIMED,
+          ms_per_step=1e3 * sec, train_samples_per_s=batch[0].shape[0] / sec, loss=loss,
+          launches=launches, expected_launches=expected,
+          launches_per_step={k: v / n for k, v in launches.items()},
+          peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    check(np.isfinite(loss), f"learner steps ({precision}): non-finite loss")
+    check(launches == expected, f"learner steps ({precision}): launches {launches}, "
+          f"expected {expected}")
+    if precision == "float32":
+        LEARNER_PROFILE.update(step=step, state=state, batch=batch, gen=gen, wall_ms=1e3 * sec)
+    return launches
+
+
+def learner_phase():
+    """FlowLearner at 128x128 b16, f32 and bf16: the step with every kernel
+    against the all-plain step with the checks on its own inputs, the
+    gradient's sensitivity to a one-ulp nudge, then a count window of train
+    steps.  Returns the launches of the windows."""
+    batch = train_batch()
+    totals = {k.name: 0 for k in kernels.KERNELS}
+    for precision in LEARNER_PRECISIONS:
+        learner_step_vs_plain(precision, batch)
+        learner_gradient_sensitivity(precision, batch)
+        for k, n in learner_train_steps(precision, batch).items():
+            totals[k] += n
+    phase("launch_counts_learner", launches=totals)
+    return totals
+
+
+def parity_smoke_phase():
+    """The parity harness on the card (training/parity.py's run_parity):
+    PARITY_SMOKE_STEPS steps each of the joint and learner stages at 32x32
+    b16, f32, one count window.  Their initial metrics, which depend on the
+    data alone, must pass JAX's bars (1e-3 relative); their final metrics
+    must be finite; every kernel of both paths must launch.  Returns the
+    launches."""
+    root = Path(tempfile.mkdtemp(prefix="ofd_parity_"))
+    log = io.StringIO()
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            res = parity.run_parity(out_dir=str(root), diffuser_steps=PARITY_SMOKE_STEPS,
+                                    learner_steps=PARITY_SMOKE_STEPS, stages=("joint", "learner"),
+                                    device="cuda", val_batches=1, init_batches=2,
+                                    log_every=PARITY_SMOKE_STEPS)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+        saved = json.loads((root / "parity.json").read_text())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    keys = ("val/epe", "val/mse", "val/loss", "zero_flow_epe", "moving_frac_gt")
+    stages = {key: dict(init={k: res[key]["init"][k] for k in keys},
+                        final={k: res[key]["final"][k] for k in keys},
+                        steps_per_sec=res[key]["perf"]["steps_per_sec"],
+                        init_bars={k: v for k, v in res["bars"][key].items()
+                                   if k.startswith("init")})
+              for key in ("flow_diffuser", "flow_learner")}
+    phase("parity_smoke", steps=PARITY_SMOKE_STEPS, seconds=sec, launches=launches,
+          saved_stages=sorted(k for k in saved if k.startswith("flow_")), stages=stages)
+    for key, st in stages.items():
+        check(all(np.isfinite(v) for v in st["final"].values()),
+              f"parity smoke {key}: non-finite final metrics {st['final']}")
+        check(all(b["ok"] for b in st["init_bars"].values()),
+              f"parity smoke {key}: initial metrics off JAX's {st['init_bars']}")
+    check_launches("parity smoke", launches, set(LEARNER_EXPECTED))
+    return launches
+
+
 def main():
     smi = device_phase()
     build_phase()
@@ -2314,7 +2712,7 @@ def main():
     conv_rows_, conv_err = conv_phase()
     launches = slice_phase()
     for window in (middle_modules_phase, train_phase, native_train_phase,
-                   flow_diffuser_configs_phase):
+                   flow_diffuser_configs_phase, learner_phase, parity_smoke_phase):
         for k, n in window().items():
             launches[k] += n
     phase("launch_counts_all_paths", launches=launches)
@@ -2431,6 +2829,7 @@ def main():
                         library_ms=None, per=per_la, bound_share=st["bound"] / st["ms"])
             if k is kernels.LA_CTX:
                 vals["bound_ms_f32_cores"] = st["bound_f32_cores"]
+        vals["learner_launches_per_step"] = LEARNER_EXPECTED.get(k.name, 0)
         rows.append({"name": k.name, "route": k.route, "source": k.source,
                      "replaces": k.replaces, "launches": launches[k.name], **vals})
     print(smi, flush=True)

@@ -16,6 +16,13 @@ configurations and of FlowPred (``config_step_vs_plain``, chip_smoke.py's
 each seed, once, and prints the largest loss and gradient differences per
 configuration against the flagship's pins.
 
+``--learner`` runs instead FlowLearner's check (``learner_step_vs_plain``
+at 128x128 b16, the reference's ten pyramid levels, f32 and bf16, at
+``flow_max`` 20 and at parity's 2) at each seed, ``--reps`` times, with no
+pin and without the checks on the step's own inputs, and prints the
+largest loss and gradient differences per precision and flow_max against
+chip_smoke.py's ``TOL_LEARNER``.
+
 ``--splat-sums float32`` takes the plain splat's sums in float32, whose GPU
 atomics sum in a varying order (chip_smoke.py's reference before it took
 them in float64), to show what that order does to the reference.
@@ -24,6 +31,7 @@ Usage (from the root of a checkout, one card)::
 
     python3 chip_train_spread.py [--seeds 5] [--reps 2] [--splat-sums float64]
     python3 chip_train_spread.py --configs [--seeds 5]
+    python3 chip_train_spread.py --learner [--seeds 5] [--reps 1]
 """
 
 import argparse
@@ -41,11 +49,15 @@ def main():
     ap.add_argument("--splat-sums", choices=("float64", "float32"), default="float64")
     ap.add_argument("--configs", action="store_true",
                     help="the other configurations' train-step check instead")
+    ap.add_argument("--learner", action="store_true",
+                    help="FlowLearner's train-step check instead")
     args = ap.parse_args()
     cs.device_phase()
     cs.build_phase()
     if args.configs:
         return configs_spread(args.seeds)
+    if args.learner:
+        return learner_spread(args.seeds, args.reps)
     if args.splat_sums == "float32":
         raw = cs.sp.splat_raw
         cs.sp.splat_raw = lambda *a, acc_dtype=None, **k: raw(*a, **k)
@@ -98,7 +110,8 @@ def configs_spread(seeds):
         for label, make in algos:
             algo = make()
             loss_rel, grad_rel = cs.config_step_vs_plain(algo, label, batch,
-                                                         tol=(float("inf"), float("inf")))
+                                                         tol=(float("inf"), float("inf")),
+                                                         capture=False)
             del algo
             cs.emit({"case": "config_train_step_vs_plain", "config": label, "seed": seed,
                      "loss_rel": loss_rel, "grad_global_rel": grad_rel})
@@ -107,6 +120,32 @@ def configs_spread(seeds):
                                  "grad_global_rel_max": max(r[1] for r in rows)}
                          for label, rows in out.items()},
              "seeds": seeds, "pins": cs.TOL_TRAIN["bf16"]})
+
+
+def learner_spread(seeds, reps):
+    """learner_step_vs_plain over ``seeds`` (weights and batch), f32 and
+    bf16, at flow_max 20 and 2, ``reps`` times each, with no pin; a summary
+    per precision and flow_max."""
+    out = {}
+    for seed in range(seeds):
+        cs.SEED = seed
+        batch = cs.train_batch(seed)
+        for precision in cs.LEARNER_PRECISIONS:
+            for flow_max in (cs.FLOW_LEARNER.flow_max, cs.LEARNER_FLOW_MAX_SMALL):
+                for rep in range(reps):
+                    loss_rel, grad_rel = cs.learner_step_vs_plain(
+                        precision, batch, tol=(float("inf"), float("inf")), capture=False,
+                        flow_max=flow_max)
+                    cs.emit({"case": "learner_train_step_vs_plain", "precision": precision,
+                             "flow_max": flow_max, "seed": seed, "rep": rep,
+                             "loss_rel": loss_rel, "grad_global_rel": grad_rel})
+                    out.setdefault(f"{precision}_flow_max{flow_max:g}", []).append(
+                        (loss_rel, grad_rel))
+    cs.emit({"summary": {p: {"loss_rel_max": max(r[0] for r in rows),
+                             "grad_global_rel_max": max(r[1] for r in rows)}
+                         for p, rows in out.items()},
+             "seeds": seeds, "reps": reps,
+             "pins": cs.TOL_LEARNER})
 
 
 if __name__ == "__main__":

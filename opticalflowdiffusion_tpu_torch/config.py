@@ -81,6 +81,28 @@ class FlowPredConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class FlowLearnerConfig:
+    """``algorithm/flow_learner.yaml`` plus ``runtime.precision``, the conv
+    lowering, the filter representation's ``radius`` (the yaml has none: it
+    is the ``+algorithm.radius`` knob, and then ``flow_max`` must be None)
+    and the pyramid's ``levels`` (the reference's ten by default)."""
+
+    image_size: int = 128
+    flow_max: Optional[float] = 20.0
+    zero_init: bool = True
+    c2f: bool = False
+    lr: float = 8e-5
+    weight_decay: float = 1e-6
+    sparsity_weight: float = 0.0
+    occlusion_mask: bool = True
+    train_aug: bool = True
+    radius: Optional[int] = None
+    levels: Tuple[int, ...] = (1, 2, 4, 5, 7, 8, 10, 11, 14, 16)
+    precision: str = "bf16"
+    conv_backend: str = "cudnn"
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainingConfig:
     """``experiment/matrix_flow.yaml`` over ``experiment/base.yaml``: the
     training batch, gradient clipping, step budget (``max_steps`` -1 runs
@@ -117,9 +139,11 @@ class ServingConfig:
 
 FLAGSHIP = FlowDiffuserConfig()
 FLOW_PRED = FlowPredConfig()
+FLOW_LEARNER = FlowLearnerConfig()
 FLAGSHIP_DATA = ArtificialDataConfig()
 MATRIX_FLOW = TrainingConfig()
 NATIVE = ServingConfig()
 
-__all__ = ["ArtificialDataConfig", "FlowDiffuserConfig", "FlowPredConfig", "ServingConfig",
-           "TrainingConfig", "FLAGSHIP", "FLAGSHIP_DATA", "FLOW_PRED", "MATRIX_FLOW", "NATIVE"]
+__all__ = ["ArtificialDataConfig", "FlowDiffuserConfig", "FlowLearnerConfig", "FlowPredConfig",
+           "ServingConfig", "TrainingConfig", "FLAGSHIP", "FLAGSHIP_DATA", "FLOW_LEARNER",
+           "FLOW_PRED", "MATRIX_FLOW", "NATIVE"]

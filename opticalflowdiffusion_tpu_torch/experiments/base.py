@@ -22,7 +22,8 @@ from typing import Dict, Optional, Union
 
 import torch
 
-from ..config import ArtificialDataConfig, FlowDiffuserConfig, FlowPredConfig, TrainingConfig
+from ..config import (ArtificialDataConfig, FlowDiffuserConfig, FlowLearnerConfig, FlowPredConfig,
+                      TrainingConfig)
 from ..data.artificial import ArtificialDataset
 from ..data.loader import DataLoader
 from ..parallel.train import TrainState, make_optimizer, make_train_step
@@ -37,12 +38,12 @@ def to_device(batch, device) -> tuple:
 
 
 class Experiment:
-    """One training run of ``algorithm_cls(algo_cfg)`` (FlowDiffuser or
-    FlowPred) on the artificial dataset.  ``device`` defaults to cuda."""
+    """One training run of ``algorithm_cls(algo_cfg)`` (FlowDiffuser,
+    FlowPred or FlowLearner) on the artificial dataset.  ``device`` defaults to cuda."""
 
     algorithm_cls = None
 
-    def __init__(self, algo_cfg: Union[FlowDiffuserConfig, FlowPredConfig],
+    def __init__(self, algo_cfg: Union[FlowDiffuserConfig, FlowPredConfig, FlowLearnerConfig],
                  train_cfg: TrainingConfig, data_cfg: ArtificialDataConfig, out_dir, device="cuda"):
         self.algo_cfg, self.cfg, self.data_cfg = algo_cfg, train_cfg, data_cfg
         self.out_dir = Path(out_dir)

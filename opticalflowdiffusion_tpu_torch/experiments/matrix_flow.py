@@ -1,17 +1,18 @@
-"""The flow experiment (JAX ``experiments/matrix_flow.py``): FlowDiffuser or
-FlowPred on the artificial dataset, the counterpart of
-``main.py experiment=matrix_flow algorithm={flow_diffuser,flow_pred}
-dataset=artificial``.  The JAX experiment also runs three other algorithms
-(MatrixFlow, FlowLearner, PWCLearner) and four other datasets; those are not
+"""The flow experiment (JAX ``experiments/matrix_flow.py``): FlowDiffuser,
+FlowPred or FlowLearner on the artificial dataset, the counterpart of
+``main.py experiment=matrix_flow algorithm={flow_diffuser,flow_pred,
+flow_learner} dataset=artificial``.  The JAX experiment also runs two other
+algorithms (MatrixFlow, PWCLearner) and four other datasets; those are not
 ported."""
 
 from __future__ import annotations
 
 from ..algorithms.flow_diffuser import FlowDiffuser
+from ..algorithms.flow_learner import FlowLearner
 from ..algorithms.flow_pred import FlowPred
 from .base import Experiment
 
-ALGORITHMS = {"flow_diffuser": FlowDiffuser, "flow_pred": FlowPred}
+ALGORITHMS = {"flow_diffuser": FlowDiffuser, "flow_pred": FlowPred, "flow_learner": FlowLearner}
 
 
 class MatrixFlowExperiment(Experiment):

@@ -422,10 +422,13 @@ class Unet(nn.Module):
 
 
 def init_weights(model: nn.Module, generator: torch.Generator,
-                 zero_init_final: Optional[bool] = None) -> nn.Module:
+                 zero_init_final: Optional[bool] = None,
+                 flax_defaults: bool = False) -> nn.Module:
     """Draw every parameter from ``generator``: kernels ~ N(0, 1/fan_in),
     biases ~ N(0, 0.02^2), norm gains ~ 1 + N(0, 0.02^2), Fourier weights ~
-    N(0, 1).  The UNet's output
+    N(0, 1); with ``flax_defaults`` the biases start at 0 and the gains at 1,
+    as flax's initialisers give them (so a zeroed output conv outputs 0, as
+    JAX's does).  The UNet's output
     conv is zeroed when ``zero_init_final`` (default: the model's own flag).
     Parameters are drawn on the CPU, so a seed gives the same weights on
     every device."""
@@ -438,9 +441,10 @@ def init_weights(model: nn.Module, generator: torch.Generator,
             elif leaf == "weights":          # the Fourier time embedding's
                 v = torch.randn(p.shape, generator=generator)
             elif leaf == "bias":
-                v = torch.randn(p.shape, generator=generator) * 0.02
+                v = torch.randn(p.shape, generator=generator) * (0.0 if flax_defaults else 0.02)
             else:
-                v = 1.0 + torch.randn(p.shape, generator=generator) * 0.02
+                v = 1.0 + torch.randn(p.shape, generator=generator) * (
+                    0.0 if flax_defaults else 0.02)
             p.copy_(v)
         for m in model.modules():
             if isinstance(m, Unet):

@@ -218,6 +218,8 @@ def splat_bwd_raw(inp: torch.Tensor, flow: torch.Tensor, g: torch.Tensor, scale:
     d_flow float32), both zero where the target is non-finite."""
     B, C, H, W = inp.shape
     scale, ox, oy, Ho, Wo = _geometry(H, W, scale, offset)
+    if Ho * Wo == 0:              # H or W below the scale: nothing was splatted
+        return torch.zeros_like(inp), torch.zeros(B, 2, H, W, device=inp.device)
     sx, sy = _stretch(ox, W, scale), _stretch(oy, H, scale)
     fx, fy, finite = _targets(flow, H, W)
     g32 = g.float().reshape(B, C, Ho * Wo)

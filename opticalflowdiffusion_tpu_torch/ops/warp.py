@@ -2,6 +2,8 @@
 
 NaN input pixels carry zero weight; output pixels that receive no weight
 become NaN holes, and the ``nan_*`` losses reduce over the finite pairs only.
+FlowLearner's photometric terms (``charbonnier``, ``nan_charbonnier``,
+``fill_holes_nan``, ``edgeaware_smoothness1``) reduce in float32.
 """
 
 from __future__ import annotations
@@ -90,4 +92,43 @@ def nan_mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return s / torch.clamp(n, min=1)
 
 
-__all__ = ["nan_mse", "nan_mse_stats", "permute_warp", "warp_forward_flow"]
+def charbonnier(x: torch.Tensor, alpha: float = 0.5, eps: float = 1e-3) -> torch.Tensor:
+    return torch.pow(x.square() + eps ** 2, alpha)
+
+
+def nan_charbonnier(pred: torch.Tensor, target: torch.Tensor, dim=None) -> torch.Tensor:
+    """The Charbonnier mean over the finite pairs, in float32; ``dim`` keeps
+    the other axes (per-offset means over a leading axis: JAX's
+    ``jax.vmap(nan_charbonnier)``)."""
+    mask = _finite_pair_mask(pred, target)
+    zero = torch.zeros((), dtype=pred.dtype, device=pred.device)
+    diff = torch.where(mask, pred - target, zero).float()
+    val = torch.where(mask, charbonnier(diff), torch.zeros_like(diff))
+    if dim is None:
+        return val.sum() / torch.clamp(mask.sum(), min=1)
+    return val.sum(dim=dim) / torch.clamp(mask.sum(dim=dim), min=1)
+
+
+def fill_holes_nan(img: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """NaN where the splat weight is not positive."""
+    return torch.where(weights > 0, img, torch.full_like(img, float("nan")))
+
+
+def edgeaware_smoothness1(image: torch.Tensor, flow: torch.Tensor,
+                          edge_weight: float = 30.0) -> torch.Tensor:
+    """Edge-aware first-order smoothness of ``flow`` (B, 2, H, W), its
+    differences weighed by exp(-edge_weight * the image's mean squared
+    difference over channels), in float32."""
+    image, flow = image.float(), flow.float()
+    img_gy = image[:, :, 1:] - image[:, :, :-1]
+    img_gx = image[:, :, :, 1:] - image[:, :, :, :-1]
+    flo_gy = flow[:, :, 1:] - flow[:, :, :-1]
+    flo_gx = flow[:, :, :, 1:] - flow[:, :, :, :-1]
+    wy = torch.exp(-edge_weight * img_gy.square().mean(dim=1, keepdim=True))
+    wx = torch.exp(-edge_weight * img_gx.square().mean(dim=1, keepdim=True))
+    loss = (wx * charbonnier(flo_gx)).mean() + (wy * charbonnier(flo_gy)).mean()
+    return loss / 2
+
+
+__all__ = ["charbonnier", "edgeaware_smoothness1", "fill_holes_nan", "nan_charbonnier",
+           "nan_mse", "nan_mse_stats", "permute_warp", "warp_forward_flow"]

@@ -1,8 +1,9 @@
-"""Where the time of one UNet eval, or one train step, of the flagship goes on the card.
+"""Where the time of one UNet eval, or one train step, of the flagship (or of
+FlowLearner's train step) goes on the card.
 
     python -m opticalflowdiffusion_tpu_torch.profile_step [--steps 10] [--seed 0] \
         [--batch 8] [--height 128 --width 128] [--train [--remat]] \
-        [--conv-backend {cudnn,rows,fold}]
+        [--conv-backend {cudnn,rows,fold}] [--algorithm flow_learner [--precision bf16]]
 
 Builds the flagship as ``sample.py`` does (bf16, weights from ``--seed``) on
 a batch of ``--batch`` at ``--height`` x ``--width`` (default 128x128 b8;
@@ -17,7 +18,11 @@ does).  Prints one JSON line: wall ms per unit, device-busy ms per
 unit (the union of the traced kernels' intervals), the device's idle
 share, the kernel count per unit, kernel time per unit grouped by kind,
 and the slowest kernels.  ``--conv-backend`` lowers the UNet's convs
-(``ops/conv.py``; default cudnn).  Needs a CUDA device.
+(``ops/conv.py``; default cudnn).  ``--algorithm flow_learner`` profiles
+FlowLearner's train step instead (``--train`` implied; the reference's ten
+pyramid levels, weights from ``--seed`` with the output conv not zeroed,
+``--precision`` float32 by default, as the JAX ``bench.py`` row
+``flow_learner_train_samples_per_sec``).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -27,11 +32,14 @@ import collections
 import json
 import time
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from .algorithms.base import to_batch
-from .config import MATRIX_FLOW
+from .algorithms.flow_learner import FlowLearner
+from .config import FLOW_LEARNER, MATRIX_FLOW
 from .experiments.base import to_device
 from .ops.conv import BACKENDS
 from .parallel.train import TrainState, make_optimizer, make_train_step
@@ -130,11 +138,17 @@ def run(steps: int, seed: int, batch: int = 8, height: int = 128, width: int = 1
 
 
 def run_train(steps: int, seed: int, batch: int = 16, height: int = 128,
-              width: int = 128, conv_backend: str = "cudnn", remat: bool = False) -> dict:
-    """The profile of ``steps`` train steps (the flagship's optimizer)."""
+              width: int = 128, conv_backend: str = "cudnn", remat: bool = False,
+              algorithm: str = "flow_diffuser", precision=None) -> dict:
+    """The profile of ``steps`` train steps (the algorithm's optimizer)."""
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step needs a CUDA device")
-    algo, _ = build(seed, "cuda", conv_backend=conv_backend, remat=remat)
+    if algorithm == "flow_learner":
+        cfg = dataclasses.replace(FLOW_LEARNER, image_size=height, zero_init=False,
+                                  precision=precision or "float32", conv_backend=conv_backend)
+        algo = FlowLearner(cfg, "cuda", torch.Generator().manual_seed(seed))
+    else:
+        algo, _ = build(seed, "cuda", conv_backend=conv_backend, remat=remat)
     cfg = algo.cfg
     state = TrainState(algo.module, make_optimizer(algo.module.parameters(), cfg.lr,
                                                    cfg.weight_decay, MATRIX_FLOW.clipping))
@@ -152,7 +166,8 @@ def run_train(steps: int, seed: int, batch: int = 16, height: int = 128,
 
     torch.cuda.reset_peak_memory_stats()
     out = _profile(train_steps, steps, "step")
-    return {"batch": batch, "height": height, "width": width, "conv_backend": conv_backend,
+    return {"algorithm": algorithm, "precision": cfg.precision, "batch": batch,
+            "height": height, "width": width, "conv_backend": conv_backend,
             "remat": remat, "train_samples_per_s": batch * 1e3 / out["wall_ms_per_step"],
             "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9, **out}
 
@@ -168,12 +183,17 @@ def main(argv=None) -> None:
     ap.add_argument("--conv-backend", choices=BACKENDS, default="cudnn")
     ap.add_argument("--remat", action="store_true",
                     help="with --train: recompute the UnetWithWarp closure in the backward")
+    ap.add_argument("--algorithm", choices=("flow_diffuser", "flow_learner"),
+                    default="flow_diffuser")
+    ap.add_argument("--precision", choices=("bf16", "float32"), default=None,
+                    help="FlowLearner's compute dtype (default float32)")
     args = ap.parse_args(argv)
     if args.remat and not args.train:
         ap.error("--remat needs --train")
-    if args.train:
+    if args.train or args.algorithm == "flow_learner":
         out = run_train(args.steps, args.seed, args.batch or MATRIX_FLOW.batch_size,
-                        args.height, args.width, args.conv_backend, args.remat)
+                        args.height, args.width, args.conv_backend, args.remat,
+                        args.algorithm, args.precision)
     else:
         out = run(args.steps, args.seed, args.batch or 8, args.height, args.width,
                   args.conv_backend)

@@ -1,13 +1,16 @@
-"""Training entry point: train FlowDiffuser (or FlowPred) on the artificial dataset.
+"""Training entry point: train FlowDiffuser (or FlowPred, or FlowLearner) on the
+artificial dataset.
 
     python -m opticalflowdiffusion_tpu_torch.train --steps 20 [--batch 16] \\
         [--image-size 128] [--unet-dim 64] [--seed 0] [--device cuda] \\
         [--out outputs/train] [--resume] [--check-interval N] \\
         [--ckpt-every N] [--val-batch 8] [--sampling-timesteps S] \\
         [--conv-backend {cudnn,rows,fold}] [--remat] \\
-        [--algorithm {flow_diffuser,flow_pred}] [--target {joint,target,flow}] \\
+        [--algorithm {flow_diffuser,flow_pred,flow_learner}] [--target {joint,target,flow}] \\
         [--noiser {image,flow}] [--no-diffusion] [--flow-weight W] \\
-        [--diffusion-flow-weight W] [--latent --ae DIR] [--latent-dim 16]
+        [--diffusion-flow-weight W] [--latent --ae DIR] [--latent-dim 16] \\
+        [--radius R] [--levels 1,2,4] [--precision {bf16,float32}] [--lr LR] \\
+        [--flow-max F] [--dataset-size N] [--dataset-seed S]
 
 The counterpart of ``main.py experiment=matrix_flow algorithm=flow_diffuser
 dataset=artificial``: the flagship (UNet width 64, dim_mults (1, 2, 4, 8),
@@ -35,6 +38,12 @@ latents of a frozen Autoencoder: ``--ae`` names the output directory of a
 ``--algorithm flow_pred`` run, whose newest checkpoint holds it; without
 ``--ae`` it is drawn from the seed).  ``--algorithm flow_pred`` trains that
 Autoencoder (``algorithm/flow_pred.yaml``: lr 4e-5, ``--latent-dim``).
+``--algorithm flow_learner`` trains FlowLearner (``flow_learner.yaml``: the
+photometric pyramid at ``--levels``, default the reference's ten; the
+filter representation with ``--radius``).  ``--precision``, ``--lr`` and
+``--flow-max`` replace the algorithm's values; ``--dataset-size`` and
+``--dataset-seed`` the artificial dataset's (default: 256000 items drawn
+from ``--seed``).
 """
 
 from __future__ import annotations
@@ -47,7 +56,7 @@ import time
 import torch
 
 from .algorithms.flow_diffuser import TARGETS
-from .config import FLAGSHIP, FLAGSHIP_DATA, FLOW_PRED, MATRIX_FLOW
+from .config import FLAGSHIP, FLAGSHIP_DATA, FLOW_LEARNER, FLOW_PRED, MATRIX_FLOW
 from .experiments.matrix_flow import ALGORITHMS, MatrixFlowExperiment
 from .ops.conv import BACKENDS
 
@@ -57,10 +66,15 @@ MODEL_FIELDS = ("target", "noiser", "is_diffusion", "flow_weight", "diffusion_fl
 
 
 def model_config(algorithm: str = "flow_diffuser", **fields):
-    """The algorithm's config: the flagship's (or ``flow_pred.yaml``'s) with
-    the given fields replaced; a field given as None keeps its default."""
-    base = FLOW_PRED if algorithm == "flow_pred" else FLAGSHIP
-    return dataclasses.replace(base, **{k: v for k, v in fields.items() if v is not None})
+    """The algorithm's config: the flagship's (or ``flow_pred.yaml``'s, or
+    ``flow_learner.yaml``'s) with the given fields replaced; a field given
+    as None keeps its default (FlowLearner's ``radius`` drops its
+    ``flow_max``)."""
+    base = {"flow_pred": FLOW_PRED, "flow_learner": FLOW_LEARNER}.get(algorithm, FLAGSHIP)
+    fields = {k: v for k, v in fields.items() if v is not None}
+    if algorithm == "flow_learner" and "radius" in fields:
+        fields.setdefault("flow_max", None)
+    return dataclasses.replace(base, **fields)
 
 
 def build(steps: int, batch: int = MATRIX_FLOW.batch_size, image_size=None, unet_dim=None,
@@ -68,25 +82,30 @@ def build(steps: int, batch: int = MATRIX_FLOW.batch_size, image_size=None, unet
           check_interval=None, ckpt_every=None, val_batch=None,
           sampling_timesteps=None, log_every=None,
           conv_backend: str = "cudnn", remat: bool = False, algorithm: str = "flow_diffuser",
+          precision=None, lr=None, flow_max=None, dataset_size=None, dataset_seed=None,
           **model) -> MatrixFlowExperiment:
     """The experiment of one run, not yet trained.  ``model`` holds config
-    fields of the algorithm (``MODEL_FIELDS``; FlowPred's ``latent_dim``)."""
+    fields of the algorithm (``MODEL_FIELDS``; FlowPred's ``latent_dim``;
+    FlowLearner's ``radius`` and ``levels``)."""
+    common = dict(image_size=image_size, conv_backend=conv_backend, precision=precision, lr=lr)
     if algorithm == "flow_pred":
-        algo = model_config(algorithm, image_size=image_size, conv_backend=conv_backend,
-                            **model)
+        algo = model_config(algorithm, **common, **model)
+    elif algorithm == "flow_learner":
+        algo = model_config(algorithm, flow_max=flow_max, **common, **model)
     else:
-        algo = model_config(algorithm, conv_backend=conv_backend, remat=remat,
-                            image_size=image_size, unet_dim=unet_dim, **model)
+        algo = model_config(algorithm, remat=remat, unet_dim=unet_dim, flow_max=flow_max,
+                            **common, **model)
         algo = dataclasses.replace(algo, sampling_timesteps=sampling_timesteps)
-    data = dataclasses.replace(FLAGSHIP_DATA, image_size=algo.image_size)
+    data = dataclasses.replace(FLAGSHIP_DATA, image_size=algo.image_size,
+                               size=dataset_size or FLAGSHIP_DATA.size)
     train = dataclasses.replace(
         MATRIX_FLOW, batch_size=batch, max_steps=steps, seed=seed,
         check_interval=check_interval or min(MATRIX_FLOW.check_interval, steps),
         every_n_train_steps=ckpt_every or MATRIX_FLOW.every_n_train_steps,
         val_batch_size=val_batch or MATRIX_FLOW.val_batch_size,
         log_every=log_every or min(MATRIX_FLOW.log_every, steps))
-    return MatrixFlowExperiment(algo, train, dataclasses.replace(data, seed=seed), out, device,
-                                algorithm)
+    data = dataclasses.replace(data, seed=seed if dataset_seed is None else dataset_seed)
+    return MatrixFlowExperiment(algo, train, data, out, device, algorithm)
 
 
 def add_model_flags(ap: argparse.ArgumentParser) -> None:
@@ -107,8 +126,13 @@ def add_model_flags(ap: argparse.ArgumentParser) -> None:
 
 def model_flags(a: argparse.Namespace) -> dict:
     """The config fields that the model flags set (None: the default)."""
-    if getattr(a, "algorithm", "flow_diffuser") == "flow_pred":
+    algorithm = getattr(a, "algorithm", "flow_diffuser")
+    if algorithm == "flow_pred":
         return {"latent_dim": a.latent_dim}
+    if algorithm == "flow_learner":
+        levels = getattr(a, "levels", None)
+        return {"radius": getattr(a, "radius", None),
+                "levels": tuple(int(v) for v in levels.split(",")) if levels else None}
     return {"target": a.target, "noiser": a.noiser,
             "is_diffusion": False if a.no_diffusion else None, "flow_weight": a.flow_weight,
             "diffusion_flow_weight": a.diffusion_flow_weight,
@@ -125,7 +149,8 @@ def run(steps: int, resume: bool = False, **kwargs) -> dict:
         torch.cuda.synchronize(exp.device)
     seconds = time.perf_counter() - t0
     cfg = exp.algo_cfg
-    fields = MODEL_FIELDS if exp.algorithm.name == "flow_diffuser" else ("latent_dim",)
+    fields = {"flow_diffuser": MODEL_FIELDS + ("flow_max",), "flow_pred": ("latent_dim",),
+              "flow_learner": ("flow_max", "radius", "levels")}[exp.algorithm.name]
     return {
         "device": str(exp.device),
         "algorithm": exp.algorithm.name,
@@ -134,7 +159,12 @@ def run(steps: int, resume: bool = False, **kwargs) -> dict:
         "unet_dim": getattr(cfg, "unet_dim", None),
         "conv_backend": cfg.conv_backend,
         "remat": getattr(cfg, "remat", False),
-        **{k: getattr(cfg, k) for k in fields},
+        "precision": cfg.precision,
+        "lr": cfg.lr,
+        "dataset_size": exp.data_cfg.size,
+        "dataset_seed": exp.data_cfg.seed,
+        **{k: list(v) if isinstance(v, tuple) else v for k, v in
+           ((k, getattr(cfg, k)) for k in fields)},
         "start_step": start,
         "step": exp.state.step,
         "checkpoints": exp.ckpt.steps(),
@@ -165,12 +195,23 @@ def main(argv=None) -> None:
                     help="recompute the UnetWithWarp closure in the backward")
     ap.add_argument("--algorithm", choices=tuple(ALGORITHMS), default="flow_diffuser")
     add_model_flags(ap)
+    ap.add_argument("--radius", type=int, default=None,
+                    help="FlowLearner's filter representation (drops its flow_max)")
+    ap.add_argument("--levels", default=None,
+                    help="FlowLearner's pyramid levels, comma-separated")
+    ap.add_argument("--precision", choices=("bf16", "float32"), default=None)
+    ap.add_argument("--lr", type=float, default=None)
+    ap.add_argument("--flow-max", type=float, default=None)
+    ap.add_argument("--dataset-size", type=int, default=None)
+    ap.add_argument("--dataset-seed", type=int, default=None)
     a = ap.parse_args(argv)
     print(json.dumps(run(a.steps, a.resume, batch=a.batch, image_size=a.image_size,
                          unet_dim=a.unet_dim, seed=a.seed, device=a.device, out=a.out,
                          check_interval=a.check_interval, ckpt_every=a.ckpt_every,
                          val_batch=a.val_batch, sampling_timesteps=a.sampling_timesteps,
                          conv_backend=a.conv_backend, remat=a.remat, algorithm=a.algorithm,
+                         precision=a.precision, lr=a.lr, flow_max=a.flow_max,
+                         dataset_size=a.dataset_size, dataset_seed=a.dataset_seed,
                          **model_flags(a))))
 
 

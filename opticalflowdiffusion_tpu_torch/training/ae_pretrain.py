@@ -1,7 +1,8 @@
 """Pretrain the flow-equivariant Autoencoder for the latent FlowDiffuser
 (JAX ``training/ae_pretrain.py::train_ae``).
 
-Trains FlowPred on the artificial dataset (through the port's experiment
+Trains FlowPred on the artificial dataset with a white background, as JAX's
+script draws it (through the port's experiment
 loop: Adam with global-norm clipping at 100, float32 as JAX's script runs)
 and writes ``<out>/checkpoints/<steps>/``, whose module holds the
 Autoencoder under the ``ae.`` prefix that ``train.py --latent --ae <out>``
@@ -36,8 +37,11 @@ def train_ae(steps: int = 3000, image_size: int = 32, batch: int = 16, lr: float
     algo_cfg = dataclasses.replace(FLOW_PRED, image_size=image_size, lr=lr,
                                    latent_dim=latent_dim, ae_frac=ae_frac,
                                    precision=precision, conv_backend=conv_backend)
+    # JAX's script builds its datasets from the size, the count and the seed
+    # alone, so their background is the dataset's default (white), not the
+    # yaml's checkers
     data_cfg = dataclasses.replace(FLAGSHIP_DATA, image_size=image_size, size=dataset_size,
-                                   seed=seed)
+                                   seed=seed, bg="white")
     train_cfg = dataclasses.replace(MATRIX_FLOW, batch_size=batch, max_steps=steps, seed=seed,
                                     check_interval=steps, every_n_train_steps=steps,
                                     val_batch_size=batch, log_every=min(log_every, steps))

@@ -11,7 +11,11 @@ pure re-layout, so the same table maps gradients, and :func:`jax_layout`
 takes a port state_dict (or its gradients) back to the JAX tree, leaf by
 leaf.  The same holds for the unfused ``LinearAttention`` and
 ``PreNormResidual(LinearAttention)`` on their own
-(:func:`linear_attention_rows`, :func:`from_jax`, :func:`to_jax`).
+(:func:`linear_attention_rows`, :func:`from_jax`, :func:`to_jax`), and for
+FlowLearner's FlowUnet and FilterUnet with the filter codecs
+(:func:`flow_learner_state_dict`, :func:`flow_learner_jax_layout`,
+:func:`filter_codec_rows`; a flax ``ConvTranspose`` kernel is flipped
+spatially for ``ConvTranspose2d``).
 """
 
 from __future__ import annotations
@@ -38,6 +42,8 @@ def _to_port(kind: str, a: np.ndarray) -> np.ndarray:
         return a.transpose(3, 2, 0, 1)
     if kind == "dense":
         return a.T
+    if kind == "convT":                                 # (k, k, I, O) -> (I, O, k, k), flipped
+        return a.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
     if kind == "gain":
         return a.reshape(1, -1, 1, 1)
     if kind == "kernel1x1":
@@ -53,6 +59,8 @@ def _to_port(kind: str, a: np.ndarray) -> np.ndarray:
 def _to_jax(kind: str, a: np.ndarray, shape) -> np.ndarray:
     if kind == "conv":
         a = a.transpose(2, 3, 1, 0)
+    elif kind == "convT":
+        a = a[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
     elif kind == "dense":
         a = a.T
     elif kind == "kernel1x1":
@@ -170,6 +178,46 @@ def linear_attention_rows(prenorm: bool = False) -> List[Row]:
     return rows
 
 
+def filter_codec_rows(c2f: bool = True, filter_to_conv: bool = False) -> List[Row]:
+    """Rows of JAX's ``ConvToFilter`` (three ``ConvTranspose``, a ``Dense``)
+    against ``models/filter_codec.py::ConvToFilter`` (``up.0-2``,
+    ``dense``), or with ``filter_to_conv`` of the enabled ``FilterToConv``
+    (three ``Conv``) against its ``convs.0-2``."""
+    if filter_to_conv:
+        return [r for i in range(3) for r in (
+            ((f"Conv_{i}", "kernel"), f"convs.{i}.weight", "conv"),
+            ((f"Conv_{i}", "bias"), f"convs.{i}.bias", "vec"))]
+    rows = [r for i in range(3) for r in (
+        ((f"ConvTranspose_{i}", "kernel"), f"up.{i}.weight", "convT"),
+        ((f"ConvTranspose_{i}", "bias"), f"up.{i}.bias", "vec"))]
+    return rows + [(("Dense_0", "kernel"), "dense.weight", "dense"),
+                   (("Dense_0", "bias"), "dense.bias", "vec")]
+
+
+def _learner_rows(params: Tree) -> List[Row]:
+    """Rows of a JAX FlowUnet or FilterUnet tree (``Unet_0`` [and
+    ``ConvToFilter_0``]) against FlowLearner's module (``model.``,
+    ``codec.``)."""
+    rows = [(("Unet_0",) + path, "model." + key, kind) for path, key, kind in
+            _table(params["Unet_0"])]
+    if "ConvToFilter_0" in params:
+        rows += [(("ConvToFilter_0",) + path, "codec." + key, kind)
+                 for path, key, kind in filter_codec_rows()]
+    return rows
+
+
+def flow_learner_state_dict(params: Tree) -> Dict[str, torch.Tensor]:
+    """State_dict of FlowLearner's module (FlowUnet, or FilterUnet with its
+    codec) from the JAX params."""
+    return from_jax(params, _learner_rows(params))
+
+
+def flow_learner_jax_layout(sd: Mapping[str, torch.Tensor], template: Tree) -> Dict:
+    """The JAX FlowUnet/FilterUnet tree of ``template`` from the port
+    state_dict ``sd`` (parameters or their gradients)."""
+    return to_jax(sd, template, _learner_rows(template))
+
+
 def _get(tree: Tree, path: Tuple[str, ...]):
     for k in path:
         tree = tree[k]
@@ -240,5 +288,6 @@ def autoencoder_jax_layout(sd: Mapping[str, torch.Tensor], template: Tree,
             for name in ("model_enc", "model_dec")}
 
 
-__all__ = ["autoencoder_jax_layout", "autoencoder_state_dict", "flow_diffuser_state_dict",
+__all__ = ["autoencoder_jax_layout", "autoencoder_state_dict", "filter_codec_rows",
+           "flow_diffuser_state_dict", "flow_learner_jax_layout", "flow_learner_state_dict",
            "from_jax", "jax_layout", "linear_attention_rows", "params_from_jax", "to_jax"]
