@@ -4,14 +4,15 @@
 
 Budget: under 10 minutes on one H100, the kernel build included (one plain
 ``nvcc`` call per source, all started together; seconds each).  A run takes
-about six minutes on an H100.  Every line
+about seven and a half minutes on an H100 (the real-data phase ~2 of them).  Every line
 it prints is one JSON object, flushed as it goes, apart from the card's
 ``nvidia-smi`` line.  Phases:
 
 1. device: needs ``torch.cuda.is_available()``; prints the name and power
    limit of the card as ``nvidia-smi`` gives them (again before the kernels
    line), and its top SM clock.
-2. build: compiles every CUDA source of the port (in parallel) and prints
+2. build: compiles every CUDA source of the port and the data readers'
+   host helper (``data/host_ops.cpp``, through nvcc) in parallel and prints
    the seconds.
 3. kernel_vs_plain: each kernel against its plain PyTorch version on the
    card, with errors, CUDA-event times and the least time the card could
@@ -159,7 +160,33 @@ it prints is one JSON object, flushed as it goes, apart from the card's
    each of the joint and learner stages at 32x32 b16, f32: the initial
    metrics, which depend on the data alone, within 1e-3 of JAX's recorded
    ones, finite final metrics, every kernel of both paths launched.
-10. profiler: device times from ``torch.profiler``, after the last
+10. real_data: the JAX package's dress rehearsal on the port.  For
+   Sintel (2 scenes of 13 frames at 1024x436), FlyingChairs (8 pairs at
+   512x384) and KITTI (6 training and 3 validation pairs at 1242x375,
+   sparse 16-bit flow), the rehearsal's trees, the port's fixture writer
+   makes the tree, and the port's readers read it at the rehearsal's native
+   sizes (1024,448, 512,384, 1248,376), b2: the loader's items/s by the
+   rehearsal's definition (4 workers, one warm batch, then up to 6
+   batches), over the whole first epoch from a cold start and over a second
+   epoch (KITTI's densify memoised), the KITTI densify's seconds an item
+   alone; then one count window through ``train.py`` (4 steps with remat and
+   the rehearsal's flow_max 32, a DDIM-2 validation with its images,
+   checkpoints at 2 and 4, ``--resume`` to 6, FlyingChairs' step 5 traced
+   by ``--profile-step``), ``--tasks test`` (Sintel's
+   must raise, as JAX's reader asserts its split) and ``sample.py --ckpt``
+   at the native size, in which rows 1-6 and the splat forward and
+   backward must launch and no other; the validation keys must be the
+   rehearsal's (``debug/rehearsal_r05.jsonl``).  Then one train step at
+   the dataset's shape (weights from the seed, output conv not zeroed)
+   with rows 1-5 on its own block inputs, row 6 on its own q, k, v (KITTI's
+   bottleneck N = 7332 takes the padded tail; Chairs' is 3072) and the
+   splat forward and backward bit for bit on its own splat inputs, and
+   the samples/s of that step alone on the batch (1 warm-up, 3 timed), for
+   the loader-fed rate of ``train.py``'s steps 2-4 to stand beside.  One
+   ``real_data`` line a dataset with the card's name and power limit.
+   ``python3 chip_smoke.py --real-data-only`` runs the device, build and
+   this phase alone and prints no result line (a development aid).
+11. profiler: device times from ``torch.profiler``, after the last
    host-clock window, so that no profiler trace runs before one: the
    splat forward by pass and its launches per call at 128x128 b8 and
    448x1024 b2 (bf16, f32) and at the pyramid loss's f32 scales 2-16 at
@@ -172,7 +199,7 @@ it prints is one JSON object, flushed as it goes, apart from the card's
    summed over a native b2 eval (``mid_ctx_device_times``, row 8's keys
    prefixed ``out_``); one f32 learner step's device-busy time against its
    wall time, by kernel kind (``learner_step_device_time``).
-11. the kernels line: for each kernel its route, source, the TPU kernel it
+12. the kernels line: for each kernel its route, source, the TPU kernel it
    replaces, launches over all count windows, error, ms, plain ms, bound
    ms and what bounds it, library ms; for rows 6, 9 and 10 also
    ``vs_library`` (ms / library ms) and ``bound_share`` (bound ms / ms),
@@ -195,7 +222,7 @@ it prints is one JSON object, flushed as it goes, apart from the card's
    8 ``device_ms`` (torch.profiler, a native b2 eval's 8 blocks) and
    ``bound_share`` (bound ms / device ms); every row also
    ``learner_launches_per_step``.
-12. the result line.
+13. the result line.
 
 Any failure raises and exits non-zero without the result line; so does a
 run without a CUDA device or without the port's package beside this file.
@@ -218,12 +245,15 @@ import numpy as np
 import torch
 
 from opticalflowdiffusion_tpu_torch import kernels, profile_step
+from opticalflowdiffusion_tpu_torch import sample as sample_entry
 from opticalflowdiffusion_tpu_torch import train as train_entry
 from opticalflowdiffusion_tpu_torch.algorithms.base import to_batch
 from opticalflowdiffusion_tpu_torch.algorithms.flow_diffuser import FlowDiffuser
 from opticalflowdiffusion_tpu_torch.algorithms.flow_learner import FlowLearner
 from opticalflowdiffusion_tpu_torch.algorithms.flow_pred import FlowPred
 from opticalflowdiffusion_tpu_torch.config import FLAGSHIP, FLOW_LEARNER, FLOW_PRED, NATIVE
+from opticalflowdiffusion_tpu_torch.data import fixtures, get_dataset, host
+from opticalflowdiffusion_tpu_torch.data.loader import DataLoader
 from opticalflowdiffusion_tpu_torch.kernels import build as kbuild
 from opticalflowdiffusion_tpu_torch.models import unet as unet_mod
 from opticalflowdiffusion_tpu_torch.ops import attention_fused as af
@@ -474,8 +504,10 @@ def device_phase():
 
 def build_phase():
     t = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(kbuild.SOURCES)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(kbuild.SOURCES) + 1) as pool:
+        helper = pool.submit(host.load)
         list(pool.map(kbuild.build, kbuild.SOURCES))
+        helper.result()
     for name in kbuild.SOURCES:
         kbuild.load(name)
     ptxas = {n: [ln.strip() for ln in kbuild.build_log[n]["ptxas"].splitlines()
@@ -2695,9 +2727,252 @@ def parity_smoke_phase():
     return launches
 
 
+# the real-data path (the JAX package's debug/dress_rehearsal.py): native
+# fixture trees written by the port (data/fixtures.py), read by its readers
+# at the rehearsal's native sizes, b2, through train.py (remat, the
+# rehearsal's flow_max 32) and sample.py: (dataset, fixture writer and its
+# arguments, image size W,H); KITTI's tree has JAX's REAL_KITTI_PAIRS
+# training pairs (and half as many for validation and test)
+REAL_KITTI_PAIRS = 6
+REAL_DATA = (
+    ("sintel", fixtures.make_sintel_fixture, dict(scenes=2, frames=13), "1024,448"),
+    ("flying_chairs", fixtures.make_chairs_fixture, dict(n=8), "512,384"),
+    ("kitti_single", fixtures.make_kitti_fixture, dict(n=REAL_KITTI_PAIRS), "1248,376"),
+)
+REAL_B = 2
+REAL_STEPS, REAL_RESUMED = 4, 6
+REAL_DDIM = 2
+REAL_FLOW_MAX = 32.0
+REAL_LOADER_WORKERS = 4          # the rehearsal's loader measurement
+REAL_LOADER_BATCHES = 6
+REAL_TIMED = 3
+REAL_MUST = set(FWD_KERNELS) | set(BWD_KERNELS) | {"flash_attention", "splat_fwd", "splat_bwd"}
+REHEARSAL = Path(__file__).resolve().parent / "debug" / "rehearsal_r05.jsonl"
+
+
+@contextlib.contextmanager
+def captured_flash():
+    """The (q, k, v) of every flash kernel call inside the window, detached
+    copies, in call order."""
+    calls, original = [], fa.flash_attention
+
+    def capture(q, k, v):
+        calls.append(tuple(t.detach().clone() for t in (q, k, v)))
+        return original(q, k, v)
+
+    fa.flash_attention = capture
+    try:
+        yield calls
+    finally:
+        fa.flash_attention = original
+
+
+def flash_on_activations(calls, label):
+    """Row 6 against flash_plain on the q, k, v that reached it in a train
+    step, at the step's own N (a tail N no multiple of the tile goes through
+    the padded copy, ``_padded``): within TOL_FLASH of the output's scale
+    (its largest value, at least 1; TOL_FLASH is absolute on the unit-scale
+    random inputs of flash_phase, and a step's outputs reach a few units)."""
+    rel, shapes = [], []
+    with torch.no_grad():
+        for q, k, v in calls:
+            want = fa.flash_plain(q, k, v)
+            scale = max(float(want.float().abs().max()), 1.0)
+            rel.append(err(fa.flash_attention(q, k, v), want)[0] / scale)
+            shapes.append(list(q.shape))
+    torch.cuda.synchronize()
+    tol = TOL_FLASH[calls[0][0].dtype]
+    phase("kernel_vs_plain", kernel="flash_attention", at=label, calls=len(rel),
+          shapes=shapes[:1], max_rel=max(rel), pin=tol)
+    check(max(rel) <= tol, f"flash kernel disagrees with flash_plain on the {label} inputs: "
+          f"{rel}")
+
+
+def loader_items_per_s(name, data_cfg, n_batches=REAL_LOADER_BATCHES):
+    """The rehearsal's loader measurement (``dress_rehearsal.py:74-101``):
+    a fresh training dataset at the native size, the loader at b2 with 4
+    workers, one batch to warm the pool, then items/s over up to
+    ``n_batches`` more of the first epoch (host clock).  The port's loader
+    keeps 4 items in flight across batches, so the warm batch also starts
+    the next; the first epoch's items/s from a cold start, the warm batch
+    included, is returned beside it.  Returns (items/s, items timed, cold
+    first-epoch items/s, the dataset)."""
+    ds = get_dataset(name)(data_cfg, split="training")
+    start = time.perf_counter()
+    it = iter(DataLoader(ds, REAL_B, True, 0, num_workers=REAL_LOADER_WORKERS))
+    first = len(next(it)[0])
+    t0, n = time.perf_counter(), 0
+    for i, b in enumerate(it):
+        n += len(b[0])
+        if i + 1 >= n_batches:
+            break
+    end = time.perf_counter()
+    for b in it:
+        first += len(b[0])
+    cold = (first + n) / (time.perf_counter() - start)
+    return (n / (end - t0) if n else None), n, cold, ds
+
+
+def real_data_phase(smi):
+    """The rehearsal's path on the port: for Sintel, FlyingChairs and KITTI,
+    native-size fixture trees through the readers, ``train.py`` (4 steps at
+    b2 with remat, a DDIM validation with its images, checkpoints, a
+    resume to 6), ``--tasks test`` (Sintel's raising as JAX's does) and
+    ``sample.py --ckpt``, one count window per dataset in which every
+    kernel of the path must launch and no other; the kernels held to their
+    plain versions on one train step's own inputs at the dataset's shapes
+    (rows 1-5, row 6, the splat forward and backward bit for bit); one line
+    per dataset with the loader's items/s beside the train samples/s, the
+    KITTI densify's seconds an item, the validation keys (the rehearsal's)
+    and the card.  Returns the launches of the windows."""
+    rehearsal = {json.loads(x)["dataset"]: json.loads(x)
+                 for x in REHEARSAL.read_text().splitlines() if x.strip()}
+    want_val = rehearsal["sintel"]["val_metric_keys"]
+    totals = {k.name: 0 for k in kernels.KERNELS}
+    work = Path(tempfile.mkdtemp(prefix="ofd_real_data_"))
+    try:
+        for name, make, kw, size in REAL_DATA:
+            data_root = work / "data"
+            t = time.perf_counter()
+            make(data_root, **kw)
+            fixture_s = time.perf_counter() - t
+            W, H = (int(v) for v in size.split(","))
+            data_cfg = train_entry.data_config(name, size, str(data_root))
+            densify = None
+            if name == "kitti_single":
+                probe = get_dataset(name)(data_cfg, split="training")
+                t = time.perf_counter()
+                probe._densify(probe.records[0][2])
+                densify = time.perf_counter() - t
+            loader_rate, loader_items, cold_rate, ds = loader_items_per_s(name, data_cfg)
+            # the memoised epoch: the same loader's second pass (KITTI's
+            # densify is cached after the first)
+            again = DataLoader(ds, REAL_B, True, 0, num_workers=REAL_LOADER_WORKERS)
+            t, n = time.perf_counter(), 0
+            for b in again:
+                n += len(b[0])
+            second_epoch_rate = n / (time.perf_counter() - t)
+            out = work / f"run_{name}"
+            common = dict(batch=REAL_B, val_batch=REAL_B, image_size=size, seed=SEED,
+                          device="cuda", out=str(out), sampling_timesteps=REAL_DDIM,
+                          remat=True, flow_max=REAL_FLOW_MAX, dataset=name,
+                          data_root=str(data_root))
+            torch.cuda.synchronize()
+            kernels.reset_counts()
+            first = train_entry.run(REAL_STEPS, check_interval=REAL_STEPS, ckpt_every=2,
+                                    log_every=1, **common)
+            # the samples/s the loader fed each step (host clock, synchronised
+            # at each log; the first step holds the first batch's load and the
+            # kernels' first calls)
+            per_step = [r["train/steps_per_sec"] * REAL_B for r in
+                        (json.loads(x) for x in (out / "metrics.jsonl").read_text().splitlines())
+                        if "train/steps_per_sec" in r]
+            # FlyingChairs' resumed run also traces its first step (--profile-step)
+            traced = REAL_STEPS + 1 if name == "flying_chairs" else None
+            resumed = train_entry.run(REAL_RESUMED, resume=True, profile_step=traced, **common)
+            check(traced is None or (out / "profile" / f"step_{traced}.json").stat().st_size
+                  > 0, f"{name}: no profiler trace of step {traced}")
+            if name == "sintel":
+                try:
+                    train_entry.run(REAL_RESUMED, tasks=("test",), **common)
+                    test, test_raised = None, None
+                except AssertionError as e:          # JAX's reader asserts the split
+                    test, test_raised = None, str(e)
+                check(test_raised is not None and "training or validation" in test_raised,
+                      "sintel: the test task did not raise as JAX's does")
+            else:
+                test, test_raised = train_entry.run(REAL_RESUMED, tasks=("test",),
+                                                    **common)["test"], None
+            sampled = sample_entry.run(REAL_B, SEED, "cuda", sampling_timesteps=REAL_DDIM,
+                                       height=H, width=W, ckpt=str(out),
+                                       flow_max=REAL_FLOW_MAX)
+            torch.cuda.synchronize()
+            launches = {k.name: k.launches for k in kernels.KERNELS}
+            for k, v in launches.items():
+                totals[k] += v
+            val_keys = sorted(k for k in resumed["val"] if k.startswith("val/"))
+            check(first["step"] == REAL_STEPS and first["checkpoints"] == [2, REAL_STEPS],
+                  f"{name}: first run {first['step']} {first['checkpoints']}")
+            check(resumed["start_step"] == REAL_STEPS and resumed["step"] == REAL_RESUMED,
+                  f"{name}: resumed {resumed['start_step']} -> {resumed['step']}")
+            check(val_keys == want_val, f"{name}: validation keys {val_keys}, the rehearsal's "
+                  f"{want_val}")
+            check(all(np.isfinite(v) for k, v in resumed["val"].items() if k != "time")
+                  and np.isfinite(resumed["train"]["train/loss"]),
+                  f"{name}: non-finite metrics {resumed['val']}")
+            check(len(first["images"]) >= 10 and all((out / "images" / k).is_dir()
+                                                       for k in first["images"]),
+                  f"{name}: validation images {first['images']}")
+            if test is not None:
+                check(sorted(k for k in test if k.startswith("test/"))
+                      == [k.replace("val/", "test/") for k in want_val]
+                      and all(np.isfinite(v) for v in test.values()),
+                      f"{name}: test metrics {test}")
+            check(sampled["samples_shape"] == [REAL_B, 3, H, W] and sampled["finite_values_finite"]
+                  and sampled["ckpt"].endswith(f"checkpoints/{REAL_RESUMED}"),
+                  f"{name}: sample.py --ckpt {sampled}")
+            check_launches(f"real data {name}", launches, REAL_MUST)
+            # the kernels on one train step's own inputs at these shapes
+            cfg = dataclasses.replace(FLAGSHIP, zero_init=False, remat=True, image_size=W,
+                                      flow_max=REAL_FLOW_MAX)
+            algo = FlowDiffuser(cfg, device="cuda", generator=torch.Generator().manual_seed(SEED))
+            batch = to_device(next(iter(DataLoader(ds, REAL_B, True, SEED))), "cuda")
+            algo.module.train()
+            label = f"{name}_{H}x{W}_b{REAL_B}"
+            with captured_step() as cap, captured_flash() as flash_calls:
+                loss, _ = step_grads(algo, batch, 11)
+            check(np.isfinite(loss), f"{name}: captured step loss {loss}")
+            fwd_pairs, bwd_pairs = check_captured(cap, label, timed=False)
+            flash_on_activations(flash_calls, "train_activations_" + label)
+            n_bottleneck = flash_calls[0][0].shape[1]
+            del cap, flash_calls
+            # the step alone on that batch, no loader beside it: 1 warm-up and
+            # REAL_TIMED steps (augment, loss, backward, clip, Adam), host clock
+            state = TrainState(algo.module, make_optimizer(algo.module.parameters(), cfg.lr,
+                                                           cfg.weight_decay, 100.0))
+            step = make_train_step(algo.loss_fn)
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+            step(state, batch, gen)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(REAL_TIMED):
+                step(state, batch, gen)
+            torch.cuda.synchronize()
+            alone = REAL_TIMED * REAL_B / (time.perf_counter() - t)
+            del algo, batch, state, step
+            phase("real_data", dataset=name, image_size=size, B=REAL_B, nvidia_smi=smi,
+                  fixture_s=fixture_s, fixture=kw,
+                  loader_items_per_s=loader_rate, loader_items_timed=loader_items,
+                  loader_workers=REAL_LOADER_WORKERS,
+                  loader_first_epoch_cold_items_per_s=cold_rate,
+                  loader_second_epoch_items_per_s=second_epoch_rate,
+                  train_samples_per_s_by_step=per_step,
+                  train_samples_per_s_after_first=(float(np.mean(per_step[1:]))
+                                                   if len(per_step) > 1 else None),
+                  train_step_alone_samples_per_s=alone,
+                  train_run_samples_per_s=first["samples_per_s"],
+                  resumed_run_samples_per_s=resumed["samples_per_s"],
+                  densify_s_per_item=densify, val_metric_keys_equal_rehearsal=True,
+                  val=resumed["val"], test=test, test_raised=test_raised,
+                  sample=dict(shape=sampled["samples_shape"], seconds=sampled["seconds"],
+                              nan_share=sampled["nan_share"]),
+                  images=len(first["images"]), launches=launches,
+                  flash_n=n_bottleneck, captured_splat_pairs=[fwd_pairs, bwd_pairs],
+                  workers=first["workers"])
+            shutil.rmtree(data_root, ignore_errors=True)
+            shutil.rmtree(out, ignore_errors=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    phase("launch_counts_real_data", launches=totals)
+    return totals
+
+
 def main():
     smi = device_phase()
     build_phase()
+    if sys.argv[1:] == ["--real-data-only"]:     # a development aid: no result line
+        real_data_phase(smi)
+        return
     la128 = la_phase(B, SHAPES, "128x128")
     la_native = la_phase(NATIVE_B, NATIVE_SHAPES, "448x1024", iters=10)
     la_bwd = la_bwd_phase()
@@ -2712,7 +2987,8 @@ def main():
     conv_rows_, conv_err = conv_phase()
     launches = slice_phase()
     for window in (middle_modules_phase, train_phase, native_train_phase,
-                   flow_diffuser_configs_phase, learner_phase, parity_smoke_phase):
+                   flow_diffuser_configs_phase, learner_phase, parity_smoke_phase,
+                   lambda: real_data_phase(smi)):
         for k, n in window().items():
             launches[k] += n
     phase("launch_counts_all_paths", launches=launches)

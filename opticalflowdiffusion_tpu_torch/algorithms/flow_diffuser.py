@@ -23,8 +23,9 @@ gives trajectories) and ``val_step`` with JAX's metrics per target and
 model, the t = 0 probe and the ``grad_flow`` probe.  With ``cfg.remat`` the
 model closure is rematerialised in the backward (``torch.utils.checkpoint``,
 JAX's ``jax.checkpoint``).  Randomness comes from an explicit
-``torch.Generator`` on the model's device.  The image artifacts
-(``visualize``) are not ported.
+``torch.Generator`` on the model's device.  ``visualize`` turns a
+validation batch and its artifacts into JAX's images (the samples decoded
+in latent mode).
 
 One deliberate difference: the single-forward loss takes its frame MSE over
 the finite pairs (``nan_mse``).  JAX's plain mean is NaN whenever the
@@ -36,6 +37,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
@@ -48,6 +50,7 @@ from ..models.autoencoder import Autoencoder
 from ..models.unet import Unet, init_weights
 from ..ops.warp import nan_mse, warp_forward_flow
 from ..utils.ckpt import load_params_from_run
+from ..utils import visualization as viz
 from ..utils.grad_stats import tensor_stats
 
 TARGETS = ("joint", "target", "flow")
@@ -368,6 +371,52 @@ class FlowDiffuser:
                 (grad,) = torch.autograd.grad(probe, pf)
             artifacts["grad_flow"] = -grad
         return metrics, artifacts
+
+    def visualize(self, batch, artifacts) -> Dict[str, np.ndarray]:
+        """NHWC float images of one validation batch (NCHW tensors) and its
+        artifacts, under JAX's keys.  The diffusion target's frame
+        (``diffusion_tgt``) is written for pixel frames only: a latent one has
+        ``latent_dim`` channels."""
+        def nhwc(t):
+            t = t.detach().float().cpu()
+            return np.asarray(t.permute(*((0, 2, 3, 1) if t.dim() == 4 else (0, 1, 3, 4, 2))))
+
+        img, tgt, flow = (nhwc(x) for x in pair_batch(batch))
+        p_flows = nhwc(artifacts["p_flows"])
+        B = img.shape[0]
+        flows_rgb = viz.flow_to_image(np.concatenate([flow, p_flows, flow - p_flows], axis=0))
+        out = {"original": img, "target": tgt}
+        if self.dim == 3:
+            out["diffusion_tgt"] = (np.nan_to_num(nhwc(artifacts["tgt_x"])[..., : self.dim])
+                                    + 1.0) * 0.5
+        out["gt_flow"] = flows_rgb[:B]
+        out["target_p"] = flows_rgb[B: 2 * B]
+        out["concat"] = np.concatenate([flows_rgb[:B], flows_rgb[B: 2 * B]], axis=2)
+        out["difference"] = flows_rgb[2 * B:]
+        samples = torch.nan_to_num(artifacts["samples"].detach())
+        if self.latent:
+            with torch.no_grad():
+                dec = self._decode(samples, torch.from_numpy(
+                    np.ascontiguousarray(img.transpose(0, 3, 1, 2))).to(samples.device))
+            dec = nhwc(dec)
+            out["samples"] = dec
+            out["compare"] = np.concatenate([img, dec], axis=2)
+        else:
+            out["samples"] = np.clip((nhwc(samples) + 1.0) * 0.5, 0, 1)
+        if "grad_flow" in artifacts:
+            out["grad_flow"] = viz.flow_to_image(nhwc(artifacts["grad_flow"]))
+        if "last_step_flow" in artifacts:
+            ls = viz.flow_to_image(nhwc(artifacts["last_step_flow"]))
+            out["last_step"] = np.concatenate([flows_rgb[:B], ls], axis=2)
+        if self.is_diffusion:
+            mid = np.nan_to_num(nhwc(artifacts["mid_samples"]))[..., : min(self.dim, 3)]
+            out["mid_samples"] = np.clip(
+                (np.concatenate(list(np.moveaxis(mid, 1, 0)), axis=2) + 1) * 0.5, 0, 1)
+            midf = nhwc(artifacts["mid_flows"])
+            midf_rgb = viz.flow_to_image(midf.reshape((-1,) + midf.shape[2:]))
+            midf_rgb = midf_rgb.reshape(midf.shape[:2] + midf_rgb.shape[1:])
+            out["mid_flows"] = np.concatenate(list(np.moveaxis(midf_rgb, 1, 0)), axis=2)
+        return out
 
 
 __all__ = ["UnetWithWarp", "FlowDiffuser", "TARGETS", "make_warp_fn"]

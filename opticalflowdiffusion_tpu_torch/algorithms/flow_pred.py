@@ -8,7 +8,7 @@ the Autoencoder's reconstruction (encode, splat the latent by the flow,
 decode).  The draws come in that order from an explicit generator.  The
 module keeps the Autoencoder under ``ae``, so a checkpoint of a FlowPred run
 holds it under the ``ae.`` prefix that the latent FlowDiffuser reads
-(``cfg.ae``).  The image artifacts (``visualize``) are not ported.
+(``cfg.ae``).  ``visualize`` gives JAX's images of a validation batch.
 """
 
 from __future__ import annotations
@@ -18,11 +18,14 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 
+import numpy as np
+
 from . import augmentation
 from .base import compute_dtype, pair_batch
 from ..config import FlowPredConfig
 from ..models.autoencoder import Autoencoder
 from ..models.unet import init_weights
+from ..utils import visualization as viz
 
 
 class FlowPredModule(nn.Module):
@@ -84,6 +87,14 @@ class FlowPred:
         img, tgt, flow = pair_batch(batch)
         out = self.module(img, flow)
         return {"val/loss": (out - tgt).square().mean()}, {"out": out}
+
+    def visualize(self, batch, artifacts) -> Dict[str, np.ndarray]:
+        """NHWC float images of one validation batch (NCHW tensors) and its
+        reconstruction."""
+        nhwc = lambda t: np.asarray(t.detach().float().cpu()).transpose(0, 2, 3, 1)
+        img, tgt, flow = (nhwc(x) for x in pair_batch(batch))
+        return {"original": img, "target": tgt, "gt_flow": viz.flow_to_image(flow),
+                "target_p": nhwc(artifacts["out"])}
 
 
 __all__ = ["FlowPred", "FlowPredModule"]

@@ -4,13 +4,14 @@ The values are those that the JAX package composes for
 ``experiment=matrix_flow algorithm=flow_diffuser dataset=artificial``
 (``config/configurations/{algorithm/flow_diffuser.yaml,
 dataset/artificial.yaml, experiment/{matrix_flow,base}.yaml, config.yaml}``),
-with the dataset drawn at the algorithm's image size.
+with the dataset drawn at the algorithm's image size, and the real-data
+datasets of ``dataset/{sintel,flying_chairs,kitti_single}.yaml``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,6 +25,37 @@ class ArtificialDataConfig:
     bg: str = "checkers"
     seed: Optional[int] = None
     max_motion: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class SintelDataConfig:
+    """``dataset/sintel.yaml`` (``image_size`` is "W,H"; ``root`` None reads
+    ``$OFD_DATA_ROOT`` or ``datasets``) with the reader's ``normalize`` and
+    ``scale_flow`` (JAX's ``cfg.get`` defaults)."""
+
+    name: str = "sintel"
+    image_size: str = "512,256"
+    root: Optional[str] = None
+    normalize: bool = True
+    scale_flow: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class FlyingChairsDataConfig:
+    """``dataset/flying_chairs.yaml``."""
+
+    name: str = "flying_chairs"
+    image_size: str = "128,128"
+    root: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class KittiSingleDataConfig:
+    """``dataset/kitti_single.yaml``."""
+
+    name: str = "kitti_single"
+    image_size: str = "128,128"
+    root: Optional[str] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,20 +138,28 @@ class FlowLearnerConfig:
 class TrainingConfig:
     """``experiment/matrix_flow.yaml`` over ``experiment/base.yaml``: the
     training batch, gradient clipping, step budget (``max_steps`` -1 runs
-    until stopped), validation cadence and size, checkpoint cadence,
-    microbatches, and the train-metric cadence (``runtime.log_every``).
-    The training batches are shuffled and the validation ones are not."""
+    until stopped) and epoch budget (``epochs`` -1: none), validation
+    cadence (``check_interval`` steps, or a float: that share of an epoch)
+    and size, checkpoint cadence, microbatches, the loader's threads
+    (``num_workers``, capped at the CPU count), the train-metric cadence
+    (``runtime.log_every``) and the step traced by the profiler
+    (``runtime.profile_step``, -1: none).  The training batches are shuffled
+    and the validation ones are not; the test task reads the validation
+    settings (the experiment has no ``test`` section)."""
 
     batch_size: int = 16
     clipping: Optional[float] = 100.0
     max_steps: int = -1
+    epochs: int = -1
     accumulate_grad_batches: int = 1
-    check_interval: int = 100
+    check_interval: Union[int, float] = 100
     limit_batch: int = 1
     val_batch_size: int = 8
     every_n_train_steps: int = 5000
     log_every: int = 50
     seed: int = 0
+    num_workers: int = 16
+    profile_step: int = -1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,9 +181,16 @@ FLAGSHIP = FlowDiffuserConfig()
 FLOW_PRED = FlowPredConfig()
 FLOW_LEARNER = FlowLearnerConfig()
 FLAGSHIP_DATA = ArtificialDataConfig()
+SINTEL = SintelDataConfig()
+FLYING_CHAIRS = FlyingChairsDataConfig()
+KITTI_SINGLE = KittiSingleDataConfig()
+# the dataset configs by name (the artificial one follows the algorithm's size)
+DATA = {"artificial": FLAGSHIP_DATA, "sintel": SINTEL, "flying_chairs": FLYING_CHAIRS,
+        "kitti_single": KITTI_SINGLE}
 MATRIX_FLOW = TrainingConfig()
 NATIVE = ServingConfig()
 
 __all__ = ["ArtificialDataConfig", "FlowDiffuserConfig", "FlowLearnerConfig", "FlowPredConfig",
-           "ServingConfig", "TrainingConfig", "FLAGSHIP", "FLAGSHIP_DATA", "FLOW_LEARNER",
-           "FLOW_PRED", "MATRIX_FLOW", "NATIVE"]
+           "FlyingChairsDataConfig", "KittiSingleDataConfig", "ServingConfig", "SintelDataConfig",
+           "TrainingConfig", "DATA", "FLAGSHIP", "FLAGSHIP_DATA", "FLOW_LEARNER", "FLOW_PRED",
+           "FLYING_CHAIRS", "KITTI_SINGLE", "MATRIX_FLOW", "NATIVE", "SINTEL"]

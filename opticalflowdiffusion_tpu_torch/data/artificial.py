@@ -1,7 +1,8 @@
 """Procedural moving-shapes dataset with exact integer ground-truth flow.
 
 Numpy-only copy of the JAX package's ``data/artificial.py`` (its plain numpy
-path), configured by :class:`~..config.ArtificialDataConfig`.  Items are HWC
+path), configured by :class:`~..config.ArtificialDataConfig`; every split
+is the same data, as in JAX.  Items are HWC
 float32 frames in [0, 1] and the flow ``(dx, dy)``, exactly as there;
 :func:`..algorithms.base.to_batch` turns a list of items into NCHW tensors.
 """
@@ -14,7 +15,7 @@ from ..config import ArtificialDataConfig
 
 
 class ArtificialDataset:
-    def __init__(self, cfg: ArtificialDataConfig):
+    def __init__(self, cfg: ArtificialDataConfig, split: str = "training"):
         self.cfg = cfg
         self.image_size = int(cfg.image_size)
         self.size = int(cfg.size)

@@ -4,11 +4,15 @@
         [--sampling-timesteps 50] [--sampler {auto,ddim,ancestral,dpmpp}] \\
         [--height 448 --width 1024] [--conv-backend {cudnn,rows,fold}] [--device cuda] \\
         [--target {joint,target,flow}] [--noiser {image,flow}] [--no-diffusion] \\
-        [--latent [--ae DIR] [--latent-dim 16]]
+        [--latent [--ae DIR] [--latent-dim 16]] [--unet-dim 64] [--ckpt PATH]
 
 Builds the flagship (trained at 128x128, joint target, UNet width 64, bf16
 compute) with weights drawn from ``--seed`` (output conv not zeroed, so the
-model predicts a flow), draws a batch from the artificial dataset, runs one
+model predicts a flow) or, with ``--ckpt``, loaded from a checkpoint: a
+port run's directory (its newest checkpoint), its ``checkpoints``
+directory or one step's directory, or a reference Lightning ``.ckpt`` /
+``.pt`` file (``utils/import_torch_ckpt.py``; the model flags must
+describe the checkpoint's model).  It draws a batch from the artificial dataset, runs one
 warm-up UNet eval at the batch's shape (kernel builds, first-call set-up),
 samples once on the clock and prints one JSON line with shapes, the share of
 NaN holes and times.  Without ``--sampling-timesteps`` the flagship's
@@ -30,6 +34,7 @@ import argparse
 import dataclasses
 import json
 import time
+from pathlib import Path
 
 import torch
 
@@ -37,7 +42,10 @@ from .algorithms.base import to_batch
 from .algorithms.flow_diffuser import FlowDiffuser
 from .config import FLAGSHIP_DATA
 from .data.artificial import ArtificialDataset
+from .experiments.base import resolve_checkpoint
 from .ops.conv import BACKENDS
+from .utils.ckpt import FILE, CheckpointManager
+from .utils.import_torch_ckpt import flow_diffuser_params_from_lightning, load_torch_state_dict
 from .train import add_model_flags, model_config, model_flags
 
 SAMPLERS = ("auto", "ddim", "ancestral", "dpmpp")
@@ -58,6 +66,26 @@ def build(seed: int, device: str, sampling_timesteps=None, image_size=None,
     return algo, ArtificialDataset(dataclasses.replace(data_cfg, seed=seed))
 
 
+def load_checkpoint(algo: FlowDiffuser, path) -> str:
+    """Load the module's weights from ``path`` (strict): a file is a
+    Lightning checkpoint, a directory a port run's checkpoint.  Returns
+    what was loaded."""
+    p = Path(path)
+    if p.is_file():
+        sd = flow_diffuser_params_from_lightning(load_torch_state_dict(p), target=algo.target)
+        where = str(p)
+    else:
+        directory, step = resolve_checkpoint(p)
+        step = CheckpointManager(directory).latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {directory}")
+        where = str(directory / str(step))
+        sd = torch.load(directory / str(step) / FILE, map_location="cpu",
+                        weights_only=True)["module"]
+    algo.module.load_state_dict(sd, strict=True)
+    return where
+
+
 def batch_items(seed: int, batch: int, height: int, width: int):
     """``batch`` artificial items rendered square at max(height, width) and
     cropped to the first ``height`` rows and ``width`` columns."""
@@ -68,9 +96,10 @@ def batch_items(seed: int, batch: int, height: int, width: int):
 
 def run(batch: int, seed: int, device: str, sampling_timesteps=None,
         image_size=None, unet_dim=None, sampler: str = "auto",
-        height=None, width=None, conv_backend: str = "cudnn", **model) -> dict:
+        height=None, width=None, conv_backend: str = "cudnn", ckpt=None, **model) -> dict:
     algo, _ = build(seed, device, sampling_timesteps, image_size, unet_dim, sampler,
                     conv_backend, **model)
+    loaded = load_checkpoint(algo, ckpt) if ckpt else None
     H = height or algo.image_size
     W = width or algo.image_size
     _, cond, _ = algo.preprocess(to_batch(batch_items(seed, batch, H, W), algo.device))
@@ -107,6 +136,7 @@ def run(batch: int, seed: int, device: str, sampling_timesteps=None,
         "width": W,
         "sampler": used,
         "conv_backend": conv_backend,
+        "ckpt": loaded,
         "denoise_steps": steps,
         "samples_shape": list(samples.shape),
         "flow_shape": list(flow.shape),
@@ -131,11 +161,16 @@ def main(argv=None) -> None:
                     help="sample width (default: the model's image_size)")
     ap.add_argument("--conv-backend", choices=BACKENDS, default="cudnn")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--unet-dim", type=int, default=None)
+    ap.add_argument("--ckpt", default=None,
+                    help="a port run's (or checkpoints, or step) directory, or a Lightning "
+                         ".ckpt file")
     add_model_flags(ap)
     args = ap.parse_args(argv)
     print(json.dumps(run(args.batch, args.seed, args.device, args.sampling_timesteps,
-                         sampler=args.sampler, height=args.height, width=args.width,
-                         conv_backend=args.conv_backend, **model_flags(args))))
+                         unet_dim=args.unet_dim, sampler=args.sampler, height=args.height,
+                         width=args.width, conv_backend=args.conv_backend, ckpt=args.ckpt,
+                         **model_flags(args))))
 
 
 if __name__ == "__main__":

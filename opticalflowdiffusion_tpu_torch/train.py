@@ -1,33 +1,51 @@
-"""Training entry point: train FlowDiffuser (or FlowPred, or FlowLearner) on the
-artificial dataset.
+"""Training entry point: train FlowDiffuser (or FlowPred, or FlowLearner) on
+the artificial dataset, Sintel, FlyingChairs or KITTI, and test it.
 
     python -m opticalflowdiffusion_tpu_torch.train --steps 20 [--batch 16] \\
-        [--image-size 128] [--unet-dim 64] [--seed 0] [--device cuda] \\
-        [--out outputs/train] [--resume] [--check-interval N] \\
+        [--image-size 128 | --image-size W,H] [--unet-dim 64] [--seed 0] [--device cuda] \\
+        [--out outputs/train] [--resume] [--check-interval N|F] \\
         [--ckpt-every N] [--val-batch 8] [--sampling-timesteps S] \\
         [--conv-backend {cudnn,rows,fold}] [--remat] \\
         [--algorithm {flow_diffuser,flow_pred,flow_learner}] [--target {joint,target,flow}] \\
         [--noiser {image,flow}] [--no-diffusion] [--flow-weight W] \\
         [--diffusion-flow-weight W] [--latent --ae DIR] [--latent-dim 16] \\
         [--radius R] [--levels 1,2,4] [--precision {bf16,float32}] [--lr LR] \\
-        [--flow-max F] [--dataset-size N] [--dataset-seed S]
+        [--flow-max F] [--dataset-size N] [--dataset-seed S] \\
+        [--dataset {artificial,sintel,flying_chairs,kitti_single}] [--data-root DIR] \\
+        [--workers N] [--tasks train,test] [--ckpt-path DIR] [--epochs E] \\
+        [--profile-step N]
 
 The counterpart of ``main.py experiment=matrix_flow algorithm=flow_diffuser
 dataset=artificial``: the flagship (UNet width 64, dim_mults (1, 2, 4, 8),
 joint target, T = 1000, bf16 compute with float32 parameters, Adam at lr
 1e-5 with weight decay 1e-6 and global-norm clipping at 100) trained at
-batch 16.  Runs ``--steps`` train steps in all, validates every
-``--check-interval`` steps (default: at the last step, at most every 100),
-checkpoints every ``--ckpt-every`` steps and at the last one under
+batch 16.  Runs ``--steps`` train steps in all (or ``--epochs`` passes over
+the training split, whichever ends first), validates every
+``--check-interval`` steps (default: at the last step, at most every 100;
+a fraction such as 0.5 is that share of an epoch) and writes each
+validation's images under ``--out/images/<key>/``, checkpoints every
+``--ckpt-every`` steps and at the last one under
 ``--out/checkpoints/<step>``, and writes ``--out/metrics.jsonl``.  With
-``--resume`` it continues from the newest checkpoint under ``--out``.
+``--resume`` it continues from the newest checkpoint under ``--out``, with
+``--ckpt-path`` from the newest checkpoint of another run (its directory,
+its ``checkpoints`` directory or one step's).  ``--tasks`` runs ``train``,
+``test`` or both in order: ``test`` evaluates the newest checkpoint (of
+``--ckpt-path``, else of ``--out``) on the whole test split and logs the
+mean of each validation metric as ``test/*``.  ``--profile-step N`` traces
+step N with ``torch.profiler`` into ``--out/profile/``.
 Validation samples with the flagship's 1000-step ancestral loop unless
 ``--sampling-timesteps`` asks for DDIM.  ``--conv-backend`` lowers the UNet's
 convs (``ops/conv.py``; default cudnn).  ``--remat`` recomputes the
 UnetWithWarp closure in the backward (JAX's ``runtime.remat=true``, which the
 native 448x1024 training row sets).  Prints one JSON line with the last
-train and validation metrics and the samples per second of the run
+train, validation and test metrics and the samples per second of the run
 (validation and checkpoint writes included).
+
+``--dataset`` reads Sintel, FlyingChairs or KITTI from ``--data-root`` (or
+``$OFD_DATA_ROOT``, else ``datasets``) with ``--workers`` loader threads
+(default the yaml's 16, capped at the CPU count); ``--image-size W,H`` is
+the dataset's size (default its yaml's: Sintel 512,256, the others 128,128)
+and the algorithm takes W.  The artificial dataset is square: one side.
 
 The model flags select FlowDiffuser's other configurations
 (``flow_diffuser.yaml``): ``--target``, ``--noiser flow`` (the
@@ -56,7 +74,8 @@ import time
 import torch
 
 from .algorithms.flow_diffuser import TARGETS
-from .config import FLAGSHIP, FLAGSHIP_DATA, FLOW_LEARNER, FLOW_PRED, MATRIX_FLOW
+from .config import DATA, FLAGSHIP, FLOW_LEARNER, FLOW_PRED, MATRIX_FLOW
+from .data import DATASETS
 from .experiments.matrix_flow import ALGORITHMS, MatrixFlowExperiment
 from .ops.conv import BACKENDS
 
@@ -77,17 +96,53 @@ def model_config(algorithm: str = "flow_diffuser", **fields):
     return dataclasses.replace(base, **fields)
 
 
+def parse_image_size(value):
+    """``--image-size``: one side (an int) or the yaml's "W,H" (a string);
+    None stays None."""
+    if value is None or isinstance(value, int):
+        return value
+    parts = [int(v) for v in str(value).split(",")]
+    return parts[0] if len(parts) == 1 else f"{parts[0]},{parts[1]}"
+
+
+def data_config(dataset: str, image_size=None, data_root=None, size=None, seed=0):
+    """The dataset's config: the artificial one at one side (``size`` items
+    drawn from ``seed``), or a real dataset's yaml with ``image_size`` ("W,H"
+    or one side for both) and ``root`` replaced where given."""
+    if dataset not in DATASETS:
+        raise ValueError(f"dataset {dataset!r} is not one of {DATASETS}")
+    base = DATA[dataset]
+    if dataset == "artificial":
+        if isinstance(image_size, str):
+            w, h = (int(v) for v in image_size.split(","))
+            if w != h:
+                raise ValueError(f"the artificial dataset is square, not {image_size}")
+            image_size = w
+        return dataclasses.replace(base, image_size=image_size or base.image_size,
+                                   size=size or base.size, seed=seed)
+    if image_size is not None:
+        image_size = image_size if isinstance(image_size, str) else f"{image_size},{image_size}"
+        base = dataclasses.replace(base, image_size=image_size)
+    return dataclasses.replace(base, root=data_root) if data_root else base
+
+
 def build(steps: int, batch: int = MATRIX_FLOW.batch_size, image_size=None, unet_dim=None,
           seed: int = 0, device: str = "cuda", out: str = "outputs/train",
           check_interval=None, ckpt_every=None, val_batch=None,
           sampling_timesteps=None, log_every=None,
           conv_backend: str = "cudnn", remat: bool = False, algorithm: str = "flow_diffuser",
           precision=None, lr=None, flow_max=None, dataset_size=None, dataset_seed=None,
-          **model) -> MatrixFlowExperiment:
+          dataset: str = "artificial", data_root=None, workers=None, ckpt_path=None,
+          epochs=None, profile_step=None, **model) -> MatrixFlowExperiment:
     """The experiment of one run, not yet trained.  ``model`` holds config
     fields of the algorithm (``MODEL_FIELDS``; FlowPred's ``latent_dim``;
-    FlowLearner's ``radius`` and ``levels``)."""
-    common = dict(image_size=image_size, conv_backend=conv_backend, precision=precision, lr=lr)
+    FlowLearner's ``radius`` and ``levels``).  ``image_size`` is one side or
+    "W,H"; the algorithm takes W."""
+    data = data_config(dataset, parse_image_size(image_size), data_root, dataset_size,
+                       seed if dataset_seed is None else dataset_seed)
+    side = (int(str(data.image_size).split(",")[0])
+            if dataset != "artificial" or image_size is not None else None)
+    common = dict(image_size=side, conv_backend=conv_backend, precision=precision, lr=lr)
     if algorithm == "flow_pred":
         algo = model_config(algorithm, **common, **model)
     elif algorithm == "flow_learner":
@@ -96,16 +151,18 @@ def build(steps: int, batch: int = MATRIX_FLOW.batch_size, image_size=None, unet
         algo = model_config(algorithm, remat=remat, unet_dim=unet_dim, flow_max=flow_max,
                             **common, **model)
         algo = dataclasses.replace(algo, sampling_timesteps=sampling_timesteps)
-    data = dataclasses.replace(FLAGSHIP_DATA, image_size=algo.image_size,
-                               size=dataset_size or FLAGSHIP_DATA.size)
+    if dataset == "artificial":
+        data = dataclasses.replace(data, image_size=algo.image_size)
     train = dataclasses.replace(
         MATRIX_FLOW, batch_size=batch, max_steps=steps, seed=seed,
         check_interval=check_interval or min(MATRIX_FLOW.check_interval, steps),
         every_n_train_steps=ckpt_every or MATRIX_FLOW.every_n_train_steps,
         val_batch_size=val_batch or MATRIX_FLOW.val_batch_size,
-        log_every=log_every or min(MATRIX_FLOW.log_every, steps))
-    data = dataclasses.replace(data, seed=seed if dataset_seed is None else dataset_seed)
-    return MatrixFlowExperiment(algo, train, data, out, device, algorithm)
+        log_every=log_every or min(MATRIX_FLOW.log_every, steps),
+        num_workers=MATRIX_FLOW.num_workers if workers is None else workers,
+        epochs=MATRIX_FLOW.epochs if epochs is None else epochs,
+        profile_step=MATRIX_FLOW.profile_step if profile_step is None else profile_step)
+    return MatrixFlowExperiment(algo, train, data, out, device, algorithm, ckpt_path)
 
 
 def add_model_flags(ap: argparse.ArgumentParser) -> None:
@@ -139,39 +196,52 @@ def model_flags(a: argparse.Namespace) -> dict:
             "latent": True if a.latent else None, "ae": a.ae, "latent_dim": a.latent_dim}
 
 
-def run(steps: int, resume: bool = False, **kwargs) -> dict:
-    """Build, restore when ``resume``, train to ``steps``; the summary line."""
+def run(steps: int, resume: bool = False, tasks=("train",), **kwargs) -> dict:
+    """Build, restore when ``resume`` (or from ``ckpt_path``), run ``tasks``
+    in order; the summary line."""
     exp = build(steps, **kwargs)
-    start = exp.restore() if resume else 0
+    start = exp.restore() if (resume or exp.ckpt_path is not None) and "train" in tasks else 0
     t0 = time.perf_counter()
-    train = exp.train()
-    if exp.device.type == "cuda":
-        torch.cuda.synchronize(exp.device)
-    seconds = time.perf_counter() - t0
+    train = {}
+    for task in tasks:
+        res = exp.exec_task(task)
+        if task == "train":
+            train = res
+            if exp.device.type == "cuda":
+                torch.cuda.synchronize(exp.device)
+            seconds = time.perf_counter() - t0
+    trained = "train" in tasks
     cfg = exp.algo_cfg
     fields = {"flow_diffuser": MODEL_FIELDS + ("flow_max",), "flow_pred": ("latent_dim",),
               "flow_learner": ("flow_max", "radius", "levels")}[exp.algorithm.name]
     return {
         "device": str(exp.device),
         "algorithm": exp.algorithm.name,
+        "dataset": exp.dataset_name,
+        "tasks": list(tasks),
         "batch": exp.cfg.batch_size,
         "image_size": cfg.image_size,
+        "data_image_size": exp.data_cfg.image_size,
         "unet_dim": getattr(cfg, "unet_dim", None),
         "conv_backend": cfg.conv_backend,
         "remat": getattr(cfg, "remat", False),
         "precision": cfg.precision,
         "lr": cfg.lr,
-        "dataset_size": exp.data_cfg.size,
-        "dataset_seed": exp.data_cfg.seed,
+        "dataset_size": getattr(exp.data_cfg, "size", None),
+        "dataset_seed": getattr(exp.data_cfg, "seed", None),
+        "workers": exp.train_loader.num_workers,
         **{k: list(v) if isinstance(v, tuple) else v for k, v in
            ((k, getattr(cfg, k)) for k in fields)},
         "start_step": start,
         "step": exp.state.step,
         "checkpoints": exp.ckpt.steps(),
-        "seconds": seconds,
-        "samples_per_s": (exp.state.step - start) * exp.cfg.batch_size / seconds,
+        "seconds": seconds if trained else None,
+        "samples_per_s": ((exp.state.step - start) * exp.cfg.batch_size / seconds
+                          if trained else None),
         "train": train,
         "val": exp.last_val,
+        "test": exp.last_test,
+        "images": sorted(exp.images),
     }
 
 
@@ -179,14 +249,16 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=20, help="train steps in all")
     ap.add_argument("--batch", type=int, default=MATRIX_FLOW.batch_size)
-    ap.add_argument("--image-size", type=int, default=None)
+    ap.add_argument("--image-size", default=None,
+                    help="one side, or W,H (a real dataset's; the algorithm takes W)")
     ap.add_argument("--unet-dim", type=int, default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default="outputs/train")
     ap.add_argument("--resume", action="store_true",
                     help="continue from the newest checkpoint under --out")
-    ap.add_argument("--check-interval", type=int, default=None)
+    ap.add_argument("--check-interval", type=lambda v: float(v) if "." in v else int(v),
+                    default=None, help="steps, or a fraction of an epoch (0.5)")
     ap.add_argument("--ckpt-every", type=int, default=None)
     ap.add_argument("--val-batch", type=int, default=None)
     ap.add_argument("--sampling-timesteps", type=int, default=None)
@@ -204,14 +276,29 @@ def main(argv=None) -> None:
     ap.add_argument("--flow-max", type=float, default=None)
     ap.add_argument("--dataset-size", type=int, default=None)
     ap.add_argument("--dataset-seed", type=int, default=None)
+    ap.add_argument("--dataset", choices=DATASETS, default="artificial")
+    ap.add_argument("--data-root", default=None,
+                    help="the datasets' root (default $OFD_DATA_ROOT, else datasets)")
+    ap.add_argument("--workers", type=int, default=None,
+                    help=f"loader threads (default {MATRIX_FLOW.num_workers}, capped at the "
+                         "CPU count)")
+    ap.add_argument("--tasks", default="train", help="comma list of train, test")
+    ap.add_argument("--ckpt-path", default=None,
+                    help="restore from this run's (or checkpoints, or step) directory")
+    ap.add_argument("--epochs", type=int, default=None)
+    ap.add_argument("--profile-step", type=int, default=None,
+                    help="trace this step with torch.profiler into --out/profile")
     a = ap.parse_args(argv)
-    print(json.dumps(run(a.steps, a.resume, batch=a.batch, image_size=a.image_size,
+    print(json.dumps(run(a.steps, a.resume, tuple(a.tasks.split(",")), batch=a.batch,
+                         image_size=a.image_size,
                          unet_dim=a.unet_dim, seed=a.seed, device=a.device, out=a.out,
                          check_interval=a.check_interval, ckpt_every=a.ckpt_every,
                          val_batch=a.val_batch, sampling_timesteps=a.sampling_timesteps,
                          conv_backend=a.conv_backend, remat=a.remat, algorithm=a.algorithm,
                          precision=a.precision, lr=a.lr, flow_max=a.flow_max,
                          dataset_size=a.dataset_size, dataset_seed=a.dataset_seed,
+                         dataset=a.dataset, data_root=a.data_root, workers=a.workers,
+                         ckpt_path=a.ckpt_path, epochs=a.epochs, profile_step=a.profile_step,
                          **model_flags(a))))
 
 

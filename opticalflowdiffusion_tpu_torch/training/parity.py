@@ -22,7 +22,8 @@ them with its pass bars (``bars``).
 
     python -m opticalflowdiffusion_tpu_torch.training.parity --stages joint,learner \\
         [--diffuser-steps 4000] [--learner-steps 3000] [--ae-steps 3000] [--seed 0] \\
-        [--out outputs/parity] [--device cuda] [--image-size 32] [--levels 1,2,4]
+        [--out outputs/parity] [--device cuda] [--image-size 32] [--levels 1,2,4] \\
+        [--ae RUN_DIR]
 """
 
 from __future__ import annotations
@@ -235,13 +236,9 @@ def _train(algo, train_loader, generator, steps: int, clip: float, log_every: in
 
 
 def _save_visuals(algo, batch, arts, out_dir: Path, prefix: str):
-    """The algorithm's images of one validation batch as PNGs (FlowLearner;
-    FlowDiffuser's ``visualize`` is not ported, so it saves none)."""
-    visualize = getattr(algo, "visualize", None)
-    if visualize is None:
-        return []
+    """The algorithm's images of one validation batch as PNGs."""
     saved = []
-    images = visualize(to_device(batch, "cpu"), arts)
+    images = algo.visualize(to_device(batch, "cpu"), arts)
     for key in ("original", "target", "samples", "gt_flow", "target_p", "grad_flow",
                 "last_step"):
         if key in images:
@@ -256,11 +253,14 @@ def run_parity(out_dir: str = "outputs/parity", diffuser_steps: int = 4000,
                dataset_size: int = 4096, sampling_timesteps: int = 50, seed: int = 0,
                latent: bool = True, ae_steps: int = 3000, stages=DEFAULT_STAGES,
                device: str = "cuda", val_batch: int = 8, val_batches: int = 8,
-               init_batches: int = 2, levels=None, unet_dim=None, log_every: int = 100) -> dict:
+               init_batches: int = 2, levels=None, unet_dim=None, log_every: int = 100,
+               ae_dir=None) -> dict:
     """Train and evaluate ``stages``; writes ``<out_dir>/parity.json`` after
     each stage and returns the results.  ``levels`` (FlowLearner's pyramid),
     ``unet_dim`` (FlowDiffuser's width), ``val_batch``, ``val_batches`` and
-    ``init_batches`` shrink a run for the CPU."""
+    ``init_batches`` shrink a run for the CPU.  ``ae_dir`` (a run directory
+    whose newest checkpoint holds an Autoencoder under ``ae.``) runs the
+    latent stage on that Autoencoder instead of pretraining one."""
     unknown = sorted(set(stages) - set(STAGES))
     if unknown:
         raise ValueError(f"unknown stages {unknown}; known: {STAGES}")
@@ -346,12 +346,14 @@ def run_parity(out_dir: str = "outputs/parity", diffuser_steps: int = 4000,
     if latent and "latent" in stages:
         from .ae_pretrain import train_ae
 
-        ae_dir = out / "ae_pretrain"
-        ae = train_ae(steps=ae_steps, image_size=image_size, batch=batch,
-                      dataset_size=dataset_size, out_dir=str(ae_dir), seed=seed, device=device)
-        results["ae_pretrain"] = {k: ae[k] for k in ("recon_mse", "recon_mse_init",
-                                                     "identity_mse", "steps")}
-        report("ae_pretrain")
+        if ae_dir is None:
+            ae_dir = out / "ae_pretrain"
+            ae = train_ae(steps=ae_steps, image_size=image_size, batch=batch,
+                          dataset_size=dataset_size, out_dir=str(ae_dir), seed=seed,
+                          device=device)
+            results["ae_pretrain"] = {k: ae[k] for k in ("recon_mse", "recon_mse_init",
+                                                         "identity_mse", "steps")}
+            report("ae_pretrain")
         diffuser_run("flow_diffuser_latent", diffuser_steps // 2, seed + 3, latent=True,
                      ae=str(ae_dir), latent_dim=16)
     if "flownoise" in stages:
@@ -380,10 +382,12 @@ def main(argv=None) -> None:
     ap.add_argument("--image-size", type=int, default=32)
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--levels", default=None, help="FlowLearner's levels, comma-separated")
+    ap.add_argument("--ae", default=None,
+                    help="run the latent stage on this run directory's Autoencoder")
     a = ap.parse_args(argv)
     run_parity(out_dir=a.out, diffuser_steps=a.diffuser_steps, learner_steps=a.learner_steps,
                ae_steps=a.ae_steps, seed=a.seed, device=a.device, image_size=a.image_size,
-               batch=a.batch, stages=tuple(a.stages.split(",")),
+               batch=a.batch, stages=tuple(a.stages.split(",")), ae_dir=a.ae,
                levels=tuple(int(v) for v in a.levels.split(",")) if a.levels else None)
 
 

@@ -1,16 +1,15 @@
 """Flow and image visualization (JAX ``utils/visualization.py``), numpy.
 
 The Baker et al. flow colour wheel (``torchvision.utils.flow_to_image``'s),
-image grids, and a PNG writer on the standard library's ``zlib`` and
-``struct`` (no PIL).  Images are NHWC numpy arrays, floats in [0, 1].
+image grids, and PNG files through the port's one writer
+(``data/png.py``, no PIL).  Images are NHWC numpy arrays, floats in [0, 1].
 """
 
 from __future__ import annotations
 
-import struct
-import zlib
-
 import numpy as np
+
+from ..data.png import encode_png
 
 
 def _make_colorwheel() -> np.ndarray:
@@ -87,23 +86,6 @@ def to_uint8(img) -> np.ndarray:
     return (np.clip(np.asarray(img, np.float32), 0.0, 1.0) * 255).astype(np.uint8)
 
 
-def _chunk(kind: bytes, data: bytes) -> bytes:
-    return struct.pack(">I", len(data)) + kind + data + struct.pack(
-        ">I", zlib.crc32(kind + data) & 0xFFFFFFFF)
-
-
-def encode_png(pixels: np.ndarray) -> bytes:
-    """An 8-bit RGB (H, W, 3) or RGBA (H, W, 4) uint8 array as PNG bytes
-    (every row unfiltered)."""
-    H, W, C = pixels.shape
-    color = {3: 2, 4: 6}[C]
-    rows = np.concatenate([np.zeros((H, 1), np.uint8),
-                           np.ascontiguousarray(pixels, np.uint8).reshape(H, W * C)], axis=1)
-    return (b"\x89PNG\r\n\x1a\n"
-            + _chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, color, 0, 0, 0))
-            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + _chunk(b"IEND", b""))
-
-
 def save_image(img, path) -> None:
     """Save an (H, W, C) or (B, H, W, C) float image (a batch as a grid) to
     PNG; one channel is written as grey RGB."""
@@ -116,4 +98,4 @@ def save_image(img, path) -> None:
         fh.write(encode_png(to_uint8(img)))
 
 
-__all__ = ["encode_png", "flow_to_image", "make_grid", "save_image", "to_uint8"]
+__all__ = ["flow_to_image", "make_grid", "save_image", "to_uint8"]

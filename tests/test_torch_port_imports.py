@@ -1,7 +1,7 @@
 """The port stands alone: no module of it, and neither of the scripts that
 run it on the card (chip_smoke.py, chip_train_spread.py), imports JAX,
-flax, yaml or the JAX package.  And its flagship config holds the values
-that the JAX config composes."""
+flax, yaml, cv2, PIL or the JAX package.  And its flagship config holds the
+values that the JAX config composes."""
 
 import ast
 from pathlib import Path
@@ -12,7 +12,7 @@ from opticalflowdiffusion_tpu.config import compose
 from opticalflowdiffusion_tpu_torch.config import FLAGSHIP, FLAGSHIP_DATA
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "yaml", "opticalflowdiffusion_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "yaml", "opticalflowdiffusion_tpu", "cv2", "PIL"}
 PORT_FILES = sorted((ROOT / "opticalflowdiffusion_tpu_torch").rglob("*.py")) + [
     ROOT / name for name in ("chip_smoke.py", "chip_train_spread.py")
 ]
@@ -45,6 +45,17 @@ def test_configs_modules_are_checked():
     for mod in ("algorithms/flow_pred.py", "models/autoencoder.py",
                 "training/ae_pretrain.py", "training/__init__.py", "ops/warp.py",
                 "experiments/matrix_flow.py", "utils/ckpt.py"):
+        assert f"opticalflowdiffusion_tpu_torch/{mod}" in names, mod
+
+
+def test_data_and_runner_modules_are_checked():
+    """The readers, their host helper's bindings, the loader and the
+    runner's modules are among the files checked above."""
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for mod in ("data/png.py", "data/resize.py", "data/host.py", "data/flow_io.py",
+                "data/sintel.py", "data/flying_chairs.py", "data/kitti_single.py",
+                "data/fixtures.py", "data/loader.py", "data/__init__.py",
+                "utils/import_torch_ckpt.py", "utils/logging.py", "experiments/base.py"):
         assert f"opticalflowdiffusion_tpu_torch/{mod}" in names, mod
 
 

@@ -5,10 +5,19 @@ numpy metrics and artifacts, so no model runs); a tiny ``run_parity``
 (2 steps, 8x8 frames, the ``joint`` and ``learner`` stages) whose JSON
 carries JAX's keys per stage, less the Frechet ones; the recorded JAX bars
 against ``parity/parity_r05.json``; the zlib PNG against the one JAX
-writes with PIL, both decoded by PIL; and the data of the latent stage's
-AE pretraining against JAX's."""
+writes with PIL, both decoded by PIL; the data of the latent stage's
+AE pretraining against JAX's; and JAX's own parity Autoencoder
+(``parity/ae_pretrain``), whose encoder gives one latent for every parity
+frame.
 
+Run as a script, ``python tests/test_torch_port_parity.py OUT`` writes
+JAX's parity Autoencoder as a port run under ``OUT/jax_ae`` and trains the
+latent parity stage on it at the stage's own settings (``--device``,
+default cpu; ``--steps`` for the stage, default JAX's 2000)."""
+
+import dataclasses
 import json
+import sys
 import types
 from pathlib import Path
 
@@ -22,7 +31,13 @@ from opticalflowdiffusion_tpu.config import Config
 from opticalflowdiffusion_tpu.data.artificial import ArtificialDataset as JArtificialDataset
 from opticalflowdiffusion_tpu.training import parity as jparity
 from opticalflowdiffusion_tpu.utils import visualization as jviz
+from opticalflowdiffusion_tpu_torch.algorithms.flow_diffuser import FlowDiffuser
+from opticalflowdiffusion_tpu_torch.config import FLAGSHIP, FLAGSHIP_DATA
+from opticalflowdiffusion_tpu_torch.data.artificial import ArtificialDataset
+from opticalflowdiffusion_tpu_torch.models.autoencoder import Autoencoder
+from opticalflowdiffusion_tpu_torch.models.unet import init_weights
 from opticalflowdiffusion_tpu_torch.training import parity
+from opticalflowdiffusion_tpu_torch.utils.weights import autoencoder_state_dict
 from opticalflowdiffusion_tpu_torch.training.ae_pretrain import train_ae
 from opticalflowdiffusion_tpu_torch.utils import visualization as viz
 
@@ -170,3 +185,91 @@ def test_ae_pretrain_draws_jax_data(tmp_path):
     img, tgt = (np.stack([val[i][k] for i in range(4)]) for k in (0, 1))
     np.testing.assert_allclose(res["identity_mse"], float(np.mean(np.square(img - tgt))),
                                rtol=1e-6)
+
+
+JAX_AE = ROOT / "parity" / "ae_pretrain" / "checkpoints"
+
+
+def jax_parity_ae():
+    """(JAX's parity Autoencoder params, its step), restored with orbax."""
+    import orbax.checkpoint as ocp
+
+    mgr = ocp.CheckpointManager(JAX_AE.absolute())
+    try:
+        step = mgr.latest_step()
+        tree = mgr.restore(step, args=ocp.args.StandardRestore())
+    finally:
+        mgr.close()
+    return tree["params"]["ae"], step
+
+
+def write_jax_ae_run(run_dir) -> Path:
+    """JAX's parity Autoencoder as a port run directory: its newest
+    checkpoint holds the Autoencoder under ``ae.``, as ``--ae`` reads it."""
+    params, step = jax_parity_ae()
+    ck = Path(run_dir) / "checkpoints" / str(step)
+    ck.mkdir(parents=True, exist_ok=True)
+    module = {"ae." + k: v for k, v in autoencoder_state_dict(params).items()}
+    torch.save({"step": int(step), "module": module}, ck / "state.pt")
+    return Path(run_dir)
+
+
+def _parity_val_frames(n=16):
+    """The first ``n`` items of the parity stages' dataset (32x32, 4096
+    items, seed 7): their unshuffled validation batches."""
+    data = ArtificialDataset(dataclasses.replace(FLAGSHIP_DATA, image_size=32, size=4096,
+                                                 seed=7))
+    items = [data[i] for i in range(n)]
+    return tuple(np.stack([it[k] for it in items]) for k in range(3))
+
+
+def test_jax_parity_ae_gives_one_latent_for_every_frame(tmp_path):
+    """JAX's parity Autoencoder (the one behind its latent bar, val/mse 0 ->
+    2.0e-4) encodes all 16 frames of the parity stages' two initial
+    validation batches, and their targets, to one latent: its spread over
+    frames is zero in JAX and in the port, and nearly every entry sits on
+    the encoder's clamp at +-1.  So the latent stage's val/mse,
+    which compares the encoded sample with the encoded target, is 0 for a
+    zero-initialised model (the sample is the encoded frame itself): the
+    port's latent FlowDiffuser on this AE gives exactly 0 at init."""
+    from opticalflowdiffusion_tpu.models.autoencoder import Autoencoder as JAutoencoder
+
+    params, _ = jax_parity_ae()
+    img, tgt, flow = _parity_val_frames()
+    jae = JAutoencoder(latent_dim=16)
+    j_lat = np.asarray(jax.jit(lambda p, x: jae.apply({"params": p}, x, method=jae.encode))(
+        params, np.concatenate([img, tgt])))
+    assert float(j_lat.std(axis=0).max()) == 0.0
+    ae = Autoencoder(16).eval()
+    ae.load_state_dict(autoencoder_state_dict(params), strict=True)
+    nchw = lambda a: torch.from_numpy(np.ascontiguousarray(a.transpose(0, 3, 1, 2)))
+    with torch.no_grad():
+        lat = ae.encode(nchw(np.concatenate([img, tgt])))
+    assert float(lat.std(dim=0).max()) == 0.0
+    assert float((lat.abs() == 1.0).float().mean()) >= 0.99
+    # the latent stage's model at init (flax's initialisers: zero flow) on this AE
+    cfg = dataclasses.replace(FLAGSHIP, image_size=32, flow_max=2.0, unet_dim=8,
+                              sampling_timesteps=2, precision="float32", latent=True,
+                              latent_dim=16, ae=str(write_jax_ae_run(tmp_path / "jax_ae")))
+    algo = FlowDiffuser(cfg, device="cpu")
+    init_weights(algo.module, torch.Generator().manual_seed(3), flax_defaults=True)
+    batch = tuple(nchw(a) for a in (img[:8], tgt[:8], flow[:8]))
+    metrics, _ = algo.val_step(batch, torch.Generator().manual_seed(0))
+    assert float(metrics["val/mse"]) == 0.0
+    # the frames themselves differ: the pixel-space identity gap is not 0
+    assert float(np.mean(np.square(img - tgt))) > 1e-2
+
+
+if __name__ == "__main__":
+    import argparse
+
+    ap = argparse.ArgumentParser(description="the latent parity stage on JAX's Autoencoder")
+    ap.add_argument("out")
+    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--steps", type=int,
+                    default=parity.JAX_BARS["flow_diffuser_latent"]["steps"])
+    a = ap.parse_args()
+    ae_dir = write_jax_ae_run(Path(a.out) / "jax_ae")
+    res = parity.run_parity(out_dir=a.out, diffuser_steps=2 * a.steps, stages=("latent",),
+                            device=a.device, ae_dir=str(ae_dir))
+    json.dump(res, sys.stdout, indent=1)
