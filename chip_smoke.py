@@ -3,8 +3,10 @@
     python3 chip_smoke.py
 
 Budget: under 10 minutes on one H100, the kernel build included (one plain
-``nvcc`` call per source, all started together; seconds each).  A run takes
-about seven and a half minutes on an H100 (the real-data phase ~2 of them).  Every line
+``nvcc`` call per source, all started together; seconds each).  A run took
+539 s on an H100 (596 s with the parity smoke at 20 steps; the real-data
+phase ~2 minutes of it, the MatrixFlow and animation phase ~1.5), under
+half the 1200 s limit.  Every line
 it prints is one JSON object, flushed as it goes, apart from the card's
 ``nvidia-smi`` line.  Phases:
 
@@ -156,11 +158,36 @@ it prints is one JSON object, flushed as it goes, apart from the card's
    ulp, at flow_max 20 and 2 (``learner_gradient_sensitivity``); then a count window of 1 + 3 steps whose launches
    must be exactly 8 of rows 1-2, 6 of rows 3-5, 1664 splat forwards and 832
    backwards a step, and the samples/s of the 3 (``learner_train_steps``).
-9. parity_smoke: ``training/parity.py::run_parity`` on the card, 20 steps
+9. parity_smoke: ``training/parity.py::run_parity`` on the card, 10 steps
    each of the joint and learner stages at 32x32 b16, f32: the initial
    metrics, which depend on the data alone, within 1e-3 of JAX's recorded
    ones, finite final metrics, every kernel of both paths launched.
-10. real_data: the JAX package's dress rehearsal on the port.  For
+10. matrix_flow_animation: MatrixFlow and the animation family at full
+   width (UNet 64, bf16, weights from the seed), every window's launches
+   checked (rows 1-2 in every UNet eval, rows 3-5 in every train step, the
+   splat forward only in MatrixFlow's debug-warp window, no other kernel).
+   MatrixFlow at 128x128 b16 (radius 17): the default goal's train step
+   with every kernel against the all-plain step (``TOL_FAMILY``) with rows
+   1-5 on its own block inputs, a warm-up and 2 train steps and a
+   val_step; ``filter_pred`` (289 output channels, a 17x17 unfold) for a
+   warm-up, a step and a val_step with the peak memory, ``gt_filter_pred``
+   for a warm-up and a step; the ``flow_in='first'`` debug warp through the splat kernel, bit
+   for bit.  FrameGenerator at the JAX bench row's 256x256 b8 (a
+   standard-normal stack from numpy seed 0, lr 1e-5): the step against
+   its plain step with rows 1-5, 2 warm-ups and 4 timed steps
+   (``video256_train_samples_per_sec``); at its yaml's 64 b8: the UNet
+   against its plain version, the 1000-step ancestral loop (denoise
+   steps/s) and a DDIM-50 val_step rolling out over 5 transitions of the
+   video dataset.  FlowCompleter at 64x64 b16: its UNet float32 under
+   bf16, the step against its plain step with rows 1-5, 2 train steps and
+   a val_step.  ``train.py`` through both experiments (2 steps with a
+   validation, ``--resume`` to 3) and ``sample.py --algorithm
+   frame_generator --ckpt`` on the animation run.  Then 20 steps of each
+   stage of ``training/parity_families.py``: the data-only metrics within
+   1e-3 of JAX's recorded ones, every final metric finite.
+   ``python3 chip_smoke.py --families-only`` runs the device, build and
+   this phase alone and prints no result line (a development aid).
+11. real_data: the JAX package's dress rehearsal on the port.  For
    Sintel (2 scenes of 13 frames at 1024x436), FlyingChairs (8 pairs at
    512x384) and KITTI (6 training and 3 validation pairs at 1242x375,
    sparse 16-bit flow), the rehearsal's trees, the port's fixture writer
@@ -186,7 +213,7 @@ it prints is one JSON object, flushed as it goes, apart from the card's
    ``real_data`` line a dataset with the card's name and power limit.
    ``python3 chip_smoke.py --real-data-only`` runs the device, build and
    this phase alone and prints no result line (a development aid).
-11. profiler: device times from ``torch.profiler``, after the last
+12. profiler: device times from ``torch.profiler``, after the last
    host-clock window, so that no profiler trace runs before one: the
    splat forward by pass and its launches per call at 128x128 b8 and
    448x1024 b2 (bf16, f32) and at the pyramid loss's f32 scales 2-16 at
@@ -199,7 +226,7 @@ it prints is one JSON object, flushed as it goes, apart from the card's
    summed over a native b2 eval (``mid_ctx_device_times``, row 8's keys
    prefixed ``out_``); one f32 learner step's device-busy time against its
    wall time, by kernel kind (``learner_step_device_time``).
-12. the kernels line: for each kernel its route, source, the TPU kernel it
+13. the kernels line: for each kernel its route, source, the TPU kernel it
    replaces, launches over all count windows, error, ms, plain ms, bound
    ms and what bounds it, library ms; for rows 6, 9 and 10 also
    ``vs_library`` (ms / library ms) and ``bound_share`` (bound ms / ms),
@@ -222,7 +249,7 @@ it prints is one JSON object, flushed as it goes, apart from the card's
    8 ``device_ms`` (torch.profiler, a native b2 eval's 8 blocks) and
    ``bound_share`` (bound ms / device ms); every row also
    ``learner_launches_per_step``.
-13. the result line.
+14. the result line.
 
 Any failure raises and exits non-zero without the result line; so does a
 run without a CUDA device or without the port's package beside this file.
@@ -884,19 +911,35 @@ def bitwise_equal(a, b):
     return a.dtype == b.dtype and bool(torch.equal(bits(a), bits(b)))
 
 
+def traced_device_events(fn, tries=20):
+    """The device events (kernels and memsets) of one torch.profiler trace
+    of ``fn()``.  A trace that holds no device event at all is taken again,
+    up to ``tries`` traces in all, and each retry is printed: CUPTI now and
+    then hands back an empty trace of calls whose kernels did launch (six
+    times in one run of this script, at most twice in a row).  Fails when
+    every trace is empty, so that no device time is read as 0 from a lost
+    trace."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for attempt in range(tries):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if evs:
+            break
+        phase("profiler_empty_trace", attempt=attempt + 1, of=tries)
+    check(evs, f"{tries} torch.profiler traces in a row held no device event")
+    return evs
+
+
 def device_split(fn, n=20):
     """torch.profiler over ``n`` calls of ``fn``: device ms per call by pass
     (the splat's three kernels by name, anything else by its own name) and
     the launches per call (kernels and memsets).  Only profiler_phase calls
     it, after the last host-clock window."""
     fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    evs = traced_device_events(lambda: [fn() for _ in range(n)])
     split = {}
     for e in evs:
         key = next((k for k in ("splat_max", "splat_scatter", "splat_finish") if k in e.name),
@@ -1283,12 +1326,7 @@ def learner_step_device_time():
     Frees the state."""
     st = LEARNER_PROFILE
     step, state, batch, gen = st["step"], st["state"], st["batch"], st["gen"]
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        step(state, batch, gen)
-        torch.cuda.synchronize()
-    evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    evs = traced_device_events(lambda: step(state, batch, gen))
     kinds = {}
     for e in evs:
         kind = profile_step.kind_of(e.name)
@@ -2531,10 +2569,10 @@ LEARNER_WARMUP, LEARNER_TIMED = 1, 3
 # inputs instead
 TOL_LEARNER = {"float32": (5e-4, None), "bf16": (2e-3, None)}
 LEARNER_FLOW_MAX_SMALL = 2.0
-# the parity harness on the card: 20 steps of the joint and learner stages
+# the parity harness on the card: 10 steps of the joint and learner stages
 # at 32x32 (training/parity.py's settings), the initial metrics over JAX's 2
 # validation batches, the final ones over 1
-PARITY_SMOKE_STEPS = 20
+PARITY_SMOKE_STEPS = 10
 # the f32 learner's timed step, kept for the profiler phase
 LEARNER_PROFILE = {}
 
@@ -2725,6 +2763,387 @@ def parity_smoke_phase():
               f"parity smoke {key}: initial metrics off JAX's {st['init_bars']}")
     check_launches("parity smoke", launches, set(LEARNER_EXPECTED))
     return launches
+
+
+# MatrixFlow and the animation family on the UNet kernels at full width (UNet
+# 64): MatrixFlow at its yaml's shape (128x128, b16 as experiment/
+# matrix_flow.yaml's batch, radius 17, clip 100), FrameGenerator at the JAX
+# bench.py row video256_train_samples_per_sec (256x256 b8, a standard-normal
+# (8, 256, 256, 8) stack from numpy seed 0, lr 1e-5, weight decay 1e-6, clip
+# 100; 2 warm-ups, 4 timed steps) and at its yaml's 64 (b8), FlowCompleter at
+# 64x64 b16 (its float32 UNet under bf16).  Every window must launch rows 1-2
+# (and rows 3-5 in a train step), and no other kernel but the splat forward
+# of MatrixFlow's flow_in='first' debug warp in its own window
+FAMILY_MODELS = ("matrix_flow", "frame_generator", "flow_completer")
+MF_B, MF_SIZE = 16, 128
+FG_BENCH_B, FG_BENCH_SIZE, FG_WARMUP, FG_TIMED = 8, 256, 2, 4
+FG_YAML_B, FG_DDIM = 8, 50
+FC_B = 16
+FAMILY_STEPS = 2
+# a train step with every kernel vs every plain version (loss, gradient
+# global relative norm): the flagship's bf16 pins (TOL_TRAIN), the f32 ones
+# for FlowCompleter's float32 UNet.  chip_train_spread.py --families over
+# seeds 0-2 on an H100: the largest loss and gradient differences
+# MatrixFlow 4.7e-5 and 1.1e-3, FrameGenerator 4.4e-5 and 7.4e-4,
+# FlowCompleter 2.1e-5 and 3.2e-5, taken before this check ran with them
+TOL_FAMILY = {"matrix_flow": TOL_TRAIN["bf16"], "frame_generator": TOL_TRAIN["bf16"],
+              "flow_completer": TOL_TRAIN["float32"]}
+# the families' parity harness on the card: 20 steps of each stage at its
+# 32x32 settings, the initial metrics over JAX's batches, the final ones
+# over 1
+FAMILY_PARITY_STEPS = 20
+
+
+def family_algo(model, seed=SEED, **fields):
+    """One of the three models at the phase's shape, weights from ``seed``."""
+    from opticalflowdiffusion_tpu_torch.algorithms.animation import FlowCompleter, FrameGenerator
+    from opticalflowdiffusion_tpu_torch.algorithms.matrix_flow import MatrixFlow
+    from opticalflowdiffusion_tpu_torch.config import (FLOW_COMPLETER, FRAME_GENERATOR,
+                                                       MATRIX_FLOW_ALGO)
+    gen = torch.Generator().manual_seed(seed)
+    if model == "matrix_flow":
+        return MatrixFlow(dataclasses.replace(MATRIX_FLOW_ALGO, **fields), device="cuda",
+                          generator=gen)
+    if model == "frame_generator":
+        fields = {"image_size": FG_BENCH_SIZE, "lr": 1e-5, "weight_decay": 1e-6, **fields}
+        return FrameGenerator(dataclasses.replace(FRAME_GENERATOR, **fields), device="cuda",
+                              generator=gen)
+    return FlowCompleter(dataclasses.replace(FLOW_COMPLETER, **fields), device="cuda",
+                         generator=gen)
+
+
+def video_items(size, n, split="training", val_length=5, seed=0):
+    """``n`` items of the constant-velocity video dataset at ``size``, as
+    one batch on the card."""
+    from opticalflowdiffusion_tpu_torch.config import ARTIFICIAL_VIDEO
+    from opticalflowdiffusion_tpu_torch.data.artificial_video import ArtificialVideoDataset
+
+    data = ArtificialVideoDataset(dataclasses.replace(
+        ARTIFICIAL_VIDEO, image_size=size, size=n, val_length=val_length, max_motion=2,
+        seed=seed), split=split)
+    return to_device(tuple(np.stack(f) for f in zip(*(data[i] for i in range(n)))), "cuda")
+
+
+def family_batch(model, seed=0):
+    """The phase's batch of ``model``: MatrixFlow the train rows'
+    standard-normal pair and flow at 128x128 b16, FrameGenerator the bench
+    row's standard-normal stack at 256x256 b8, FlowCompleter video items at
+    64x64 b16."""
+    if model == "matrix_flow":
+        return train_batch(seed, MF_B, MF_SIZE, MF_SIZE)
+    if model == "frame_generator":
+        rng = np.random.default_rng(seed)
+        stack = rng.standard_normal((FG_BENCH_B, FG_BENCH_SIZE, FG_BENCH_SIZE, 8))
+        return to_device((stack.astype(np.float32),), "cuda")
+    return video_items(64, FC_B, seed=seed)
+
+
+def family_step_vs_plain(model, fields=None, batch=None, tol=None, capture=True, seed=SEED):
+    """One train step of ``model`` with every kernel against the same step
+    with every plain version (the same weights, batch and draws; the
+    flagship's loss-pin method), with rows 1-5 on that step's own block
+    inputs (check_captured) when ``capture``.  Returns (loss_rel,
+    grad_global_rel)."""
+    algo = family_algo(model, seed, **(fields or {}))
+    batch = family_batch(model, seed) if batch is None else batch
+    x = batch[0]
+    label = f"{model}_{x.shape[-2]}x{x.shape[-1]}_b{x.shape[0]}"
+    algo.module.train()
+    with captured_step() if capture else contextlib.nullcontext() as cap:
+        loss_k, g_k = step_grads(algo, batch, 11)
+    if capture:
+        check(cap["launched"] == (0, 0), f"{label}: splat launches {cap['launched']}")
+        check_captured(cap, label)
+        del cap
+    with plain_versions(attention="passes", splat=True):
+        loss_p, g_p = step_grads(algo, batch, 11)
+    rel, worst, total = grad_diff(g_k, g_p)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    tol_loss, tol_grad = tol or TOL_FAMILY[model]
+    phase("family_train_step_vs_plain", model=model, at=label, fields=fields or {},
+          loss=loss_k, plain_loss=loss_p, loss_rel=loss_rel, grad_leaves=len(rel),
+          grad_global_rel=total, grad_worst_leaf=worst, grad_worst_rel=rel[worst],
+          pins=[tol_loss, tol_grad])
+    check(np.isfinite(loss_k) and all(torch.isfinite(g).all() for g in g_k.values()),
+          f"{label}: non-finite loss or gradient")
+    check(loss_rel <= tol_loss and total <= tol_grad,
+          f"{label}: train step with kernels disagrees with the plain versions: "
+          f"loss {loss_rel}, gradients {total}")
+    del algo, g_k, g_p
+    return loss_rel, total
+
+
+def family_train_steps(label, algo, batch, warmup=1, timed=FAMILY_STEPS):
+    """One count window of ``warmup`` + ``timed`` train steps (loss,
+    backward, clip at 100, Adam): finite losses, rows 1-5 launched and no
+    other kernel, the samples/s of the timed steps (host clock,
+    synchronised) and the window's peak memory.  Returns (row, launches)."""
+    cfg = algo.cfg
+    state = TrainState(algo.module, make_optimizer(algo.module.parameters(), cfg.lr,
+                                                   cfg.weight_decay, 100.0))
+    step = make_train_step(algo.loss_fn)
+    algo.module.train()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    losses = [float(step(state, batch, gen)["train/loss"]) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(timed):
+        m = step(state, batch, gen)
+    losses.append(float(m["train/loss"]))
+    torch.cuda.synchronize()
+    sec = (time.perf_counter() - t) / timed
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    Bn = batch[0].shape[0]
+    row = dict(at=label, B=Bn, H=batch[0].shape[-2], W=batch[0].shape[-1], warmup=warmup,
+               timed=timed, ms_per_step=1e3 * sec, train_samples_per_s=Bn / sec,
+               losses=losses, peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches=launches)
+    algo.module.eval()
+    check(all(np.isfinite(losses)), f"{label}: non-finite train loss {losses}")
+    check_launches(label + " train", launches, set(FWD_KERNELS) | set(BWD_KERNELS))
+    return row, launches
+
+
+def family_window(label, fn, must=FWD_KERNELS):
+    """``fn()`` in a count window of its own (under no_grad): returns
+    (its result, seconds, launches); ``must`` launched, no other kernel."""
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t = time.perf_counter()
+    with torch.no_grad():
+        out = fn()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    check_launches(label, launches, set(must))
+    return out, sec, launches
+
+
+def finite_metrics(label, metrics):
+    vals = {k: float(v) for k, v in metrics.items()}
+    check(all(np.isfinite(v) for v in vals.values()), f"{label}: non-finite metrics {vals}")
+    return vals
+
+
+def matrix_flow_paths(totals):
+    """MatrixFlow at 128x128 b16: the default goal (gt_flow_pred) checked
+    against its plain step, a warm-up and 2 train steps and a val_step;
+    filter_pred at radius 17 (289 output channels, a 17x17 unfold) for a
+    warm-up and a step and a val_step with the peak memory; gt_filter_pred
+    for a warm-up and a step; the flow_in='first' debug warp through the
+    splat kernel, bit for bit."""
+    family_step_vs_plain("matrix_flow")
+    batch = family_batch("matrix_flow")
+    for goal in ("gt_flow_pred", "filter_pred", "gt_filter_pred"):
+        algo = family_algo("matrix_flow", goal=goal)
+        steps = (1, FAMILY_STEPS) if goal == "gt_flow_pred" else (1, 1)
+        row, launches = family_train_steps(f"matrix_flow_{goal}", algo, batch, *steps)
+        for k, n in launches.items():
+            totals[k] += n
+        val = {}
+        if goal != "gt_filter_pred":
+            torch.cuda.reset_peak_memory_stats()
+            (metrics, _), sec, launches = family_window(
+                f"matrix_flow_{goal} val_step", lambda: algo.val_step(batch))
+            for k, n in launches.items():
+                totals[k] += n
+            val = dict(metrics=finite_metrics(f"matrix_flow {goal} val_step", metrics),
+                       seconds=sec, peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+        phase("matrix_flow_goal", goal=goal, radius=algo.radius,
+              out_channels=int(algo.module.final_conv.weight.shape[0]), train=row, val=val)
+        del algo
+    algo = family_algo("matrix_flow")
+    img = batch[0]
+    flow = 4 * torch.randn(img.shape[0], 2, MF_SIZE, MF_SIZE,
+                           generator=torch.Generator(device="cuda").manual_seed(SEED),
+                           device="cuda")
+    with captured_splats() as calls:
+        (warped, _), _, launches = family_window(
+            "matrix_flow flow_in=first", lambda: algo.apply_filter(flow, img, flow_in="first"),
+            must={"splat_fwd"})
+    for k, n in launches.items():
+        totals[k] += n
+    check(bool(torch.isfinite(warped).all()), "matrix_flow flow_in=first: non-finite warp")
+    splat_on_step_inputs(calls, "matrix_flow_flow_in_first_128x128_b16", launches["splat_fwd"])
+    del algo, calls
+
+
+def frame_generator_paths(totals):
+    """FrameGenerator at the bench row's 256x256 b8 (the step against its
+    plain step with rows 1-5 on its own inputs; 2 warm-ups and 4 timed
+    steps: video256_train_samples_per_sec), then at its yaml's 64 b8: the
+    forward against its plain version, the 1000-step ancestral loop
+    (denoise steps/s) and a DDIM-50 val_step rolling out over 5
+    transitions of the video dataset."""
+    family_step_vs_plain("frame_generator")
+    algo = family_algo("frame_generator")
+    row, launches = family_train_steps("frame_generator_256x256_b8", algo,
+                                       family_batch("frame_generator"), FG_WARMUP, FG_TIMED)
+    for k, n in launches.items():
+        totals[k] += n
+    phase("video256_train_samples_per_sec", value=row["train_samples_per_s"], **row)
+    del algo
+    yaml = family_algo("frame_generator", image_size=64, lr=7e-5, weight_decay=2e-4)
+    (x,) = video_items(64, FG_YAML_B, "validation")
+    cond = x[:, 0, 3:]
+    H, W = cond.shape[-2:]
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    noisy = torch.randn(FG_YAML_B, 3, H, W, generator=g, device="cuda")
+    tt = torch.full((FG_YAML_B,), 500, dtype=torch.long, device="cuda")
+    config_forward_vs_plain("frame_generator_64x64_b8",
+                            lambda: yaml.model_fn(noisy, 2 * cond - 1, tt))
+    samples, sec, launches = family_window(
+        "frame_generator ancestral", lambda: yaml.sample(cond, torch.Generator(
+            device="cuda").manual_seed(SEED)))
+    for k, n in launches.items():
+        totals[k] += n
+    T = yaml.sched.num_timesteps
+    phase("frame_generator_sample", sampler="ancestral", B=FG_YAML_B, H=H, W=W,
+          denoise_steps=T, seconds=sec, denoise_steps_per_s=T / sec,
+          frames_per_s=FG_YAML_B / sec, launches=launches,
+          finite=bool(torch.isfinite(samples).all()))
+    check(samples.shape == (FG_YAML_B, 3, H, W) and bool(torch.isfinite(samples).all()),
+          "frame_generator ancestral: wrong or non-finite samples")
+    ddim = family_algo("frame_generator", image_size=64, sampling_timesteps=FG_DDIM)
+    ddim.module.load_state_dict(yaml.module.state_dict())
+    (metrics, arts), sec, launches = family_window(
+        "frame_generator rollout", lambda: ddim.val_step(
+            (x,), torch.Generator(device="cuda").manual_seed(SEED)))
+    for k, n in launches.items():
+        totals[k] += n
+    ro = arts["rollout"]
+    phase("frame_generator_rollout", sampler=f"ddim{FG_DDIM}", B=FG_YAML_B, H=H, W=W,
+          transitions=int(x.shape[1]), seconds=sec,
+          denoise_steps_per_s=FG_DDIM * (1 + x.shape[1]) / sec,
+          metrics=finite_metrics("frame_generator val_step", metrics),
+          rollout_shape=list(ro.shape), launches=launches)
+    check(list(ro.shape) == [FG_YAML_B, 5, 3, H, W] and bool(torch.isfinite(ro).all()),
+          "frame_generator rollout: wrong or non-finite frames")
+    del yaml, ddim, arts
+
+
+def flow_completer_paths(totals):
+    """FlowCompleter at 64x64 b16 under bf16: its UNet float32, the step
+    against its plain step with rows 1-5 on its own inputs, a warm-up and 2
+    train steps, and a val_step."""
+    algo = family_algo("flow_completer")
+    check(algo.module.net.dtype == torch.float32 and algo.cfg.precision == "bf16",
+          "flow_completer: the UNet must compute in float32 under bf16")
+    family_step_vs_plain("flow_completer")
+    batch = family_batch("flow_completer")
+    row, launches = family_train_steps("flow_completer_64x64_b16", algo, batch)
+    for k, n in launches.items():
+        totals[k] += n
+    (metrics, arts), sec, launches = family_window(
+        "flow_completer val_step", lambda: algo.val_step(
+            batch, torch.Generator(device="cuda").manual_seed(SEED)))
+    for k, n in launches.items():
+        totals[k] += n
+    phase("flow_completer_steps", unet_dtype=str(algo.module.net.dtype).split(".")[1],
+          out_dtype=str(arts["out"].dtype).split(".")[1], train=row,
+          val=finite_metrics("flow_completer val_step", metrics))
+    check(arts["out"].dtype == torch.float32, "flow_completer: the output is not float32")
+    del algo
+
+
+def family_entry_points(totals, root):
+    """train.py through both experiments (MatrixFlow at 128x128 b16 and
+    FrameGenerator at 64 b8 on the video dataset: 2 steps, a validation, a
+    checkpoint, then --resume to 3), then sample.py --algorithm
+    frame_generator --ckpt on the animation run's checkpoint (DDIM-10),
+    one count window."""
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t = time.perf_counter()
+    runs = {}
+    for name, kw in (("matrix_flow", dict(algorithm="matrix_flow")),
+                     ("animation", dict(algorithm="frame_generator", image_size=64, batch=8,
+                                        dataset_size=64, sampling_timesteps=10))):
+        out = str(root / name)
+        first = train_entry.run(2, out=out, log_every=1, **kw)
+        second = train_entry.run(3, resume=True, out=out, log_every=1, **kw)
+        runs[name] = dict(experiment=first["experiment"], steps=[first["step"], second["step"]],
+                          checkpoints=second["checkpoints"], start_step=second["start_step"],
+                          loss=second["train"]["train/loss"],
+                          val={k: v for k, v in first["val"].items() if k.startswith("val/")},
+                          images=first["images"], samples_per_s=first["samples_per_s"])
+        check(first["step"] == 2 and second["start_step"] == 2 and second["step"] == 3
+              and second["checkpoints"] == [2, 3] and np.isfinite(second["train"]["train/loss"])
+              and all(np.isfinite(v) for v in runs[name]["val"].values()) and runs[name]["val"],
+              f"train.py {name}: {runs[name]}")
+    check("val/rollout" in runs["animation"]["images"], "train.py animation: no rollout strip")
+    res = sample_entry.run_frame_generator(FG_YAML_B, SEED, "cuda", sampling_timesteps=10,
+                                           image_size=64, ckpt=str(root / "animation"))
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    for k, n in launches.items():
+        totals[k] += n
+    phase("family_entry_points", seconds=time.perf_counter() - t, runs=runs, sample=res,
+          launches=launches)
+    check(res["finite"] and res["ckpt"].endswith("checkpoints/3")
+          and res["rollout_shape"][:3] == [FG_YAML_B, 5, 3],
+          f"sample.py --algorithm frame_generator --ckpt: {res}")
+    check_launches("family entry points", launches, set(FWD_KERNELS) | set(BWD_KERNELS))
+
+
+def family_parity_smoke(totals, root):
+    """training/parity_families.py on the card: FAMILY_PARITY_STEPS steps of
+    each stage at its 32x32 settings, one count window; the data-only
+    metrics within 1e-3 of JAX's recorded ones, every final metric finite."""
+    from opticalflowdiffusion_tpu_torch.training import parity_families as pfam
+
+    log = io.StringIO()
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        res = pfam.run_families(out_dir=str(root / "parity_families"),
+                                steps=FAMILY_PARITY_STEPS, device="cuda", val_batches=1,
+                                log_every=FAMILY_PARITY_STEPS)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    for k, n in launches.items():
+        totals[k] += n
+    stages = {}
+    for key in pfam.KEYS.values():
+        data_only = {k: v for k, v in res["bars"][key].items()
+                     if isinstance(v["bar"], str)}
+        final = {k: v for k, v in res[key]["final"].items() if not isinstance(v, list)}
+        stages[key] = dict(data_only=data_only, final=final,
+                           steps_per_sec=res[key]["perf"]["steps_per_sec"])
+        check(data_only and all(b["ok"] for b in data_only.values()),
+              f"family parity smoke {key}: data-only metrics off JAX's {data_only}")
+        check(all(np.isfinite(v) for v in final.values()),
+              f"family parity smoke {key}: non-finite final metrics {final}")
+    phase("family_parity_smoke", steps=FAMILY_PARITY_STEPS, seconds=sec, launches=launches,
+          stages=stages)
+    check_launches("family parity smoke", launches, set(FWD_KERNELS) | set(BWD_KERNELS))
+
+
+def matrix_flow_animation_phase():
+    """MatrixFlow, FrameGenerator and FlowCompleter on the card (the
+    functions above), each window's launches checked; returns the
+    launches of all windows."""
+    totals = {k.name: 0 for k in kernels.KERNELS}
+    root = Path(tempfile.mkdtemp(prefix="ofd_families_"))
+    t = time.perf_counter()
+    try:
+        matrix_flow_paths(totals)
+        frame_generator_paths(totals)
+        flow_completer_paths(totals)
+        family_entry_points(totals, root)
+        family_parity_smoke(totals, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    phase("launch_counts_matrix_flow_animation", seconds=time.perf_counter() - t,
+          launches=totals)
+    check_launches("matrix_flow_animation", totals,
+                   set(FWD_KERNELS) | set(BWD_KERNELS) | {"splat_fwd"})
+    return totals
 
 
 # the real-data path (the JAX package's debug/dress_rehearsal.py): native
@@ -2973,6 +3392,9 @@ def main():
     if sys.argv[1:] == ["--real-data-only"]:     # a development aid: no result line
         real_data_phase(smi)
         return
+    if sys.argv[1:] == ["--families-only"]:      # a development aid: no result line
+        matrix_flow_animation_phase()
+        return
     la128 = la_phase(B, SHAPES, "128x128")
     la_native = la_phase(NATIVE_B, NATIVE_SHAPES, "448x1024", iters=10)
     la_bwd = la_bwd_phase()
@@ -2988,7 +3410,7 @@ def main():
     launches = slice_phase()
     for window in (middle_modules_phase, train_phase, native_train_phase,
                    flow_diffuser_configs_phase, learner_phase, parity_smoke_phase,
-                   lambda: real_data_phase(smi)):
+                   matrix_flow_animation_phase, lambda: real_data_phase(smi)):
         for k, n in window().items():
             launches[k] += n
     phase("launch_counts_all_paths", launches=launches)

@@ -23,6 +23,13 @@ pin and without the checks on the step's own inputs, and prints the
 largest loss and gradient differences per precision and flow_max against
 chip_smoke.py's ``TOL_LEARNER``.
 
+``--families`` runs instead the check of MatrixFlow, FrameGenerator and
+FlowCompleter (``family_step_vs_plain`` at chip_smoke.py's shapes: 128x128
+b16, 256x256 b8, 64x64 b16) at each seed, ``--reps`` times, with no pin and
+without the checks on the step's own inputs, and prints the largest loss
+and gradient differences per model against chip_smoke.py's
+``TOL_FAMILY``.
+
 ``--splat-sums float32`` takes the plain splat's sums in float32, whose GPU
 atomics sum in a varying order (chip_smoke.py's reference before it took
 them in float64), to show what that order does to the reference.
@@ -32,6 +39,7 @@ Usage (from the root of a checkout, one card)::
     python3 chip_train_spread.py [--seeds 5] [--reps 2] [--splat-sums float64]
     python3 chip_train_spread.py --configs [--seeds 5]
     python3 chip_train_spread.py --learner [--seeds 5] [--reps 1]
+    python3 chip_train_spread.py --families [--seeds 5] [--reps 1]
 """
 
 import argparse
@@ -51,6 +59,8 @@ def main():
                     help="the other configurations' train-step check instead")
     ap.add_argument("--learner", action="store_true",
                     help="FlowLearner's train-step check instead")
+    ap.add_argument("--families", action="store_true",
+                    help="MatrixFlow's, FrameGenerator's and FlowCompleter's check instead")
     args = ap.parse_args()
     cs.device_phase()
     cs.build_phase()
@@ -58,6 +68,8 @@ def main():
         return configs_spread(args.seeds)
     if args.learner:
         return learner_spread(args.seeds, args.reps)
+    if args.families:
+        return families_spread(args.seeds, args.reps)
     if args.splat_sums == "float32":
         raw = cs.sp.splat_raw
         cs.sp.splat_raw = lambda *a, acc_dtype=None, **k: raw(*a, **k)
@@ -146,6 +158,24 @@ def learner_spread(seeds, reps):
                          for p, rows in out.items()},
              "seeds": seeds, "reps": reps,
              "pins": cs.TOL_LEARNER})
+
+
+def families_spread(seeds, reps):
+    """family_step_vs_plain over ``seeds`` (weights and batch) for each
+    model, ``reps`` times each, with no pin; a summary per model."""
+    out = {}
+    for seed in range(seeds):
+        for model in cs.FAMILY_MODELS:
+            for rep in range(reps):
+                loss_rel, grad_rel = cs.family_step_vs_plain(
+                    model, tol=(float("inf"), float("inf")), capture=False, seed=seed)
+                cs.emit({"case": "family_train_step_vs_plain", "model": model, "seed": seed,
+                         "rep": rep, "loss_rel": loss_rel, "grad_global_rel": grad_rel})
+                out.setdefault(model, []).append((loss_rel, grad_rel))
+    cs.emit({"summary": {m: {"loss_rel_max": max(r[0] for r in rows),
+                             "grad_global_rel_max": max(r[1] for r in rows)}
+                         for m, rows in out.items()},
+             "seeds": seeds, "reps": reps, "pins": cs.TOL_FAMILY})
 
 
 if __name__ == "__main__":

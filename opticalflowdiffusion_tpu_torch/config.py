@@ -4,8 +4,11 @@ The values are those that the JAX package composes for
 ``experiment=matrix_flow algorithm=flow_diffuser dataset=artificial``
 (``config/configurations/{algorithm/flow_diffuser.yaml,
 dataset/artificial.yaml, experiment/{matrix_flow,base}.yaml, config.yaml}``),
-with the dataset drawn at the algorithm's image size, and the real-data
-datasets of ``dataset/{sintel,flying_chairs,kitti_single}.yaml``.
+with the dataset drawn at the algorithm's image size, the real-data
+datasets of ``dataset/{sintel,flying_chairs,kitti_single}.yaml``, and the
+MatrixFlow and animation family: ``algorithm/{matrix_flow,frame_generator,
+flow_completer}.yaml``, ``dataset/artificial_video.yaml`` and
+``experiment/animation.yaml`` over ``experiment/base.yaml``.
 """
 
 from __future__ import annotations
@@ -56,6 +59,20 @@ class KittiSingleDataConfig:
     name: str = "kitti_single"
     image_size: str = "128,128"
     root: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class ArtificialVideoDataConfig:
+    """``dataset/artificial_video.yaml``: constant-velocity box sequences
+    (``val_length`` transitions a validation item, the motion up to
+    ``max_motion`` px a frame); ``seed`` None draws from 0."""
+
+    name: str = "artificial_video"
+    image_size: int = 32
+    size: int = 4096
+    val_length: int = 5
+    max_motion: int = 1
+    seed: Optional[int] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,6 +152,66 @@ class FlowLearnerConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MatrixFlowConfig:
+    """``algorithm/matrix_flow.yaml`` plus ``runtime.precision`` and the conv
+    lowering: per-pixel R x R filters (``radius``) predicted by a UNet from
+    the frame pair.  ``image_size`` is the yaml's "W,H" (or one side);
+    ``goal`` is ``gt_flow_pred`` (flow regression), ``filter_pred`` (the
+    photometric loss plus the weighted regularisers) or ``gt_filter_pred``
+    (the inverted filter's mean tap against the flow); ``cols`` (the
+    ``+algorithm.cols`` knob: ``any`` or ``ones``) adds the colour-weight
+    channel (and with ``any`` three colour channels); ``architecture`` is
+    ``unet`` (``raft`` waits for the RAFT port)."""
+
+    image_size: Union[int, str] = "128,128"
+    architecture: str = "unet"
+    goal: str = "gt_flow_pred"
+    lr: float = 4e-5
+    weight_decay: float = 1e-6
+    radius: int = 17
+    smoothness_weight: float = 0.0
+    smoothness_lmbd: float = 2.0
+    identity_weight: float = 0.0
+    copout_weight: float = 0.0
+    divergence_weight: float = 0.0
+    inversion_weight: float = 0.0
+    small_eps: float = 0.5
+    eps: float = 1e-15
+    cols: Optional[str] = None
+    precision: str = "bf16"
+    conv_backend: str = "cudnn"
+
+
+@dataclasses.dataclass(frozen=True)
+class FrameGeneratorConfig:
+    """``algorithm/frame_generator.yaml`` plus ``runtime.precision``, the
+    conv lowering and the diffusion knobs JAX reads with ``cfg.get``:
+    ``timesteps`` (1000) and ``sampling_timesteps`` (None: the ancestral
+    loop; fewer steps: DDIM)."""
+
+    image_size: int = 64
+    lr: float = 7e-5
+    weight_decay: float = 2e-4
+    timesteps: int = 1000
+    sampling_timesteps: Optional[int] = None
+    precision: str = "bf16"
+    conv_backend: str = "cudnn"
+
+
+@dataclasses.dataclass(frozen=True)
+class FlowCompleterConfig:
+    """``algorithm/flow_completer.yaml`` plus the conv lowering;
+    ``precision`` is kept for the runner, but the UNet computes in float32
+    whatever it says (JAX builds it without a dtype)."""
+
+    image_size: int = 64
+    lr: float = 4.5e-6
+    weight_decay: float = 2e-4
+    precision: str = "bf16"
+    conv_backend: str = "cudnn"
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainingConfig:
     """``experiment/matrix_flow.yaml`` over ``experiment/base.yaml``: the
     training batch, gradient clipping, step budget (``max_steps`` -1 runs
@@ -145,7 +222,9 @@ class TrainingConfig:
     (``runtime.log_every``) and the step traced by the profiler
     (``runtime.profile_step``, -1: none).  The training batches are shuffled
     and the validation ones are not; the test task reads the validation
-    settings (the experiment has no ``test`` section)."""
+    settings (the experiment has no ``test`` section).  ``val_shuffle``
+    shuffles the validation batches (``experiment/base.yaml``'s, which the
+    animation experiment keeps)."""
 
     batch_size: int = 16
     clipping: Optional[float] = 100.0
@@ -160,6 +239,7 @@ class TrainingConfig:
     seed: int = 0
     num_workers: int = 16
     profile_step: int = -1
+    val_shuffle: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,6 +258,10 @@ class ServingConfig:
 
 
 FLAGSHIP = FlowDiffuserConfig()
+MATRIX_FLOW_ALGO = MatrixFlowConfig()
+FRAME_GENERATOR = FrameGeneratorConfig()
+FLOW_COMPLETER = FlowCompleterConfig()
+ARTIFICIAL_VIDEO = ArtificialVideoDataConfig()
 FLOW_PRED = FlowPredConfig()
 FLOW_LEARNER = FlowLearnerConfig()
 FLAGSHIP_DATA = ArtificialDataConfig()
@@ -186,11 +270,17 @@ FLYING_CHAIRS = FlyingChairsDataConfig()
 KITTI_SINGLE = KittiSingleDataConfig()
 # the dataset configs by name (the artificial one follows the algorithm's size)
 DATA = {"artificial": FLAGSHIP_DATA, "sintel": SINTEL, "flying_chairs": FLYING_CHAIRS,
-        "kitti_single": KITTI_SINGLE}
+        "kitti_single": KITTI_SINGLE, "artificial_video": ARTIFICIAL_VIDEO}
 MATRIX_FLOW = TrainingConfig()
+# experiment/animation.yaml over base.yaml: no clipping, validation shuffled
+ANIMATION = TrainingConfig(batch_size=64, clipping=None, check_interval=400, val_batch_size=8,
+                           val_shuffle=True)
 NATIVE = ServingConfig()
 
-__all__ = ["ArtificialDataConfig", "FlowDiffuserConfig", "FlowLearnerConfig", "FlowPredConfig",
-           "FlyingChairsDataConfig", "KittiSingleDataConfig", "ServingConfig", "SintelDataConfig",
-           "TrainingConfig", "DATA", "FLAGSHIP", "FLAGSHIP_DATA", "FLOW_LEARNER", "FLOW_PRED",
-           "FLYING_CHAIRS", "KITTI_SINGLE", "MATRIX_FLOW", "NATIVE", "SINTEL"]
+__all__ = ["ArtificialDataConfig", "ArtificialVideoDataConfig", "FlowCompleterConfig",
+           "FlowDiffuserConfig", "FlowLearnerConfig", "FlowPredConfig", "FlyingChairsDataConfig",
+           "FrameGeneratorConfig", "KittiSingleDataConfig", "MatrixFlowConfig", "ServingConfig",
+           "SintelDataConfig", "TrainingConfig", "ANIMATION", "ARTIFICIAL_VIDEO", "DATA",
+           "FLAGSHIP", "FLAGSHIP_DATA", "FLOW_COMPLETER", "FLOW_LEARNER", "FLOW_PRED",
+           "FLYING_CHAIRS", "FRAME_GENERATOR", "KITTI_SINGLE", "MATRIX_FLOW", "MATRIX_FLOW_ALGO",
+           "NATIVE", "SINTEL"]

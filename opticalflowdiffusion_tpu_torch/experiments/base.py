@@ -2,9 +2,10 @@
 JaxExperiment``: ``train``, ``_validate`` and ``test``), on one device.
 
 Builds the algorithm (weights drawn from the seed), the dataset by name
-(``artificial``, ``sintel``, ``flying_chairs``, ``kitti_single``;
-``data/__init__.py::get_dataset``) with its training and validation
-loaders (``num_workers`` threads, capped at the CPU count), the optimizer
+(``artificial``, ``sintel``, ``flying_chairs``, ``kitti_single``,
+``artificial_video``; ``data/__init__.py::get_dataset``) with its training
+and validation loaders (``num_workers`` threads, capped at the CPU count;
+the validation batches shuffled with ``val_shuffle``), the optimizer
 and the checkpoint manager, then runs train steps with cadenced train
 metrics, validation (``check_interval`` steps, or that share of an epoch
 when it is a float; ``limit_batch`` batches, each batch's images written by
@@ -32,12 +33,11 @@ import dataclasses
 import os
 import time
 from pathlib import Path
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..config import (ArtificialDataConfig, FlowDiffuserConfig, FlowLearnerConfig, FlowPredConfig,
-                      TrainingConfig)
+from ..config import ArtificialDataConfig, TrainingConfig
 from ..data import get_dataset
 from ..data.loader import DataLoader
 from ..parallel.train import TrainState, make_optimizer, make_train_step
@@ -46,9 +46,10 @@ from ..utils.logging import RunLogger
 
 
 def to_device(batch, device) -> tuple:
-    """Collated NHWC numpy arrays -> float32 NCHW tensors on ``device``."""
-    return tuple(torch.from_numpy(a).permute(0, 3, 1, 2).contiguous().to(device)
-                 for a in batch)
+    """Collated NHWC numpy arrays -> float32 NCHW tensors on ``device``; a
+    stack of frames (B, T, H, W, C) -> (B, T, C, H, W)."""
+    return tuple(torch.from_numpy(a).permute(*((0, 1, 4, 2, 3) if a.ndim == 5 else (0, 3, 1, 2)))
+                 .contiguous().to(device) for a in batch)
 
 
 def resolve_checkpoint(path) -> Tuple[Path, Optional[int]]:
@@ -66,15 +67,16 @@ def resolve_checkpoint(path) -> Tuple[Path, Optional[int]]:
 
 
 class Experiment:
-    """One run of ``algorithm_cls(algo_cfg)`` (FlowDiffuser, FlowPred or
-    FlowLearner) on the dataset ``data_cfg`` names (an ``ArtificialDataConfig``
-    is the artificial dataset, drawn at the algorithm's image size).
-    ``device`` defaults to cuda."""
+    """One run of ``algorithm_cls(algo_cfg)`` (FlowDiffuser, FlowPred,
+    FlowLearner, MatrixFlow, FrameGenerator or FlowCompleter) on the dataset
+    ``data_cfg`` names (an ``ArtificialDataConfig`` is the artificial
+    dataset, drawn at the algorithm's image size).  ``device`` defaults to
+    cuda."""
 
     algorithm_cls = None
 
-    def __init__(self, algo_cfg: Union[FlowDiffuserConfig, FlowPredConfig, FlowLearnerConfig],
-                 train_cfg: TrainingConfig, data_cfg, out_dir, device="cuda", ckpt_path=None):
+    def __init__(self, algo_cfg, train_cfg: TrainingConfig, data_cfg, out_dir, device="cuda",
+                 ckpt_path=None):
         self.algo_cfg, self.cfg, self.data_cfg = algo_cfg, train_cfg, data_cfg
         self.out_dir = Path(out_dir)
         self.device = torch.device(device)
@@ -89,10 +91,12 @@ class Experiment:
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
         self.dataset_name = getattr(data_cfg, "name", "artificial")
         if isinstance(data_cfg, ArtificialDataConfig):
-            self.data_cfg = dataclasses.replace(data_cfg, image_size=algo_cfg.image_size)
+            self.data_cfg = dataclasses.replace(
+                data_cfg, image_size=int(str(algo_cfg.image_size).split(",")[0]))
         self._datasets: Dict[str, object] = {}
         self.train_loader = self.loader("training", train_cfg.batch_size, True)
-        self.val_loader = self.loader("validation", train_cfg.val_batch_size, False)
+        self.val_loader = self.loader("validation", train_cfg.val_batch_size,
+                                      bool(train_cfg.val_shuffle))
         self.ckpt = CheckpointManager(self.out_dir / "checkpoints",
                                       every_n_train_steps=train_cfg.every_n_train_steps)
         self.logger = RunLogger(self.out_dir)
@@ -162,7 +166,7 @@ class Experiment:
         evaluated checkpoint's step."""
         if self.ckpt_path is not None or self.ckpt.latest_step() is not None:
             self.restore()
-        loader = self.loader("test", self.cfg.val_batch_size, False)
+        loader = self.loader("test", self.cfg.val_batch_size, bool(self.cfg.val_shuffle))
         gen = torch.Generator(device=self.device).manual_seed(int(self.cfg.seed))
         totals: Dict[str, float] = {}
         count = 0

@@ -1,19 +1,21 @@
 """The flow experiment (JAX ``experiments/matrix_flow.py``): FlowDiffuser,
-FlowPred or FlowLearner on the artificial, Sintel, FlyingChairs or KITTI
-dataset, the counterpart of ``main.py experiment=matrix_flow
-algorithm={flow_diffuser,flow_pred,flow_learner}
+FlowPred, FlowLearner or MatrixFlow on the artificial, Sintel, FlyingChairs
+or KITTI dataset, the counterpart of ``main.py experiment=matrix_flow
+algorithm={flow_diffuser,flow_pred,flow_learner,matrix_flow}
 dataset={artificial,sintel,flying_chairs,kitti_single}``.  The JAX
-experiment also runs two other algorithms (MatrixFlow, PWCLearner) and the
-Buck Bunny video dataset; those are not ported."""
+experiment also runs PWCLearner and the Buck Bunny video dataset; those are
+not ported."""
 
 from __future__ import annotations
 
 from ..algorithms.flow_diffuser import FlowDiffuser
 from ..algorithms.flow_learner import FlowLearner
 from ..algorithms.flow_pred import FlowPred
+from ..algorithms.matrix_flow import MatrixFlow
 from .base import Experiment
 
-ALGORITHMS = {"flow_diffuser": FlowDiffuser, "flow_pred": FlowPred, "flow_learner": FlowLearner}
+ALGORITHMS = {"flow_diffuser": FlowDiffuser, "flow_pred": FlowPred, "flow_learner": FlowLearner,
+              "matrix_flow": MatrixFlow}
 
 
 class MatrixFlowExperiment(Experiment):

@@ -4,7 +4,10 @@ Packed layout, channels first: ``[fil (R*R), col (C), colweight (1)]``.  A
 filter entry ``fil[b, i, j, y, x]`` is the gather weight from source pixel
 ``(y + i - R//2, x + j - R//2)`` into ``(y, x)``.  ``unfold`` is
 ``F.unfold`` (its taps channel-major, (C, i, j), as JAX's
-``conv_general_dilated_patches``).
+``conv_general_dilated_patches``).  MatrixFlow packs its filters otherwise
+(``[fil, colw, col]``) and works on the taps alone: ``invert_taps`` and
+``taps_to_flow`` take the (B, R*R, H, W) taps, as ``invert_filter`` and
+``filter_to_flow`` do inside.
 """
 
 from __future__ import annotations
@@ -59,14 +62,14 @@ def apply_filter(img: torch.Tensor, fil: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bcijhw,bijhw->bchw", unfold(img, fil.shape[1]), fil)
 
 
-def invert_filter(flow: torch.Tensor, C: int = 3, negate_colweight: bool = False) -> torch.Tensor:
-    """Invert a packed gather filter: inv[i', j', y, x] = fil[R-1-i', R-1-j',
-    y-(R//2-i'), x-(R//2-j')]; where that source is outside the image the
-    original entry stays (the reference writes into a clone under a
-    validity mask).  ``negate_colweight``: the MatrixFlow variant."""
-    fil, col, colw = unpack_flow(flow, C)
-    B, R, _, H, W = fil.shape
-    dev = flow.device
+def invert_taps(taps: torch.Tensor) -> torch.Tensor:
+    """Invert gather taps (B, R*R, H, W): inv[i', j', y, x] = fil[R-1-i',
+    R-1-j', y-(R//2-i'), x-(R//2-j')]; where that source is outside the
+    image the original entry stays (the reference writes into a clone
+    under a validity mask)."""
+    B, K, H, W = taps.shape
+    R = int(round(math.sqrt(K)))
+    dev = taps.device
     ks = torch.arange(R * R, device=dev)
     offy = (R // 2 - ks // R).view(-1, 1, 1)
     offx = (R // 2 - ks % R).view(-1, 1, 1)
@@ -75,21 +78,38 @@ def invert_filter(flow: torch.Tensor, C: int = 3, negate_colweight: bool = False
     valid = ((sy >= 0) & (sy < H)) & ((sx >= 0) & (sx < W))          # (R^2, H, W)
     src = (((R * R - 1) - ks).view(-1, 1, 1) * (H * W) + sy.clamp(0, H - 1) * W
            + sx.clamp(0, W - 1))
-    flat = fil.reshape(B, R * R * H * W)
+    flat = taps.reshape(B, R * R * H * W)
     gathered = flat.gather(1, src.reshape(1, -1).expand(B, -1)).view(B, R * R, H, W)
-    inv = torch.where(valid[None], gathered, fil.reshape(B, R * R, H, W))
+    return torch.where(valid[None], gathered, taps)
+
+
+def invert_filter(flow: torch.Tensor, C: int = 3, negate_colweight: bool = False) -> torch.Tensor:
+    """Invert a packed gather filter (``invert_taps`` on its taps; the
+    colour and its weight stay).  ``negate_colweight``: the MatrixFlow
+    variant."""
+    fil, col, colw = unpack_flow(flow, C)
+    B, R, _, H, W = fil.shape
+    inv = invert_taps(fil.reshape(B, R * R, H, W))
     if negate_colweight:
         colw = -colw
     return torch.cat([inv, col, colw], dim=1)
 
 
-def filter_to_flow(flow: torch.Tensor, C: int = 3) -> torch.Tensor:
-    """Mean tap offset of a packed filter -> (B, 2, H, W) as (dx, dy)."""
-    fil, _, _ = unpack_flow(flow, C)
-    idx = (torch.arange(fil.shape[1], device=flow.device) - fil.shape[1] // 2).to(fil.dtype)
+def taps_to_flow(taps: torch.Tensor) -> torch.Tensor:
+    """Mean tap offset of (B, R*R, H, W) taps -> (B, 2, H, W) as (dx, dy)."""
+    B, K, H, W = taps.shape
+    R = int(round(math.sqrt(K)))
+    fil = taps.reshape(B, R, R, H, W)
+    idx = (torch.arange(R, device=taps.device) - R // 2).to(taps.dtype)
     dy = torch.einsum("bijhw,i->bhw", fil, idx)
     dx = torch.einsum("bijhw,j->bhw", fil, idx)
     return torch.stack([dx, dy], dim=1)
+
+
+def filter_to_flow(flow: torch.Tensor, C: int = 3) -> torch.Tensor:
+    """Mean tap offset of a packed filter -> (B, 2, H, W) as (dx, dy)."""
+    R = get_radius(flow.shape[1], C)
+    return taps_to_flow(flow[:, : R * R])
 
 
 def occlusion_mask(packed: torch.Tensor, threshold: float = 0.25, C: int = 3) -> torch.Tensor:
@@ -116,6 +136,6 @@ def warp_forward_filter(first: torch.Tensor, flow: torch.Tensor) -> torch.Tensor
 
 __all__ = [
     "apply_filter", "bound_mask", "filter_to_flow", "get_radius", "invert_filter",
-    "occlusion_mask", "pack_flow", "unfold", "unpack_flow", "warp_backward_filter",
-    "warp_forward_filter",
+    "invert_taps", "occlusion_mask", "pack_flow", "taps_to_flow", "unfold", "unpack_flow",
+    "warp_backward_filter", "warp_forward_filter",
 ]

@@ -1,4 +1,5 @@
-"""NaN-aware forward warp and losses (JAX ``ops/warp.py``), NCHW.
+"""NaN-aware forward warp, the bilinear backward warp and losses (JAX
+``ops/warp.py``), NCHW.
 
 NaN input pixels carry zero weight; output pixels that receive no weight
 become NaN holes, and the ``nan_*`` losses reduce over the finite pairs only.
@@ -14,6 +15,48 @@ import numpy as np
 import torch
 
 from .splat import _softsplat
+
+
+def bilinear_gather(img: torch.Tensor, coords_x: torch.Tensor,
+                    coords_y: torch.Tensor) -> torch.Tensor:
+    """Sample ``img`` (B, C, H, W) at float coordinates (B, H', W') in
+    pixels (align-corners: 0 is the first pixel's centre), bilinearly; each
+    tap outside the frame reads the nearest border pixel (the caller masks
+    such samples)."""
+    B, C, H, W = img.shape
+    x0 = torch.floor(coords_x)
+    y0 = torch.floor(coords_y)
+    wx = (coords_x - x0)[:, None]
+    wy = (coords_y - y0)[:, None]
+    flat = img.reshape(B, C, H * W)
+
+    def take(yy, xx):
+        idx = yy.long().clamp(0, H - 1) * W + xx.long().clamp(0, W - 1)
+        return flat.gather(2, idx.reshape(B, 1, -1).expand(B, C, -1)).reshape(
+            (B, C) + tuple(coords_x.shape[1:]))
+
+    v00, v01 = take(y0, x0), take(y0, x0 + 1)
+    v10, v11 = take(y0 + 1, x0), take(y0 + 1, x0 + 1)
+    top = v00 * (1 - wx) + v01 * wx
+    bot = v10 * (1 - wx) + v11 * wx
+    return top * (1 - wy) + bot * wy
+
+
+def warp_backward_flow(second: torch.Tensor, flow: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Backward warp of ``second`` (B, C, H, W) by ``flow`` (B, 2, H, W;
+    channel 0 is x): (warped, mask), the mask 1 where the whole bilinear
+    footprint lies inside the frame (the reference's grid_sample with a
+    thresholded ones mask) and the warped frame 0 elsewhere."""
+    B, C, H, W = second.shape
+    xs = torch.arange(W, dtype=flow.dtype, device=flow.device).view(1, 1, W)
+    ys = torch.arange(H, dtype=flow.dtype, device=flow.device).view(1, H, 1)
+    cx = xs + flow[:, 0]
+    cy = ys + flow[:, 1]
+    out = bilinear_gather(second, cx, cy)
+    inside = (cx >= 0) & (cx <= W - 1) & (cy >= 0) & (cy <= H - 1)
+    mask = inside[:, None].to(second.dtype) * torch.ones_like(out)
+    return out * mask, mask
 
 
 def warp_forward_flow(first: torch.Tensor, flow: torch.Tensor, scale: int = 1,
@@ -130,5 +173,6 @@ def edgeaware_smoothness1(image: torch.Tensor, flow: torch.Tensor,
     return loss / 2
 
 
-__all__ = ["charbonnier", "edgeaware_smoothness1", "fill_holes_nan", "nan_charbonnier",
-           "nan_mse", "nan_mse_stats", "permute_warp", "warp_forward_flow"]
+__all__ = ["bilinear_gather", "charbonnier", "edgeaware_smoothness1", "fill_holes_nan", "nan_charbonnier",
+           "nan_mse", "nan_mse_stats", "permute_warp", "warp_backward_flow",
+           "warp_forward_flow"]

@@ -1,19 +1,24 @@
-"""Training entry point: train FlowDiffuser (or FlowPred, or FlowLearner) on
-the artificial dataset, Sintel, FlyingChairs or KITTI, and test it.
+"""Training entry point: train FlowDiffuser (or FlowPred, FlowLearner or
+MatrixFlow) on the artificial dataset, Sintel, FlyingChairs or KITTI, or
+FrameGenerator or FlowCompleter on the constant-velocity video dataset,
+and test it.
 
     python -m opticalflowdiffusion_tpu_torch.train --steps 20 [--batch 16] \\
         [--image-size 128 | --image-size W,H] [--unet-dim 64] [--seed 0] [--device cuda] \\
         [--out outputs/train] [--resume] [--check-interval N|F] \\
         [--ckpt-every N] [--val-batch 8] [--sampling-timesteps S] \\
         [--conv-backend {cudnn,rows,fold}] [--remat] \\
-        [--algorithm {flow_diffuser,flow_pred,flow_learner}] [--target {joint,target,flow}] \\
+        [--algorithm {flow_diffuser,flow_pred,flow_learner,matrix_flow,frame_generator,
+                      flow_completer}] \\
+        [--target {joint,target,flow}] \\
         [--noiser {image,flow}] [--no-diffusion] [--flow-weight W] \\
         [--diffusion-flow-weight W] [--latent --ae DIR] [--latent-dim 16] \\
         [--radius R] [--levels 1,2,4] [--precision {bf16,float32}] [--lr LR] \\
         [--flow-max F] [--dataset-size N] [--dataset-seed S] \\
-        [--dataset {artificial,sintel,flying_chairs,kitti_single}] [--data-root DIR] \\
-        [--workers N] [--tasks train,test] [--ckpt-path DIR] [--epochs E] \\
-        [--profile-step N]
+        [--dataset {artificial,sintel,flying_chairs,kitti_single,artificial_video}] \\
+        [--data-root DIR] [--workers N] [--tasks train,test] [--ckpt-path DIR] [--epochs E] \\
+        [--profile-step N] [--goal {gt_flow_pred,filter_pred,gt_filter_pred}] \\
+        [--val-length L] [--max-motion M]
 
 The counterpart of ``main.py experiment=matrix_flow algorithm=flow_diffuser
 dataset=artificial``: the flagship (UNet width 64, dim_mults (1, 2, 4, 8),
@@ -62,6 +67,19 @@ filter representation with ``--radius``).  ``--precision``, ``--lr`` and
 ``--flow-max`` replace the algorithm's values; ``--dataset-size`` and
 ``--dataset-seed`` the artificial dataset's (default: 256000 items drawn
 from ``--seed``).
+
+``--algorithm matrix_flow`` trains MatrixFlow (``matrix_flow.yaml``: the
+UNet maps the pair to R x R filters, ``--radius`` default 17, or to a flow;
+``--goal`` gt_flow_pred, filter_pred or gt_filter_pred; ``--image-size``
+one side or "W,H", default 128) on the artificial dataset.
+``frame_generator`` and ``flow_completer`` run ``experiment/animation.yaml``
+(batch 64, validation batch 8 shuffled, no clipping, a validation every 400
+steps) on ``--dataset artificial_video`` (its default; ``--val-length``
+transitions a validation item, default 5, ``--max-motion`` px a frame,
+default 1; ``--image-size`` default the yaml's 32): FrameGenerator
+(``frame_generator.yaml``: T = 1000, the ancestral loop unless
+``--sampling-timesteps`` asks for DDIM; validation rolls the model out
+over the transitions) or FlowCompleter (``flow_completer.yaml``).
 """
 
 from __future__ import annotations
@@ -74,10 +92,28 @@ import time
 import torch
 
 from .algorithms.flow_diffuser import TARGETS
-from .config import DATA, FLAGSHIP, FLOW_LEARNER, FLOW_PRED, MATRIX_FLOW
-from .data import DATASETS
-from .experiments.matrix_flow import ALGORITHMS, MatrixFlowExperiment
+from .algorithms.matrix_flow import GOALS
+from .config import (ANIMATION, DATA, FLAGSHIP, FLOW_COMPLETER, FLOW_LEARNER, FLOW_PRED,
+                     FRAME_GENERATOR, MATRIX_FLOW, MATRIX_FLOW_ALGO)
+from .data import DATASETS, get_dataset
+from .experiments import animation as anim_exp
+from .experiments.matrix_flow import ALGORITHMS as FLOW_ALGORITHMS
+from .experiments.matrix_flow import MatrixFlowExperiment
 from .ops.conv import BACKENDS
+
+# the experiments and their algorithms (JAX's experiment=matrix_flow and
+# experiment=animation)
+EXPERIMENTS = {"matrix_flow": (MatrixFlowExperiment, MATRIX_FLOW),
+               "animation": (anim_exp.AnimationExperiment, ANIMATION)}
+ALGORITHMS = {**{k: "matrix_flow" for k in FLOW_ALGORITHMS},
+              **{k: "animation" for k in anim_exp.ALGORITHMS}}
+# the algorithms' yaml configs (FlowDiffuser's is the flagship)
+BASES = {"flow_pred": FLOW_PRED, "flow_learner": FLOW_LEARNER, "matrix_flow": MATRIX_FLOW_ALGO,
+         "frame_generator": FRAME_GENERATOR, "flow_completer": FLOW_COMPLETER}
+# the config fields each algorithm's summary line reports
+SUMMARY_FIELDS = {"flow_pred": ("latent_dim",), "flow_learner": ("flow_max", "radius", "levels"),
+                  "matrix_flow": ("goal", "radius", "cols"),
+                  "frame_generator": ("timesteps", "sampling_timesteps"), "flow_completer": ()}
 
 # the fields of FlowDiffuserConfig that the model flags set
 MODEL_FIELDS = ("target", "noiser", "is_diffusion", "flow_weight", "diffusion_flow_weight",
@@ -85,11 +121,11 @@ MODEL_FIELDS = ("target", "noiser", "is_diffusion", "flow_weight", "diffusion_fl
 
 
 def model_config(algorithm: str = "flow_diffuser", **fields):
-    """The algorithm's config: the flagship's (or ``flow_pred.yaml``'s, or
-    ``flow_learner.yaml``'s) with the given fields replaced; a field given
-    as None keeps its default (FlowLearner's ``radius`` drops its
+    """The algorithm's config: the flagship's (or the yaml's of another
+    algorithm, ``BASES``) with the given fields replaced; a field given as
+    None keeps its default (FlowLearner's ``radius`` drops its
     ``flow_max``)."""
-    base = {"flow_pred": FLOW_PRED, "flow_learner": FLOW_LEARNER}.get(algorithm, FLAGSHIP)
+    base = BASES.get(algorithm, FLAGSHIP)
     fields = {k: v for k, v in fields.items() if v is not None}
     if algorithm == "flow_learner" and "radius" in fields:
         fields.setdefault("flow_max", None)
@@ -105,13 +141,22 @@ def parse_image_size(value):
     return parts[0] if len(parts) == 1 else f"{parts[0]},{parts[1]}"
 
 
-def data_config(dataset: str, image_size=None, data_root=None, size=None, seed=0):
+def data_config(dataset: str, image_size=None, data_root=None, size=None, seed=0,
+                val_length=None, max_motion=None):
     """The dataset's config: the artificial one at one side (``size`` items
-    drawn from ``seed``), or a real dataset's yaml with ``image_size`` ("W,H"
-    or one side for both) and ``root`` replaced where given."""
+    drawn from ``seed``), the video one likewise (with ``val_length`` and
+    ``max_motion``), or a real dataset's yaml with ``image_size`` ("W,H" or
+    one side for both) and ``root`` replaced where given."""
+    if dataset == "taichi":
+        get_dataset(dataset)                        # raises: not ported yet
     if dataset not in DATASETS:
         raise ValueError(f"dataset {dataset!r} is not one of {DATASETS}")
     base = DATA[dataset]
+    if dataset == "artificial_video":
+        fields = dict(image_size=image_size, size=size, val_length=val_length,
+                      max_motion=max_motion)
+        return dataclasses.replace(base, seed=seed,
+                                   **{k: v for k, v in fields.items() if v is not None})
     if dataset == "artificial":
         if isinstance(image_size, str):
             w, h = (int(v) for v in image_size.split(","))
@@ -126,25 +171,48 @@ def data_config(dataset: str, image_size=None, data_root=None, size=None, seed=0
     return dataclasses.replace(base, root=data_root) if data_root else base
 
 
-def build(steps: int, batch: int = MATRIX_FLOW.batch_size, image_size=None, unet_dim=None,
+def build(steps: int, batch=None, image_size=None, unet_dim=None,
           seed: int = 0, device: str = "cuda", out: str = "outputs/train",
           check_interval=None, ckpt_every=None, val_batch=None,
           sampling_timesteps=None, log_every=None,
           conv_backend: str = "cudnn", remat: bool = False, algorithm: str = "flow_diffuser",
           precision=None, lr=None, flow_max=None, dataset_size=None, dataset_seed=None,
-          dataset: str = "artificial", data_root=None, workers=None, ckpt_path=None,
-          epochs=None, profile_step=None, **model) -> MatrixFlowExperiment:
+          dataset=None, data_root=None, workers=None, ckpt_path=None,
+          epochs=None, profile_step=None, val_length=None, max_motion=None,
+          **model):
     """The experiment of one run, not yet trained.  ``model`` holds config
     fields of the algorithm (``MODEL_FIELDS``; FlowPred's ``latent_dim``;
-    FlowLearner's ``radius`` and ``levels``).  ``image_size`` is one side or
-    "W,H"; the algorithm takes W."""
-    data = data_config(dataset, parse_image_size(image_size), data_root, dataset_size,
-                       seed if dataset_seed is None else dataset_seed)
+    FlowLearner's ``radius`` and ``levels``; MatrixFlow's ``goal``,
+    ``radius`` and ``cols``; FrameGenerator's ``timesteps``; the CLI sets
+    ``goal`` and ``radius``).
+    ``image_size`` is one side or "W,H"; the algorithm takes W (MatrixFlow
+    both).  The experiment is the algorithm's (``ALGORITHMS``), the dataset
+    defaults to the experiment's (artificial, or artificial_video)."""
+    if algorithm not in ALGORITHMS:
+        raise ValueError(f"algorithm {algorithm!r} is not one of {tuple(ALGORITHMS)}")
+    experiment = ALGORITHMS[algorithm]
+    exp_cls, train_base = EXPERIMENTS[experiment]
+    dataset = dataset or ("artificial_video" if experiment == "animation" else "artificial")
+    image_size = parse_image_size(image_size)
+    data = data_config(dataset, image_size if dataset != "artificial_video" else (
+        None if image_size is None else int(str(image_size).split(",")[0])), data_root,
+        dataset_size, seed if dataset_seed is None else dataset_seed, val_length, max_motion)
     side = (int(str(data.image_size).split(",")[0])
             if dataset != "artificial" or image_size is not None else None)
     common = dict(image_size=side, conv_backend=conv_backend, precision=precision, lr=lr)
-    if algorithm == "flow_pred":
+    if algorithm == "matrix_flow":
+        # both sides: the filter's bound mask takes the frame's shape
+        if image_size is not None:
+            common["image_size"] = (image_size if isinstance(image_size, str)
+                                    else f"{image_size},{image_size}")
+        elif dataset != "artificial":
+            common["image_size"] = data.image_size
         algo = model_config(algorithm, **common, **model)
+    elif algorithm in ("flow_pred", "flow_completer"):
+        algo = model_config(algorithm, **common, **model)
+    elif algorithm == "frame_generator":
+        algo = model_config(algorithm, **common, **model)
+        algo = dataclasses.replace(algo, sampling_timesteps=sampling_timesteps)
     elif algorithm == "flow_learner":
         algo = model_config(algorithm, flow_max=flow_max, **common, **model)
     else:
@@ -152,17 +220,17 @@ def build(steps: int, batch: int = MATRIX_FLOW.batch_size, image_size=None, unet
                             **common, **model)
         algo = dataclasses.replace(algo, sampling_timesteps=sampling_timesteps)
     if dataset == "artificial":
-        data = dataclasses.replace(data, image_size=algo.image_size)
+        data = dataclasses.replace(data, image_size=int(str(algo.image_size).split(",")[0]))
     train = dataclasses.replace(
-        MATRIX_FLOW, batch_size=batch, max_steps=steps, seed=seed,
-        check_interval=check_interval or min(MATRIX_FLOW.check_interval, steps),
-        every_n_train_steps=ckpt_every or MATRIX_FLOW.every_n_train_steps,
-        val_batch_size=val_batch or MATRIX_FLOW.val_batch_size,
-        log_every=log_every or min(MATRIX_FLOW.log_every, steps),
-        num_workers=MATRIX_FLOW.num_workers if workers is None else workers,
-        epochs=MATRIX_FLOW.epochs if epochs is None else epochs,
-        profile_step=MATRIX_FLOW.profile_step if profile_step is None else profile_step)
-    return MatrixFlowExperiment(algo, train, data, out, device, algorithm, ckpt_path)
+        train_base, batch_size=batch or train_base.batch_size, max_steps=steps, seed=seed,
+        check_interval=check_interval or min(train_base.check_interval, steps),
+        every_n_train_steps=ckpt_every or train_base.every_n_train_steps,
+        val_batch_size=val_batch or train_base.val_batch_size,
+        log_every=log_every or min(train_base.log_every, steps),
+        num_workers=train_base.num_workers if workers is None else workers,
+        epochs=train_base.epochs if epochs is None else epochs,
+        profile_step=train_base.profile_step if profile_step is None else profile_step)
+    return exp_cls(algo, train, data, out, device, algorithm, ckpt_path)
 
 
 def add_model_flags(ap: argparse.ArgumentParser) -> None:
@@ -186,6 +254,10 @@ def model_flags(a: argparse.Namespace) -> dict:
     algorithm = getattr(a, "algorithm", "flow_diffuser")
     if algorithm == "flow_pred":
         return {"latent_dim": a.latent_dim}
+    if algorithm == "matrix_flow":
+        return {"goal": a.goal, "radius": a.radius}
+    if algorithm in ("frame_generator", "flow_completer"):
+        return {}
     if algorithm == "flow_learner":
         levels = getattr(a, "levels", None)
         return {"radius": getattr(a, "radius", None),
@@ -212,11 +284,11 @@ def run(steps: int, resume: bool = False, tasks=("train",), **kwargs) -> dict:
             seconds = time.perf_counter() - t0
     trained = "train" in tasks
     cfg = exp.algo_cfg
-    fields = {"flow_diffuser": MODEL_FIELDS + ("flow_max",), "flow_pred": ("latent_dim",),
-              "flow_learner": ("flow_max", "radius", "levels")}[exp.algorithm.name]
+    fields = SUMMARY_FIELDS.get(exp.algorithm.name, MODEL_FIELDS + ("flow_max",))
     return {
         "device": str(exp.device),
         "algorithm": exp.algorithm.name,
+        "experiment": type(exp).__name__,
         "dataset": exp.dataset_name,
         "tasks": list(tasks),
         "batch": exp.cfg.batch_size,
@@ -248,7 +320,9 @@ def run(steps: int, resume: bool = False, tasks=("train",), **kwargs) -> dict:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=20, help="train steps in all")
-    ap.add_argument("--batch", type=int, default=MATRIX_FLOW.batch_size)
+    ap.add_argument("--batch", type=int, default=None,
+                    help=f"default the experiment's ({MATRIX_FLOW.batch_size}, animation "
+                         f"{ANIMATION.batch_size})")
     ap.add_argument("--image-size", default=None,
                     help="one side, or W,H (a real dataset's; the algorithm takes W)")
     ap.add_argument("--unet-dim", type=int, default=None)
@@ -268,7 +342,9 @@ def main(argv=None) -> None:
     ap.add_argument("--algorithm", choices=tuple(ALGORITHMS), default="flow_diffuser")
     add_model_flags(ap)
     ap.add_argument("--radius", type=int, default=None,
-                    help="FlowLearner's filter representation (drops its flow_max)")
+                    help="FlowLearner's filter representation (drops its flow_max); "
+                         "MatrixFlow's filter size")
+    ap.add_argument("--goal", choices=GOALS, default=None, help="MatrixFlow's training goal")
     ap.add_argument("--levels", default=None,
                     help="FlowLearner's pyramid levels, comma-separated")
     ap.add_argument("--precision", choices=("bf16", "float32"), default=None)
@@ -276,7 +352,12 @@ def main(argv=None) -> None:
     ap.add_argument("--flow-max", type=float, default=None)
     ap.add_argument("--dataset-size", type=int, default=None)
     ap.add_argument("--dataset-seed", type=int, default=None)
-    ap.add_argument("--dataset", choices=DATASETS, default="artificial")
+    ap.add_argument("--dataset", choices=DATASETS + ("taichi",), default=None,
+                    help="default the experiment's (artificial, animation: artificial_video)")
+    ap.add_argument("--val-length", type=int, default=None,
+                    help="artificial_video's transitions a validation item")
+    ap.add_argument("--max-motion", type=int, default=None,
+                    help="artificial_video's largest motion, px a frame")
     ap.add_argument("--data-root", default=None,
                     help="the datasets' root (default $OFD_DATA_ROOT, else datasets)")
     ap.add_argument("--workers", type=int, default=None,
@@ -299,7 +380,8 @@ def main(argv=None) -> None:
                          dataset_size=a.dataset_size, dataset_seed=a.dataset_seed,
                          dataset=a.dataset, data_root=a.data_root, workers=a.workers,
                          ckpt_path=a.ckpt_path, epochs=a.epochs, profile_step=a.profile_step,
-                         **model_flags(a))))
+                         val_length=a.val_length,
+                         max_motion=a.max_motion, **model_flags(a))))
 
 
 if __name__ == "__main__":

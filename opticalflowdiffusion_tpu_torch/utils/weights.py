@@ -15,7 +15,11 @@ leaf.  The same holds for the unfused ``LinearAttention`` and
 FlowLearner's FlowUnet and FilterUnet with the filter codecs
 (:func:`flow_learner_state_dict`, :func:`flow_learner_jax_layout`,
 :func:`filter_codec_rows`; a flax ``ConvTranspose`` kernel is flipped
-spatially for ``ConvTranspose2d``).
+spatially for ``ConvTranspose2d``).  MatrixFlow's and FrameGenerator's
+modules are plain UNets (:func:`params_from_jax`, :func:`jax_layout` with
+no prefix); FlowCompleter's tree ``{"net": {"Unet_0": ...},
+"null_embedding"}`` has :func:`flow_completer_state_dict` and
+:func:`flow_completer_jax_layout`.
 """
 
 from __future__ import annotations
@@ -280,6 +284,24 @@ def jax_layout(sd: Mapping[str, torch.Tensor], template: Tree, prefix: str = "mo
     return to_jax(sd, template, _table(template, dim_mults), prefix)
 
 
+def _completer_rows(params: Tree) -> List[Row]:
+    """Rows of JAX's FlowCompleter tree against ``FlowCompleterNet``."""
+    return [(("net", "Unet_0") + path, "net." + key, kind)
+            for path, key, kind in _table(params["net"]["Unet_0"])] + [
+        (("null_embedding",), "null_embedding", "vec")]
+
+
+def flow_completer_state_dict(params: Tree) -> Dict[str, torch.Tensor]:
+    """State_dict of FlowCompleter's module from its JAX params."""
+    return from_jax(params, _completer_rows(params))
+
+
+def flow_completer_jax_layout(sd: Mapping[str, torch.Tensor], template: Tree) -> Dict:
+    """JAX's FlowCompleter tree of ``template`` from the port state_dict
+    ``sd`` (parameters or their gradients)."""
+    return to_jax(sd, template, _completer_rows(template))
+
+
 def autoencoder_jax_layout(sd: Mapping[str, torch.Tensor], template: Tree,
                            prefix: str = "") -> Dict:
     """The JAX Autoencoder tree of ``template`` from the port state_dict
@@ -289,5 +311,6 @@ def autoencoder_jax_layout(sd: Mapping[str, torch.Tensor], template: Tree,
 
 
 __all__ = ["autoencoder_jax_layout", "autoencoder_state_dict", "filter_codec_rows",
+           "flow_completer_jax_layout", "flow_completer_state_dict",
            "flow_diffuser_state_dict", "flow_learner_jax_layout", "flow_learner_state_dict",
            "from_jax", "jax_layout", "linear_attention_rows", "params_from_jax", "to_jax"]

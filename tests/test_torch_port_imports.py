@@ -9,7 +9,10 @@ from pathlib import Path
 import pytest
 
 from opticalflowdiffusion_tpu.config import compose
-from opticalflowdiffusion_tpu_torch.config import FLAGSHIP, FLAGSHIP_DATA
+from opticalflowdiffusion_tpu_torch.config import (
+    ANIMATION, ARTIFICIAL_VIDEO, FLAGSHIP, FLAGSHIP_DATA, FLOW_COMPLETER, FRAME_GENERATOR,
+    MATRIX_FLOW_ALGO,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "yaml", "opticalflowdiffusion_tpu", "cv2", "PIL"}
@@ -59,6 +62,16 @@ def test_data_and_runner_modules_are_checked():
         assert f"opticalflowdiffusion_tpu_torch/{mod}" in names, mod
 
 
+def test_family_modules_are_checked():
+    """MatrixFlow's and the animation family's modules are among the files
+    checked above."""
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for mod in ("algorithms/matrix_flow.py", "algorithms/animation.py",
+                "data/artificial_video.py", "experiments/animation.py",
+                "training/parity_families.py", "ops/filters.py", "utils/weights.py"):
+        assert f"opticalflowdiffusion_tpu_torch/{mod}" in names, mod
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
@@ -84,3 +97,42 @@ def test_flagship_config_matches_jax_compose():
     assert FLAGSHIP_DATA.max_motion == data.get("max_motion", 1)
     # the port draws its data at the model's resolution
     assert FLAGSHIP_DATA.image_size == algo.image_size
+
+
+@pytest.mark.parametrize("algorithm,port", [
+    ("matrix_flow", MATRIX_FLOW_ALGO), ("frame_generator", FRAME_GENERATOR),
+    ("flow_completer", FLOW_COMPLETER),
+])
+def test_family_configs_match_jax_compose(algorithm, port):
+    """Every key of the family's yamls holds JAX's composed value (the
+    port's ``cols`` and ``timesteps`` are JAX's ``cfg.get`` defaults)."""
+    experiment = "matrix_flow" if algorithm == "matrix_flow" else "animation"
+    dataset = "artificial" if algorithm == "matrix_flow" else "artificial_video"
+    cfg = compose([f"experiment={experiment}", f"algorithm={algorithm}", f"dataset={dataset}"])
+    algo = cfg.algorithm
+    for key, value in dict(algo).items():
+        if key != "name":
+            assert getattr(port, key) == value, key
+    assert port.precision == cfg.runtime.precision
+    if algorithm == "matrix_flow":
+        assert port.cols is None and algo.get("cols") is None
+    if algorithm == "frame_generator":
+        assert port.timesteps == algo.get("timesteps", 1000)
+        assert port.sampling_timesteps == algo.get("sampling_timesteps")
+
+
+def test_animation_experiment_config_matches_jax_compose():
+    """experiment/animation.yaml over base.yaml, and the video dataset."""
+    cfg = compose(["experiment=animation", "algorithm=frame_generator",
+                   "dataset=artificial_video"])
+    exp, data = cfg.experiment, cfg.dataset
+    assert ANIMATION.batch_size == exp.training.data.batch_size
+    assert ANIMATION.clipping == exp.training.get("clipping")
+    assert ANIMATION.check_interval == exp.validation.check_interval
+    assert ANIMATION.limit_batch == exp.validation.limit_batch
+    assert ANIMATION.val_batch_size == exp.validation.data.batch_size
+    assert ANIMATION.val_shuffle == exp.validation.data.shuffle
+    assert ANIMATION.every_n_train_steps == exp.training.checkpointing.every_n_train_steps
+    assert ANIMATION.num_workers == exp.training.data.num_workers
+    for key in ("image_size", "size", "val_length", "max_motion"):
+        assert getattr(ARTIFICIAL_VIDEO, key) == data[key], key

@@ -248,11 +248,14 @@ def test_loader_skip_resumes_mid_epoch(trees):
 
 
 def test_registry_and_configs_match_jax():
-    assert DATASETS == ("artificial", "sintel", "flying_chairs", "kitti_single")
+    assert DATASETS == ("artificial", "sintel", "flying_chairs", "kitti_single",
+                        "artificial_video")
     assert get_dataset("sintel") is SintelDataset
     assert get_dataset("flying_chairs") is FlyingChairsDataset
     assert get_dataset("kitti_single") is KittiSingleDataset
     with pytest.raises(KeyError):
+        get_dataset("buck_bunny_video")
+    with pytest.raises(NotImplementedError, match="A8"):       # waits for the RAFT port
         get_dataset("taichi")
     for name, port in (("sintel", pcfg.SINTEL), ("flying_chairs", pcfg.FLYING_CHAIRS),
                        ("kitti_single", pcfg.KITTI_SINGLE)):
