@@ -2,11 +2,11 @@
 
     python3 chip_smoke.py
 
-Budget: under 10 minutes on one H100, the kernel build included (one plain
+Budget: 10-13 minutes on one H100, the kernel build included (one plain
 ``nvcc`` call per source, all started together; seconds each).  A run took
-539 s on an H100 (596 s with the parity smoke at 20 steps; the real-data
-phase ~2 minutes of it, the MatrixFlow and animation phase ~1.5), under
-half the 1200 s limit.  Every line
+615 s on an H100 and 764 s on another (the host-clock phases 20-45% slower
+there; the real-data phase ~2 minutes, the MatrixFlow and animation phase
+~2, the pwc phase ~30 s), against the 1200 s limit.  Every line
 it prints is one JSON object, flushed as it goes, apart from the card's
 ``nvidia-smi`` line.  Phases:
 
@@ -183,8 +183,9 @@ it prints is one JSON object, flushed as it goes, apart from the card's
    a val_step.  ``train.py`` through both experiments (2 steps with a
    validation, ``--resume`` to 3) and ``sample.py --algorithm
    frame_generator --ckpt`` on the animation run.  Then 20 steps of each
-   stage of ``training/parity_families.py``: the data-only metrics within
-   1e-3 of JAX's recorded ones, every final metric finite.
+   stage of ``training/parity_families.py`` but the PWC hunt (its runs are
+   the ``pwc`` stage's path): the data-only metrics within 1e-3 of JAX's
+   recorded ones, every final metric finite.
    ``python3 chip_smoke.py --families-only`` runs the device, build and
    this phase alone and prints no result line (a development aid).
 11. real_data: the JAX package's dress rehearsal on the port.  For
@@ -213,7 +214,30 @@ it prints is one JSON object, flushed as it goes, apart from the card's
    ``real_data`` line a dataset with the card's name and power limit.
    ``python3 chip_smoke.py --real-data-only`` runs the device, build and
    this phase alone and prints no result line (a development aid).
-12. profiler: device times from ``torch.profiler``, after the last
+12. pwc: PWCLearner (ROADMAP A7) and its cost-volume kernels (S3).  The
+   correlation forward and backward at the five level shapes of a native
+   448x1024 b8 step (C 192 at 7x16 ... C 32 at 112x256), f32 and bf16,
+   both directions, against the plain version (unfold + einsum and the
+   reorder, its sums in f32): the forward and both cotangents within
+   TOL_CORR, a repeat bit for bit, CUDA-event times beside the plain
+   version's and the bounds (no library call computes this function).
+   Then the experiment's PWCLearner train step at 448x1024 b8 f32 on a
+   native Sintel fixture batch (``train.py``'s build: clip 100, Adam): its
+   loss with the kernels against the all-plain step's (TOL_PWC_LOSS; the
+   gradient's difference recorded, not pinned: C7), every correlation call
+   of that step held to the plain version on its own inputs, the same for
+   the default precision's (bf16) step on that batch, and a count
+   window of 2 warm-ups and 4 timed steps (exactly 10 forward and 10
+   backward calls a step, no other kernel): samples/s and peak memory.
+   Then ``train.py --algorithm pwc_learner --dataset sintel`` at 1024,448
+   b8: 3 steps with a validation and its images, checkpoints, a resume from
+   ``--ckpt-path`` to 4, and ``--tasks test`` raising as JAX's reader does,
+   in a count window of its own (b2: the reader decodes the native PNGs on
+   the host).  The family parity smoke (phase 10) also runs the ``pwc``
+   stage.  ``python3 chip_smoke.py
+   --pwc-only`` runs the device, build and this phase alone and prints no
+   result line (a development aid).
+13. profiler: device times from ``torch.profiler``, after the last
    host-clock window, so that no profiler trace runs before one: the
    splat forward by pass and its launches per call at 128x128 b8 and
    448x1024 b2 (bf16, f32) and at the pyramid loss's f32 scales 2-16 at
@@ -226,7 +250,7 @@ it prints is one JSON object, flushed as it goes, apart from the card's
    summed over a native b2 eval (``mid_ctx_device_times``, row 8's keys
    prefixed ``out_``); one f32 learner step's device-busy time against its
    wall time, by kernel kind (``learner_step_device_time``).
-13. the kernels line: for each kernel its route, source, the TPU kernel it
+14. the kernels line: for each kernel its route, source, the TPU kernel it
    replaces, launches over all count windows, error, ms, plain ms, bound
    ms and what bounds it, library ms; for rows 6, 9 and 10 also
    ``vs_library`` (ms / library ms) and ``bound_share`` (bound ms / ms),
@@ -248,8 +272,10 @@ it prints is one JSON object, flushed as it goes, apart from the card's
    step's own inputs: events, plain, bound and device ms); for rows 7 and
    8 ``device_ms`` (torch.profiler, a native b2 eval's 8 blocks) and
    ``bound_share`` (bound ms / device ms); every row also
-   ``learner_launches_per_step``.
-14. the result line.
+   ``learner_launches_per_step``; for the correlation forward and backward
+   the sums over a native b8 f32 step's 10 calls (``launches_per_native_step``,
+   ``bound_share``).
+15. the result line.
 
 Any failure raises and exits non-zero without the result line; so does a
 run without a CUDA device or without the port's package beside this file.
@@ -282,10 +308,12 @@ from opticalflowdiffusion_tpu_torch.config import FLAGSHIP, FLOW_LEARNER, FLOW_P
 from opticalflowdiffusion_tpu_torch.data import fixtures, get_dataset, host
 from opticalflowdiffusion_tpu_torch.data.loader import DataLoader
 from opticalflowdiffusion_tpu_torch.kernels import build as kbuild
+from opticalflowdiffusion_tpu_torch.models import pwc_net as pwc_mod
 from opticalflowdiffusion_tpu_torch.models import unet as unet_mod
 from opticalflowdiffusion_tpu_torch.ops import attention_fused as af
 from opticalflowdiffusion_tpu_torch.ops import attention_pallas as am
 from opticalflowdiffusion_tpu_torch.ops import conv as pc
+from opticalflowdiffusion_tpu_torch.ops import correlation as pcorr
 from opticalflowdiffusion_tpu_torch.ops import flash_attention as fa
 from opticalflowdiffusion_tpu_torch.ops import splat as sp
 from opticalflowdiffusion_tpu_torch.experiments.base import to_device
@@ -3091,25 +3119,28 @@ def family_entry_points(totals, root):
 
 def family_parity_smoke(totals, root):
     """training/parity_families.py on the card: FAMILY_PARITY_STEPS steps of
-    each stage at its 32x32 settings, one count window; the data-only
-    metrics within 1e-3 of JAX's recorded ones, every final metric finite."""
+    each stage at its settings (32x32; PWC's 64x64 b8) but the PWC hunt
+    (the pwc stage's path three times more), one count window; the
+    data-only metrics within 1e-3 of JAX's recorded ones, every final
+    metric finite."""
     from opticalflowdiffusion_tpu_torch.training import parity_families as pfam
 
     log = io.StringIO()
     torch.cuda.synchronize()
     kernels.reset_counts()
     t = time.perf_counter()
+    run = tuple(s for s in pfam.STAGES if s != "pwc_hunt")
     with contextlib.redirect_stdout(log):
         res = pfam.run_families(out_dir=str(root / "parity_families"),
                                 steps=FAMILY_PARITY_STEPS, device="cuda", val_batches=1,
-                                log_every=FAMILY_PARITY_STEPS)
+                                log_every=FAMILY_PARITY_STEPS, stages=run)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t
     launches = {k.name: k.launches for k in kernels.KERNELS}
     for k, n in launches.items():
         totals[k] += n
     stages = {}
-    for key in pfam.KEYS.values():
+    for key in (pfam.KEYS[s] for s in run):
         data_only = {k: v for k, v in res["bars"][key].items()
                      if isinstance(v["bar"], str)}
         final = {k: v for k, v in res[key]["final"].items() if not isinstance(v, list)}
@@ -3121,7 +3152,8 @@ def family_parity_smoke(totals, root):
               f"family parity smoke {key}: non-finite final metrics {final}")
     phase("family_parity_smoke", steps=FAMILY_PARITY_STEPS, seconds=sec, launches=launches,
           stages=stages)
-    check_launches("family parity smoke", launches, set(FWD_KERNELS) | set(BWD_KERNELS))
+    check_launches("family parity smoke", launches,
+                   set(FWD_KERNELS) | set(BWD_KERNELS) | PWC_MUST)
 
 
 def matrix_flow_animation_phase():
@@ -3142,7 +3174,7 @@ def matrix_flow_animation_phase():
     phase("launch_counts_matrix_flow_animation", seconds=time.perf_counter() - t,
           launches=totals)
     check_launches("matrix_flow_animation", totals,
-                   set(FWD_KERNELS) | set(BWD_KERNELS) | {"splat_fwd"})
+                   set(FWD_KERNELS) | set(BWD_KERNELS) | {"splat_fwd"} | PWC_MUST)
     return totals
 
 
@@ -3386,6 +3418,318 @@ def real_data_phase(smi):
     return totals
 
 
+# ------------------------------------------------------------------ PWC (S3)
+# the 9x9 cost volume's shapes on a native 448x1024 b8 step (levels 6..2):
+# (C, H, W); a step calls the forward and the backward once per level and
+# direction
+CORR_SHAPES = ((192, 7, 16), (128, 14, 32), (96, 28, 64), (64, 56, 128), (32, 112, 256))
+PWC_B = 8
+CORR_PER_STEP = 2 * len(CORR_SHAPES)
+# the kernel against the plain version, relative to the plain version's
+# largest |value|: f32 sums of up to 192 products (forward) or 81
+# (cotangents) in another order; bf16: one rounding of the f32 sum on each
+# side
+TOL_CORR = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+# the PWCLearner step's loss with the kernels against the all-plain step
+# (relative): both run the same convs, and the cost volumes differ by the
+# sums' rounding only (in bf16 by up to one bf16 rounding of each value,
+# 2^-8, which the loss, a sum over the whole pyramid, averages)
+TOL_PWC_LOSS = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
+PWC_WARMUP, PWC_TIMED = 2, 4
+# train.py's run on the fixture tree: steps, the resumed run's last step, batch
+PWC_STEPS, PWC_RESUMED, PWC_ENTRY_B = 3, 4, 2
+PWC_MUST = {"correlation_fwd", "correlation_bwd"}
+
+
+def corr_plain(a, b, direction):
+    """The plain version (unfold + einsum, then the reorder), its sums in
+    float32 for bf16 features and rounded once, as the kernel's."""
+    out = pcorr.local_correlation_plain(a.float(), b.float())
+    return pcorr.pwc_index_reorder(out, direction).to(a.dtype)
+
+
+def corr_plain_grads(a, b, g, direction):
+    """(grad_a, grad_b) of the plain version by autograd, in float32 and
+    rounded once to the features' dtype."""
+    la, lb = (t.detach().float().requires_grad_() for t in (a, b))
+    with torch.enable_grad():
+        out = pcorr.pwc_index_reorder(pcorr.local_correlation_plain(la, lb), direction)
+        ga, gb = torch.autograd.grad(out, (la, lb), g.float())
+    return ga.to(a.dtype), gb.to(b.dtype)
+
+
+def rel_err(got, want):
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def corr_bound_ms(Bn, C, H, W, xbytes, bwd=False):
+    """(bytes ms, operations ms): the forward reads a and b and writes the 81
+    products; the backward reads a, b and g and writes both cotangents;
+    2 x 81 x C FLOP a pixel (twice in the backward) at the peak rate of the
+    features' type (bf16 tensor cores, f32 CUDA cores)."""
+    n = Bn * H * W
+    nbytes = (4 * C + 81) * n * xbytes if bwd else (2 * C + 81) * n * xbytes
+    flops = (2 if bwd else 1) * 2 * 81 * C * n
+    return (1e3 * nbytes / HBM_BPS,
+            1e3 * flops / (BF16_FLOPS if xbytes == 2 else F32_FLOPS))
+
+
+def corr_phase():
+    """The correlation kernels against their plain versions at the five
+    level shapes of a native 448x1024 b8 step, f32 and bf16, both
+    directions: the forward and both cotangents within TOL_CORR, a repeat
+    bit for bit, CUDA-event times beside the plain version's (the plain
+    backward: autograd's over a kept graph) and the bounds.  Returns the
+    f32 per-step sums {fwd, bwd: {ms, plain_ms, bound_ms, bound_by, err}}
+    (err: the largest absolute error)."""
+    step = {k: dict(ms=0.0, plain_ms=0.0, bytes_ms=0.0, ops_ms=0.0, err=0.0)
+            for k in ("fwd", "bwd")}
+    for dtype in (torch.float32, torch.bfloat16):
+        xb = torch.empty((), dtype=dtype).element_size()
+        for i, (C, H, W) in enumerate(CORR_SHAPES):
+            g = torch.Generator(device="cuda").manual_seed(2000 + i)
+            rn = lambda *s: torch.randn(*s, generator=g, device="cuda").to(dtype)
+            a, b = rn(PWC_B, C, H, W), rn(PWC_B, C, H, W)
+            cot = rn(PWC_B, 81, H, W)
+            for direction in ("fwd", "bwd"):
+                out = pcorr.corr_fwd(a, b, direction)
+                want = corr_plain(a, b, direction)
+                ga, gb = pcorr.corr_bwd(a, b, cot, direction)
+                wa, wb = corr_plain_grads(a, b, cot, direction)
+                errs = dict(fwd=rel_err(out, want), grad_a=rel_err(ga, wa),
+                            grad_b=rel_err(gb, wb))
+                abs_errs = dict(fwd=err(out, want)[0], grad_a=err(ga, wa)[0],
+                                grad_b=err(gb, wb)[0])
+                repeat = (torch.equal(out, pcorr.corr_fwd(a, b, direction))
+                          and all(torch.equal(x, y) for x, y in
+                                  zip((ga, gb), pcorr.corr_bwd(a, b, cot, direction))))
+                ms = cuda_ms(lambda: pcorr.corr_fwd(a, b, direction))
+                bms = cuda_ms(lambda: pcorr.corr_bwd(a, b, cot, direction))
+                plain_ms = cuda_ms(lambda: pcorr.pwc_index_reorder(
+                    pcorr.local_correlation_plain(a, b), direction))
+                la, lb = (t.detach().requires_grad_() for t in (a, b))
+                graph = pcorr.pwc_index_reorder(pcorr.local_correlation_plain(la, lb), direction)
+                plain_bms = cuda_ms(lambda: torch.autograd.grad(graph, (la, lb), cot,
+                                                                retain_graph=True))
+                del graph
+                fb, fo = corr_bound_ms(PWC_B, C, H, W, xb)
+                bb, bo = corr_bound_ms(PWC_B, C, H, W, xb, bwd=True)
+                ok = max(errs.values()) <= TOL_CORR[dtype] and repeat
+                phase("kernel_vs_plain", kernel="correlation", shape=[PWC_B, C, H, W],
+                      dtype=str(dtype).split(".")[1], direction=direction, rel_err=errs,
+                      abs_err=abs_errs, tol=TOL_CORR[dtype], repeat_bitwise=repeat, fwd_ms=ms, plain_fwd_ms=plain_ms,
+                      fwd_bound_ms=max(fb, fo), fwd_bound_by="bytes" if fb >= fo else "operations",
+                      bwd_ms=bms, plain_bwd_ms=plain_bms, bwd_bound_ms=max(bb, bo),
+                      bwd_bound_by="bytes" if bb >= bo else "operations", library_ms=None)
+                check(ok, f"correlation {dtype} {(C, H, W)} {direction}: {errs} "
+                          f"(tol {TOL_CORR[dtype]}), repeat bitwise {repeat}")
+                if dtype == torch.float32:
+                    for k, t, p, by, bo_ in (("fwd", ms, plain_ms, fb, fo),
+                                             ("bwd", bms, plain_bms, bb, bo)):
+                        s = step[k]
+                        s["ms"] += t
+                        s["plain_ms"] += p
+                        s["bytes_ms"] += by
+                        s["ops_ms"] += bo_
+                        s["err"] = max(s["err"], abs_errs["fwd"] if k == "fwd"
+                                       else max(abs_errs["grad_a"], abs_errs["grad_b"]))
+    for s in step.values():
+        s["bound_ms"] = max(s["bytes_ms"], s["ops_ms"])
+        s["bound_by"] = "bytes" if s["bytes_ms"] >= s["ops_ms"] else "operations"
+    phase("correlation_per_native_step", per=f"10 calls of a 448x1024 b{PWC_B} f32 step",
+          **{k: {kk: sig(v) for kk, v in s.items()} for k, s in step.items()})
+    return step
+
+
+@contextlib.contextmanager
+def captured_corr():
+    """The arguments of every correlation kernel call inside the window:
+    ("fwd", a, b, direction) and ("bwd", a, b, g, direction), detached."""
+    calls, fwd, bwd, keep = [], pcorr.corr_fwd, pcorr.corr_bwd, clone_once()
+
+    def cap_fwd(a, b, direction=None):
+        calls.append(("fwd", keep(a), keep(b), direction))
+        return fwd(a, b, direction)
+
+    def cap_bwd(a, b, g, direction=None):
+        calls.append(("bwd", keep(a), keep(b), keep(g), direction))
+        return bwd(a, b, g, direction)
+
+    pcorr.corr_fwd, pcorr.corr_bwd = cap_fwd, cap_bwd
+    try:
+        yield calls
+    finally:
+        pcorr.corr_fwd, pcorr.corr_bwd = fwd, bwd
+
+
+@contextlib.contextmanager
+def plain_correlation():
+    """PWCNet's cost volumes through the plain version on the card (this
+    script's reference runs only)."""
+    saved = pwc_mod.local_correlation
+    pwc_mod.local_correlation = lambda a, b, direction=None: pcorr.pwc_index_reorder(
+        pcorr.local_correlation_plain(a, b), direction)
+    try:
+        yield
+    finally:
+        pwc_mod.local_correlation = saved
+
+
+def pwc_step_grads(exp, batch):
+    """The loss and per-parameter gradients of the experiment's loss on
+    ``batch`` (no optimizer step)."""
+    module = exp.algorithm.module
+    module.train()
+    module.zero_grad(set_to_none=True)
+    loss, _ = exp.algorithm.loss_fn(batch, exp.generator)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in module.named_parameters()}
+    module.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def pwc_step_vs_plain(exp, batch, dtype):
+    """The experiment's loss and gradients on ``batch`` with the kernels
+    against the all-plain step's (the loss within TOL_PWC_LOSS[dtype]; the
+    gradient's difference recorded, not pinned), and every correlation call
+    of that step held to the plain version on its own inputs."""
+    name = str(dtype).split(".")[1]
+    with captured_corr() as calls:
+        loss_k, grads_k = pwc_step_grads(exp, batch)
+    with plain_correlation():
+        loss_p, grads_p = pwc_step_grads(exp, batch)
+    gdiff = max(float((grads_k[n].float() - grads_p[n].float()).norm()
+                      / grads_p[n].float().norm().clamp_min(1e-30)) for n in grads_p)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    check(np.isfinite(loss_k) and loss_rel <= TOL_PWC_LOSS[dtype],
+          f"pwc {name} step: loss {loss_k} with the kernels, {loss_p} plain (rel {loss_rel})")
+    on_inputs = dict(fwd=0.0, bwd=0.0)
+    n_fwd = sum(c[0] == "fwd" for c in calls)
+    n_bwd = sum(c[0] == "bwd" for c in calls)
+    dtypes = {str(c[1].dtype) for c in calls}
+    for c in calls:
+        if c[0] == "fwd":
+            _, a, b, d = c
+            e = rel_err(pcorr.corr_fwd(a, b, d), corr_plain(a, b, d))
+        else:
+            _, a, b, g, d = c
+            got, want = pcorr.corr_bwd(a, b, g, d), corr_plain_grads(a, b, g, d)
+            e = max(rel_err(x, y) for x, y in zip(got, want))
+        on_inputs[c[0]] = max(on_inputs[c[0]], e)
+    del calls, grads_k, grads_p
+    check(n_fwd == CORR_PER_STEP and n_bwd == CORR_PER_STEP and dtypes == {str(dtype)}
+          and max(on_inputs.values()) <= TOL_CORR[dtype],
+          f"pwc {name} step's own inputs: {n_fwd} forward and {n_bwd} backward calls "
+          f"on {dtypes}, errors {on_inputs}")
+    phase("pwc_step_vs_plain", shape=[PWC_B, 3, 448, 1024], dtype=name, loss=loss_k,
+          plain_loss=loss_p, loss_rel_diff=loss_rel, tol=TOL_PWC_LOSS[dtype],
+          grad_rel_diff_max_leaf=gdiff, calls=dict(fwd=n_fwd, bwd=n_bwd),
+          on_step_inputs_rel_err=on_inputs, tol_kernel=TOL_CORR[dtype])
+
+
+def pwc_phase():
+    """PWCLearner on the card (ROADMAP A7, S3): the correlation kernels at
+    the native level shapes (``corr_phase``); the experiment's train step at
+    448x1024 b8 f32 on a native Sintel fixture batch (clip 100, Adam, as
+    train.py runs it): its loss with the kernels against the all-plain
+    step's (TOL_PWC_LOSS; the gradient's difference recorded, not pinned),
+    every correlation call of that step held to the plain version on its
+    own inputs, the same for the default precision's (bf16) step on that
+    batch, a count window of 2 warm-ups and 4 timed steps (exactly 10
+    forward and 10 backward calls a step, no other kernel) with the
+    samples/s and the peak memory; then ``train.py --algorithm pwc_learner
+    --dataset sintel`` at 1024,448 b2 (3 steps with a validation and its
+    images, checkpoints, a resume from ``ckpt_path`` to 4, ``--tasks test``
+    raising as JAX's reader does) in a count window of its own.  Returns
+    (the f32 per-step kernel sums, the launches of the windows)."""
+    per_step = corr_phase()
+    totals = {k.name: 0 for k in kernels.KERNELS}
+    work = Path(tempfile.mkdtemp(prefix="ofd_pwc_"))
+    try:
+        data_root = work / "data"
+        fixtures.make_sintel_fixture(data_root, scenes=2, frames=13)
+        common = dict(batch=PWC_B, val_batch=2, image_size="1024,448", seed=SEED,
+                      device="cuda", algorithm="pwc_learner", precision="float32",
+                      dataset="sintel", data_root=str(data_root), workers=4)
+        exp = train_entry.build(PWC_STEPS, out=str(work / "step"), **common)
+        batch = to_device(next(iter(exp.train_loader)), "cuda")
+        check(len(batch) == 4 and tuple(batch[0].shape) == (PWC_B, 3, 448, 1024),
+              f"pwc: batch {[tuple(t.shape) for t in batch]}")
+        pwc_step_vs_plain(exp, batch, torch.float32)
+        # the default precision's step (bf16) on the same batch
+        pwc_step_vs_plain(train_entry.build(PWC_STEPS, out=str(work / "step_bf16"),
+                                            **{**common, "precision": "bf16"}),
+                          batch, torch.bfloat16)
+        # the count window: warm-ups and timed steps of the experiment's step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counts()
+        exp.state.module.train()
+        for _ in range(PWC_WARMUP):
+            m = exp.train_step(exp.state, batch, exp.generator)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(PWC_TIMED):
+            m = exp.train_step(exp.state, batch, exp.generator)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+        n = PWC_WARMUP + PWC_TIMED
+        check(launches["correlation_fwd"] == n * CORR_PER_STEP
+              and launches["correlation_bwd"] == n * CORR_PER_STEP
+              and np.isfinite(float(m["train/loss"])),
+              f"pwc window: launches {launches}, loss {float(m['train/loss'])}")
+        check_launches("pwc train steps", launches, PWC_MUST)
+        for k, v in launches.items():
+            totals[k] += v
+        phase("pwc_train_steps", shape=[PWC_B, 3, 448, 1024], dtype="float32",
+              samples_per_s=PWC_TIMED * PWC_B / sec, ms_per_step=1e3 * sec / PWC_TIMED,
+              peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches,
+              loss=float(m["train/loss"]))
+        del exp, batch
+        # train.py on the fixture tree: train, validate, resume, test
+        common.update(batch=PWC_ENTRY_B)
+        out = work / "run"
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        t = time.perf_counter()
+        first = train_entry.run(PWC_STEPS, check_interval=PWC_STEPS, ckpt_every=2, log_every=1,
+                                out=str(out), **common)
+        resumed = train_entry.run(PWC_RESUMED, out=str(work / "resumed"),
+                                  ckpt_path=str(out / "checkpoints" / "2"), **common)
+        try:
+            train_entry.run(PWC_RESUMED, tasks=("test",), out=str(out), **common)
+            test_raised = None
+        except AssertionError as e:                  # JAX's reader asserts the split
+            test_raised = str(e)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+        check(first["step"] == PWC_STEPS and first["checkpoints"] == [2, PWC_STEPS],
+              f"pwc train.py: {first['step']} {first['checkpoints']}")
+        check(resumed["start_step"] == 2 and resumed["step"] == PWC_RESUMED,
+              f"pwc train.py --ckpt-path: {resumed['start_step']} -> {resumed['step']}")
+        check(sorted(k for k in first["val"] if k.startswith("val/")) == ["val/epe", "val/loss"]
+              and all(np.isfinite(v) for v in first["val"].values())
+              and np.isfinite(resumed["train"]["train/loss"]),
+              f"pwc train.py: metrics {first['val']} {resumed['train']}")
+        check(len(first["images"]) == 9 and all((out / "images" / k).is_dir()
+                                                for k in first["images"]),
+              f"pwc train.py: validation images {first['images']}")
+        check(test_raised is not None and "training or validation" in test_raised,
+              "pwc train.py: sintel's test task did not raise as JAX's does")
+        check_launches("pwc train.py", launches, PWC_MUST)
+        for k, v in launches.items():
+            totals[k] += v
+        phase("pwc_train_entry", dataset="sintel", image_size="1024,448", batch=PWC_ENTRY_B,
+              seconds=sec, steps=first["step"], resumed=[resumed["start_step"], resumed["step"]],
+              val=first["val"], samples_per_s=first["samples_per_s"], images=first["images"],
+              test_raised=test_raised, launches=launches)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return per_step, totals
+
+
 def main():
     smi = device_phase()
     build_phase()
@@ -3394,6 +3738,9 @@ def main():
         return
     if sys.argv[1:] == ["--families-only"]:      # a development aid: no result line
         matrix_flow_animation_phase()
+        return
+    if sys.argv[1:] == ["--pwc-only"]:           # a development aid: no result line
+        pwc_phase()
         return
     la128 = la_phase(B, SHAPES, "128x128")
     la_native = la_phase(NATIVE_B, NATIVE_SHAPES, "448x1024", iters=10)
@@ -3413,6 +3760,9 @@ def main():
                    matrix_flow_animation_phase, lambda: real_data_phase(smi)):
         for k, n in window().items():
             launches[k] += n
+    corr_step, pwc_launches = pwc_phase()
+    for k, n in pwc_launches.items():
+        launches[k] += n
     phase("launch_counts_all_paths", launches=launches)
     prof = profiler_phase()
     per_la = f"one 448x1024 b{NATIVE_B} UNet eval (8 launches, bf16 x)"
@@ -3481,6 +3831,14 @@ def main():
                         vs_library=r["ms"] / r["library_ms"], bound_share=r["bound_ms"] / r["ms"],
                         per=f"one launch, 3x3 64->64 at 448x1024 b{NATIVE_B} bf16"
                             + (" with the prologue" if k is kernels.CONV_FOLD else ""))
+        elif k in (kernels.CORR, kernels.CORR_BWD):
+            st = corr_step["fwd" if k is kernels.CORR else "bwd"]
+            vals = dict(max_abs_err=st["err"], ms=st["ms"], plain_ms=st["plain_ms"],
+                        bound_ms=st["bound_ms"], bound_by=st["bound_by"], library_ms=None,
+                        bound_share=st["bound_ms"] / st["ms"],
+                        launches_per_native_step=CORR_PER_STEP,
+                        per=f"the {CORR_PER_STEP} calls of one 448x1024 b{PWC_B} f32 PWCLearner "
+                            "step (5 levels x 2 directions)")
         elif k in (kernels.LA_MID_CTX, kernels.LA_MID_OUT):
             st = mid["ctx" if k is kernels.LA_MID_CTX else "out"]
             vals = dict(max_abs_err=st["err"], ms=st["ms"], plain_ms=st["plain_ms"],

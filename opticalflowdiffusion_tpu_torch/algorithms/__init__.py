@@ -1,1 +1,3 @@
-"""Algorithms (JAX ``algorithms/``): the batch adapter and FlowDiffuser."""
+"""Algorithms (JAX ``algorithms/``): the batch adapter, FlowDiffuser, FlowPred,
+FlowLearner, MatrixFlow, the animation family and PWCLearner with its loss
+library."""

@@ -8,7 +8,8 @@ with the dataset drawn at the algorithm's image size, the real-data
 datasets of ``dataset/{sintel,flying_chairs,kitti_single}.yaml``, and the
 MatrixFlow and animation family: ``algorithm/{matrix_flow,frame_generator,
 flow_completer}.yaml``, ``dataset/artificial_video.yaml`` and
-``experiment/animation.yaml`` over ``experiment/base.yaml``.
+``experiment/animation.yaml`` over ``experiment/base.yaml``, and
+``algorithm/pwc_learner.yaml``.
 """
 
 from __future__ import annotations
@@ -212,6 +213,22 @@ class FlowCompleterConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class PWCLearnerConfig:
+    """``algorithm/pwc_learner.yaml`` plus ``runtime.precision``, the
+    artificial dataset's side (``image_size``: the yaml has none, and the
+    model takes any size whose pyramid halves exactly) and JAX's
+    ``smoothness_weight`` and ``occ_weight`` knobs (the ``+algorithm`` ones;
+    1 is the reference's loss)."""
+
+    image_size: int = 128
+    lr: float = 1e-4
+    weight_decay: float = 1e-6
+    smoothness_weight: float = 1.0
+    occ_weight: float = 1.0
+    precision: str = "bf16"
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainingConfig:
     """``experiment/matrix_flow.yaml`` over ``experiment/base.yaml``: the
     training batch, gradient clipping, step budget (``max_steps`` -1 runs
@@ -264,6 +281,7 @@ FLOW_COMPLETER = FlowCompleterConfig()
 ARTIFICIAL_VIDEO = ArtificialVideoDataConfig()
 FLOW_PRED = FlowPredConfig()
 FLOW_LEARNER = FlowLearnerConfig()
+PWC_LEARNER = PWCLearnerConfig()
 FLAGSHIP_DATA = ArtificialDataConfig()
 SINTEL = SintelDataConfig()
 FLYING_CHAIRS = FlyingChairsDataConfig()
@@ -279,8 +297,9 @@ NATIVE = ServingConfig()
 
 __all__ = ["ArtificialDataConfig", "ArtificialVideoDataConfig", "FlowCompleterConfig",
            "FlowDiffuserConfig", "FlowLearnerConfig", "FlowPredConfig", "FlyingChairsDataConfig",
-           "FrameGeneratorConfig", "KittiSingleDataConfig", "MatrixFlowConfig", "ServingConfig",
+           "FrameGeneratorConfig", "KittiSingleDataConfig", "MatrixFlowConfig", "PWCLearnerConfig",
+           "ServingConfig",
            "SintelDataConfig", "TrainingConfig", "ANIMATION", "ARTIFICIAL_VIDEO", "DATA",
            "FLAGSHIP", "FLAGSHIP_DATA", "FLOW_COMPLETER", "FLOW_LEARNER", "FLOW_PRED",
            "FLYING_CHAIRS", "FRAME_GENERATOR", "KITTI_SINGLE", "MATRIX_FLOW", "MATRIX_FLOW_ALGO",
-           "NATIVE", "SINTEL"]
+           "NATIVE", "PWC_LEARNER", "SINTEL"]

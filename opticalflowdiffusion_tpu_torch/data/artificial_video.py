@@ -9,9 +9,12 @@ flow (2)]`` (HWC float32): a training item is one (H, W, 8) stack at a
 random transition, a validation (or test) item the (val_length, H, W, 8)
 stacks of consecutive transitions.  ``experiments/base.py::to_device``
 turns them into (B, 8, H, W) and (B, T, 8, H, W) tensors.
+``ThreeFrameVideo`` is the three-frame view that PWCLearner trains on.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
@@ -74,4 +77,31 @@ class ArtificialVideoDataset:
         return (np.stack([self._stack(index, t) for t in range(self.val_length)], axis=0),)
 
 
-__all__ = ["ArtificialVideoDataset"]
+# the seed offset of each split's three-frame view (JAX's parity harness:
+# training + 0, validation + 1000)
+THREE_FRAME_SEEDS = {"training": 0, "validation": 1000, "test": 2000}
+
+
+class ThreeFrameVideo:
+    """Three consecutive frames of a sequence and the forward flow on the
+    middle one, (f1, f2, f3, flow), each (H, W, C): JAX's ``ThreeFrame``
+    view (``training/parity_families.py:165-187``) of the validation split
+    (``val_length`` >= 2) drawn from the config's seed plus the split's
+    offset (``THREE_FRAME_SEEDS``).  f1 is stack 0's last frame, f2 stack
+    1's last frame, f3 stack 1's target."""
+
+    def __init__(self, cfg: ArtificialVideoDataConfig, split: str = "training"):
+        if int(cfg.val_length) < 2:
+            raise ValueError(f"three frames need val_length >= 2, got {cfg.val_length}")
+        seed = (cfg.seed if cfg.seed is not None else 0) + THREE_FRAME_SEEDS[split]
+        self.ds = ArtificialVideoDataset(dataclasses.replace(cfg, seed=seed), split="validation")
+
+    def __len__(self) -> int:
+        return len(self.ds)
+
+    def __getitem__(self, index: int):
+        stack = self.ds[index][0]
+        return stack[0, ..., 3:6], stack[1, ..., 3:6], stack[1, ..., :3], stack[1, ..., 6:8]
+
+
+__all__ = ["ArtificialVideoDataset", "THREE_FRAME_SEEDS", "ThreeFrameVideo"]

@@ -79,8 +79,18 @@ LA_MID_OUT = Kernel(
     "opticalflowdiffusion_tpu_torch/kernels/linear_attention.cu",
     "opticalflowdiffusion_tpu/ops/attention_pallas.py:89",
 )
+CORR = Kernel(
+    "correlation_fwd",
+    "opticalflowdiffusion_tpu_torch/kernels/correlation.cu",
+    "opticalflowdiffusion_tpu/ops/correlation.py:28",
+)
+CORR_BWD = Kernel(
+    "correlation_bwd",
+    "opticalflowdiffusion_tpu_torch/kernels/correlation.cu",
+    "opticalflowdiffusion_tpu/ops/correlation.py:28",
+)
 KERNELS = (LA_CTX, LA_OUT, LA_BWD_Q, LA_BWD_KV1, LA_BWD_KV2, FLASH, SPLAT, SPLAT_BWD,
-           CONV_ROWS, CONV_FOLD, LA_MID_CTX, LA_MID_OUT)
+           CONV_ROWS, CONV_FOLD, LA_MID_CTX, LA_MID_OUT, CORR, CORR_BWD)
 
 
 def reset_counts() -> None:
@@ -88,6 +98,6 @@ def reset_counts() -> None:
         k.launches = 0
 
 
-__all__ = ["Kernel", "KERNELS", "CONV_FOLD", "CONV_ROWS", "FLASH", "LA_BWD_KV1", "LA_BWD_KV2",
-           "LA_BWD_Q", "LA_CTX", "LA_MID_CTX", "LA_MID_OUT", "LA_OUT", "SPLAT", "SPLAT_BWD",
-           "reset_counts"]
+__all__ = ["Kernel", "KERNELS", "CONV_FOLD", "CONV_ROWS", "CORR", "CORR_BWD", "FLASH",
+           "LA_BWD_KV1", "LA_BWD_KV2", "LA_BWD_Q", "LA_CTX", "LA_MID_CTX", "LA_MID_OUT", "LA_OUT",
+           "SPLAT", "SPLAT_BWD", "reset_counts"]

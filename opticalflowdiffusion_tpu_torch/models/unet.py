@@ -421,30 +421,48 @@ class Unet(nn.Module):
         return self.final_conv(x).float()
 
 
+# flax's lecun_normal: a normal truncated at +-2, divided by its standard
+# deviation there (jax.nn.initializers.variance_scaling's constant)
+TRUNC = 2.0
+TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal(shape, fan_in: int, generator: torch.Generator) -> torch.Tensor:
+    """A draw of flax's ``lecun_normal`` (``variance_scaling(1, "fan_in",
+    "truncated_normal")``): JAX's inverse-CDF truncated normal on [-2, 2]
+    (a uniform between erf(-2 / sqrt 2) and erf(2 / sqrt 2), through
+    sqrt 2 * erfinv), scaled by 1 / (0.8796 * sqrt(fan_in)), so that its
+    variance is 1 / fan_in and no entry exceeds 2.2737 / sqrt(fan_in)."""
+    lo, hi = (math.erf(v / math.sqrt(2.0)) for v in (-TRUNC, TRUNC))
+    u = lo + (hi - lo) * torch.rand(shape, generator=generator, dtype=torch.float64)
+    z = torch.clamp(math.sqrt(2.0) * torch.special.erfinv(u), -TRUNC, TRUNC)
+    return (z / (TRUNC_STD * math.sqrt(fan_in))).float()
+
+
 def init_weights(model: nn.Module, generator: torch.Generator,
-                 zero_init_final: Optional[bool] = None,
-                 flax_defaults: bool = False) -> nn.Module:
-    """Draw every parameter from ``generator``: kernels ~ N(0, 1/fan_in),
-    biases ~ N(0, 0.02^2), norm gains ~ 1 + N(0, 0.02^2), Fourier weights ~
-    N(0, 1); with ``flax_defaults`` the biases start at 0 and the gains at 1,
-    as flax's initialisers give them (so a zeroed output conv outputs 0, as
-    JAX's does).  The UNet's output
-    conv is zeroed when ``zero_init_final`` (default: the model's own flag).
-    Parameters are drawn on the CPU, so a seed gives the same weights on
-    every device."""
+                 zero_init_final: Optional[bool] = None) -> nn.Module:
+    """Start every parameter where flax's initialisers start it: kernels
+    (convs and dense layers) drawn from ``generator`` by
+    :func:`lecun_normal`, biases 0, norm gains 1, the Fourier time
+    embedding's weights ~ N(0, 1); so a zeroed output conv outputs exactly
+    0, as JAX's does.  The UNet's output conv is zeroed when
+    ``zero_init_final`` (default: the model's own flag).  Parameters are
+    drawn on the CPU, so a seed gives the same weights on every device."""
     with torch.no_grad():
-        for name, p in model.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
+        for m, leaf, p in ((m, n, p) for m in model.modules()
+                           for n, p in m.named_parameters(recurse=False)):
             if p.dim() >= 2 and leaf == "weight":
-                fan_in = p[0].numel()
-                v = torch.randn(p.shape, generator=generator) / math.sqrt(fan_in)
+                # flax's fan_in: the kernel's size over its input axes; a
+                # transposed conv's weight is (in, out, k, k), the others'
+                # (out, in, ...)
+                transposed = isinstance(m, nn.modules.conv._ConvTransposeNd)
+                v = lecun_normal(p.shape, (p[:, 0] if transposed else p[0]).numel(), generator)
             elif leaf == "weights":          # the Fourier time embedding's
                 v = torch.randn(p.shape, generator=generator)
             elif leaf == "bias":
-                v = torch.randn(p.shape, generator=generator) * (0.0 if flax_defaults else 0.02)
+                v = torch.zeros(p.shape)
             else:
-                v = 1.0 + torch.randn(p.shape, generator=generator) * (
-                    0.0 if flax_defaults else 0.02)
+                v = torch.ones(p.shape)
             p.copy_(v)
         for m in model.modules():
             if isinstance(m, Unet):
@@ -458,4 +476,5 @@ __all__ = [
     "Unet", "Conv", "WSConv", "ChanLayerNorm", "GroupNorm", "Block", "ResnetBlock",
     "LinearAttention", "LinearAttentionBlock", "Attention", "PreNormResidual", "Downsample",
     "RandomOrLearnedSinusoidalPosEmb", "Upsample", "sinusoidal_pos_emb", "init_weights",
+    "lecun_normal",
 ]

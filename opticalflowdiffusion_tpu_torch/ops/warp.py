@@ -1,5 +1,6 @@
-"""NaN-aware forward warp, the bilinear backward warp and losses (JAX
-``ops/warp.py``), NCHW.
+"""NaN-aware forward warp, the bilinear backward warp, losses and
+``jax.image.resize``'s bilinear and nearest resizes (JAX ``ops/warp.py``),
+NCHW.
 
 NaN input pixels carry zero weight; output pixels that receive no weight
 become NaN holes, and the ``nan_*`` losses reduce over the finite pairs only.
@@ -13,6 +14,7 @@ from typing import Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .splat import _softsplat
 
@@ -117,6 +119,32 @@ def permute_warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     return torch.gather(flat, 2, order[:, None, :].expand(B, C, H * W)).reshape(B, C, H, W)
 
 
+def resize(img: torch.Tensor, size: Sequence[int], method: str = "bilinear") -> torch.Tensor:
+    """``jax.image.resize`` of ``img`` (B, C, H, W) to ``size`` (H', W'):
+    ``bilinear`` is the triangle kernel, widened on an axis that shrinks
+    (JAX's antialias, torch's ``antialias=True``; on an axis that grows the
+    two agree with the plain bilinear), ``nearest`` is torch's
+    ``nearest-exact``.  Computed in float32, returned in ``img``'s dtype."""
+    size = (int(size[0]), int(size[1]))
+    if tuple(img.shape[-2:]) == size:
+        return img
+    x = img.float()
+    if method == "bilinear":
+        out = F.interpolate(x, size=size, mode="bilinear", align_corners=False, antialias=True)
+    elif method == "nearest":
+        out = F.interpolate(x, size=size, mode="nearest-exact")
+    else:
+        raise ValueError(f"unknown resize method {method!r}")
+    return out.to(img.dtype)
+
+
+def upsample_bilinear(img: torch.Tensor, factor: float) -> torch.Tensor:
+    """JAX's ``upsample_bilinear``: the bilinear :func:`resize` to
+    (int(H * factor), int(W * factor))."""
+    H, W = img.shape[-2:]
+    return resize(img, (int(H * factor), int(W * factor)))
+
+
 def _finite_pair_mask(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return ~(torch.isnan(pred) | torch.isnan(target))
 
@@ -174,5 +202,5 @@ def edgeaware_smoothness1(image: torch.Tensor, flow: torch.Tensor,
 
 
 __all__ = ["bilinear_gather", "charbonnier", "edgeaware_smoothness1", "fill_holes_nan", "nan_charbonnier",
-           "nan_mse", "nan_mse_stats", "permute_warp", "warp_backward_flow",
-           "warp_forward_flow"]
+           "nan_mse", "nan_mse_stats", "permute_warp", "resize", "upsample_bilinear",
+           "warp_backward_flow", "warp_forward_flow"]

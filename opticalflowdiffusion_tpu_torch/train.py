@@ -1,5 +1,6 @@
-"""Training entry point: train FlowDiffuser (or FlowPred, FlowLearner or
-MatrixFlow) on the artificial dataset, Sintel, FlyingChairs or KITTI, or
+"""Training entry point: train FlowDiffuser (or FlowPred, FlowLearner,
+MatrixFlow or PWCLearner) on the artificial dataset, Sintel, FlyingChairs or
+KITTI (PWCLearner also on the constant-velocity video), or
 FrameGenerator or FlowCompleter on the constant-velocity video dataset,
 and test it.
 
@@ -8,8 +9,8 @@ and test it.
         [--out outputs/train] [--resume] [--check-interval N|F] \\
         [--ckpt-every N] [--val-batch 8] [--sampling-timesteps S] \\
         [--conv-backend {cudnn,rows,fold}] [--remat] \\
-        [--algorithm {flow_diffuser,flow_pred,flow_learner,matrix_flow,frame_generator,
-                      flow_completer}] \\
+        [--algorithm {flow_diffuser,flow_pred,flow_learner,matrix_flow,pwc_learner,
+                      frame_generator,flow_completer}] \\
         [--target {joint,target,flow}] \\
         [--noiser {image,flow}] [--no-diffusion] [--flow-weight W] \\
         [--diffusion-flow-weight W] [--latent --ae DIR] [--latent-dim 16] \\
@@ -72,6 +73,13 @@ from ``--seed``).
 UNet maps the pair to R x R filters, ``--radius`` default 17, or to a flow;
 ``--goal`` gt_flow_pred, filter_pred or gt_filter_pred; ``--image-size``
 one side or "W,H", default 128) on the artificial dataset.
+``--algorithm pwc_learner`` trains the three-frame PWC-Net
+(``pwc_learner.yaml``: lr 1e-4, weight decay 1e-6; JAX's
+``smoothness_weight`` and ``occ_weight`` knobs are config fields, set from
+Python) on any of those datasets (a pair's first frame doubles as the past
+one) or on ``--dataset artificial_video`` through its three-frame view; its
+sides must halve exactly down the pyramid (multiples of 64: Sintel at
+1024,448).
 ``frame_generator`` and ``flow_completer`` run ``experiment/animation.yaml``
 (batch 64, validation batch 8 shuffled, no clipping, a validation every 400
 steps) on ``--dataset artificial_video`` (its default; ``--val-length``
@@ -94,7 +102,7 @@ import torch
 from .algorithms.flow_diffuser import TARGETS
 from .algorithms.matrix_flow import GOALS
 from .config import (ANIMATION, DATA, FLAGSHIP, FLOW_COMPLETER, FLOW_LEARNER, FLOW_PRED,
-                     FRAME_GENERATOR, MATRIX_FLOW, MATRIX_FLOW_ALGO)
+                     FRAME_GENERATOR, MATRIX_FLOW, MATRIX_FLOW_ALGO, PWC_LEARNER)
 from .data import DATASETS, get_dataset
 from .experiments import animation as anim_exp
 from .experiments.matrix_flow import ALGORITHMS as FLOW_ALGORITHMS
@@ -109,11 +117,13 @@ ALGORITHMS = {**{k: "matrix_flow" for k in FLOW_ALGORITHMS},
               **{k: "animation" for k in anim_exp.ALGORITHMS}}
 # the algorithms' yaml configs (FlowDiffuser's is the flagship)
 BASES = {"flow_pred": FLOW_PRED, "flow_learner": FLOW_LEARNER, "matrix_flow": MATRIX_FLOW_ALGO,
-         "frame_generator": FRAME_GENERATOR, "flow_completer": FLOW_COMPLETER}
+         "frame_generator": FRAME_GENERATOR, "flow_completer": FLOW_COMPLETER,
+         "pwc_learner": PWC_LEARNER}
 # the config fields each algorithm's summary line reports
 SUMMARY_FIELDS = {"flow_pred": ("latent_dim",), "flow_learner": ("flow_max", "radius", "levels"),
                   "matrix_flow": ("goal", "radius", "cols"),
-                  "frame_generator": ("timesteps", "sampling_timesteps"), "flow_completer": ()}
+                  "frame_generator": ("timesteps", "sampling_timesteps"), "flow_completer": (),
+                  "pwc_learner": ("smoothness_weight", "occ_weight")}
 
 # the fields of FlowDiffuserConfig that the model flags set
 MODEL_FIELDS = ("target", "noiser", "is_diffusion", "flow_weight", "diffusion_flow_weight",
@@ -183,11 +193,12 @@ def build(steps: int, batch=None, image_size=None, unet_dim=None,
     """The experiment of one run, not yet trained.  ``model`` holds config
     fields of the algorithm (``MODEL_FIELDS``; FlowPred's ``latent_dim``;
     FlowLearner's ``radius`` and ``levels``; MatrixFlow's ``goal``,
-    ``radius`` and ``cols``; FrameGenerator's ``timesteps``; the CLI sets
-    ``goal`` and ``radius``).
-    ``image_size`` is one side or "W,H"; the algorithm takes W (MatrixFlow
-    both).  The experiment is the algorithm's (``ALGORITHMS``), the dataset
-    defaults to the experiment's (artificial, or artificial_video)."""
+    ``radius`` and ``cols``; FrameGenerator's ``timesteps``; PWCLearner's
+    ``smoothness_weight`` and ``occ_weight``; the CLI sets ``goal`` and
+    ``radius``).  ``image_size`` is one side or "W,H"; the algorithm takes
+    W (MatrixFlow both).  The experiment is the algorithm's (``ALGORITHMS``),
+    the dataset defaults to the experiment's (artificial, or
+    artificial_video)."""
     if algorithm not in ALGORITHMS:
         raise ValueError(f"algorithm {algorithm!r} is not one of {tuple(ALGORITHMS)}")
     experiment = ALGORITHMS[algorithm]
@@ -215,6 +226,9 @@ def build(steps: int, batch=None, image_size=None, unet_dim=None,
         algo = dataclasses.replace(algo, sampling_timesteps=sampling_timesteps)
     elif algorithm == "flow_learner":
         algo = model_config(algorithm, flow_max=flow_max, **common, **model)
+    elif algorithm == "pwc_learner":       # PWC's convs are cuDNN's: no conv backend
+        common.pop("conv_backend")
+        algo = model_config(algorithm, **common, **model)
     else:
         algo = model_config(algorithm, remat=remat, unet_dim=unet_dim, flow_max=flow_max,
                             **common, **model)
@@ -256,7 +270,7 @@ def model_flags(a: argparse.Namespace) -> dict:
         return {"latent_dim": a.latent_dim}
     if algorithm == "matrix_flow":
         return {"goal": a.goal, "radius": a.radius}
-    if algorithm in ("frame_generator", "flow_completer"):
+    if algorithm in ("frame_generator", "flow_completer", "pwc_learner"):
         return {}
     if algorithm == "flow_learner":
         levels = getattr(a, "levels", None)
@@ -295,7 +309,7 @@ def run(steps: int, resume: bool = False, tasks=("train",), **kwargs) -> dict:
         "image_size": cfg.image_size,
         "data_image_size": exp.data_cfg.image_size,
         "unet_dim": getattr(cfg, "unet_dim", None),
-        "conv_backend": cfg.conv_backend,
+        "conv_backend": getattr(cfg, "conv_backend", None),
         "remat": getattr(cfg, "remat", False),
         "precision": cfg.precision,
         "lr": cfg.lr,

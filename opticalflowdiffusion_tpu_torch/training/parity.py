@@ -7,8 +7,8 @@ seed 7 (the validation batches are its first items, unshuffled), batch 16
 (validation 8), ``flow_max`` 2, lr 2e-4, clipping at 100, DDIM-50, float32
 compute (JAX's parity run sets no precision), 4000 steps (2000 for the
 latent stage, 3000 for the AE and the learners).  The weights start as
-flax's initialisers give them (biases 0, gains 1; ``init_weights``'s
-``flax_defaults``), so a zero-initialised model outputs zero flow and its
+flax's initialisers give them (``init_weights``: truncated lecun-normal
+kernels, biases 0, gains 1), so a zero-initialised model outputs zero flow and its
 initial metrics depend on the data alone.
 
 Each stage records, under JAX's keys, ``steps``, the metrics before
@@ -51,6 +51,12 @@ STAGES = ("joint", "dpmpp", "flow", "flowloss", "flowloss_sweep", "ancestral", "
           "flownoise", "learner", "learner_bf16", "learner_filter")
 DEFAULT_STAGES = ("joint", "dpmpp", "flow", "flowloss", "flowloss_sweep", "latent", "flownoise",
                   "learner", "learner_filter")
+
+# JAX's harnesses open a stage's training loader twice before its first step
+# (``algo.init(rng, next(iter(train_loader)))`` for the initial evaluation's
+# state, then again in ``_train``), and each pass reshuffles with seed +
+# epoch: a stage trains from its loader's third pass
+INIT_PASSES = 2
 
 # JAX's recorded results (parity/parity_r05.json, a TPU run), to 6 digits:
 # per stage the steps and a subset of the init and final metrics
@@ -201,6 +207,15 @@ def _eval(algo, val_loader, generator, n_batches: int = 8, val_step=None):
     return out, arts0, batch0
 
 
+def stage_loaders(data_cfg, batch: int, val_batch: int, seed: int):
+    """(training loader, validation loader) of a stage on ``data_cfg``; the
+    training loader starts at the pass that JAX's stages train from."""
+    ds = ArtificialDataset(data_cfg)
+    train_loader = DataLoader(ds, batch_size=batch, shuffle=True, seed=seed)
+    train_loader.epoch = INIT_PASSES
+    return train_loader, DataLoader(ds, batch_size=val_batch, shuffle=False, seed=seed)
+
+
 def _train(algo, train_loader, generator, steps: int, clip: float, log_every: int = 100):
     """``steps`` train steps (augment, loss, backward, clip, Adam); returns
     (state, loss curve [(step, loss)], perf)."""
@@ -272,11 +287,6 @@ def run_parity(out_dir: str = "outputs/parity", diffuser_steps: int = 4000,
     data_cfg = dataclasses.replace(FLAGSHIP_DATA, image_size=image_size, size=dataset_size,
                                    seed=7)
 
-    def loaders():
-        ds = ArtificialDataset(data_cfg)
-        return (DataLoader(ds, batch_size=batch, shuffle=True, seed=seed),
-                DataLoader(ds, batch_size=val_batch, shuffle=False, seed=seed))
-
     def flush():
         with open(out / "parity.json", "w") as fh:
             json.dump(results, fh, indent=1)
@@ -292,8 +302,8 @@ def run_parity(out_dir: str = "outputs/parity", diffuser_steps: int = 4000,
         flush()
 
     def run_stage(key, algo, steps, rseed, oracles=False):
-        init_weights(algo.module, torch.Generator().manual_seed(rseed), flax_defaults=True)
-        train_loader, val_loader = loaders()
+        init_weights(algo.module, torch.Generator().manual_seed(rseed))
+        train_loader, val_loader = stage_loaders(data_cfg, batch, val_batch, seed)
         gen = torch.Generator(device=dev).manual_seed(rseed)
         init_metrics, _, _ = _eval(algo, val_loader, gen, n_batches=init_batches)
         _, curve, perf = _train(algo, train_loader, gen, steps, clip=100.0, log_every=log_every)
@@ -395,4 +405,4 @@ if __name__ == "__main__":
     main()
 
 
-__all__ = ["JAX_BARS", "STAGES", "bars", "run_parity"]
+__all__ = ["INIT_PASSES", "JAX_BARS", "STAGES", "bars", "run_parity", "stage_loaders"]

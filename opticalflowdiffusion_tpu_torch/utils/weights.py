@@ -19,7 +19,8 @@ spatially for ``ConvTranspose2d``).  MatrixFlow's and FrameGenerator's
 modules are plain UNets (:func:`params_from_jax`, :func:`jax_layout` with
 no prefix); FlowCompleter's tree ``{"net": {"Unet_0": ...},
 "null_embedding"}`` has :func:`flow_completer_state_dict` and
-:func:`flow_completer_jax_layout`.
+:func:`flow_completer_jax_layout`; PWCNet's tree :func:`pwc_state_dict` and
+:func:`pwc_jax_layout` (:func:`pwc_rows`).
 """
 
 from __future__ import annotations
@@ -222,6 +223,38 @@ def flow_learner_jax_layout(sd: Mapping[str, torch.Tensor], template: Tree) -> D
     return to_jax(sd, template, _learner_rows(template))
 
 
+def pwc_rows() -> List[Row]:
+    """Rows of a JAX ``PWCNet`` tree against ``models/pwc_net.py::PWCNet``:
+    the three pyramids' ``ConvFeatBlock_k/Conv_{0,1}`` and the decoders'
+    ``dec_{fwd,bwd,occ}_k/Conv_{0..5}``."""
+    rows: List[Row] = []
+
+    def conv(path, key):
+        rows.append((path + ("kernel",), key + ".weight", "conv"))
+        rows.append((path + ("bias",), key + ".bias", "vec"))
+
+    for pyr in ("pyr_a", "pyr_b", "pyr_c"):
+        for k in range(6):
+            for j in range(2):
+                conv((pyr, f"ConvFeatBlock_{k}", f"Conv_{j}"), f"{pyr}.{k}.convs.{j}")
+    for dec in ("dec_fwd", "dec_bwd", "dec_occ"):
+        for k in range(5):
+            for j in range(6):
+                conv((f"{dec}_{k}", f"Conv_{j}"), f"{dec}.{k}.convs.{j}")
+    return rows
+
+
+def pwc_state_dict(params: Tree) -> Dict[str, torch.Tensor]:
+    """State_dict of PWCNet (PWCLearner's module) from the JAX params."""
+    return from_jax(params, pwc_rows())
+
+
+def pwc_jax_layout(sd: Mapping[str, torch.Tensor], template: Tree) -> Dict:
+    """JAX's PWCNet tree of ``template`` from the port state_dict ``sd``
+    (parameters or their gradients)."""
+    return to_jax(sd, template, pwc_rows())
+
+
 def _get(tree: Tree, path: Tuple[str, ...]):
     for k in path:
         tree = tree[k]
@@ -313,4 +346,5 @@ def autoencoder_jax_layout(sd: Mapping[str, torch.Tensor], template: Tree,
 __all__ = ["autoencoder_jax_layout", "autoencoder_state_dict", "filter_codec_rows",
            "flow_completer_jax_layout", "flow_completer_state_dict",
            "flow_diffuser_state_dict", "flow_learner_jax_layout", "flow_learner_state_dict",
-           "from_jax", "jax_layout", "linear_attention_rows", "params_from_jax", "to_jax"]
+           "from_jax", "jax_layout", "linear_attention_rows", "params_from_jax", "pwc_jax_layout",
+           "pwc_rows", "pwc_state_dict", "to_jax"]

@@ -419,7 +419,7 @@ def test_flow_completer_unet_is_float32_under_bf16():
     assert torch.equal(out["bf16"], out["float32"])
     fg = FrameGenerator(dataclasses.replace(FRAME_GENERATOR, image_size=S), device="cpu")
     assert fg.module.dtype == torch.bfloat16
-    init_weights(algo.module, torch.Generator().manual_seed(1), flax_defaults=True)
+    init_weights(algo.module, torch.Generator().manual_seed(1))
     assert torch.equal(algo.module.null_embedding.detach(), torch.ones(2))
 
 
@@ -437,6 +437,21 @@ def test_density_sweep_picks_match_jax_on_ties(k):
     np.testing.assert_array_equal(got.reshape(B, -1).numpy(), np.asarray(want))
     tied = np.asarray(mags)[:, np.asarray(picked)[0]]
     assert (tied[0] == tied[0, 0]).all()             # the picks are ties
+
+
+def _write_jax_init(path, seed=0):
+    """JAX's FrameGenerator init for the framegen stage at ``seed``
+    (``algo.init(PRNGKey(seed), first batch)``) as the port's state_dict."""
+    from opticalflowdiffusion_tpu_torch.training import parity_families as pf
+
+    _, train_loader, _ = pf.stage_setup("framegen", "cpu", seed=seed)
+    jalgo = JFrameGenerator(compose([
+        "experiment=animation", "dataset=artificial_video", "algorithm=frame_generator",
+        "algorithm.image_size=32", "algorithm.lr=2e-4",
+        "+algorithm.sampling_timesteps=50"]).algorithm)
+    first = next(iter(train_loader))
+    jstate = jalgo.init(jax.random.PRNGKey(seed), tuple(map(jnp.asarray, first)), clip=100)
+    torch.save(params_from_jax(jax.device_get(jstate.params)), path)
 
 
 def _lockstep(steps, score=False):
@@ -529,9 +544,15 @@ def _rollout_on_weights(path, seeds):
 if __name__ == "__main__":
     #   python tests/test_torch_port_animation.py STEPS [--score]
     #   python tests/test_torch_port_animation.py --rollout WEIGHTS [SEEDS]
+    #   python tests/test_torch_port_animation.py --jax-init OUT.pt [SEED]
+    # (--jax-init: JAX's initial weights of the framegen parity stage, from
+    # PRNGKey(SEED) as its init draws them, as the port's float32 state_dict,
+    # for ``parity_families.py --init-weights``)
     import sys
 
-    if sys.argv[1] == "--rollout":
+    if sys.argv[1] == "--jax-init":
+        _write_jax_init(sys.argv[2], int(sys.argv[3]) if len(sys.argv) > 3 else 0)
+    elif sys.argv[1] == "--rollout":
         _rollout_on_weights(sys.argv[2], int(sys.argv[3]) if len(sys.argv) > 3 else 1)
     else:
         _lockstep(int(sys.argv[1]), "--score" in sys.argv[2:])

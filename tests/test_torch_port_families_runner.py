@@ -6,7 +6,7 @@ constant-velocity video (train, validate with the images, checkpoint,
 --ckpt`` on a run, the names that wait for the RAFT port (TaiChi,
 ``architecture: raft``), and the family parity harness: its data-only
 metrics equal to JAX's recorded ones (``JAX_FAMILY_BARS``), its bars, a
-tiny run of its three stages, and the trained weights it keeps.  And, marked ``cuda`` (skipped where there
+tiny run of its stages, and the trained weights it keeps.  And, marked ``cuda`` (skipped where there
 is no card), ``chip_smoke.py``'s checks of the three models' train steps
 with the kernels against the plain versions.  This file imports no JAX, so
 the card's tests run with ``--noconftest``."""
@@ -165,9 +165,10 @@ def test_family_bars():
 
 
 def test_run_families_tiny(tmp_path):
-    """The three stages at 8x8, 2 steps, DDIM-2, one validation batch: the
-    record of each with its init and final metrics, curve, speed, images
-    and bars."""
+    """The stages at 8x8 (the PWC ones at their 64x64, the hunt's three
+    runs 2 steps each), 2 steps, DDIM-2, one validation batch: the record
+    of each with its init and final metrics, curve, speed, images and
+    bars."""
     res = pf.run_families(out_dir=str(tmp_path), steps=2, device="cpu", image_size=8,
                           sampling_timesteps=2, val_batches=1, init_batches=1, log_every=2)
     saved = json.loads((tmp_path / "parity_families.json").read_text())

@@ -92,14 +92,25 @@ def test_preprocess_matches_jax():
 
 
 def test_flow_diffuser_sample_ddim_matches_jax():
+    """DDIM-4 through ``FlowDiffuser.sample``, port vs JAX on bridged
+    weights from JAX's initial noise, each port model call fed JAX's state
+    of that step (free running, the random UNet amplifies float rounding
+    beyond the pin: ``test_torch_port_diffusion.py``)."""
     algo, jalgo, params = _pair(sampling_timesteps=4)
     items = _items(2)
     _, cond, _ = algo.preprocess(to_batch(items, "cpu"))
     jcond = jnp.asarray(cond.permute(0, 2, 3, 1).numpy())
     key = jax.random.PRNGKey(7)
     want_img, want_flow = jalgo.sample(params, jcond, key, return_every=None)
+    traj, _ = jdm.ddim_sample(jalgo.sched, jalgo._model_fn(params), key, (2, S, S, 5),
+                              external_cond=jcond, return_every=1)
+    traj = np.asarray(traj)
     _, init_key = jax.random.split(key)              # ddim_sample's first split
     x_T = np.array(jax.random.normal(init_key, (2, S, S, 5), jnp.float32))
+    np.testing.assert_array_equal(traj[:, 0], x_T)
+    states = iter(torch.from_numpy(traj[:, k]).permute(0, 3, 1, 2).contiguous()
+                  for k in range(traj.shape[1]))
+    algo.model_fn = lambda x, c, t: algo.module(next(states), c, t)
     got_img, got_flow = algo.sample(
         cond, x_T=torch.from_numpy(x_T).permute(0, 3, 1, 2).contiguous())
     for g, w in ((got_img, want_img), (got_flow, want_flow)):

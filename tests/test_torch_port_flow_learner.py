@@ -209,12 +209,12 @@ def test_config_matches_jax_compose():
 
 
 def test_zero_init_outputs_zero_flow():
-    """With flax's initial values (``init_weights(flax_defaults=True)``, as
-    the parity runs start) a zero-initialised FlowUnet outputs zero flow and
+    """With flax's initial values (``init_weights``, as every entry point
+    starts) a zero-initialised FlowUnet outputs zero flow and
     zero weight, as JAX's does."""
     cfg = dataclasses.replace(FLOW_LEARNER, image_size=8, levels=(1,), precision="float32")
     algo = FlowLearner(cfg, device="cpu")
-    init_weights(algo.module, torch.Generator().manual_seed(0), flax_defaults=True)
+    init_weights(algo.module, torch.Generator().manual_seed(0))
     with torch.no_grad():
         out = algo.module(torch.randn(1, 6, 8, 8))
     assert torch.equal(out, torch.zeros_like(out))

@@ -11,7 +11,7 @@ import pytest
 from opticalflowdiffusion_tpu.config import compose
 from opticalflowdiffusion_tpu_torch.config import (
     ANIMATION, ARTIFICIAL_VIDEO, FLAGSHIP, FLAGSHIP_DATA, FLOW_COMPLETER, FRAME_GENERATOR,
-    MATRIX_FLOW_ALGO,
+    MATRIX_FLOW_ALGO, PWC_LEARNER,
 )
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -72,6 +72,17 @@ def test_family_modules_are_checked():
         assert f"opticalflowdiffusion_tpu_torch/{mod}" in names, mod
 
 
+def test_pwc_modules_are_checked():
+    """PWC's modules (the cost volume and its kernel's wrapper, the model,
+    the loss library, the learner) are among the files checked above."""
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for mod in ("ops/correlation.py", "models/pwc_net.py", "algorithms/losses.py",
+                "algorithms/pwc_learner.py", "kernels/__init__.py", "kernels/build.py",
+                "experiments/matrix_flow.py"):
+        assert f"opticalflowdiffusion_tpu_torch/{mod}" in names, mod
+    assert (ROOT / "opticalflowdiffusion_tpu_torch" / "kernels" / "correlation.cu").exists()
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
@@ -101,13 +112,14 @@ def test_flagship_config_matches_jax_compose():
 
 @pytest.mark.parametrize("algorithm,port", [
     ("matrix_flow", MATRIX_FLOW_ALGO), ("frame_generator", FRAME_GENERATOR),
-    ("flow_completer", FLOW_COMPLETER),
+    ("flow_completer", FLOW_COMPLETER), ("pwc_learner", PWC_LEARNER),
 ])
 def test_family_configs_match_jax_compose(algorithm, port):
     """Every key of the family's yamls holds JAX's composed value (the
     port's ``cols`` and ``timesteps`` are JAX's ``cfg.get`` defaults)."""
-    experiment = "matrix_flow" if algorithm == "matrix_flow" else "animation"
-    dataset = "artificial" if algorithm == "matrix_flow" else "artificial_video"
+    flow = algorithm in ("matrix_flow", "pwc_learner")
+    experiment = "matrix_flow" if flow else "animation"
+    dataset = "artificial" if flow else "artificial_video"
     cfg = compose([f"experiment={experiment}", f"algorithm={algorithm}", f"dataset={dataset}"])
     algo = cfg.algorithm
     for key, value in dict(algo).items():
@@ -116,6 +128,9 @@ def test_family_configs_match_jax_compose(algorithm, port):
     assert port.precision == cfg.runtime.precision
     if algorithm == "matrix_flow":
         assert port.cols is None and algo.get("cols") is None
+    if algorithm == "pwc_learner":
+        assert port.smoothness_weight == algo.get("smoothness_weight", 1.0)
+        assert port.occ_weight == algo.get("occ_weight", 1.0)
     if algorithm == "frame_generator":
         assert port.timesteps == algo.get("timesteps", 1000)
         assert port.sampling_timesteps == algo.get("sampling_timesteps")

@@ -252,7 +252,7 @@ def test_jax_parity_ae_gives_one_latent_for_every_frame(tmp_path):
                               sampling_timesteps=2, precision="float32", latent=True,
                               latent_dim=16, ae=str(write_jax_ae_run(tmp_path / "jax_ae")))
     algo = FlowDiffuser(cfg, device="cpu")
-    init_weights(algo.module, torch.Generator().manual_seed(3), flax_defaults=True)
+    init_weights(algo.module, torch.Generator().manual_seed(3))
     batch = tuple(nchw(a) for a in (img[:8], tgt[:8], flow[:8]))
     metrics, _ = algo.val_step(batch, torch.Generator().manual_seed(0))
     assert float(metrics["val/mse"]) == 0.0

@@ -432,7 +432,9 @@ def test_val_step_metrics_and_grad_flow_probe():
 
 def test_sample_trajectory_matches_jax():
     """``sample(return_every=2)`` on DDIM-4 returns JAX's trajectory: the
-    initial noise, every second state and the final one."""
+    initial noise, every second state and the final one; each port model
+    call fed JAX's state of that step (free running, the random UNet
+    amplifies float rounding beyond the pin: ``test_torch_port_diffusion.py``)."""
     algo = _algo(zero_init=False, sampling_timesteps=4)
     jcfg = compose(["experiment=matrix_flow", "algorithm=flow_diffuser", "dataset=artificial",
                     f"algorithm.image_size={S}", "algorithm.timesteps=20",
@@ -442,8 +444,14 @@ def test_sample_trajectory_matches_jax():
     _, cond, _ = algo.preprocess(to_batch(_items(2), "cpu"))
     key = jax.random.PRNGKey(7)
     want_img, want_flow = jalgo.sample(tree, _nhwc(cond), key, return_every=2)
+    traj, _ = jdm.ddim_sample(jalgo.sched, jalgo._model_fn(tree), key, (2, S, S, 5),
+                              external_cond=_nhwc(cond), return_every=1)
+    traj = np.asarray(traj)
     _, init_key = jax.random.split(key)
     x_T = np.array(jax.random.normal(init_key, (2, S, S, 5), jnp.float32))
+    np.testing.assert_array_equal(traj[:, 0], x_T)
+    states = iter(_nchw(traj[:, k]) for k in range(traj.shape[1]))
+    algo.model_fn = lambda x, c, t: algo.module(next(states), c, t)
     img, flow = algo.sample(cond, x_T=_nchw(x_T), return_every=2)
     assert img.shape == (2, 3, 3, S, S) and flow.shape == (2, 3, 2, S, S)
     for g, w in ((img, want_img), (flow, want_flow)):
