@@ -4,9 +4,9 @@
 
 Budget: 10-13 minutes on one H100, the kernel build included (one plain
 ``nvcc`` call per source, all started together; seconds each).  A run took
-615 s on an H100 and 764 s on another (the host-clock phases 20-45% slower
-there; the real-data phase ~2 minutes, the MatrixFlow and animation phase
-~2, the pwc phase ~30 s), against the 1200 s limit.  Every line
+689 s on an H100 (the real-data phase ~2 minutes, the MatrixFlow and
+animation phase ~2, the pwc phase ~30 s, the raft phase ~60 s), against the
+1200 s limit.  Every line
 it prints is one JSON object, flushed as it goes, apart from the card's
 ``nvidia-smi`` line.  Phases:
 
@@ -237,6 +237,27 @@ it prints is one JSON object, flushed as it goes, apart from the card's
    stage.  ``python3 chip_smoke.py
    --pwc-only`` runs the device, build and this phase alone and prints no
    result line (a development aid).
+12b. raft: RAFT (ROADMAP A8) and its lookup kernels (S4).  The forward
+   and the levels' cotangents at a 448x1024 b8 eval's four levels (57344
+   query rows) and at flow_pretrain's 64x64 b16, against the plain version
+   (the forward within TOL_LOOKUP, and whether bit for bit; the cotangents
+   within TOL_LOOKUP_BWD), repeats bit for bit, CUDA-event times beside the
+   plain version's and ``F.grid_sample``'s (border padding, align_corners:
+   the same function, a yardstick only) and the bounds.  RAFT serving at
+   448x1024 b8 with 12 iterations on random weights from the seed: its
+   final flow against the run on the plain lookup (TF32 off), every lookup
+   of that run on its own inputs, then a warm-up and 2 timed runs in a
+   count window (frames/s, peak memory).  ``train_flow_model`` at JAX's
+   64x64 b16 (6 iterations, AdamW): its step with the kernels against the
+   all-plain step (TOL_RAFT_LOSS; the gradient's difference recorded), 300
+   steps in a count window (samples/s; the EPE must fall), published as an
+   artifact.  The TaiChi chain, as JAX's chain test: a fixture tree (256x256
+   frames read at 64), ``train.py --algorithm frame_generator --dataset
+   taichi --calculate-flows`` on that artifact (2 steps, a validation, a
+   resume to 3) in one count window, the cache against the artifact's
+   inference on a pair, and one train step with rows 1-5 on its own
+   inputs.  ``python3 chip_smoke.py --raft-only`` runs the device, build and
+   this phase alone and prints no result line (a development aid).
 13. profiler: device times from ``torch.profiler``, after the last
    host-clock window, so that no profiler trace runs before one: the
    splat forward by pass and its launches per call at 128x128 b8 and
@@ -274,7 +295,10 @@ it prints is one JSON object, flushed as it goes, apart from the card's
    ``bound_share`` (bound ms / device ms); every row also
    ``learner_launches_per_step``; for the correlation forward and backward
    the sums over a native b8 f32 step's 10 calls (``launches_per_native_step``,
-   ``bound_share``).
+   ``bound_share``); for the lookup forward and backward one call at the
+   448x1024 b8 eval's levels (``vs_library``: ms / grid_sample's ms,
+   ``bound_share``, ``at_64x64_b16``; the backward's
+   ``dense_cotangent_gb``).
 15. the result line.
 
 Any failure raises and exits non-zero without the result line; so does a
@@ -287,6 +311,8 @@ import copy
 import dataclasses
 import io
 import json
+import os
+import random
 import shutil
 import subprocess
 import sys
@@ -296,6 +322,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from opticalflowdiffusion_tpu_torch import kernels, profile_step
 from opticalflowdiffusion_tpu_torch import sample as sample_entry
@@ -309,6 +336,7 @@ from opticalflowdiffusion_tpu_torch.data import fixtures, get_dataset, host
 from opticalflowdiffusion_tpu_torch.data.loader import DataLoader
 from opticalflowdiffusion_tpu_torch.kernels import build as kbuild
 from opticalflowdiffusion_tpu_torch.models import pwc_net as pwc_mod
+from opticalflowdiffusion_tpu_torch.models import raft as raft_mod
 from opticalflowdiffusion_tpu_torch.models import unet as unet_mod
 from opticalflowdiffusion_tpu_torch.ops import attention_fused as af
 from opticalflowdiffusion_tpu_torch.ops import attention_pallas as am
@@ -323,7 +351,8 @@ from opticalflowdiffusion_tpu_torch.parallel.train import (
 from opticalflowdiffusion_tpu_torch.ops import pyramid as pyr
 from opticalflowdiffusion_tpu_torch.sample import batch_items
 from opticalflowdiffusion_tpu_torch.sample import build as build_flagship
-from opticalflowdiffusion_tpu_torch.training import parity
+from opticalflowdiffusion_tpu_torch.training import flow_pretrain, parity
+from opticalflowdiffusion_tpu_torch.utils import ckpt as ckpt_mod
 
 T0 = time.perf_counter()
 B = 8
@@ -3730,6 +3759,353 @@ def pwc_phase():
     return per_step, totals
 
 
+# RAFT (the raft phase): a 448x1024 b8 eval's feature grid and its four
+# pyramid levels, 12 iterations; flow_pretrain's 64x64 b16 step (6
+# iterations, the levels of an 8 x 8 grid)
+RAFT_B, RAFT_H, RAFT_W, RAFT_ITERS, RAFT_LEVELS = 8, 448, 1024, 12, 4
+FP_B, FP_SIZE, FP_ITERS, FP_STEPS = 16, 64, 6, 300
+RAFT_RADIUS = 4
+# the lookup vs its plain version, relative to the plain version's largest
+# value: the forward rounds every product and sum on its own in the plain
+# version's order (the same bits, where the card's elementwise ops round as
+# the kernel does); the cotangents sum the same terms in another order (the
+# plain version's scatter adds by atomics)
+TOL_LOOKUP, TOL_LOOKUP_BWD = 1e-6, 1e-5
+# RAFT's final flow on the kernels vs on the plain lookup (TF32 off), and
+# flow_pretrain's loss with the kernels vs the all-plain step's, relative
+TOL_RAFT_FLOW, TOL_RAFT_LOSS = 1e-4, 1e-5
+# frame_distance 10: 6 training pairs a video of 16 frames, a batch of 8
+TAICHI_SIZE, TAICHI_READ, TAICHI_FRAMES, TAICHI_B = 256, 64, 16, 8
+RAFT_MUST = {"corr_lookup_fwd", "corr_lookup_bwd"}
+
+
+@contextlib.contextmanager
+def plain_lookup():
+    """RAFT's lookups through the plain version on the card (this script's
+    reference runs only)."""
+    saved = raft_mod.corr_lookup
+    raft_mod.corr_lookup = pcorr.corr_lookup_plain
+    try:
+        yield
+    finally:
+        raft_mod.corr_lookup = saved
+
+
+@contextlib.contextmanager
+def captured_lookups():
+    """The arguments of every lookup forward inside the window: (levels,
+    coords, radius), the coords cloned (the levels are kept, not changed)."""
+    calls, fwd = [], pcorr.corr_lookup_fwd
+
+    def cap(levels, coords, radius=4):
+        calls.append((list(levels), coords.detach().clone(), radius))
+        return fwd(levels, coords, radius)
+
+    pcorr.corr_lookup_fwd = cap
+    try:
+        yield calls
+    finally:
+        pcorr.corr_lookup_fwd = fwd
+
+
+def lookup_case(B, H, W, levels, seed, spread=16.0):
+    """(pyramid, coords, cotangent) of random features and flows of up to
+    ``spread`` px on a B x H x W grid (points past every border)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    f1, f2 = (torch.randn(B, 256, H, W, generator=g, device="cuda") for _ in range(2))
+    pyramid = raft_mod.corr_pyramid(f1, f2, levels)
+    grid = raft_mod.coords_grid(B, H, W, "cuda").permute(0, 2, 3, 1)
+    coords = grid + (torch.rand(B, H, W, 2, generator=g, device="cuda") * 2 - 1) * spread
+    K = (2 * RAFT_RADIUS + 1) ** 2
+    cot = torch.randn(B, H, W, len(pyramid) * K, generator=g, device="cuda")
+    return pyramid, coords.contiguous(), cot
+
+
+def lookup_bound_ms(pyramid, coords, bwd=False):
+    """(bytes ms, operations ms) of one lookup call on this data.  Forward:
+    the coords, the output, and each query row's distinct window cells of
+    every level (its (2r + 2)^2 corners, clamped to the level); backward:
+    the coords, the cotangent, and every level's dense cotangent written
+    whole.  Operations: 12 flops a tap (weights and the three mixes), f32."""
+    N = coords.shape[0] * coords.shape[1] * coords.shape[2]
+    K = (2 * RAFT_RADIUS + 1) ** 2
+    L = len(pyramid)
+    nbytes = 4 * (2 * N + N * L * K)
+    if bwd:
+        nbytes += 4 * N * sum(t.shape[1] * t.shape[2] for t in pyramid)
+    else:
+        c = coords.reshape(N, 2)
+        for lvl, t in enumerate(pyramid):
+            H, W = t.shape[1:]
+            p0 = torch.floor(c / 2 ** lvl)
+            cells = 1
+            for d, n in ((0, W), (1, H)):
+                lo = (p0[:, d] - RAFT_RADIUS).clamp(0, n - 1)
+                hi = (p0[:, d] + RAFT_RADIUS + 1).clamp(0, n - 1)
+                cells = cells * (hi - lo + 1)
+            nbytes += 4 * float(cells.sum())
+    flops = 12 * N * L * K
+    return 1e3 * nbytes / HBM_BPS, 1e3 * flops / F32_FLOPS
+
+
+def grid_sample_lookup(pyramid, coords):
+    """One ``F.grid_sample`` call a level (bilinear, border padding,
+    align_corners): the same function, the library's yardstick."""
+    B, H, W, _ = coords.shape
+    N = B * H * W
+    delta = pcorr.lookup_taps(RAFT_RADIUS).to(coords.device)
+    out = []
+    for lvl, t in enumerate(pyramid):
+        h, w = t.shape[1:]
+        pts = coords.reshape(N, 1, 2) / 2 ** lvl + delta.reshape(1, -1, 2)
+        scale = torch.tensor([2.0 / max(w - 1, 1), 2.0 / max(h - 1, 1)], device=coords.device)
+        grid = (pts * scale - 1).reshape(N, 1, -1, 2)
+        out.append(F.grid_sample(t.reshape(N, 1, h, w), grid, mode="bilinear",
+                                 padding_mode="border", align_corners=True).reshape(B, H, W, -1))
+    return torch.cat(out, dim=-1)
+
+
+def lookup_phase():
+    """S4 against its plain version at a 448x1024 b8 eval's four levels and
+    at flow_pretrain's 64x64 b16: the forward within TOL_LOOKUP (and whether
+    bit for bit), the cotangents within TOL_LOOKUP_BWD, repeats bit for bit,
+    CUDA-event times beside the plain version's, grid_sample's (forward;
+    its autograd backward) and the bounds.  Returns {label: {fwd, bwd}}."""
+    rows = {}
+    for label, (B, H, W) in (("448x1024_b8", (RAFT_B, RAFT_H // 8, RAFT_W // 8)),
+                             ("64x64_b16", (FP_B, FP_SIZE // 8, FP_SIZE // 8))):
+        pyramid, coords, cot = lookup_case(B, H, W, RAFT_LEVELS, seed=B * H)
+        shapes = [t.shape[1:] for t in pyramid]
+        out = pcorr.corr_lookup_fwd(pyramid, coords, RAFT_RADIUS)
+        want = pcorr.corr_lookup_plain(pyramid, coords, RAFT_RADIUS)
+        levels = [t.detach().requires_grad_() for t in pyramid]
+        with torch.enable_grad():
+            graph = pcorr.corr_lookup_plain(levels, coords, RAFT_RADIUS)
+            wgrads = torch.autograd.grad(graph, levels, cot, retain_graph=True)
+        grads = pcorr.corr_lookup_bwd(shapes, coords, cot, RAFT_RADIUS)
+        lib = grid_sample_lookup(pyramid, coords)
+        fwd_err = rel_err(out, want)
+        bwd_err = max(rel_err(g_, w_) for g_, w_ in zip(grads, wgrads))
+        abs_fwd = err(out, want)[0]
+        abs_bwd = max(err(g_, w_)[0] for g_, w_ in zip(grads, wgrads))
+        repeat = (torch.equal(out, pcorr.corr_lookup_fwd(pyramid, coords, RAFT_RADIUS))
+                  and all(torch.equal(a, b) for a, b in zip(
+                      grads, pcorr.corr_lookup_bwd(shapes, coords, cot, RAFT_RADIUS))))
+        ms = cuda_ms(lambda: pcorr.corr_lookup_fwd(pyramid, coords, RAFT_RADIUS), iters=10)
+        plain_ms = cuda_ms(lambda: pcorr.corr_lookup_plain(pyramid, coords, RAFT_RADIUS), iters=5)
+        lib_ms = cuda_ms(lambda: grid_sample_lookup(pyramid, coords), iters=5)
+        bms = cuda_ms(lambda: pcorr.corr_lookup_bwd(shapes, coords, cot, RAFT_RADIUS), iters=5)
+        plain_bms = cuda_ms(lambda: torch.autograd.grad(graph, levels, cot, retain_graph=True),
+                            iters=3)
+        with torch.enable_grad():
+            lgraph = grid_sample_lookup(levels, coords)
+        lib_bms = cuda_ms(lambda: torch.autograd.grad(lgraph, levels, cot, retain_graph=True),
+                          iters=3)
+        del graph, lgraph
+        fb, fo = lookup_bound_ms(pyramid, coords)
+        bb, bo = lookup_bound_ms(pyramid, coords, bwd=True)
+        row = dict(fwd=dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=max(fb, fo),
+                            bound_by="bytes" if fb >= fo else "operations", err=abs_fwd,
+                            bitwise=torch.equal(out, want)),
+                   bwd=dict(ms=bms, plain_ms=plain_bms, library_ms=lib_bms,
+                            bound_ms=max(bb, bo), bound_by="bytes" if bb >= bo else "operations",
+                            err=abs_bwd, dense_gb=4 * sum(g_.numel() for g_ in grads) / 1e9))
+        phase("kernel_vs_plain", kernel="corr_lookup", at=label, levels=[list(s) for s in shapes],
+              N=B * H * W, rel_err=dict(fwd=fwd_err, bwd=bwd_err), tol=[TOL_LOOKUP, TOL_LOOKUP_BWD],
+              grid_sample_rel_err=rel_err(lib, want), repeat_bitwise=repeat,
+              **{k: {kk: sig(v) for kk, v in r.items()} for k, r in row.items()})
+        check(fwd_err <= TOL_LOOKUP and bwd_err <= TOL_LOOKUP_BWD and repeat,
+              f"corr_lookup {label}: errors {fwd_err} {bwd_err} (tol {TOL_LOOKUP}, "
+              f"{TOL_LOOKUP_BWD}), repeat bitwise {repeat}")
+        rows[label] = row
+        del pyramid, levels, grads, wgrads, out, want, lib
+        torch.cuda.empty_cache()
+    return rows
+
+
+def raft_serving():
+    """RAFT inference at 448x1024 b8, 12 iterations, random weights from the
+    seed: a warm-up and 2 timed runs in a count window (12 lookups a run, no
+    backward, no other kernel), frames/s and peak memory; the final flow
+    against the run on the plain lookup (TF32 off for both), every lookup
+    of that run against the plain version on its own inputs."""
+    net = unet_mod.init_weights(raft_mod.RAFT(iters=RAFT_ITERS, corr_levels=RAFT_LEVELS),
+                                torch.Generator().manual_seed(SEED)).cuda().eval()
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    f1 = torch.rand(RAFT_B, 3, RAFT_H, RAFT_W, generator=g, device="cuda")
+    f2 = torch.roll(f1, (3, -5), dims=(2, 3))
+    with torch.no_grad(), tf32(False):
+        with captured_lookups() as calls:
+            got = net(f1, f2)[-1]
+        with plain_lookup():
+            want = net(f1, f2)[-1]
+    flow_err = rel_err(got, want)
+    on_inputs = max(rel_err(pcorr.corr_lookup_fwd(*c), pcorr.corr_lookup_plain(*c))
+                    for c in calls)
+    n_calls = len(calls)
+    del calls
+    check(n_calls == RAFT_ITERS and flow_err <= TOL_RAFT_FLOW and on_inputs <= TOL_LOOKUP
+          and bool(torch.isfinite(got).all()),
+          f"raft serving: {n_calls} lookups, final flow {flow_err} from the plain run "
+          f"(tol {TOL_RAFT_FLOW}), lookups on their inputs {on_inputs}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    with torch.no_grad():
+        net(f1, f2)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(2):
+            flow = net(f1, f2)[-1]
+        torch.cuda.synchronize()
+    sec = (time.perf_counter() - t) / 2
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    check(launches["corr_lookup_fwd"] == 3 * RAFT_ITERS, f"raft serving window: {launches}")
+    check_launches("raft serving", launches, {"corr_lookup_fwd"})
+    phase("raft_serving", B=RAFT_B, H=RAFT_H, W=RAFT_W, iters=RAFT_ITERS, levels=RAFT_LEVELS,
+          ms_per_run=1e3 * sec, frames_per_s=RAFT_B / sec,
+          peak_gb=torch.cuda.max_memory_allocated() / 1e9, final_flow_rel_err=flow_err,
+          final_flow_bitwise=torch.equal(got, want), tol=TOL_RAFT_FLOW,
+          lookups_on_own_inputs_rel_err=on_inputs, flow_abs_max=float(flow.abs().max()),
+          launches=launches)
+    return launches
+
+
+def raft_training(work):
+    """``train_flow_model`` at JAX's 64x64 b16 (6 iterations, 4 levels,
+    AdamW): its step with the kernels against the all-plain step from the
+    same weights on the same batch (the loss within TOL_RAFT_LOSS; the
+    gradient's difference recorded), then FP_STEPS steps in a count window
+    (6 forward and 6 backward lookups a step, 6 forward lookups an
+    evaluation) with the samples/s; the EPE must fall.  Publishes the
+    checkpoint as the ``raft-smoke`` artifact.  Returns (result, launches)."""
+    batch = None
+    losses = {}
+    for plain in (False, True):
+        net, loader = flow_pretrain.setup(FP_SIZE, FP_B, FP_ITERS, RAFT_LEVELS, seed=SEED,
+                                          device="cuda")
+        state, step = flow_pretrain.make_step(net)
+        if batch is None:
+            batch = to_device(next(iter(loader)), "cuda")
+        with tf32(False), (plain_lookup() if plain else contextlib.nullcontext()):
+            net.train()
+            state.optimizer.zero_grad()
+            loss = flow_pretrain.sequence_loss(net(batch[0], batch[1]), batch[2])
+            loss.backward()
+        losses[plain] = (float(loss), {n: p.grad.clone() for n, p in net.named_parameters()})
+    (lk, gk), (lp, gp) = losses[False], losses[True]
+    # all the gradients as one vector (a leaf whose exact gradient is 0, as
+    # the feature net's normalised biases, holds only rounding noise)
+    gdiff = float(torch.sqrt(sum((gk[n] - gp[n]).square().sum() for n in gp))
+                  / torch.sqrt(sum(gp[n].square().sum() for n in gp)))
+    loss_rel = abs(lk - lp) / abs(lp)
+    check(np.isfinite(lk) and loss_rel <= TOL_RAFT_LOSS,
+          f"raft training step: loss {lk} with the kernels, {lp} plain (rel {loss_rel})")
+    del losses, gk, gp
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    res = flow_pretrain.train_flow_model(
+        steps=FP_STEPS, image_size=FP_SIZE, batch=FP_B, iters=FP_ITERS, corr_levels=RAFT_LEVELS,
+        seed=SEED, out_dir=str(work / "flow_pretrain"), artifact="raft-smoke", log_every=100,
+        device="cuda")
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    check(launches["corr_lookup_fwd"] == FP_ITERS * (FP_STEPS + 2)
+          and launches["corr_lookup_bwd"] == FP_ITERS * FP_STEPS
+          and res["epe"] < res["epe_init"],
+          f"raft training: launches {launches}, EPE {res['epe_init']} -> {res['epe']}")
+    check_launches("raft training", launches, RAFT_MUST)
+    phase("raft_train_steps", B=FP_B, H=FP_SIZE, W=FP_SIZE, iters=FP_ITERS, levels=RAFT_LEVELS,
+          loss=lk, plain_loss=lp, loss_rel_diff=loss_rel, tol=TOL_RAFT_LOSS,
+          grad_rel_diff=gdiff, launches=launches,
+          **{k: v for k, v in res.items() if k not in ("ckpt_dir",)})
+    return res, launches
+
+
+def taichi_chain(work):
+    """The slice's end-to-end path, as JAX's chain test: a TaiChi fixture
+    tree (256x256 frames, read at 64), the precompute on the checkpoint
+    that ``raft_training`` published, ``train.py --algorithm
+    frame_generator --dataset taichi`` (2 steps, a validation, then a
+    resume to 3) in one count window (the precompute's lookups, rows 1-5),
+    the cache equal to RAFT's inference on a pair, and one train step of
+    that experiment with rows 1-5 on their own inputs."""
+    root = work / "data"
+    fixtures.make_taichi_fixture(root, videos=2, frames=TAICHI_FRAMES, size=TAICHI_SIZE)
+    common = dict(algorithm="frame_generator", dataset="taichi", data_root=str(root),
+                  image_size=TAICHI_READ, batch=TAICHI_B, val_batch=2, sampling_timesteps=10,
+                  device="cuda", log_every=1,
+                  taichi=dict(calculate_flows=True, flow_checkpoint="raft-smoke"))
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t = time.perf_counter()
+    first = train_entry.run(2, out=str(work / "fg"), **common)
+    second = train_entry.run(3, resume=True, out=str(work / "fg"), **common)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    caches = sorted((root / "taichi" / "taichi").glob("*-flows2/*/*.npy"))
+    check(first["step"] == 2 and second["start_step"] == 2 and second["step"] == 3
+          and np.isfinite(second["train"]["train/loss"])
+          and all(np.isfinite(v) for k, v in first["val"].items() if k.startswith("val/"))
+          and len(caches) > 0, f"taichi train.py: {first} {second}")
+    check_launches("taichi chain", launches,
+                   {"corr_lookup_fwd"} | set(FWD_KERNELS) | set(BWD_KERNELS))
+    # the cache is the published model's inference on the training pairs,
+    # batched as the precompute batches them (cuDNN picks its TF32
+    # algorithms by shape)
+    ds = get_dataset("taichi")(dataclasses.replace(
+        train_entry.data_config("taichi", TAICHI_READ, str(root)), flow_device="cuda"))
+    net = raft_mod.RAFT(iters=12, corr_levels=RAFT_LEVELS)
+    net.load_state_dict(ckpt_mod.load_artifact("raft-smoke"))
+    net.cuda().eval()
+    order = list(range(len(ds.first_frames)))
+    random.Random(0).shuffle(order)
+    idxs = order[: ds.cfg.flow_batch_size]
+    stack = lambda arrays: torch.from_numpy(np.stack(arrays)).permute(0, 3, 1, 2).contiguous().cuda()
+    with torch.no_grad():
+        want = net(stack([ds._load_frame(ds.first_frames[i]) for i in idxs]),
+                   stack([ds._load_frame(ds.second_frames[i]) for i in idxs]))[-1]
+    cached = stack([np.load(ds.flows[i]) for i in idxs])
+    cache_err = rel_err(cached, want)
+    check(cache_err <= 1e-5, f"taichi cache vs the artifact's inference: {cache_err}")
+    exp = train_entry.build(2, out=str(work / "fg_step"), **{
+        **{k: v for k, v in common.items() if k != "log_every"}, "taichi": {}})
+    batch = to_device(next(iter(exp.train_loader)), "cuda")
+    with captured_step() as cap:
+        exp.train_step(exp.state, batch, exp.generator)
+    check_captured(cap, "taichi_frame_generator", timed=False)
+    phase("taichi_chain", frames=[TAICHI_SIZE, TAICHI_SIZE], read_at=TAICHI_READ,
+          pairs=len(caches), seconds=sec, steps=[first["step"], second["step"]],
+          val={k: v for k, v in first["val"].items() if k.startswith("val/")},
+          loss=second["train"]["train/loss"], samples_per_s=first["samples_per_s"],
+          cache_vs_inference_rel_err=cache_err, launches=launches)
+    return launches
+
+
+def raft_phase():
+    """RAFT on the card (ROADMAP A8's flow half, S4): ``lookup_phase``, then
+    ``raft_serving``, ``raft_training`` and ``taichi_chain``, the artifact
+    store under a temporary directory.  Returns (the lookup rows, the
+    launches of the windows)."""
+    rows = lookup_phase()
+    totals = {k.name: 0 for k in kernels.KERNELS}
+    work = Path(tempfile.mkdtemp(prefix="ofd_raft_"))
+    saved = os.environ.get("OFD_ARTIFACT_ROOT")
+    os.environ["OFD_ARTIFACT_ROOT"] = str(work / "artifacts")
+    try:
+        for launches in (raft_serving(), raft_training(work)[1], taichi_chain(work)):
+            for k, n in launches.items():
+                totals[k] += n
+    finally:
+        if saved is None:
+            os.environ.pop("OFD_ARTIFACT_ROOT", None)
+        else:
+            os.environ["OFD_ARTIFACT_ROOT"] = saved
+        shutil.rmtree(work, ignore_errors=True)
+    return rows, totals
+
+
 def main():
     smi = device_phase()
     build_phase()
@@ -3741,6 +4117,9 @@ def main():
         return
     if sys.argv[1:] == ["--pwc-only"]:           # a development aid: no result line
         pwc_phase()
+        return
+    if sys.argv[1:] == ["--raft-only"]:          # a development aid: no result line
+        raft_phase()
         return
     la128 = la_phase(B, SHAPES, "128x128")
     la_native = la_phase(NATIVE_B, NATIVE_SHAPES, "448x1024", iters=10)
@@ -3761,7 +4140,8 @@ def main():
         for k, n in window().items():
             launches[k] += n
     corr_step, pwc_launches = pwc_phase()
-    for k, n in pwc_launches.items():
+    lookup_rows, raft_launches = raft_phase()
+    for k, n in list(pwc_launches.items()) + list(raft_launches.items()):
         launches[k] += n
     phase("launch_counts_all_paths", launches=launches)
     prof = profiler_phase()
@@ -3839,6 +4219,19 @@ def main():
                         launches_per_native_step=CORR_PER_STEP,
                         per=f"the {CORR_PER_STEP} calls of one 448x1024 b{PWC_B} f32 PWCLearner "
                             "step (5 levels x 2 directions)")
+        elif k in (kernels.CORR_LOOKUP, kernels.CORR_LOOKUP_BWD):
+            key = "fwd" if k is kernels.CORR_LOOKUP else "bwd"
+            st, fp = lookup_rows["448x1024_b8"][key], lookup_rows["64x64_b16"][key]
+            vals = dict(max_abs_err=max(st["err"], fp["err"]), ms=st["ms"],
+                        plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
+                        bound_by=st["bound_by"], library_ms=st["library_ms"],
+                        bound_share=st["bound_ms"] / st["ms"],
+                        vs_library=st["ms"] / st["library_ms"],
+                        per=f"one call at a 448x1024 b{RAFT_B} eval's 4 levels (f32)",
+                        at_64x64_b16={kk: fp[kk] for kk in ("ms", "plain_ms", "library_ms",
+                                                            "bound_ms", "bound_by")})
+            if key == "bwd":
+                vals["dense_cotangent_gb"] = st["dense_gb"]
         elif k in (kernels.LA_MID_CTX, kernels.LA_MID_OUT):
             st = mid["ctx" if k is kernels.LA_MID_CTX else "out"]
             vals = dict(max_abs_err=st["err"], ms=st["ms"], plain_ms=st["plain_ms"],

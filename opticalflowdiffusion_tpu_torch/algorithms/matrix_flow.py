@@ -44,6 +44,12 @@ from ..utils import visualization as viz
 # the UNet width, fixed in the JAX package
 WIDTH = 64
 GOALS = ("gt_flow_pred", "filter_pred", "gt_filter_pred")
+# the reference's quirk, kept: JAX's branch cannot run
+RAFT_ARCHITECTURE_ERROR = (
+    "architecture {!r}: JAX's MatrixFlow builds RAFT(radius=R) and calls it with one "
+    "6-channel tensor and None for the second frame (RAFT.init(x, None, None)), which fails "
+    "in RAFT's feature net (AttributeError on None); RAFT's filter representation itself "
+    "cannot run either (models/raft.py). Only architecture 'unet' trains")
 
 
 def image_wh(image_size) -> Tuple[int, int]:
@@ -96,9 +102,7 @@ class MatrixFlow:
         else:
             self.has = []
         if cfg.architecture != "unet":
-            raise NotImplementedError(
-                f"architecture {cfg.architecture!r}: MatrixFlow's RAFT branch waits for the "
-                "RAFT port (ROADMAP A8)")
+            raise NotImplementedError(RAFT_ARCHITECTURE_ERROR.format(cfg.architecture))
         out_dim = 2 if self.goal == "gt_flow_pred" else (
             self.radius ** 2 + ("colweights" in self.has) + 3 * ("cols" in self.has))
         self.module = Unet(WIDTH, channels=6, out_dim=out_dim, time_in=False, dtype=self.dtype,
@@ -356,4 +360,4 @@ class MatrixFlow:
         return viz.make_grid(f, nrow=int(round(math.sqrt(f.shape[0]))))
 
 
-__all__ = ["GOALS", "MatrixFlow", "gaussian_blur", "image_wh"]
+__all__ = ["GOALS", "MatrixFlow", "RAFT_ARCHITECTURE_ERROR", "gaussian_blur", "image_wh"]

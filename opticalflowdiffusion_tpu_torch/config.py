@@ -8,8 +8,8 @@ with the dataset drawn at the algorithm's image size, the real-data
 datasets of ``dataset/{sintel,flying_chairs,kitti_single}.yaml``, and the
 MatrixFlow and animation family: ``algorithm/{matrix_flow,frame_generator,
 flow_completer}.yaml``, ``dataset/artificial_video.yaml`` and
-``experiment/animation.yaml`` over ``experiment/base.yaml``, and
-``algorithm/pwc_learner.yaml``.
+``experiment/animation.yaml`` over ``experiment/base.yaml``,
+``algorithm/pwc_learner.yaml`` and ``dataset/taichi.yaml``.
 """
 
 from __future__ import annotations
@@ -74,6 +74,29 @@ class ArtificialVideoDataConfig:
     val_length: int = 5
     max_motion: int = 1
     seed: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class TaiChiDataConfig:
+    """``dataset/taichi.yaml`` (``image_size`` one side: frames are square)
+    with the reader's ``cfg.get`` defaults (``flow_iters``,
+    ``flow_corr_levels``, ``allow_untrained_flow``) and the device of the
+    precompute's RAFT (``flow_device``)."""
+
+    name: str = "taichi"
+    image_size: int = 64
+    scale_down: float = 1.0
+    frame_distance: int = 10
+    val_length: int = 10
+    calculate_flows: bool = False
+    flow_batch_size: int = 48
+    flow_method: str = "raft"
+    flow_checkpoint: Optional[str] = "raft-artificial"
+    flow_iters: int = 12
+    flow_corr_levels: int = 4
+    allow_untrained_flow: bool = False
+    flow_device: str = "cuda"
+    root: Optional[str] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,7 +185,7 @@ class MatrixFlowConfig:
     (the inverted filter's mean tap against the flow); ``cols`` (the
     ``+algorithm.cols`` knob: ``any`` or ``ones``) adds the colour-weight
     channel (and with ``any`` three colour channels); ``architecture`` is
-    ``unet`` (``raft`` waits for the RAFT port)."""
+    ``unet`` (``raft`` raises, as JAX's branch cannot run)."""
 
     image_size: Union[int, str] = "128,128"
     architecture: str = "unet"
@@ -286,9 +309,10 @@ FLAGSHIP_DATA = ArtificialDataConfig()
 SINTEL = SintelDataConfig()
 FLYING_CHAIRS = FlyingChairsDataConfig()
 KITTI_SINGLE = KittiSingleDataConfig()
+TAICHI = TaiChiDataConfig()
 # the dataset configs by name (the artificial one follows the algorithm's size)
 DATA = {"artificial": FLAGSHIP_DATA, "sintel": SINTEL, "flying_chairs": FLYING_CHAIRS,
-        "kitti_single": KITTI_SINGLE, "artificial_video": ARTIFICIAL_VIDEO}
+        "kitti_single": KITTI_SINGLE, "artificial_video": ARTIFICIAL_VIDEO, "taichi": TAICHI}
 MATRIX_FLOW = TrainingConfig()
 # experiment/animation.yaml over base.yaml: no clipping, validation shuffled
 ANIMATION = TrainingConfig(batch_size=64, clipping=None, check_interval=400, val_batch_size=8,
@@ -299,7 +323,7 @@ __all__ = ["ArtificialDataConfig", "ArtificialVideoDataConfig", "FlowCompleterCo
            "FlowDiffuserConfig", "FlowLearnerConfig", "FlowPredConfig", "FlyingChairsDataConfig",
            "FrameGeneratorConfig", "KittiSingleDataConfig", "MatrixFlowConfig", "PWCLearnerConfig",
            "ServingConfig",
-           "SintelDataConfig", "TrainingConfig", "ANIMATION", "ARTIFICIAL_VIDEO", "DATA",
+           "SintelDataConfig", "TaiChiDataConfig", "TrainingConfig", "ANIMATION", "ARTIFICIAL_VIDEO", "DATA",
            "FLAGSHIP", "FLAGSHIP_DATA", "FLOW_COMPLETER", "FLOW_LEARNER", "FLOW_PRED",
            "FLYING_CHAIRS", "FRAME_GENERATOR", "KITTI_SINGLE", "MATRIX_FLOW", "MATRIX_FLOW_ALGO",
-           "NATIVE", "PWC_LEARNER", "SINTEL"]
+           "NATIVE", "PWC_LEARNER", "SINTEL", "TAICHI"]

@@ -1,10 +1,11 @@
 """Datasets (JAX ``data/``): the procedural artificial dataset, the
-constant-velocity video dataset and the Sintel, FlyingChairs and KITTI
-readers, by name.  TaiChi is not ported yet: its name raises."""
+constant-velocity video dataset and the Sintel, FlyingChairs, KITTI and
+TaiChi readers, by name."""
 
 from .loader import DataLoader  # noqa: F401
 
-DATASETS = ("artificial", "sintel", "flying_chairs", "kitti_single", "artificial_video")
+DATASETS = ("artificial", "sintel", "flying_chairs", "kitti_single", "artificial_video",
+            "taichi")
 
 
 def get_dataset(name: str):
@@ -20,9 +21,7 @@ def get_dataset(name: str):
     elif name == "artificial_video":
         from .artificial_video import ArtificialVideoDataset as D
     elif name == "taichi":
-        raise NotImplementedError(
-            "taichi waits for ROADMAP A8: its precompute runs RAFT, and its reader resizes "
-            "with PIL and cv2")
+        from .taichi import TaiChiDataset as D
     else:
         raise KeyError(f"unknown dataset {name!r}; known: {DATASETS}")
     return D

@@ -8,6 +8,9 @@
 * KITTI: ``KITTI/<split>/training/{image_2,flow_occ}/%06d_1{0,1}.png`` at
   the native 1242x375, the ground truth sparse 16-bit with its validity
   channel.
+* TaiChi: ``taichi/taichi/{training,test}/<video>/%04d.png`` frame
+  directories (RGB PNGs, TaiChi's 256x256 by default), no flow cache (the
+  precompute writes it).
 
 Scenes are textured boxes moving at constant integer velocities over a
 textured background, with the exact forward flow.  The random draws are
@@ -141,5 +144,22 @@ def make_kitti_fixture(root, n: int = 6, size=(1242, 375), seed: int = 0,
     return Path(root) / "KITTI"
 
 
+def make_taichi_fixture(root, videos: int = 2, frames: int = 13, size: int = 256,
+                        seed: int = 0, splits=("training", "test")) -> Path:
+    """``videos`` clips of ``frames`` frames a split under
+    ``<root>/taichi/taichi/<split>``, textured boxes at up to ``size`` / 32
+    px a frame."""
+    rng = np.random.default_rng(seed)
+    base = Path(root) / "taichi" / "taichi"
+    for split in splits:
+        for v in range(videos):
+            d = base / split / f"vid_{v:03d}"
+            d.mkdir(parents=True, exist_ok=True)
+            imgs, _ = render_sequence(rng, size, size, frames, max_motion=max(size // 32, 1))
+            for i, img in enumerate(imgs):
+                write_png(d / f"{i:04d}.png", img, filters=1)
+    return Path(root) / "taichi"
+
+
 __all__ = ["render_sequence", "make_sintel_fixture", "make_chairs_fixture",
-           "make_kitti_fixture"]
+           "make_kitti_fixture", "make_taichi_fixture"]

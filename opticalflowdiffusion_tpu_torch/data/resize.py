@@ -23,6 +23,18 @@ and raises.  The bilinear passes run in the host helper
 (``data/host.py``), which releases the GIL while the numpy version's
 gathers hold it against the training loop's thread; ``resize_plain`` is
 the numpy version.
+
+``resize_pil(img, (W, H))`` is PIL's ``Image.resize`` with its default
+filter (BICUBIC, a = -0.5) on an (H, W, 3) uint8 image, bit for bit:
+Pillow's ``Resample.c``.  Each axis takes, for output pixel ``d``, the
+centre ``(d + 0.5) * scale`` and the support ``2 * max(scale, 1)`` (so a
+downscale is antialiased), the taps ``int(centre -/+ support + 0.5)``
+clamped to the frame, the filter at ``(x - centre + 0.5) / max(scale, 1)``
+normalised to sum 1 in double, then rounded to 22-bit fixed point (half
+away from zero).  A horizontal pass, then a vertical one over the rows it
+made, each summing uint8 times coefficient into an integer that starts at
+2^21, and clipping ``sum >> 22`` to [0, 255].  An axis that keeps its size
+is not resampled, and a resize to the same size is a copy.
 """
 
 from __future__ import annotations
@@ -137,4 +149,64 @@ def resize_plain(img: np.ndarray, size: Tuple[int, int], nearest: bool = False) 
         _linear_u8 if a.dtype == np.uint8 else _linear_f32)(a, W, H))
 
 
-__all__ = ["resize", "resize_plain"]
+PIL_BITS = 22          # Pillow's PRECISION_BITS for 8-bit samples
+
+
+def _bicubic(x: np.ndarray) -> np.ndarray:
+    a = -0.5
+    x = np.abs(x)
+    return np.where(x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1,
+                    np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
+
+
+def _pil_coeffs(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(first tap, fixed-point coefficients (out, taps)) of one axis, as
+    Pillow's ``precompute_coeffs`` and ``normalize_coeffs_8bpc``; the
+    coefficients past a pixel's last tap are 0."""
+    scale = float(in_size) / out_size
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    first = np.zeros(out_size, np.int64)
+    kk = np.zeros((out_size, ksize), np.float64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        w = _bicubic((np.arange(xmax, dtype=np.float64) + xmin - center + 0.5) * (1.0 / filterscale))
+        ww = w.sum()
+        kk[xx, :xmax] = w / ww if ww != 0.0 else w
+        first[xx] = xmin
+    scaled = kk * float(1 << PIL_BITS)
+    fixed = np.where(kk < 0, np.trunc(-0.5 + scaled), np.trunc(0.5 + scaled)).astype(np.int64)
+    return first, fixed
+
+
+def _pil_pass(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One of Pillow's 8-bit passes along ``axis`` (0 rows, 1 columns)."""
+    first, k = _pil_coeffs(img.shape[axis], out_size)
+    idx = np.minimum(first[:, None] + np.arange(k.shape[1]), img.shape[axis] - 1)
+    src = np.take(img.astype(np.int64), idx, axis=axis)     # (out, taps) on that axis
+    kshape = [1] * src.ndim
+    kshape[axis], kshape[axis + 1] = k.shape
+    acc = (src * k.reshape(kshape)).sum(axis=axis + 1) + (1 << (PIL_BITS - 1))
+    return np.clip(acc >> PIL_BITS, 0, 255).astype(np.uint8)
+
+
+def resize_pil(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """PIL's ``Image.fromarray(img).resize(size)`` (``size`` = (W, H);
+    BICUBIC, no ``reducing_gap``) of an (H, W, C) uint8 image."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3:
+        raise TypeError(f"resize_pil takes an (H, W, C) uint8 image, got {img.dtype} "
+                        f"{img.shape}")
+    W, H = int(size[0]), int(size[1])
+    out = img
+    if W != img.shape[1]:
+        out = _pil_pass(out, W, 1)
+    if H != img.shape[0]:
+        out = _pil_pass(out, H, 0)
+    return np.ascontiguousarray(out) if out is not img else img.copy()
+
+
+__all__ = ["resize", "resize_pil", "resize_plain"]

@@ -1,8 +1,7 @@
 """The video experiment (JAX ``experiments/animation.py``): FrameGenerator
-or FlowCompleter on the constant-velocity video dataset, the counterpart of
+or FlowCompleter on the constant-velocity video dataset or TaiChi, the counterpart of
 ``main.py experiment=animation algorithm={frame_generator,flow_completer}
-dataset=artificial_video``.  TaiChi is not ported yet (``data/__init__.py``
-raises on its name)."""
+dataset={artificial_video,taichi}``."""
 
 from __future__ import annotations
 

@@ -89,8 +89,19 @@ CORR_BWD = Kernel(
     "opticalflowdiffusion_tpu_torch/kernels/correlation.cu",
     "opticalflowdiffusion_tpu/ops/correlation.py:28",
 )
+CORR_LOOKUP = Kernel(
+    "corr_lookup_fwd",
+    "opticalflowdiffusion_tpu_torch/kernels/corr_lookup.cu",
+    "opticalflowdiffusion_tpu/models/raft.py:95",
+)
+CORR_LOOKUP_BWD = Kernel(
+    "corr_lookup_bwd",
+    "opticalflowdiffusion_tpu_torch/kernels/corr_lookup.cu",
+    "opticalflowdiffusion_tpu/models/raft.py:95",
+)
 KERNELS = (LA_CTX, LA_OUT, LA_BWD_Q, LA_BWD_KV1, LA_BWD_KV2, FLASH, SPLAT, SPLAT_BWD,
-           CONV_ROWS, CONV_FOLD, LA_MID_CTX, LA_MID_OUT, CORR, CORR_BWD)
+           CONV_ROWS, CONV_FOLD, LA_MID_CTX, LA_MID_OUT, CORR, CORR_BWD, CORR_LOOKUP,
+           CORR_LOOKUP_BWD)
 
 
 def reset_counts() -> None:
@@ -98,6 +109,7 @@ def reset_counts() -> None:
         k.launches = 0
 
 
-__all__ = ["Kernel", "KERNELS", "CONV_FOLD", "CONV_ROWS", "CORR", "CORR_BWD", "FLASH",
+__all__ = ["Kernel", "KERNELS", "CONV_FOLD", "CONV_ROWS", "CORR", "CORR_BWD", "CORR_LOOKUP",
+           "CORR_LOOKUP_BWD", "FLASH",
            "LA_BWD_KV1", "LA_BWD_KV2", "LA_BWD_Q", "LA_CTX", "LA_MID_CTX", "LA_MID_OUT", "LA_OUT",
            "SPLAT", "SPLAT_BWD", "reset_counts"]

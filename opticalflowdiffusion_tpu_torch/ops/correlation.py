@@ -19,19 +19,29 @@ channels already in that direction's order.  The kernel reads each feature
 once and writes the 81 products, where the composition materialises the
 B * C * 81 * H * W patches.
 
-RAFT's ``allpairs_correlation`` and ``avg_pool2d`` come with RAFT.
+RAFT's correlation (JAX's ``allpairs_correlation``, ``avg_pool2d`` and
+``models/raft.py::corr_lookup``) is here too: the all-pairs product of two
+feature maps in float32, its average-pool pyramid, and the windowed
+bilinear lookup of (2r + 1)^2 taps around each pixel's target at every
+level.  :func:`corr_lookup_plain` is JAX's composition (per level, taps
+gathered by ``ops/warp.py::bilinear_gather``, clamped to the border); on the
+card :func:`corr_lookup` runs ``kernels/corr_lookup.cu`` (S4: every level's
+taps in one launch, channels-last, and the levels' dense cotangents in one,
+each row's taps summed by one thread into a window in shared memory and the
+rows written whole, without atomics) through a ``torch.autograd.Function``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..kernels import CORR, CORR_BWD
+from ..kernels import CORR, CORR_BWD, CORR_LOOKUP, CORR_LOOKUP_BWD
+from .warp import bilinear_gather
 
 PATCH = 9
 DIRECTIONS = (None, "fwd", "bwd")
@@ -192,5 +202,188 @@ def local_correlation(feat_a: torch.Tensor, feat_b: torch.Tensor,
     return out if direction is None else pwc_index_reorder(out, direction)
 
 
-__all__ = ["DIRECTIONS", "PATCH", "corr_bwd", "corr_fwd", "local_correlation",
-           "local_correlation_plain", "pwc_index_reorder", "reorder_index"]
+# ------------------------------------------------------------------- RAFT
+def allpairs_correlation(fmap1: torch.Tensor, fmap2: torch.Tensor) -> torch.Tensor:
+    """RAFT's all-pairs correlation of (B, C, H, W) feature maps: (B, H, W,
+    H, W), every product in float32 (JAX's ``preferred_element_type``),
+    scaled by 1 / sqrt(C).  The product is ``torch.matmul`` on float32
+    operands, so on the card it follows
+    ``torch.backends.cuda.matmul.allow_tf32`` (False by default: full
+    float32, as the port runs it; TF32 would round the operands to 10
+    mantissa bits)."""
+    B, C, H, W = fmap1.shape
+    a = fmap1.float().reshape(B, C, H * W).transpose(1, 2)
+    b = fmap2.float().reshape(B, C, H * W)
+    corr = torch.matmul(a, b)
+    corr = corr / torch.sqrt(torch.tensor(float(C), dtype=corr.dtype, device=corr.device))
+    return corr.reshape(B, H, W, H, W)
+
+
+def avg_pool2d(x: torch.Tensor, k: int = 2) -> torch.Tensor:
+    """The k x k average pool of the last two (spatial) dims of (..., H, W)
+    by JAX's reshape: a side that k does not divide raises, as the
+    reshape does there."""
+    *lead, H, W = x.shape
+    if H % k or W % k:
+        raise ValueError(f"avg_pool2d: cannot reshape ({H}, {W}) into {k} x {k} blocks "
+                         f"(JAX's reshape fails on the same sides)")
+    return x.reshape(*lead, H // k, k, W // k, k).mean(dim=(-3, -1))
+
+
+def lookup_taps(radius: int) -> torch.Tensor:
+    """(K, 2) offsets (dx, dy) of the (2r + 1)^2 taps in JAX's order: tap
+    i * (2r + 1) + j is (j - r, i - r)."""
+    d = torch.arange(-radius, radius + 1, dtype=torch.float32)
+    ddy, ddx = torch.meshgrid(d, d, indexing="ij")
+    return torch.stack([ddx, ddy], dim=-1).reshape(-1, 2)
+
+
+def corr_lookup_plain(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
+                      radius: int = 4) -> torch.Tensor:
+    """JAX's ``corr_lookup``: for each level l of ``pyramid`` ((B * H * W,
+    Hl, Wl)), the bilinear taps at coords / 2^l + each offset of
+    :func:`lookup_taps`, each index clamped to the border; ``coords`` (B, H,
+    W, 2) holds each pixel's (x, y) target.  Returns (B, H, W, L * K), the
+    levels last."""
+    B, H, W, _ = coords.shape
+    delta = lookup_taps(radius).to(coords.device)
+    K = delta.shape[0]
+    out = []
+    for lvl, corr in enumerate(pyramid):
+        c = coords.reshape(B * H * W, 1, 2) / (2 ** lvl)
+        pts = c + delta.reshape(1, K, 2)
+        img = corr.reshape(B * H * W, 1, *corr.shape[-2:])
+        sampled = bilinear_gather(img, pts[..., 0].reshape(-1, 1, K), pts[..., 1].reshape(-1, 1, K))
+        out.append(sampled.reshape(B, H, W, K))
+    return torch.cat(out, dim=-1)
+
+
+def _lookup_lib():
+    from ..kernels import build
+
+    lib = build.load("corr_lookup")
+    if not getattr(lib, "_ofd_typed", False):
+        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.ofd_corr_lookup_fwd.argtypes = [ctypes.POINTER(vp), ip, ip, i, vp, vp, ll, i, i, vp]
+        lib.ofd_corr_lookup_fwd.restype = i
+        lib.ofd_corr_lookup_bwd.argtypes = [ctypes.POINTER(vp), ip, ip, i, vp, vp, ll, i, i, vp]
+        lib.ofd_corr_lookup_bwd.restype = i
+        lib.ofd_cuda_error_string.argtypes = [i]
+        lib.ofd_cuda_error_string.restype = ctypes.c_char_p
+        lib._ofd_typed = True
+    return lib
+
+
+MAX_LEVELS = 8
+
+
+def _check_lookup(levels: Sequence[torch.Tensor], coords: torch.Tensor, radius: int):
+    if not coords.is_cuda:
+        raise ValueError(f"the lookup kernels take CUDA tensors, got {coords.device}")
+    if coords.dtype != torch.float32 or coords.dim() != 4 or coords.shape[-1] != 2:
+        raise ValueError(f"coords must be float32 (B, H, W, 2), got {coords.dtype} "
+                         f"{tuple(coords.shape)}")
+    if not 1 <= len(levels) <= MAX_LEVELS:
+        raise ValueError(f"the lookup takes 1 to {MAX_LEVELS} levels, got {len(levels)}")
+    if not 0 <= radius <= 15:
+        raise ValueError(f"radius must be in [0, 15], got {radius}")
+    N = coords.shape[0] * coords.shape[1] * coords.shape[2]
+    for lvl in levels:
+        if (lvl.device != coords.device or lvl.dtype != torch.float32 or lvl.dim() != 3
+                or lvl.shape[0] != N or not lvl.is_contiguous()):
+            raise ValueError(f"each level must be contiguous float32 ({N}, Hl, Wl) on "
+                             f"{coords.device}, got {lvl.dtype} {tuple(lvl.shape)} on {lvl.device}")
+    return N
+
+
+def _level_args(levels):
+    L = len(levels)
+    hs = (ctypes.c_int * L)(*(int(t.shape[1]) for t in levels))
+    ws = (ctypes.c_int * L)(*(int(t.shape[2]) for t in levels))
+    ptrs = (ctypes.c_void_p * L)(*(t.data_ptr() for t in levels))
+    return ptrs, hs, ws, L
+
+
+def corr_lookup_fwd(levels: Sequence[torch.Tensor], coords: torch.Tensor,
+                    radius: int = 4) -> torch.Tensor:
+    """The forward kernel: (B, H, W, L * (2r + 1)^2) float32 taps of the
+    contiguous float32 CUDA ``levels`` ((B * H * W, Hl, Wl)) at ``coords``
+    (B, H, W, 2), the levels last.  One launch for all levels."""
+    N = _check_lookup(levels, coords, radius)
+    coords = coords.contiguous()
+    B, H, W, _ = coords.shape
+    K = (2 * radius + 1) ** 2
+    out = torch.empty(B, H, W, len(levels) * K, dtype=torch.float32, device=coords.device)
+    if N == 0:
+        return out
+    lib = _lookup_lib()
+    ptrs, hs, ws, L = _level_args(levels)
+    dev = coords.device
+    err = lib.ofd_corr_lookup_fwd(ptrs, hs, ws, L, coords.data_ptr(), out.data_ptr(), N, radius,
+                                  dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, err, CORR_LOOKUP.name)
+    CORR_LOOKUP.launches += 1
+    return out
+
+
+def corr_lookup_bwd(shapes: Sequence[Tuple[int, int]], coords: torch.Tensor, g: torch.Tensor,
+                    radius: int = 4) -> List[torch.Tensor]:
+    """The backward kernel: each level's dense cotangent (B * H * W, Hl, Wl)
+    (``shapes`` the levels' (Hl, Wl)) of the taps' cotangent ``g`` (B, H, W,
+    L * K), every row summed by one thread in a fixed order (no atomics: a
+    repeat gives the same bits).  One launch for all levels."""
+    B, H, W, _ = coords.shape
+    N = B * H * W
+    K = (2 * radius + 1) ** 2
+    dev = coords.device
+    grads = [torch.empty(N, int(h), int(w), dtype=torch.float32, device=dev) for h, w in shapes]
+    _check_lookup(grads, coords, radius)
+    g = g.float().contiguous()
+    if g.device != dev or tuple(g.shape) != (B, H, W, len(shapes) * K):
+        raise ValueError(f"g must be {(B, H, W, len(shapes) * K)} on {dev}, got "
+                         f"{tuple(g.shape)} on {g.device}")
+    if N == 0:
+        return grads
+    lib = _lookup_lib()
+    ptrs, hs, ws, L = _level_args(grads)
+    err = lib.ofd_corr_lookup_bwd(ptrs, hs, ws, L, coords.contiguous().data_ptr(), g.data_ptr(),
+                                  N, radius, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, err, CORR_LOOKUP_BWD.name)
+    CORR_LOOKUP_BWD.launches += 1
+    return grads
+
+
+class _CorrLookup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, coords, radius, *levels):
+        ctx.save_for_backward(coords)
+        ctx.radius = radius
+        ctx.shapes = [tuple(t.shape[1:]) for t in levels]
+        return corr_lookup_fwd(levels, coords, radius)
+
+    @staticmethod
+    def backward(ctx, g):
+        (coords,) = ctx.saved_tensors
+        return (None, None, *corr_lookup_bwd(ctx.shapes, coords, g, ctx.radius))
+
+
+def corr_lookup(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
+                radius: int = 4) -> torch.Tensor:
+    """RAFT's differentiable windowed lookup (B, H, W, L * (2r + 1)^2) of
+    the correlation ``pyramid`` (levels (B * H * W, Hl, Wl), float32) at
+    ``coords`` (B, H, W, 2): the S4 kernels for CUDA tensors, the plain
+    version (:func:`corr_lookup_plain`) for CPU tensors.  The coords carry
+    no gradient (RAFT stops it): on the card they must not require one."""
+    if coords.is_cuda:
+        if coords.requires_grad:
+            raise ValueError("the lookup kernels give no gradient of coords: detach them")
+        return _CorrLookup.apply(coords.float().contiguous(), int(radius),
+                                 *(t.contiguous() for t in pyramid))
+    return corr_lookup_plain(pyramid, coords, radius)
+
+
+__all__ = ["DIRECTIONS", "MAX_LEVELS", "PATCH", "allpairs_correlation", "avg_pool2d",
+           "corr_bwd", "corr_fwd", "corr_lookup", "corr_lookup_bwd", "corr_lookup_fwd",
+           "corr_lookup_plain", "local_correlation", "local_correlation_plain", "lookup_taps",
+           "pwc_index_reorder", "reorder_index"]

@@ -6,6 +6,9 @@ optimizer is the reference's Lightning setup: global-norm gradient clipping
 (``gradient_clip_val``), then ``torch.optim.Adam(weight_decay=...)``, which
 adds the decay to the gradient before the moments (L2, not AdamW), as
 optax's ``clip_by_global_norm -> add_decayed_weights -> adam`` chain does.
+``decoupled=True`` is optax's ``clip_by_global_norm -> adamw`` instead
+(``torch.optim.AdamW``: the decay scales the parameters, outside the
+moments), which RAFT's flow pretraining uses.
 """
 
 from __future__ import annotations
@@ -18,14 +21,17 @@ from ..utils.grad_stats import grad_norm_stats
 
 
 class Optimizer:
-    """Global-norm clip (optional) followed by Adam with L2 weight decay."""
+    """Global-norm clip (optional) followed by Adam with L2 weight decay, or
+    with decoupled weight decay (AdamW) when ``decoupled``."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], lr: float,
-                 weight_decay: float = 0.0, clip: Optional[float] = None):
+                 weight_decay: float = 0.0, clip: Optional[float] = None,
+                 decoupled: bool = False):
         self.params = [p for p in params if p.requires_grad]
         self.clip = None if clip is None else float(clip)
-        self.adam = torch.optim.Adam(self.params, lr=float(lr), betas=(0.9, 0.999), eps=1e-8,
-                                     weight_decay=float(weight_decay))
+        adam = torch.optim.AdamW if decoupled else torch.optim.Adam
+        self.adam = adam(self.params, lr=float(lr), betas=(0.9, 0.999), eps=1e-8,
+                         weight_decay=float(weight_decay))
 
     def zero_grad(self) -> None:
         self.adam.zero_grad(set_to_none=True)
@@ -52,8 +58,8 @@ class Optimizer:
 
 
 def make_optimizer(params, lr: float, weight_decay: float = 0.0,
-                   clip: Optional[float] = None) -> Optimizer:
-    return Optimizer(params, lr, weight_decay, clip)
+                   clip: Optional[float] = None, decoupled: bool = False) -> Optimizer:
+    return Optimizer(params, lr, weight_decay, clip, decoupled)
 
 
 class TrainState:

@@ -16,10 +16,11 @@ and test it.
         [--diffusion-flow-weight W] [--latent --ae DIR] [--latent-dim 16] \\
         [--radius R] [--levels 1,2,4] [--precision {bf16,float32}] [--lr LR] \\
         [--flow-max F] [--dataset-size N] [--dataset-seed S] \\
-        [--dataset {artificial,sintel,flying_chairs,kitti_single,artificial_video}] \\
+        [--dataset {artificial,sintel,flying_chairs,kitti_single,artificial_video,taichi}] \\
         [--data-root DIR] [--workers N] [--tasks train,test] [--ckpt-path DIR] [--epochs E] \\
         [--profile-step N] [--goal {gt_flow_pred,filter_pred,gt_filter_pred}] \\
-        [--val-length L] [--max-motion M]
+        [--val-length L] [--max-motion M] [--calculate-flows] [--flow-checkpoint DIR] \\
+        [--flow-iters N] [--flow-corr-levels L]
 
 The counterpart of ``main.py experiment=matrix_flow algorithm=flow_diffuser
 dataset=artificial``: the flagship (UNet width 64, dim_mults (1, 2, 4, 8),
@@ -88,6 +89,13 @@ default 1; ``--image-size`` default the yaml's 32): FrameGenerator
 (``frame_generator.yaml``: T = 1000, the ancestral loop unless
 ``--sampling-timesteps`` asks for DDIM; validation rolls the model out
 over the transitions) or FlowCompleter (``flow_completer.yaml``).
+Both also train on ``--dataset taichi`` (``dataset/taichi.yaml``: 64x64
+frames ``frame_distance`` 10 apart, validation stacks of ``--val-length``,
+default 10) with its flow from the ``<split>-flows2`` cache;
+``--calculate-flows`` first writes that cache with RAFT on ``--device``
+from ``--flow-checkpoint`` (default the ``raft-artificial`` artifact that
+``training/flow_pretrain.py`` publishes), ``--flow-iters`` iterations
+(default 12) and ``--flow-corr-levels`` levels (default 4).
 """
 
 from __future__ import annotations
@@ -103,7 +111,7 @@ from .algorithms.flow_diffuser import TARGETS
 from .algorithms.matrix_flow import GOALS
 from .config import (ANIMATION, DATA, FLAGSHIP, FLOW_COMPLETER, FLOW_LEARNER, FLOW_PRED,
                      FRAME_GENERATOR, MATRIX_FLOW, MATRIX_FLOW_ALGO, PWC_LEARNER)
-from .data import DATASETS, get_dataset
+from .data import DATASETS
 from .experiments import animation as anim_exp
 from .experiments.matrix_flow import ALGORITHMS as FLOW_ALGORITHMS
 from .experiments.matrix_flow import MatrixFlowExperiment
@@ -152,16 +160,21 @@ def parse_image_size(value):
 
 
 def data_config(dataset: str, image_size=None, data_root=None, size=None, seed=0,
-                val_length=None, max_motion=None):
+                val_length=None, max_motion=None, taichi=None):
     """The dataset's config: the artificial one at one side (``size`` items
     drawn from ``seed``), the video one likewise (with ``val_length`` and
-    ``max_motion``), or a real dataset's yaml with ``image_size`` ("W,H" or
-    one side for both) and ``root`` replaced where given."""
-    if dataset == "taichi":
-        get_dataset(dataset)                        # raises: not ported yet
+    ``max_motion``), TaiChi at one side with ``val_length``, ``root`` and
+    the precompute's fields (``taichi``) replaced where given, or a real
+    dataset's yaml with ``image_size`` ("W,H" or one side for both) and
+    ``root`` replaced where given."""
     if dataset not in DATASETS:
         raise ValueError(f"dataset {dataset!r} is not one of {DATASETS}")
     base = DATA[dataset]
+    if dataset == "taichi":
+        fields = dict(image_size=None if image_size is None else int(
+            str(image_size).split(",")[0]), val_length=val_length, root=data_root,
+            **(taichi or {}))
+        return dataclasses.replace(base, **{k: v for k, v in fields.items() if v is not None})
     if dataset == "artificial_video":
         fields = dict(image_size=image_size, size=size, val_length=val_length,
                       max_motion=max_motion)
@@ -188,7 +201,7 @@ def build(steps: int, batch=None, image_size=None, unet_dim=None,
           conv_backend: str = "cudnn", remat: bool = False, algorithm: str = "flow_diffuser",
           precision=None, lr=None, flow_max=None, dataset_size=None, dataset_seed=None,
           dataset=None, data_root=None, workers=None, ckpt_path=None,
-          epochs=None, profile_step=None, val_length=None, max_motion=None,
+          epochs=None, profile_step=None, val_length=None, max_motion=None, taichi=None,
           **model):
     """The experiment of one run, not yet trained.  ``model`` holds config
     fields of the algorithm (``MODEL_FIELDS``; FlowPred's ``latent_dim``;
@@ -198,7 +211,9 @@ def build(steps: int, batch=None, image_size=None, unet_dim=None,
     ``radius``).  ``image_size`` is one side or "W,H"; the algorithm takes
     W (MatrixFlow both).  The experiment is the algorithm's (``ALGORITHMS``),
     the dataset defaults to the experiment's (artificial, or
-    artificial_video)."""
+    artificial_video); ``taichi`` holds TaiChi's precompute fields
+    (``calculate_flows``, ``flow_checkpoint``, ``flow_iters``,
+    ``flow_corr_levels``), its RAFT on ``device``."""
     if algorithm not in ALGORITHMS:
         raise ValueError(f"algorithm {algorithm!r} is not one of {tuple(ALGORITHMS)}")
     experiment = ALGORITHMS[algorithm]
@@ -207,7 +222,8 @@ def build(steps: int, batch=None, image_size=None, unet_dim=None,
     image_size = parse_image_size(image_size)
     data = data_config(dataset, image_size if dataset != "artificial_video" else (
         None if image_size is None else int(str(image_size).split(",")[0])), data_root,
-        dataset_size, seed if dataset_seed is None else dataset_seed, val_length, max_motion)
+        dataset_size, seed if dataset_seed is None else dataset_seed, val_length, max_motion,
+        dict(taichi or {}, flow_device=device))
     side = (int(str(data.image_size).split(",")[0])
             if dataset != "artificial" or image_size is not None else None)
     common = dict(image_size=side, conv_backend=conv_backend, precision=precision, lr=lr)
@@ -366,10 +382,10 @@ def main(argv=None) -> None:
     ap.add_argument("--flow-max", type=float, default=None)
     ap.add_argument("--dataset-size", type=int, default=None)
     ap.add_argument("--dataset-seed", type=int, default=None)
-    ap.add_argument("--dataset", choices=DATASETS + ("taichi",), default=None,
+    ap.add_argument("--dataset", choices=DATASETS, default=None,
                     help="default the experiment's (artificial, animation: artificial_video)")
     ap.add_argument("--val-length", type=int, default=None,
-                    help="artificial_video's transitions a validation item")
+                    help="artificial_video's transitions a validation item (TaiChi's: items)")
     ap.add_argument("--max-motion", type=int, default=None,
                     help="artificial_video's largest motion, px a frame")
     ap.add_argument("--data-root", default=None,
@@ -383,7 +399,17 @@ def main(argv=None) -> None:
     ap.add_argument("--epochs", type=int, default=None)
     ap.add_argument("--profile-step", type=int, default=None,
                     help="trace this step with torch.profiler into --out/profile")
+    ap.add_argument("--calculate-flows", action="store_true",
+                    help="TaiChi: write the flow cache with RAFT before training")
+    ap.add_argument("--flow-checkpoint", default=None,
+                    help="TaiChi: the RAFT run or artifact (default raft-artificial)")
+    ap.add_argument("--flow-iters", type=int, default=None)
+    ap.add_argument("--flow-corr-levels", type=int, default=None)
     a = ap.parse_args(argv)
+    taichi = {k: v for k, v in (("calculate_flows", a.calculate_flows or None),
+                                ("flow_checkpoint", a.flow_checkpoint),
+                                ("flow_iters", a.flow_iters),
+                                ("flow_corr_levels", a.flow_corr_levels)) if v is not None}
     print(json.dumps(run(a.steps, a.resume, tuple(a.tasks.split(",")), batch=a.batch,
                          image_size=a.image_size,
                          unet_dim=a.unet_dim, seed=a.seed, device=a.device, out=a.out,
@@ -394,8 +420,8 @@ def main(argv=None) -> None:
                          dataset_size=a.dataset_size, dataset_seed=a.dataset_seed,
                          dataset=a.dataset, data_root=a.data_root, workers=a.workers,
                          ckpt_path=a.ckpt_path, epochs=a.epochs, profile_step=a.profile_step,
-                         val_length=a.val_length,
-                         max_motion=a.max_motion, **model_flags(a))))
+                         val_length=a.val_length, max_motion=a.max_motion, taichi=taichi,
+                         **model_flags(a))))
 
 
 if __name__ == "__main__":

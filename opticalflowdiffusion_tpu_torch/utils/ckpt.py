@@ -7,6 +7,15 @@ so a directory that exists is complete.  ``every_n_train_steps`` sets the
 cadence and the newest ``MAX_TO_KEEP`` are kept.  :func:`load_params_from_run`
 reads a sub-tree of another run's newest checkpoint (the frozen Autoencoder
 of the latent FlowDiffuser, JAX's ``load_params_from_run``).
+
+The local artifact store (JAX's ``publish_artifact`` and
+``download_latest_checkpoint``): :func:`publish_artifact` links a run's
+``checkpoints`` directory under ``$OFD_ARTIFACT_ROOT`` (default
+``outputs/artifacts``) by name, and :func:`resolve_artifact` finds a name
+as a direct path, then in that store, then in the repository's bundled
+``artifacts/``.  A bundled JAX artifact is an orbax checkpoint, which the
+port does not read: it raises, naming the script that bridges it into a
+port run (``tests/test_torch_port_raft.py --bridge``).
 """
 
 from __future__ import annotations
@@ -96,4 +105,60 @@ def load_params_from_run(run_dir, prefix: str = "") -> Dict[str, torch.Tensor]:
     return out
 
 
-__all__ = ["CheckpointManager", "load_params_from_run"]
+BUNDLED = Path(__file__).resolve().parents[2] / "artifacts"
+BRIDGE = "tests/test_torch_port_raft.py --bridge"
+
+
+def artifact_root() -> Path:
+    """The run-local artifact store: ``$OFD_ARTIFACT_ROOT`` or
+    ``outputs/artifacts``."""
+    return Path(os.environ.get("OFD_ARTIFACT_ROOT", "outputs/artifacts"))
+
+
+def publish_artifact(name: str, src_ckpt_dir) -> Path:
+    """Link the checkpoint directory ``src_ckpt_dir`` into the store as
+    ``name`` (kept if the name exists, as in JAX)."""
+    dst = artifact_root() / name
+    dst.parent.mkdir(parents=True, exist_ok=True)
+    if dst.is_symlink() or dst.exists():
+        return dst
+    dst.symlink_to(Path(src_ckpt_dir).absolute())
+    return dst
+
+
+def _is_orbax(path: Path) -> bool:
+    return path.is_dir() and any((p / "_CHECKPOINT_METADATA").exists()
+                                 for p in path.iterdir() if p.is_dir())
+
+
+def resolve_artifact(name) -> Path:
+    """The checkpoint directory of ``name``: a direct path, then the
+    store, then the bundled ``artifacts/``; a run directory resolves to its
+    ``checkpoints``.  An orbax (JAX) checkpoint raises."""
+    for p in (Path(name), artifact_root() / str(name), BUNDLED / str(name)):
+        if p.exists():
+            break
+    else:
+        raise FileNotFoundError(f"checkpoint artifact {str(name)!r} not found (searched the "
+                                f"path, {artifact_root()} and {BUNDLED})")
+    if (p / "checkpoints").is_dir():
+        p = p / "checkpoints"
+    if _is_orbax(p):
+        raise ValueError(
+            f"{p} is a JAX (orbax) checkpoint, which the port does not read: write it as a "
+            f"port run with `python {BRIDGE} OUT_DIR` on a machine with JAX, then pass OUT_DIR")
+    return p
+
+
+def load_artifact(name) -> Dict[str, torch.Tensor]:
+    """The module state_dict of the newest checkpoint of artifact ``name``."""
+    mgr = CheckpointManager(resolve_artifact(name))
+    step = mgr.latest_step()
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint under {mgr.directory}")
+    ck = torch.load(mgr.directory / str(step) / FILE, map_location="cpu", weights_only=True)
+    return ck["module"]
+
+
+__all__ = ["BUNDLED", "CheckpointManager", "artifact_root", "load_artifact",
+           "load_params_from_run", "publish_artifact", "resolve_artifact"]

@@ -20,7 +20,8 @@ modules are plain UNets (:func:`params_from_jax`, :func:`jax_layout` with
 no prefix); FlowCompleter's tree ``{"net": {"Unet_0": ...},
 "null_embedding"}`` has :func:`flow_completer_state_dict` and
 :func:`flow_completer_jax_layout`; PWCNet's tree :func:`pwc_state_dict` and
-:func:`pwc_jax_layout` (:func:`pwc_rows`).
+:func:`pwc_jax_layout` (:func:`pwc_rows`); RAFT's tree (flow mode)
+:func:`raft_state_dict` and :func:`raft_jax_layout` (:func:`raft_rows`).
 """
 
 from __future__ import annotations
@@ -255,6 +256,53 @@ def pwc_jax_layout(sd: Mapping[str, torch.Tensor], template: Tree) -> Dict:
     return to_jax(sd, template, pwc_rows())
 
 
+def raft_rows() -> List[Row]:
+    """Rows of a JAX ``RAFT`` tree (flow mode) against ``models/raft.py::RAFT``:
+    each encoder's ``Conv_0`` (the stem), ``ResidualBlock_k/Conv_{0,1,2}``
+    (conv1, conv2 and the projection where a block has one) and ``Conv_1``
+    (the output); the update block's ``BasicMotionEncoder_0/Conv_{0..4}``,
+    ``SepConvGRU_0/Conv_{0..5}``, ``FlowHead_0/Conv_{0,1}`` and the mask's
+    ``Conv_{0,1}``."""
+    from ..models.raft import BLOCKS
+
+    rows: List[Row] = []
+
+    def conv(path, key):
+        rows.append((path + ("kernel",), key + ".weight", "conv"))
+        rows.append((path + ("bias",), key + ".bias", "vec"))
+
+    for enc in ("fnet", "cnet"):
+        conv((enc, "Conv_0"), f"{enc}.stem")
+        cin = 64
+        for k, (planes, stride) in enumerate(BLOCKS):
+            names = ["conv1", "conv2"] + (["down"] if stride != 1 or cin != planes else [])
+            for j, name in enumerate(names):
+                conv((enc, f"ResidualBlock_{k}", f"Conv_{j}"), f"{enc}.blocks.{k}.{name}")
+            cin = planes
+        conv((enc, "Conv_1"), f"{enc}.out")
+    ub = "update_block"
+    for j, name in enumerate(("convc1", "convc2", "convf1", "convf2", "conv")):
+        conv((ub, "BasicMotionEncoder_0", f"Conv_{j}"), f"{ub}.encoder.{name}")
+    for j in range(6):
+        conv((ub, "SepConvGRU_0", f"Conv_{j}"), f"{ub}.gru.convs.{j}")
+    conv((ub, "FlowHead_0", "Conv_0"), f"{ub}.flow_head.conv1")
+    conv((ub, "FlowHead_0", "Conv_1"), f"{ub}.flow_head.conv2")
+    conv((ub, "Conv_0"), f"{ub}.mask.0")
+    conv((ub, "Conv_1"), f"{ub}.mask.1")
+    return rows
+
+
+def raft_state_dict(params: Tree) -> Dict[str, torch.Tensor]:
+    """State_dict of RAFT (flow mode) from the JAX params."""
+    return from_jax(params, raft_rows())
+
+
+def raft_jax_layout(sd: Mapping[str, torch.Tensor], template: Tree) -> Dict:
+    """JAX's RAFT tree of ``template`` from the port state_dict ``sd``
+    (parameters or their gradients)."""
+    return to_jax(sd, template, raft_rows())
+
+
 def _get(tree: Tree, path: Tuple[str, ...]):
     for k in path:
         tree = tree[k]
@@ -347,4 +395,5 @@ __all__ = ["autoencoder_jax_layout", "autoencoder_state_dict", "filter_codec_row
            "flow_completer_jax_layout", "flow_completer_state_dict",
            "flow_diffuser_state_dict", "flow_learner_jax_layout", "flow_learner_state_dict",
            "from_jax", "jax_layout", "linear_attention_rows", "params_from_jax", "pwc_jax_layout",
-           "pwc_rows", "pwc_state_dict", "to_jax"]
+           "pwc_rows", "pwc_state_dict", "raft_jax_layout", "raft_rows", "raft_state_dict",
+           "to_jax"]

@@ -123,13 +123,16 @@ def test_sample_frame_generator_from_checkpoint(tmp_path, capsys):
 
 
 def test_waiting_for_raft_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="A8"):
+    """TaiChi reads (no frames under the root: the reader's error), and
+    ``architecture: raft`` raises as JAX's branch cannot run."""
+    with pytest.raises(FileNotFoundError, match="No TaiChi data"):
         train_entry.main(TINY + ["--algorithm", "frame_generator", "--dataset", "taichi",
+                                 "--data-root", str(tmp_path / "none"),
                                  "--steps", "1", "--out", str(tmp_path)])
     from opticalflowdiffusion_tpu_torch.algorithms.matrix_flow import MatrixFlow
     from opticalflowdiffusion_tpu_torch.config import MATRIX_FLOW_ALGO
 
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(NotImplementedError, match="None for the second frame"):
         MatrixFlow(MATRIX_FLOW_ALGO.__class__(architecture="raft"), device="cpu")
 
 

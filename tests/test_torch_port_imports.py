@@ -83,6 +83,28 @@ def test_pwc_modules_are_checked():
     assert (ROOT / "opticalflowdiffusion_tpu_torch" / "kernels" / "correlation.cu").exists()
 
 
+def test_raft_modules_are_checked():
+    """RAFT's modules (the model, the lookup's wrapper and kernel, the flow
+    pretraining, TaiChi's reader and PIL's resize, the artifact store) are
+    among the files checked above."""
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for mod in ("models/raft.py", "ops/correlation.py", "training/flow_pretrain.py",
+                "data/taichi.py", "data/resize.py", "data/fixtures.py", "utils/ckpt.py",
+                "utils/weights.py", "train.py"):
+        assert f"opticalflowdiffusion_tpu_torch/{mod}" in names, mod
+    assert (ROOT / "opticalflowdiffusion_tpu_torch" / "kernels" / "corr_lookup.cu").exists()
+
+
+def test_taichi_config_matches_jax_compose():
+    """Every key of ``dataset/taichi.yaml`` holds JAX's composed value."""
+    from opticalflowdiffusion_tpu_torch.config import TAICHI
+
+    data = compose(["experiment=animation", "algorithm=frame_generator",
+                    "dataset=taichi"]).dataset
+    for key in data:
+        assert getattr(TAICHI, key) == data[key], key
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))

@@ -7,8 +7,11 @@ the ties of ``mode``), the flow warps, the filter inversion, the
 filter-flow conversions (rounding ties, ties of the argmax), each loss
 term, and for the three goals ``loss_fn`` with its gradients and
 ``val_step``'s metrics on a narrow UNet (``Unet(16, dim_mults=(1, 2))``,
-set on both sides) with JAX's weights carried over.  Values to 1e-5
-relative, gradients to 1e-4 of each leaf's largest value.  With a colour
+set on both sides) with JAX's weights carried over; and the family
+stage's training over six Adam steps on the same weights and batches (each
+loss to 1e-4 relative, the weights after them to 1e-4 of each leaf's
+largest value).  Values to 1e-5 relative, gradients to 1e-4 of each leaf's
+largest value.  With a colour
 weight (``cols``) JAX's ``val_step`` raises (its optimal filter has no
 colour-weight channel, which the split expects); so does the port's."""
 
@@ -30,6 +33,9 @@ from opticalflowdiffusion_tpu_torch.config import FLAGSHIP_DATA, MATRIX_FLOW_ALG
 from opticalflowdiffusion_tpu_torch.data.artificial import ArtificialDataset
 from opticalflowdiffusion_tpu_torch.models.unet import Unet
 from opticalflowdiffusion_tpu_torch.ops import warp as pwarp
+from opticalflowdiffusion_tpu.parallel.train import TrainState
+from opticalflowdiffusion_tpu_torch.parallel.train import TrainState as PTrainState
+from opticalflowdiffusion_tpu_torch.parallel.train import make_optimizer, make_train_step
 from opticalflowdiffusion_tpu_torch.utils.weights import jax_layout, params_from_jax
 
 S, B, R = 16, 2, 5
@@ -325,32 +331,40 @@ def test_weights_round_trip(goal_case):
 
 
 def test_raft_architecture_raises():
-    with pytest.raises(NotImplementedError, match="A8"):
+    """JAX's ``architecture: raft`` branch cannot run: its init calls RAFT
+    with one 6-channel tensor and None for the second frame.  The port
+    raises at construction, saying so."""
+    jalgo = JMatrixFlow(compose([
+        "experiment=matrix_flow", "algorithm=matrix_flow", "dataset=artificial",
+        f"algorithm.image_size={S},{S}", f"algorithm.radius={R}", "algorithm.goal=filter_pred",
+        "algorithm.architecture=raft"]).algorithm)
+    batch = tuple(jnp.asarray(np.stack(f)) for f in zip(*_items()))
+    with pytest.raises(AttributeError, match="ndim"):
+        jalgo.init(jax.random.PRNGKey(0), batch)
+    with pytest.raises(NotImplementedError, match="None for the second frame"):
         MatrixFlow(dataclasses.replace(MATRIX_FLOW_ALGO, architecture="raft"), device="cpu")
 
 
-if __name__ == "__main__":
-    # The matrix parity stage's first steps on the CPU, JAX and the port from
-    # JAX's own initial weights (PRNGKey 0) on the same batches (one epoch at
-    # most: 256 steps):  python tests/test_torch_port_matrix_flow.py STEPS
-    import sys
+ADAM_STEPS = 6
 
-    from opticalflowdiffusion_tpu_torch.experiments.base import to_device
-    from opticalflowdiffusion_tpu_torch.parallel.train import (
-        TrainState, make_optimizer, make_train_step,
-    )
-    from opticalflowdiffusion_tpu_torch.training import parity_families as pf
 
-    steps = int(sys.argv[1])
-    algo, train_loader, _ = pf.stage_setup("matrix", "cpu")
-    jalgo = JMatrixFlow(compose([
-        "experiment=matrix_flow", "dataset=artificial", "dataset.image_size=32",
-        "dataset.size=4096", "+dataset.seed=7", "algorithm=matrix_flow",
-        "algorithm.image_size=32,32", "algorithm.goal=filter_pred", "algorithm.radius=3",
-        "algorithm.lr=2e-4"]).algorithm)
-    batches = [b for _, b in zip(range(steps), train_loader)]
-    jstate = jalgo.init(jax.random.PRNGKey(0), tuple(map(jnp.asarray, batches[0])), clip=100)
-    algo.module.load_state_dict(params_from_jax(jax.device_get(jstate.params)))
+def test_filter_pred_losses_follow_jax_over_adam_steps():
+    """The family stage's training (goal filter_pred, lr 2e-4, radius 5,
+    clip 100, Adam with L2 decay 1e-6) on the narrow UNet at 16x16 b2: from
+    the same weights, over the same batches, each step's loss within 1e-4
+    relative of JAX's and the weights after the last step within 1e-4 of
+    each leaf's largest value (Adam's first steps move every weight by
+    about lr, so a wrong update shows at once)."""
+    jalgo, algo = _pair(goal="filter_pred", lr=2e-4)
+    out_dim = algo.module.final_conv.weight.shape[0]
+    jalgo.module = JUnet(16, dim_mults=(1, 2), channels=6, out_dim=out_dim, time_in=False)
+    algo.module = Unet(16, dim_mults=(1, 2), channels=6, out_dim=out_dim, time_in=False)
+    data = ArtificialDataset(dataclasses.replace(FLAGSHIP_DATA, image_size=S, seed=7, size=64))
+    batches = [[data[2 * i + j] for j in range(B)] for i in range(ADAM_STEPS)]
+    jb = [tuple(jnp.asarray(np.stack(f)) for f in zip(*items)) for items in batches]
+    cond = jnp.concatenate([2.0 * jb[0][0] - 1.0, 2.0 * jb[0][1] - 1.0], axis=-1)
+    params = _random_params(jalgo, cond, seed=4)
+    jstate = TrainState.create(params, jalgo.make_optimizer(100.0))
     key = jax.random.PRNGKey(1)
 
     @jax.jit
@@ -358,11 +372,106 @@ if __name__ == "__main__":
         loss, g = jax.value_and_grad(lambda p: jalgo.loss_fn(p, b, key)[0])(st.params)
         return st.apply_gradients(g), loss
 
-    state = TrainState(algo.module, make_optimizer(algo.module.parameters(), 2e-4, 1e-6, 100.0))
+    algo.module.load_state_dict(params_from_jax(params))
+    state = PTrainState(algo.module, make_optimizer(algo.module.parameters(), 2e-4, 1e-6, 100.0))
     step = make_train_step(algo.loss_fn)
-    algo.module.train()
-    for i, b in enumerate(batches):
-        jstate, jloss = jstep(jstate, tuple(map(jnp.asarray, b)))
-        loss = float(step(state, to_device(b, "cpu"), None)["train/loss"])
-        if (i + 1) % 10 == 0:
-            print(i + 1, float(jloss), loss, flush=True)
+    for i, (items, b) in enumerate(zip(batches, jb)):
+        jstate, jloss = jstep(jstate, b)
+        loss = float(step(state, to_batch(items, "cpu"), None)["train/loss"])
+        np.testing.assert_allclose(loss, float(jloss), rtol=1e-4, err_msg=f"step {i + 1}")
+    got = dict(_leaves(jax_layout({k: v.detach() for k, v in algo.module.state_dict().items()},
+                                  params, prefix="")))
+    for name, w in _leaves(jax.device_get(jstate.params)):
+        np.testing.assert_allclose(got[name], w, rtol=0, atol=1e-4 * np.abs(w).max(),
+                                   err_msg=name)
+
+
+def _stage_jax():
+    """JAX's MatrixFlow of the matrix parity stage."""
+    return JMatrixFlow(compose([
+        "experiment=matrix_flow", "dataset=artificial", "dataset.image_size=32",
+        "dataset.size=4096", "+dataset.seed=7", "algorithm=matrix_flow",
+        "algorithm.image_size=32,32", "algorithm.goal=filter_pred", "algorithm.radius=3",
+        "algorithm.lr=2e-4"]).algorithm)
+
+
+def _stage_init(algo, jalgo, batch, kind, seed):
+    """JAX's initial parameters of the stage: its own draw from
+    PRNGKey(seed) (``kind`` jax) or the port's ``init_weights`` draw from
+    ``seed`` (``kind`` port), loaded into the port's module too."""
+    from opticalflowdiffusion_tpu_torch.models.unet import init_weights
+
+    params = jax.device_get(jalgo.init(jax.random.PRNGKey(seed), tuple(map(jnp.asarray, batch)),
+                                       clip=100).params)
+    if kind == "port":
+        init_weights(algo.module, torch.Generator().manual_seed(seed))
+        return jax_layout({k: v.detach() for k, v in algo.module.state_dict().items()}, params,
+                          prefix="")
+    algo.module.load_state_dict(params_from_jax(params))
+    return params
+
+
+if __name__ == "__main__":
+    # The matrix parity stage (C11) on the CPU, at its settings and batches:
+    #   python tests/test_torch_port_matrix_flow.py STEPS [jax|port SEED]
+    #     JAX and the port in lockstep from the same initial weights (JAX's
+    #     PRNGKey(SEED) draw, default 0, or the port's draw from SEED), the
+    #     two losses every 5 steps (one epoch at most: 256 steps);
+    #   python tests/test_torch_port_matrix_flow.py --escape jax|port SEEDS STEPS
+    #     the port alone from each initial draw (SEEDS comma-separated), the
+    #     mean loss over each 50 steps' last 10, and whether it left the
+    #     identity filter (the last 10 under 0.01);
+    #   python tests/test_torch_port_matrix_flow.py --jax-init OUT.pt [SEED]
+    #     JAX's initial weights as the port's float32 state_dict, for
+    #     ``parity_families.py --init-weights``.
+    import sys
+
+    from opticalflowdiffusion_tpu_torch.experiments.base import to_device
+    from opticalflowdiffusion_tpu_torch.parallel.train import TrainState as PState
+    from opticalflowdiffusion_tpu_torch.training import parity_families as pf
+
+    torch.set_num_threads(2)
+    args = sys.argv[1:]
+    jalgo = _stage_jax()
+    if args[0] == "--jax-init":
+        algo, loader, _ = pf.stage_setup("matrix", "cpu")
+        _stage_init(algo, jalgo, next(iter(loader)), "jax", int(args[2]) if len(args) > 2 else 0)
+        torch.save(algo.module.state_dict(), args[1])
+    elif args[0] == "--escape":
+        for seed in (int(v) for v in args[2].split(",")):
+            algo, loader, _ = pf.stage_setup("matrix", "cpu")
+            _stage_init(algo, jalgo, next(iter(pf.stage_setup("matrix", "cpu")[1])), args[1],
+                        seed)
+            state = PState(algo.module, make_optimizer(algo.module.parameters(), 2e-4, 1e-6,
+                                                       100.0))
+            step = make_train_step(algo.loss_fn)
+            algo.module.train()
+            losses = [float(step(state, to_device(b, "cpu"), None)["train/loss"])
+                      for _, b in zip(range(int(args[3])), loader)]
+            curve = " ".join(f"{j}:{np.mean(losses[j - 10:j]):.5f}"
+                             for j in range(50, len(losses) + 1, 50))
+            print(args[1], seed, curve, "escaped" if np.mean(losses[-10:]) < 0.01 else "STUCK",
+                  flush=True)
+    else:
+        steps = int(args[0])
+        kind, seed = (args[1], int(args[2])) if len(args) > 2 else ("jax", 0)
+        algo, train_loader, _ = pf.stage_setup("matrix", "cpu")
+        batches = [b for _, b in zip(range(steps), train_loader)]
+        params = _stage_init(algo, jalgo, batches[0], kind, seed)
+        jstate = TrainState.create(jax.tree_util.tree_map(jnp.asarray, params),
+                                   jalgo.make_optimizer(100))
+        key = jax.random.PRNGKey(1)
+
+        @jax.jit
+        def jstep(st, b):
+            loss, g = jax.value_and_grad(lambda p: jalgo.loss_fn(p, b, key)[0])(st.params)
+            return st.apply_gradients(g), loss
+
+        state = PState(algo.module, make_optimizer(algo.module.parameters(), 2e-4, 1e-6, 100.0))
+        step = make_train_step(algo.loss_fn)
+        algo.module.train()
+        for i, b in enumerate(batches):
+            jstate, jloss = jstep(jstate, tuple(map(jnp.asarray, b)))
+            loss = float(step(state, to_device(b, "cpu"), None)["train/loss"])
+            if (i + 1) % 5 == 0 or i < 3:
+                print(i + 1, float(jloss), loss, flush=True)

@@ -249,14 +249,15 @@ def test_loader_skip_resumes_mid_epoch(trees):
 
 def test_registry_and_configs_match_jax():
     assert DATASETS == ("artificial", "sintel", "flying_chairs", "kitti_single",
-                        "artificial_video")
+                        "artificial_video", "taichi")
     assert get_dataset("sintel") is SintelDataset
     assert get_dataset("flying_chairs") is FlyingChairsDataset
     assert get_dataset("kitti_single") is KittiSingleDataset
     with pytest.raises(KeyError):
         get_dataset("buck_bunny_video")
-    with pytest.raises(NotImplementedError, match="A8"):       # waits for the RAFT port
-        get_dataset("taichi")
+    from opticalflowdiffusion_tpu_torch.data.taichi import TaiChiDataset
+
+    assert get_dataset("taichi") is TaiChiDataset
     for name, port in (("sintel", pcfg.SINTEL), ("flying_chairs", pcfg.FLYING_CHAIRS),
                        ("kitti_single", pcfg.KITTI_SINGLE)):
         cfg = compose(["experiment=matrix_flow", "algorithm=flow_diffuser",
