@@ -4,9 +4,9 @@
 
 Budget: 10-13 minutes on one H100, the kernel build included (one plain
 ``nvcc`` call per source, all started together; seconds each).  A run took
-689 s on an H100 (the real-data phase ~2 minutes, the MatrixFlow and
-animation phase ~2, the pwc phase ~30 s, the raft phase ~60 s), against the
-1200 s limit.  Every line
+640 s on an H100 (the real-data phase ~2 minutes, the MatrixFlow and
+animation phase ~2, the pwc phase ~30 s, the raft phase ~60 s, the
+classify phase ~20 s), against the 1200 s limit.  Every line
 it prints is one JSON object, flushed as it goes, apart from the card's
 ``nvidia-smi`` line.  Phases:
 
@@ -258,6 +258,27 @@ it prints is one JSON object, flushed as it goes, apart from the card's
    inference on a pair, and one train step with rows 1-5 on its own
    inputs.  ``python3 chip_smoke.py --raft-only`` runs the device, build and
    this phase alone and prints no result line (a development aid).
+12c. classify: the classification family and the standalone trainer
+   (ROADMAP A2-A3), the artifact store and the data root in a temporary
+   directory.  ``train_classifier`` (ResNet18, Adam 1e-3) for 300 steps at
+   32x32 b128 on the synthetic task: samples/s, peak memory and the eval
+   accuracy, which must exceed 0.2 (twice chance); published as
+   ``classifier-feat``.  MobileNetV2's train step at b128 (samples/s).
+   ``train.py --algorithm classifier --dataset cifar10`` on a CIFAR
+   fixture tree written by the port: 3 steps with a validation, a resume
+   to 4 and ``--tasks test``.  No kernel runs in these windows (cuDNN and
+   plain PyTorch).  The standalone ``Trainer`` at the flagship's UNet width
+   (``Unet(64, dim_mults=(1, 2, 4, 8))``, float32, unconditional) on 64
+   PNGs at 128x128 (``data/png.py::write_png``), batch 16 with 2
+   microbatches, T = 1000 with DDIM-50 sampling, ``pred_noise``: one step
+   with the kernels against the all-plain step (TOL_STANDALONE) with rows
+   1-5 on that step's own block inputs; a count window of a warm-up and 3
+   timed steps (rows 1-5 launch, no other kernel: steps/s); one milestone
+   (the checkpoint with the EMA, 16 DDIM-50 samples of the EMA model as
+   ``sample-1.png``, the ``feature-fid`` value on this phase's classifier)
+   in a count window of rows 1-2.  ``python3 chip_smoke.py
+   --classify-only`` runs the device, build and this phase alone and prints
+   no result line (a development aid).
 13. profiler: device times from ``torch.profiler``, after the last
    host-clock window, so that no profiler trace runs before one: the
    splat forward by pass and its launches per call at 128x128 b8 and
@@ -318,6 +339,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -351,7 +373,13 @@ from opticalflowdiffusion_tpu_torch.parallel.train import (
 from opticalflowdiffusion_tpu_torch.ops import pyramid as pyr
 from opticalflowdiffusion_tpu_torch.sample import batch_items
 from opticalflowdiffusion_tpu_torch.sample import build as build_flagship
-from opticalflowdiffusion_tpu_torch.training import flow_pretrain, parity
+from opticalflowdiffusion_tpu_torch.training import classifier_pretrain, flow_pretrain, parity
+from opticalflowdiffusion_tpu_torch.training import standalone
+from opticalflowdiffusion_tpu_torch.algorithms.classifier import Classifier
+from opticalflowdiffusion_tpu_torch.config import ClassifierConfig
+from opticalflowdiffusion_tpu_torch.data.png import write_png
+from opticalflowdiffusion_tpu_torch.models import diffusion as dm
+from opticalflowdiffusion_tpu_torch.utils import fid as fid_mod
 from opticalflowdiffusion_tpu_torch.utils import ckpt as ckpt_mod
 
 T0 = time.perf_counter()
@@ -4106,6 +4134,222 @@ def raft_phase():
     return rows, totals
 
 
+# the classification family and the standalone trainer (ROADMAP A2, A3):
+# train_classifier on the synthetic task at b128 (the data root points
+# nowhere, so no CIFAR tree is read), MobileNetV2's step at b128, train.py
+# on a CIFAR fixture tree, and the standalone Trainer at the flagship's UNet
+# width on a folder of PNGs
+CLS_B = 128
+CLS_STEPS = 300
+CLS_MIN_ACCURACY = 0.2                      # twice chance over 10 classes
+CLS_TIMED = 5
+ST_SIZE = 128
+ST_B = 16
+ST_ACCUM = 2
+ST_IMAGES = 64
+ST_SAMPLES = 16
+ST_DDIM = 50
+ST_TIMED = 3
+# the trainer's UNet is float32: the f32 pins of the family's FlowCompleter
+TOL_STANDALONE = TOL_TRAIN["float32"]
+
+
+def classifier_pretrain_window(work):
+    """``train_classifier`` (ResNet18, Adam 1e-3) for CLS_STEPS steps at
+    CLS_B on the synthetic task in a count window of its own (no kernel: the
+    classification path runs cuDNN and plain PyTorch), its samples/s, peak
+    memory and eval accuracy, which must exceed CLS_MIN_ACCURACY; publishes
+    ``classifier-feat`` into the run's artifact store."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    t = time.perf_counter()
+    res = classifier_pretrain.train_classifier(steps=CLS_STEPS, batch=CLS_B, device="cuda",
+                                               out_dir=str(work / "classifier"), log_every=100)
+    sec = time.perf_counter() - t
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    check_launches("classifier pretraining", launches, set())
+    phase("classifier_pretrain", B=CLS_B, steps=CLS_STEPS, H=32, W=32, seconds=sec,
+          samples_per_s=res["samples_per_sec"], accuracy=res["accuracy"], source=res["source"],
+          peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    check(res["source"] == "synthetic" and res["accuracy"] > CLS_MIN_ACCURACY,
+          f"classifier pretraining: {res}")
+    return launches
+
+
+def mobilenet_window():
+    """MobileNetV2 train steps at CLS_B (1 warm-up, CLS_TIMED timed) on the
+    synthetic task: finite losses and samples/s."""
+    algo = Classifier(ClassifierConfig(arch="mobilenet_v2"), device="cuda",
+                      generator=torch.Generator().manual_seed(SEED))
+    state = TrainState(algo.module, make_optimizer(algo.module.parameters(), algo.cfg.lr))
+    step = make_train_step(algo.loss_fn)
+    images, labels = classifier_pretrain.synthetic_class_batch(np.random.default_rng(SEED), CLS_B)
+    batch = (torch.from_numpy(images).permute(0, 3, 1, 2).contiguous().cuda(),
+             torch.from_numpy(labels).long().cuda())
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    losses = [float(step(state, batch, None)["train/loss"])]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(CLS_TIMED):
+        m = step(state, batch, None)
+    losses.append(float(m["train/loss"]))
+    torch.cuda.synchronize()
+    sec = (time.perf_counter() - t) / CLS_TIMED
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    check_launches("mobilenet train", launches, set())
+    check(all(np.isfinite(losses)), f"mobilenet train losses {losses}")
+    phase("mobilenet_train", B=CLS_B, H=32, W=32, timed=CLS_TIMED, ms_per_step=1e3 * sec,
+          train_samples_per_s=CLS_B / sec, losses=losses)
+    return launches
+
+
+def classification_entry(work):
+    """``train.py --algorithm classifier --dataset cifar10`` on a CIFAR
+    fixture tree written by the port: 3 steps with a validation at step 3,
+    ``--resume`` to 4 with ``--tasks train,test``; finite metrics."""
+    root = work / "cifar"
+    fixtures.make_cifar10_fixture(root)
+    common = dict(algorithm="classifier", dataset="cifar10", data_root=str(root),
+                  device="cuda", check_interval=3, log_every=1)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t = time.perf_counter()
+    first = train_entry.run(3, out=str(work / "cls_run"), **common)
+    second = train_entry.run(4, resume=True, tasks=("train", "test"), out=str(work / "cls_run"),
+                             **common)
+    sec = time.perf_counter() - t
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    check_launches("classification train.py", launches, set())
+    check(first["step"] == 3 and first["val"].get("step") == 3
+          and np.isfinite(first["val"]["validation/accuracy"])
+          and second["start_step"] == 3 and second["step"] == 4
+          and np.isfinite(second["test"]["test/loss"]) and second["checkpoints"] == [3, 4],
+          f"classification train.py: {first} {second}")
+    phase("classification_train_py", seconds=sec, steps=[first["step"], second["step"]],
+          val=first["val"], test=second["test"], loss=second["train"]["train/loss"])
+    return launches
+
+
+def image_folder(root, n=ST_IMAGES, size=ST_SIZE, seed=SEED):
+    """``n`` RGB PNGs of textured moving boxes at ``size`` (data/png.py)."""
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    for i in range(n):
+        img, _ = fixtures.render_sequence(rng, size, size, 1)
+        write_png(root / f"{i:03d}.png", img[0])
+    return root
+
+
+def standalone_window(work):
+    """The standalone ``Trainer`` at the flagship's UNet width (``Unet(64,
+    dim_mults=(1, 2, 4, 8))``, float32, unconditional) on ST_IMAGES PNGs at
+    ST_SIZE, train batch ST_B with ST_ACCUM microbatches,
+    ``make_schedule(1000, sampling_timesteps=50, objective="pred_noise")``,
+    ST_SAMPLES samples and the Frechet line on the ``classifier-feat``
+    artifact of this phase: one step's loss and gradients with the kernels
+    against the all-plain step (TOL_STANDALONE) with rows 1-5 on that
+    step's own block inputs (check_captured); a count window of a warm-up
+    and ST_TIMED steps (rows 1-5 launch, no other kernel) with steps/s;
+    then one milestone (checkpoint with the EMA, DDIM-50 samples, the
+    ``feature-fid`` value) in a count window of its own (rows 1-2 only)."""
+    folder = image_folder(work / "images")
+    sched = dm.make_schedule(1000, sampling_timesteps=ST_DDIM, objective="pred_noise",
+                             device="cuda")
+    tr = standalone.Trainer(
+        sched, unet_mod.Unet(64, dim_mults=(1, 2, 4, 8), channels=3), folder,
+        train_batch_size=ST_B, gradient_accumulate_every=ST_ACCUM, train_num_steps=1,
+        save_and_sample_every=10 ** 9, num_samples=ST_SAMPLES,
+        results_folder=str(work / "standalone"), calculate_fid=True,
+        fid_feature_fn=fid_mod.classifier_feature_fn("classifier-feat", device="cuda"),
+        image_size=ST_SIZE, seed=SEED, device="cuda")
+    label = f"standalone_{ST_SIZE}x{ST_SIZE}_b{ST_B}"
+    batch = to_device(next(iter(tr.loader)), "cuda")
+    micro = (batch[0][:ST_B],)
+    adapter = types.SimpleNamespace(module=tr.model, loss_fn=tr.loss_fn)
+    with captured_step() as cap:
+        loss_k, g_k = step_grads(adapter, micro, 11)
+    check(cap["launched"] == (0, 0), f"{label}: splat launches {cap['launched']}")
+    check_captured(cap, label)
+    del cap
+    with plain_versions(attention="passes", splat=True):
+        loss_p, g_p = step_grads(adapter, micro, 11)
+    rel, worst, total = grad_diff(g_k, g_p)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    phase("standalone_train_step_vs_plain", at=label, loss=loss_k, plain_loss=loss_p,
+          loss_rel=loss_rel, grad_leaves=len(rel), grad_global_rel=total,
+          grad_worst_leaf=worst, grad_worst_rel=rel[worst], pins=list(TOL_STANDALONE))
+    check(np.isfinite(loss_k) and loss_rel <= TOL_STANDALONE[0]
+          and total <= TOL_STANDALONE[1],
+          f"{label}: the step with the kernels disagrees with the plain versions: "
+          f"loss {loss_rel}, gradients {total}")
+    del g_k, g_p
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    tr.train()                                     # the warm-up step
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tr.train_num_steps = 1 + ST_TIMED
+    tr.train()
+    torch.cuda.synchronize()
+    sec = (time.perf_counter() - t) / ST_TIMED
+    train_launches = {k.name: k.launches for k in kernels.KERNELS}
+    check_launches(label + " train", train_launches, set(FWD_KERNELS) | set(BWD_KERNELS))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    kernels.reset_counts()
+    t = time.perf_counter()
+    tr.save_every = tr.state.step                  # this step is the first milestone
+    tr.milestone(tr.state.step)
+    torch.cuda.synchronize()
+    milestone_sec = time.perf_counter() - t
+    ms_launches = {k.name: k.launches for k in kernels.KERNELS}
+    check_launches(label + " milestone", ms_launches, set(FWD_KERNELS))
+    ck = torch.load(work / "standalone" / "checkpoints" / str(tr.state.step) / ckpt_mod.FILE,
+                    map_location="cpu", weights_only=True)
+    check(tr.state.step == 1 + ST_TIMED and tr.ema.step == 1 + ST_TIMED
+          and ck["step"] == tr.state.step and {"params", "step"} <= set(ck["ema"])
+          and (work / "standalone" / "sample-1.png").exists()
+          and tr.last_fid is not None and np.isfinite(tr.last_fid)
+          and tr.fid_metric_name == "feature-fid",
+          f"standalone milestone: step {tr.state.step}, fid {tr.last_fid}")
+    phase("standalone_trainer", at=label, accumulate=ST_ACCUM, images=ST_IMAGES,
+          timed=ST_TIMED, ms_per_step=1e3 * sec, steps_per_s=1 / sec,
+          train_samples_per_s=ST_B * ST_ACCUM / sec, peak_memory_gb=peak,
+          milestone_seconds=milestone_sec, samples=ST_SAMPLES, sampler=f"ddim{ST_DDIM}",
+          fid_name=tr.fid_metric_name, fid=tr.last_fid,
+          launches_train={k: n for k, n in train_launches.items() if n},
+          launches_milestone={k: n for k, n in ms_launches.items() if n})
+    return {k: train_launches[k] + ms_launches[k] for k in train_launches}
+
+
+def classify_phase():
+    """The classification family, the Frechet metric and the standalone
+    trainer (ROADMAP A2-A3): the windows above, the artifact store and the
+    data root under a temporary directory.  Returns the launches of the
+    windows."""
+    totals = {k.name: 0 for k in kernels.KERNELS}
+    work = Path(tempfile.mkdtemp(prefix="ofd_classify_"))
+    saved = {k: os.environ.get(k) for k in ("OFD_ARTIFACT_ROOT", "OFD_DATA_ROOT")}
+    os.environ["OFD_ARTIFACT_ROOT"] = str(work / "artifacts")
+    os.environ["OFD_DATA_ROOT"] = str(work / "no_datasets")
+    try:
+        for window in (classifier_pretrain_window, lambda w: mobilenet_window(),
+                       classification_entry, standalone_window):
+            for k, n in window(work).items():
+                totals[k] += n
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(work, ignore_errors=True)
+    return totals
+
+
+
 def main():
     smi = device_phase()
     build_phase()
@@ -4120,6 +4364,9 @@ def main():
         return
     if sys.argv[1:] == ["--raft-only"]:          # a development aid: no result line
         raft_phase()
+        return
+    if sys.argv[1:] == ["--classify-only"]:      # a development aid: no result line
+        classify_phase()
         return
     la128 = la_phase(B, SHAPES, "128x128")
     la_native = la_phase(NATIVE_B, NATIVE_SHAPES, "448x1024", iters=10)
@@ -4141,7 +4388,9 @@ def main():
             launches[k] += n
     corr_step, pwc_launches = pwc_phase()
     lookup_rows, raft_launches = raft_phase()
-    for k, n in list(pwc_launches.items()) + list(raft_launches.items()):
+    classify_launches = classify_phase()
+    for k, n in (list(pwc_launches.items()) + list(raft_launches.items())
+                 + list(classify_launches.items())):
         launches[k] += n
     phase("launch_counts_all_paths", launches=launches)
     prof = profiler_phase()

@@ -1,3 +1,3 @@
 """Algorithms (JAX ``algorithms/``): the batch adapter, FlowDiffuser, FlowPred,
-FlowLearner, MatrixFlow, the animation family and PWCLearner with its loss
-library."""
+FlowLearner, MatrixFlow, the animation family, PWCLearner with its loss
+library and the classifier."""

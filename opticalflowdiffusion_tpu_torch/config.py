@@ -9,7 +9,9 @@ datasets of ``dataset/{sintel,flying_chairs,kitti_single}.yaml``, and the
 MatrixFlow and animation family: ``algorithm/{matrix_flow,frame_generator,
 flow_completer}.yaml``, ``dataset/artificial_video.yaml`` and
 ``experiment/animation.yaml`` over ``experiment/base.yaml``,
-``algorithm/pwc_learner.yaml`` and ``dataset/taichi.yaml``.
+``algorithm/pwc_learner.yaml`` and ``dataset/taichi.yaml``, and the
+classification experiment: ``algorithm/classifier.yaml``,
+``experiment/classification.yaml`` and ``dataset/cifar10.yaml``.
 """
 
 from __future__ import annotations
@@ -97,6 +99,32 @@ class TaiChiDataConfig:
     allow_untrained_flow: bool = False
     flow_device: str = "cuda"
     root: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Cifar10DataConfig:
+    """``dataset/cifar10.yaml`` (``root`` None reads ``$OFD_DATA_ROOT`` or
+    ``datasets``; the images are CIFAR's 32x32)."""
+
+    name: str = "cifar10"
+    image_size: int = 32
+    root: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class ClassifierConfig:
+    """``algorithm/classifier.yaml``: the architecture (``resnet18``,
+    ``resnet34`` or ``mobilenet_v2``), classes and input channels, Adam at
+    ``lr`` with no weight decay; float32 (``precision`` is reported only),
+    at CIFAR's ``image_size``."""
+
+    arch: str = "resnet18"
+    num_class: int = 10
+    in_channels: int = 3
+    lr: float = 1e-3
+    weight_decay: float = 0.0
+    image_size: int = 32
+    precision: str = "float32"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -318,8 +346,16 @@ MATRIX_FLOW = TrainingConfig()
 ANIMATION = TrainingConfig(batch_size=64, clipping=None, check_interval=400, val_batch_size=8,
                            val_shuffle=True)
 NATIVE = ServingConfig()
+CLASSIFIER = ClassifierConfig()
+CIFAR10 = Cifar10DataConfig()
+# experiment/classification.yaml over base.yaml: batch 16 both ways, the
+# validation batches shuffled, a validation an epoch, a checkpoint every
+# 2000 steps, no clipping
+CLASSIFICATION = TrainingConfig(batch_size=16, clipping=None, check_interval=1.0,
+                                val_batch_size=16, every_n_train_steps=2000, val_shuffle=True)
 
-__all__ = ["ArtificialDataConfig", "ArtificialVideoDataConfig", "FlowCompleterConfig",
+__all__ = ["ArtificialDataConfig", "ArtificialVideoDataConfig", "CIFAR10", "CLASSIFICATION",
+           "CLASSIFIER", "ClassifierConfig", "Cifar10DataConfig", "FlowCompleterConfig",
            "FlowDiffuserConfig", "FlowLearnerConfig", "FlowPredConfig", "FlyingChairsDataConfig",
            "FrameGeneratorConfig", "KittiSingleDataConfig", "MatrixFlowConfig", "PWCLearnerConfig",
            "ServingConfig",

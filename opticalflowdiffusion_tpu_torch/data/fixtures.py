@@ -11,6 +11,9 @@
 * TaiChi: ``taichi/taichi/{training,test}/<video>/%04d.png`` frame
   directories (RGB PNGs, TaiChi's 256x256 by default), no flow cache (the
   precompute writes it).
+* CIFAR-10: ``cifar-10-batches-py/{data_batch_1..5,test_batch}`` pickles
+  (the test suite's ``_fake_cifar`` layout: random bytes and labels in the
+  first training batch and the test batch, zeros in batches 2-5).
 
 Scenes are textured boxes moving at constant integer velocities over a
 textured background, with the exact forward flow.  The random draws are
@@ -161,5 +164,24 @@ def make_taichi_fixture(root, videos: int = 2, frames: int = 13, size: int = 256
     return Path(root) / "taichi"
 
 
+def make_cifar10_fixture(root, train: int = 64, test: int = 16, seed: int = 0) -> Path:
+    """A ``cifar-10-batches-py`` tree under ``root``: ``train`` random images
+    in ``data_batch_1``, 8 black ones labelled 0 in each of batches 2-5,
+    ``test`` random ones in ``test_batch``."""
+    import pickle
+
+    rng = np.random.default_rng(seed)
+    base = Path(root) / "cifar-10-batches-py"
+    base.mkdir(parents=True, exist_ok=True)
+    for name, n in (("data_batch_1", train), ("test_batch", test)):
+        with open(base / name, "wb") as f:
+            pickle.dump({b"data": (rng.random((n, 3072)) * 255).astype(np.uint8),
+                         b"labels": list(rng.integers(0, 10, n))}, f)
+    for i in range(2, 6):
+        with open(base / f"data_batch_{i}", "wb") as f:
+            pickle.dump({b"data": np.zeros((8, 3072), np.uint8), b"labels": [0] * 8}, f)
+    return base
+
+
 __all__ = ["render_sequence", "make_sintel_fixture", "make_chairs_fixture",
-           "make_kitti_fixture", "make_taichi_fixture"]
+           "make_kitti_fixture", "make_taichi_fixture", "make_cifar10_fixture"]

@@ -137,8 +137,9 @@ class TaiChiDataset:
 
         # the architecture must match the trained checkpoint's
         # (training/flow_pretrain.py): corr_levels sets the motion
-        # encoder's input width
-        model = RAFT(iters=int(cfg.flow_iters), corr_levels=int(cfg.flow_corr_levels))
+        # encoder's input width, cut to what the frames' grid holds
+        model = RAFT(iters=int(cfg.flow_iters), corr_levels=int(cfg.flow_corr_levels),
+                     image_size=int(cfg.image_size))
         if cfg.flow_checkpoint:
             from ..utils.ckpt import load_artifact
 

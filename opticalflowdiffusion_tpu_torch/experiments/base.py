@@ -35,6 +35,7 @@ import time
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..config import ArtificialDataConfig, TrainingConfig
@@ -47,9 +48,15 @@ from ..utils.logging import RunLogger
 
 def to_device(batch, device) -> tuple:
     """Collated NHWC numpy arrays -> float32 NCHW tensors on ``device``; a
-    stack of frames (B, T, H, W, C) -> (B, T, C, H, W)."""
-    return tuple(torch.from_numpy(a).permute(*((0, 1, 4, 2, 3) if a.ndim == 5 else (0, 3, 1, 2)))
-                 .contiguous().to(device) for a in batch)
+    stack of frames (B, T, H, W, C) -> (B, T, C, H, W); an array of fewer
+    dimensions (class labels) as it is, integers as int64."""
+    def one(a):
+        if a.ndim < 4:
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            return (t.long() if not t.is_floating_point() else t).to(device)
+        return torch.from_numpy(a).permute(*((0, 1, 4, 2, 3) if a.ndim == 5 else (0, 3, 1, 2))
+                                           ).contiguous().to(device)
+    return tuple(one(a) for a in batch)
 
 
 def resolve_checkpoint(path) -> Tuple[Path, Optional[int]]:

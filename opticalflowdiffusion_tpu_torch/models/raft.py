@@ -15,9 +15,13 @@ rule (at stride 2 the 7x7 stem pads (2, 3) on an even side, a 3x3 conv (0,
 1); ``models/pwc_net.py::same_pads``).  Images are (B, 3, H, W) in [0, 1];
 H and W must be multiples of 8.
 
-JAX's pyramid depth shrinks on a small grid (``max_levels``), which
-changes its motion encoder's input width with the image size; the port's
-widths are fixed at construction, so there it raises instead.  The
+JAX's pyramid depth shrinks on a small grid (``max_levels``), and flax
+sizes the motion encoder's first conv from the channels it then receives:
+the port's RAFT takes the image size at construction (``image_size``) and
+builds that conv for the level count the grid holds
+(:func:`grid_levels`); without an image size it is built for
+``corr_levels``.  A grid that holds another level count than the conv was
+built for raises, as applying flax params of another width does.  The
 reference's quirk, kept: JAX's filter representation (``radius=R``)
 cannot run, at any R (its ``ConvToFilter`` reads the update block's 289
 channels as a 3 x 3 grid of 289 // 9 = 32, 288 values, and the reshape
@@ -118,6 +122,13 @@ def max_levels(H: int, W: int) -> int:
     return max(1, min(H, W).bit_length())
 
 
+def grid_levels(image_size, corr_levels: int = 4) -> int:
+    """The pyramid levels RAFT uses on images of ``image_size`` (one side
+    or (H, W)): ``corr_levels``, cut to what the stride-8 grid holds."""
+    H, W = (image_size, image_size) if isinstance(image_size, int) else image_size
+    return min(corr_levels, max_levels(-(-H // 8), -(-W // 8)))
+
+
 def corr_pyramid(fmap1: torch.Tensor, fmap2: torch.Tensor, num_levels: int = 4
                  ) -> List[torch.Tensor]:
     """The all-pairs correlation (B * H * W, H, W) and ``num_levels`` - 1
@@ -165,8 +176,8 @@ class BasicMotionEncoder(nn.Module):
 
     def __init__(self, corr_levels: int = 4, corr_radius: int = 4, flow_dim: int = 2):
         super().__init__()
-        cor_planes = corr_levels * (2 * corr_radius + 1) ** 2
-        self.convc1 = Conv(cor_planes, 256, 1)
+        self.levels = corr_levels
+        self.convc1 = Conv(corr_levels * (2 * corr_radius + 1) ** 2, 256, 1)
         self.convc2 = Conv(256, 192, 3)
         self.convf1 = Conv(flow_dim, 128, 7)
         self.convf2 = Conv(128, 64, 3)
@@ -225,18 +236,22 @@ def convex_upsample(flow: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 class RAFT(nn.Module):
     """RAFT: ``forward(image1, image2, iters)`` gives each iteration's
-    (B, 2, H, W) flow, upsampled 8x.  ``radius`` set selects JAX's filter
-    representation, which raises (module docstring)."""
+    (B, 2, H, W) flow, upsampled 8x.  ``image_size`` (one side or (H, W))
+    sizes the motion encoder for the levels its grid holds (module
+    docstring).  ``radius`` set selects JAX's filter representation, which
+    raises."""
 
     def __init__(self, radius: Optional[int] = None, iters: int = 12, hidden_dim: int = 128,
-                 context_dim: int = 128, corr_levels: int = 4, corr_radius: int = 4):
+                 context_dim: int = 128, corr_levels: int = 4, corr_radius: int = 4,
+                 image_size=None):
         super().__init__()
         self.radius, self.iters = radius, iters
         self.hidden_dim, self.context_dim = hidden_dim, context_dim
         self.corr_levels, self.corr_radius = corr_levels, corr_radius
         self.fnet = BasicEncoder(256, "instance")
         self.cnet = BasicEncoder(hidden_dim + context_dim, "none")
-        self.update_block = BasicUpdateBlock(corr_levels, corr_radius, hidden_dim, context_dim)
+        levels = corr_levels if image_size is None else grid_levels(image_size, corr_levels)
+        self.update_block = BasicUpdateBlock(levels, corr_radius, hidden_dim, context_dim)
 
     def forward(self, image1: torch.Tensor, image2: torch.Tensor,
                 iters: Optional[int] = None) -> List[torch.Tensor]:
@@ -248,10 +263,12 @@ class RAFT(nn.Module):
             raise ValueError(f"RAFT takes sides that are multiples of 8, got {H} x {W}")
         fmap1, fmap2 = self.fnet(image1), self.fnet(image2)
         h, w = fmap1.shape[-2:]
-        if max_levels(h, w) < self.corr_levels:
+        built = self.update_block.encoder.levels
+        if min(self.corr_levels, max_levels(h, w)) != built:
             raise ValueError(
-                f"a {h} x {w} feature grid holds {max_levels(h, w)} pyramid levels, fewer than "
-                f"corr_levels={self.corr_levels} (JAX's model shrinks its motion encoder there)")
+                f"a {h} x {w} feature grid holds {min(self.corr_levels, max_levels(h, w))} "
+                f"correlation levels, and this RAFT's motion encoder was built for {built}: "
+                f"build it with image_size=({H}, {W}), as JAX's init sizes it from the image")
         pyramid = corr_pyramid(fmap1, fmap2, self.corr_levels)
         cnet = self.cnet(image1)
         net = torch.tanh(cnet[:, : self.hidden_dim])
@@ -270,4 +287,4 @@ class RAFT(nn.Module):
 
 __all__ = ["RAFT", "BasicEncoder", "BasicMotionEncoder", "BasicUpdateBlock", "FlowHead",
            "ResidualBlock", "SepConvGRU", "Conv", "FILTER_MODE_ERROR", "convex_upsample",
-           "coords_grid", "corr_pyramid", "instance_norm", "max_levels", "upflow8"]
+           "coords_grid", "corr_pyramid", "grid_levels", "instance_norm", "max_levels", "upflow8"]

@@ -8,7 +8,8 @@ adds the decay to the gradient before the moments (L2, not AdamW), as
 optax's ``clip_by_global_norm -> add_decayed_weights -> adam`` chain does.
 ``decoupled=True`` is optax's ``clip_by_global_norm -> adamw`` instead
 (``torch.optim.AdamW``: the decay scales the parameters, outside the
-moments), which RAFT's flow pretraining uses.
+moments), which RAFT's flow pretraining uses.  ``betas`` are Adam's (the
+standalone trainer's (0.9, 0.99); optax's defaults otherwise).
 """
 
 from __future__ import annotations
@@ -26,11 +27,11 @@ class Optimizer:
 
     def __init__(self, params: Iterable[torch.nn.Parameter], lr: float,
                  weight_decay: float = 0.0, clip: Optional[float] = None,
-                 decoupled: bool = False):
+                 decoupled: bool = False, betas: Tuple[float, float] = (0.9, 0.999)):
         self.params = [p for p in params if p.requires_grad]
         self.clip = None if clip is None else float(clip)
         adam = torch.optim.AdamW if decoupled else torch.optim.Adam
-        self.adam = adam(self.params, lr=float(lr), betas=(0.9, 0.999), eps=1e-8,
+        self.adam = adam(self.params, lr=float(lr), betas=tuple(betas), eps=1e-8,
                          weight_decay=float(weight_decay))
 
     def zero_grad(self) -> None:
@@ -58,8 +59,9 @@ class Optimizer:
 
 
 def make_optimizer(params, lr: float, weight_decay: float = 0.0,
-                   clip: Optional[float] = None, decoupled: bool = False) -> Optimizer:
-    return Optimizer(params, lr, weight_decay, clip, decoupled)
+                   clip: Optional[float] = None, decoupled: bool = False,
+                   betas: Tuple[float, float] = (0.9, 0.999)) -> Optimizer:
+    return Optimizer(params, lr, weight_decay, clip, decoupled, betas)
 
 
 class TrainState:

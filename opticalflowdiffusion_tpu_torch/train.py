@@ -2,7 +2,7 @@
 MatrixFlow or PWCLearner) on the artificial dataset, Sintel, FlyingChairs or
 KITTI (PWCLearner also on the constant-velocity video), or
 FrameGenerator or FlowCompleter on the constant-velocity video dataset,
-and test it.
+or the Classifier on CIFAR-10, and test it.
 
     python -m opticalflowdiffusion_tpu_torch.train --steps 20 [--batch 16] \\
         [--image-size 128 | --image-size W,H] [--unet-dim 64] [--seed 0] [--device cuda] \\
@@ -10,13 +10,14 @@ and test it.
         [--ckpt-every N] [--val-batch 8] [--sampling-timesteps S] \\
         [--conv-backend {cudnn,rows,fold}] [--remat] \\
         [--algorithm {flow_diffuser,flow_pred,flow_learner,matrix_flow,pwc_learner,
-                      frame_generator,flow_completer}] \\
+                      frame_generator,flow_completer,classifier}] \\
         [--target {joint,target,flow}] \\
         [--noiser {image,flow}] [--no-diffusion] [--flow-weight W] \\
         [--diffusion-flow-weight W] [--latent --ae DIR] [--latent-dim 16] \\
         [--radius R] [--levels 1,2,4] [--precision {bf16,float32}] [--lr LR] \\
         [--flow-max F] [--dataset-size N] [--dataset-seed S] \\
-        [--dataset {artificial,sintel,flying_chairs,kitti_single,artificial_video,taichi}] \\
+        [--dataset {artificial,sintel,flying_chairs,kitti_single,artificial_video,taichi,
+                    cifar10}] [--arch {resnet18,resnet34,mobilenet_v2}] \\
         [--data-root DIR] [--workers N] [--tasks train,test] [--ckpt-path DIR] [--epochs E] \\
         [--profile-step N] [--goal {gt_flow_pred,filter_pred,gt_filter_pred}] \\
         [--val-length L] [--max-motion M] [--calculate-flows] [--flow-checkpoint DIR] \\
@@ -96,6 +97,13 @@ default 10) with its flow from the ``<split>-flows2`` cache;
 from ``--flow-checkpoint`` (default the ``raft-artificial`` artifact that
 ``training/flow_pretrain.py`` publishes), ``--flow-iters`` iterations
 (default 12) and ``--flow-corr-levels`` levels (default 4).
+
+``--algorithm classifier`` runs ``experiment/classification.yaml`` (batch
+16, validation batch 16 shuffled, a validation every epoch unless
+``--check-interval`` says otherwise, a checkpoint every 2000 steps, no
+clipping) with ``algorithm/classifier.yaml`` (``--arch``, default
+resnet18; 10 classes, Adam at lr 1e-3) on ``--dataset cifar10`` (its
+default: the ``cifar-10-batches-py`` pickles under ``--data-root``).
 """
 
 from __future__ import annotations
@@ -109,29 +117,39 @@ import torch
 
 from .algorithms.flow_diffuser import TARGETS
 from .algorithms.matrix_flow import GOALS
-from .config import (ANIMATION, DATA, FLAGSHIP, FLOW_COMPLETER, FLOW_LEARNER, FLOW_PRED,
-                     FRAME_GENERATOR, MATRIX_FLOW, MATRIX_FLOW_ALGO, PWC_LEARNER)
+from .algorithms.classifier import arch_registry
+from .config import (ANIMATION, CIFAR10, CLASSIFICATION, CLASSIFIER, DATA, FLAGSHIP,
+                     FLOW_COMPLETER, FLOW_LEARNER, FLOW_PRED, FRAME_GENERATOR, MATRIX_FLOW,
+                     MATRIX_FLOW_ALGO, PWC_LEARNER)
 from .data import DATASETS
 from .experiments import animation as anim_exp
+from .experiments import classification as cls_exp
 from .experiments.matrix_flow import ALGORITHMS as FLOW_ALGORITHMS
 from .experiments.matrix_flow import MatrixFlowExperiment
 from .ops.conv import BACKENDS
 
-# the experiments and their algorithms (JAX's experiment=matrix_flow and
-# experiment=animation)
+# the experiments and their algorithms (JAX's experiment=matrix_flow,
+# experiment=animation and experiment=classification)
 EXPERIMENTS = {"matrix_flow": (MatrixFlowExperiment, MATRIX_FLOW),
-               "animation": (anim_exp.AnimationExperiment, ANIMATION)}
+               "animation": (anim_exp.AnimationExperiment, ANIMATION),
+               "classification": (cls_exp.ClassificationExperiment, CLASSIFICATION)}
 ALGORITHMS = {**{k: "matrix_flow" for k in FLOW_ALGORITHMS},
-              **{k: "animation" for k in anim_exp.ALGORITHMS}}
+              **{k: "animation" for k in anim_exp.ALGORITHMS},
+              **{k: "classification" for k in cls_exp.ALGORITHMS}}
+# the experiments' default datasets
+DEFAULT_DATASET = {"matrix_flow": "artificial", "animation": "artificial_video",
+                   "classification": "cifar10"}
+ALL_DATASETS = DATASETS + tuple(cls_exp.DATASETS)
 # the algorithms' yaml configs (FlowDiffuser's is the flagship)
 BASES = {"flow_pred": FLOW_PRED, "flow_learner": FLOW_LEARNER, "matrix_flow": MATRIX_FLOW_ALGO,
          "frame_generator": FRAME_GENERATOR, "flow_completer": FLOW_COMPLETER,
-         "pwc_learner": PWC_LEARNER}
+         "pwc_learner": PWC_LEARNER, "classifier": CLASSIFIER}
 # the config fields each algorithm's summary line reports
 SUMMARY_FIELDS = {"flow_pred": ("latent_dim",), "flow_learner": ("flow_max", "radius", "levels"),
                   "matrix_flow": ("goal", "radius", "cols"),
                   "frame_generator": ("timesteps", "sampling_timesteps"), "flow_completer": (),
-                  "pwc_learner": ("smoothness_weight", "occ_weight")}
+                  "pwc_learner": ("smoothness_weight", "occ_weight"),
+                  "classifier": ("arch", "num_class")}
 
 # the fields of FlowDiffuserConfig that the model flags set
 MODEL_FIELDS = ("target", "noiser", "is_diffusion", "flow_weight", "diffusion_flow_weight",
@@ -164,11 +182,13 @@ def data_config(dataset: str, image_size=None, data_root=None, size=None, seed=0
     """The dataset's config: the artificial one at one side (``size`` items
     drawn from ``seed``), the video one likewise (with ``val_length`` and
     ``max_motion``), TaiChi at one side with ``val_length``, ``root`` and
-    the precompute's fields (``taichi``) replaced where given, or a real
-    dataset's yaml with ``image_size`` ("W,H" or one side for both) and
-    ``root`` replaced where given."""
-    if dataset not in DATASETS:
-        raise ValueError(f"dataset {dataset!r} is not one of {DATASETS}")
+    the precompute's fields (``taichi``) replaced where given, CIFAR-10 with
+    ``root``, or a real dataset's yaml with ``image_size`` ("W,H" or one
+    side for both) and ``root`` replaced where given."""
+    if dataset not in ALL_DATASETS:
+        raise ValueError(f"dataset {dataset!r} is not one of {ALL_DATASETS}")
+    if dataset == "cifar10":
+        return dataclasses.replace(CIFAR10, root=data_root) if data_root else CIFAR10
     base = DATA[dataset]
     if dataset == "taichi":
         fields = dict(image_size=None if image_size is None else int(
@@ -207,18 +227,18 @@ def build(steps: int, batch=None, image_size=None, unet_dim=None,
     fields of the algorithm (``MODEL_FIELDS``; FlowPred's ``latent_dim``;
     FlowLearner's ``radius`` and ``levels``; MatrixFlow's ``goal``,
     ``radius`` and ``cols``; FrameGenerator's ``timesteps``; PWCLearner's
-    ``smoothness_weight`` and ``occ_weight``; the CLI sets ``goal`` and
-    ``radius``).  ``image_size`` is one side or "W,H"; the algorithm takes
-    W (MatrixFlow both).  The experiment is the algorithm's (``ALGORITHMS``),
-    the dataset defaults to the experiment's (artificial, or
-    artificial_video); ``taichi`` holds TaiChi's precompute fields
+    ``smoothness_weight`` and ``occ_weight``; the Classifier's ``arch``; the
+    CLI sets ``goal``, ``radius`` and ``arch``).  ``image_size`` is one side
+    or "W,H"; the algorithm takes W (MatrixFlow both).  The experiment is the
+    algorithm's (``ALGORITHMS``), the dataset defaults to the experiment's
+    (``DEFAULT_DATASET``); ``taichi`` holds TaiChi's precompute fields
     (``calculate_flows``, ``flow_checkpoint``, ``flow_iters``,
     ``flow_corr_levels``), its RAFT on ``device``."""
     if algorithm not in ALGORITHMS:
         raise ValueError(f"algorithm {algorithm!r} is not one of {tuple(ALGORITHMS)}")
     experiment = ALGORITHMS[algorithm]
     exp_cls, train_base = EXPERIMENTS[experiment]
-    dataset = dataset or ("artificial_video" if experiment == "animation" else "artificial")
+    dataset = dataset or DEFAULT_DATASET[experiment]
     image_size = parse_image_size(image_size)
     data = data_config(dataset, image_size if dataset != "artificial_video" else (
         None if image_size is None else int(str(image_size).split(",")[0])), data_root,
@@ -242,6 +262,8 @@ def build(steps: int, batch=None, image_size=None, unet_dim=None,
         algo = dataclasses.replace(algo, sampling_timesteps=sampling_timesteps)
     elif algorithm == "flow_learner":
         algo = model_config(algorithm, flow_max=flow_max, **common, **model)
+    elif algorithm == "classifier":        # CIFAR's 32x32, cuDNN's convs, float32
+        algo = model_config(algorithm, lr=lr, **model)
     elif algorithm == "pwc_learner":       # PWC's convs are cuDNN's: no conv backend
         common.pop("conv_backend")
         algo = model_config(algorithm, **common, **model)
@@ -288,6 +310,8 @@ def model_flags(a: argparse.Namespace) -> dict:
         return {"goal": a.goal, "radius": a.radius}
     if algorithm in ("frame_generator", "flow_completer", "pwc_learner"):
         return {}
+    if algorithm == "classifier":
+        return {"arch": getattr(a, "arch", None)}
     if algorithm == "flow_learner":
         levels = getattr(a, "levels", None)
         return {"radius": getattr(a, "radius", None),
@@ -382,8 +406,11 @@ def main(argv=None) -> None:
     ap.add_argument("--flow-max", type=float, default=None)
     ap.add_argument("--dataset-size", type=int, default=None)
     ap.add_argument("--dataset-seed", type=int, default=None)
-    ap.add_argument("--dataset", choices=DATASETS, default=None,
-                    help="default the experiment's (artificial, animation: artificial_video)")
+    ap.add_argument("--dataset", choices=ALL_DATASETS, default=None,
+                    help="default the experiment's (artificial, animation: artificial_video, "
+                         "classification: cifar10)")
+    ap.add_argument("--arch", choices=tuple(arch_registry), default=None,
+                    help="the Classifier's architecture (default resnet18)")
     ap.add_argument("--val-length", type=int, default=None,
                     help="artificial_video's transitions a validation item (TaiChi's: items)")
     ap.add_argument("--max-motion", type=int, default=None,

@@ -66,7 +66,7 @@ def setup(image_size: int = 64, batch: int = 16, iters: int = 6, corr_levels: in
                                                 shape="boxes", bg="checkers", seed=seed,
                                                 max_motion=max_motion))
     loader = DataLoader(ds, batch_size=batch, shuffle=True, seed=seed)
-    model = RAFT(iters=iters, corr_levels=corr_levels)
+    model = RAFT(iters=iters, corr_levels=corr_levels, image_size=image_size)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(device), loader
 

@@ -15,8 +15,14 @@ Each stage records, under JAX's keys, ``steps``, the metrics before
 (``init``, 2 validation batches) and after training (``final``, 8), the
 loss curve, the speed, the saved images and, for the learners, the
 loss oracles (the loss of the ground-truth, zero and negated flows with
-unit weights).  The Frechet rows and the markdown report of the JAX script
-are not ported.  ``JAX_BARS`` holds JAX's recorded numbers
+unit weights).  The final evaluation of a pixel-space FlowDiffuser stage
+adds JAX's Frechet rows (``utils/fid.py::auto_feature_fn``: the trained
+classifier's features when ``classifier-feat`` resolves, else the
+random-conv bank, the source in the key): ``frechet_{src}`` between the
+sampled and the target frames, its split-half ``_floor``, its ``_ceiling``
+against uniform noise and, for the flow target (scored on the colour-wheel
+renders), ``_render_noise_floor``.  The markdown report of the JAX script
+is not ported.  ``JAX_BARS`` holds JAX's recorded numbers
 (``parity/parity_r05.json``), and each finished stage is printed beside
 them with its pass bars (``bars``).
 
@@ -45,6 +51,7 @@ from ..data.loader import DataLoader
 from ..experiments.base import to_device
 from ..models.unet import init_weights
 from ..parallel.train import TrainState, make_optimizer, make_train_step
+from ..utils import fid as fidlib
 from ..utils import visualization as viz
 
 STAGES = ("joint", "dpmpp", "flow", "flowloss", "flowloss_sweep", "ancestral", "latent",
@@ -151,19 +158,53 @@ def _nhwc(x) -> np.ndarray:
     return np.asarray(x).transpose(0, 2, 3, 1)
 
 
-def _eval(algo, val_loader, generator, n_batches: int = 8, val_step=None):
+def _frechet_rows(frames_real, frames_fake, flows_real, flows_fake, device) -> dict:
+    """JAX's Frechet rows (module docstring) of the collected frames, at
+    most 512 of each; the render noise floor when the frames are flow
+    renders."""
+    fn, src = fidlib.auto_feature_fn(device=device)
+    fake = np.concatenate(frames_fake)[:512]
+    real = np.concatenate(frames_real)[:512]
+    half = len(real) // 2
+    out = {f"frechet_{src}": fidlib.fid_between(real, fake, feature_fn=fn),
+           f"frechet_{src}_floor": fidlib.fid_between(real[:half], real[half:], feature_fn=fn)}
+    # the ceiling at the floor's n/2 (the estimator's bias depends on n)
+    noise = np.random.default_rng(0).random(real.shape, dtype=np.float32)
+    out[f"frechet_{src}_ceiling"] = fidlib.fid_between(real[:half], noise[:half], feature_fn=fn)
+    if flows_real:
+        # the render normalises each image by its own largest radius, so a
+        # sampled flow's faint background residual colours every static
+        # pixel: the floor of a render-space stage is Frechet(render(gt),
+        # render(gt + sigma N)), sigma the sampled residual on static pixels
+        fr = np.concatenate(flows_real)[:512]
+        ff = np.concatenate(flows_fake)[:512]
+        static = np.sqrt((fr ** 2).sum(-1)) <= 0.5
+        sigma = float(np.std(ff[static]) if static.any() else np.std(ff))
+        out["render_static_residual_sigma"] = sigma
+        g = np.random.default_rng(1).standard_normal(fr.shape).astype(np.float32)
+        out[f"frechet_{src}_render_noise_floor"] = fidlib.fid_between(
+            real, viz.flow_to_image(fr + sigma * g), feature_fn=fn)
+    return out
+
+
+def _eval(algo, val_loader, generator, n_batches: int = 8, val_step=None,
+          frechet: bool = False):
     """Mean validation metrics over ``n_batches`` batches, the flow-error
     splits (zero-flow EPE, moving and static EPE: moving is |flow| > 0.5)
-    and the distribution distances of the sampled flows; returns (metrics,
-    the first batch's artifacts, the first batch).  ``val_step(batch,
-    generator)`` defaults to the algorithm's; the loader yields NHWC numpy
-    batches, the step takes them on the algorithm's device as NCHW."""
+    and the distribution distances of the sampled flows, with ``frechet``
+    the Frechet rows (:func:`_frechet_rows`) of the sampled against the
+    target frames (frames in [0, 1], or colour-wheel renders of a flow-only
+    target); returns (metrics, the first batch's artifacts, the first
+    batch).  ``val_step(batch, generator)`` defaults to the algorithm's; the
+    loader yields NHWC numpy batches, the step takes them on the algorithm's
+    device as NCHW."""
     if val_step is None:
         val_step = algo.val_step
     device = getattr(algo, "device", torch.device("cpu"))
     totals, count = {}, 0
     arts0 = batch0 = None
     acc = {"gt_u": [], "gt_v": [], "p_u": [], "p_v": [], "gt_mag": [], "p_mag": []}
+    frames_real, frames_fake, flows_real, flows_fake = [], [], [], []
     for i, batch in enumerate(val_loader):
         if i >= n_batches:
             break
@@ -190,6 +231,17 @@ def _eval(algo, val_loader, generator, n_batches: int = 8, val_step=None):
         acc["p_v"].append(p_flows[..., 1][p_mag > 0.5])
         acc["gt_mag"].append(mag.ravel())
         acc["p_mag"].append(p_mag.ravel())
+        if frechet and "samples" in arts and "tgt_x" in arts:
+            s = np.nan_to_num(_nhwc(arts["samples"]))
+            t_ = np.nan_to_num(_nhwc(arts["tgt_x"]))
+            if s.shape[-1] >= 3 and t_.shape[-1] >= 3:
+                frames_fake.append(np.clip((s[..., :3] + 1) * 0.5, 0, 1))
+                frames_real.append(np.clip((t_[..., :3] + 1) * 0.5, 0, 1))
+            else:      # a flow-only target: its colour-wheel renders
+                frames_fake.append(viz.flow_to_image(s[..., -2:]))
+                frames_real.append(viz.flow_to_image(t_[..., -2:]))
+                flows_fake.append(s[..., -2:])
+                flows_real.append(t_[..., -2:])
         if "last_step_flow" in arts:
             lerr = np.sqrt(((flow - _nhwc(arts["last_step_flow"])) ** 2).sum(-1) + 1e-12)
             add("last_step_epe_moving", lerr[moving].mean() if moving.any() else 0.0)
@@ -204,6 +256,8 @@ def _eval(algo, val_loader, generator, n_batches: int = 8, val_step=None):
                                   else np.nan)
     out["moving_frac_sampled"] = float((cat["p_mag"] > 0.5).mean() if cat["p_mag"].size
                                        else np.nan)
+    if frechet and frames_fake:
+        out.update(_frechet_rows(frames_real, frames_fake, flows_real, flows_fake, device))
     return out, arts0, batch0
 
 
@@ -301,13 +355,14 @@ def run_parity(out_dir: str = "outputs/parity", diffuser_steps: int = 4000,
         print(f"[parity] {key} vs JAX: {line}", flush=True)
         flush()
 
-    def run_stage(key, algo, steps, rseed, oracles=False):
+    def run_stage(key, algo, steps, rseed, oracles=False, frechet=False):
         init_weights(algo.module, torch.Generator().manual_seed(rseed))
         train_loader, val_loader = stage_loaders(data_cfg, batch, val_batch, seed)
         gen = torch.Generator(device=dev).manual_seed(rseed)
         init_metrics, _, _ = _eval(algo, val_loader, gen, n_batches=init_batches)
         _, curve, perf = _train(algo, train_loader, gen, steps, clip=100.0, log_every=log_every)
-        final_metrics, arts, batch0 = _eval(algo, val_loader, gen, n_batches=val_batches)
+        final_metrics, arts, batch0 = _eval(algo, val_loader, gen, n_batches=val_batches,
+                                            frechet=frechet)
         res = dict(steps=steps, init=init_metrics, final=final_metrics, loss_curve=curve,
                    perf=perf, visuals=_save_visuals(algo, batch0, arts, out, key))
         if oracles:
@@ -328,7 +383,9 @@ def run_parity(out_dir: str = "outputs/parity", diffuser_steps: int = 4000,
                                   sampling_timesteps=sampling_timesteps, precision="float32",
                                   **({"unet_dim": unet_dim} if unet_dim else {}))
         cfg = dataclasses.replace(cfg, **fields)
-        run_stage(key, FlowDiffuser(cfg, device=dev), steps, rseed)
+        # the Frechet rows for pixel-space samples (a latent stage's samples
+        # are the Autoencoder's latents, not frames)
+        run_stage(key, FlowDiffuser(cfg, device=dev), steps, rseed, frechet=not cfg.latent)
 
     def learner_run(key, rseed, **fields):
         print(f"[parity] FlowLearner ({key}, unsupervised photometric)", flush=True)

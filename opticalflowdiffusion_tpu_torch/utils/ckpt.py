@@ -15,7 +15,8 @@ The local artifact store (JAX's ``publish_artifact`` and
 as a direct path, then in that store, then in the repository's bundled
 ``artifacts/``.  A bundled JAX artifact is an orbax checkpoint, which the
 port does not read: it raises, naming the script that bridges it into a
-port run (``tests/test_torch_port_raft.py --bridge``).
+port run (``tests/test_torch_port_raft.py --bridge`` for RAFT's,
+``tests/test_torch_port_fid.py --bridge`` for ``classifier-feat``).
 """
 
 from __future__ import annotations
@@ -46,8 +47,10 @@ class CheckpointManager:
         steps = self.steps()
         return steps[-1] if steps else None
 
-    def save(self, state, generator: torch.Generator) -> Path:
-        """Write the checkpoint of ``state`` (a ``TrainState``) at its step."""
+    def save(self, state, generator: torch.Generator, extra: Optional[dict] = None) -> Path:
+        """Write the checkpoint of ``state`` (a ``TrainState``) at its step,
+        with the entries of ``extra`` beside it (the standalone trainer's
+        ``ema``)."""
         step = int(state.step)
         final = self.directory / str(step)
         tmp = self.directory / f".tmp-{step}"
@@ -58,6 +61,7 @@ class CheckpointManager:
             "module": state.module.state_dict(),
             "optimizer": state.optimizer.state_dict(),
             "generator": generator.get_state(),
+            **(extra or {}),
         }, tmp / FILE)
         shutil.rmtree(final, ignore_errors=True)
         os.replace(tmp, final)
@@ -107,6 +111,8 @@ def load_params_from_run(run_dir, prefix: str = "") -> Dict[str, torch.Tensor]:
 
 BUNDLED = Path(__file__).resolve().parents[2] / "artifacts"
 BRIDGE = "tests/test_torch_port_raft.py --bridge"
+# the script that bridges each bundled JAX artifact into a port run
+BRIDGES = {"classifier-feat": "tests/test_torch_port_fid.py --bridge"}
 
 
 def artifact_root() -> Path:
@@ -146,7 +152,8 @@ def resolve_artifact(name) -> Path:
     if _is_orbax(p):
         raise ValueError(
             f"{p} is a JAX (orbax) checkpoint, which the port does not read: write it as a "
-            f"port run with `python {BRIDGE} OUT_DIR` on a machine with JAX, then pass OUT_DIR")
+            f"port run with `python {BRIDGES.get(Path(str(name)).name, BRIDGE)} OUT_DIR` on a "
+            f"machine with JAX, then pass OUT_DIR")
     return p
 
 

@@ -22,6 +22,13 @@ no prefix); FlowCompleter's tree ``{"net": {"Unet_0": ...},
 :func:`flow_completer_jax_layout`; PWCNet's tree :func:`pwc_state_dict` and
 :func:`pwc_jax_layout` (:func:`pwc_rows`); RAFT's tree (flow mode)
 :func:`raft_state_dict` and :func:`raft_jax_layout` (:func:`raft_rows`).
+The classifiers' trees are the JAX ``Classifier``'s params, ``{"net":
+<flax params>, "batch_stats": <flax batch_stats>}``: BatchNorm's ``scale``
+and ``bias`` map to ``weight`` and ``bias``, its ``mean`` and ``var`` to the
+``running_mean`` and ``running_var`` buffers (:func:`resnet_rows`,
+:func:`mobilenet_rows`, with ``*_state_dict`` and ``*_jax_layout``; a
+template without ``batch_stats`` maps the parameters alone, as gradients
+have).  ``models/common.py``'s modules have :func:`common_rows`.
 """
 
 from __future__ import annotations
@@ -303,6 +310,145 @@ def raft_jax_layout(sd: Mapping[str, torch.Tensor], template: Tree) -> Dict:
     return to_jax(sd, template, raft_rows())
 
 
+def _bn_rows(path: Tuple[str, ...], key: str) -> List[Row]:
+    """A flax BatchNorm at ``path`` of the params (``net``) and its
+    ``batch_stats`` against the port's ``models/resnet.py::BatchNorm``."""
+    return [(("net",) + path + ("scale",), key + ".weight", "vec"),
+            (("net",) + path + ("bias",), key + ".bias", "vec"),
+            (("batch_stats",) + path + ("mean",), key + ".running_mean", "vec"),
+            (("batch_stats",) + path + ("var",), key + ".running_var", "vec")]
+
+
+def _plain_conv(path: Tuple[str, ...], key: str) -> Row:
+    return (("net",) + path + ("kernel",), key + ".weight", "conv")
+
+
+def _dense_rows(path: Tuple[str, ...], key: str) -> List[Row]:
+    return [(path + ("kernel",), key + ".weight", "dense"), (path + ("bias",), key + ".bias", "vec")]
+
+
+def resnet_rows(num_blocks: Sequence[int] = (2, 2, 2, 2)) -> List[Row]:
+    """Rows of the JAX ``Classifier``'s ResNet tree against
+    ``models/resnet.py::ResNet``: the stem ``Conv_0``/``BatchNorm_0``, each
+    ``BasicBlock_k``'s ``Conv_{0,1}``/``BatchNorm_{0,1}`` and, where the block
+    has a projection shortcut, ``Conv_2``/``BatchNorm_2``, and ``Dense_0``."""
+    rows = [_plain_conv(("Conv_0",), "conv1"), *_bn_rows(("BatchNorm_0",), "bn1")]
+    k, cin = 0, 64
+    for planes, n, first_stride in zip((64, 128, 256, 512), num_blocks, (1, 2, 2, 2)):
+        for i in range(n):
+            stride, b, key = first_stride if i == 0 else 1, f"BasicBlock_{k}", f"layers.{k}"
+            for j in range(2):
+                rows += [_plain_conv((b, f"Conv_{j}"), f"{key}.conv{j + 1}"),
+                         *_bn_rows((b, f"BatchNorm_{j}"), f"{key}.bn{j + 1}")]
+            if stride != 1 or cin != planes:
+                rows += [_plain_conv((b, "Conv_2"), f"{key}.shortcut.0"),
+                         *_bn_rows((b, "BatchNorm_2"), f"{key}.shortcut.1")]
+            k, cin = k + 1, planes
+    return rows + _dense_rows(("net", "Dense_0"), "linear")
+
+
+def mobilenet_rows() -> List[Row]:
+    """Rows of the JAX ``Classifier``'s MobileNetV2 tree against
+    ``models/mobilenet.py::MobileNetV2``: the stem, each
+    ``InvertedResidual_k``'s ``Conv_{0,1,2}``/``BatchNorm_{0,1,2}`` (the
+    depthwise kernel (3, 3, 1, planes) as (planes, 1, 3, 3)) and its
+    ``Conv_3``/``BatchNorm_3`` shortcut, the head's ``Conv_1``/``BatchNorm_1``
+    and ``Dense_0``."""
+    from ..models.mobilenet import _CFG
+
+    rows = [_plain_conv(("Conv_0",), "conv1"), *_bn_rows(("BatchNorm_0",), "bn1")]
+    k, cin = 0, 32
+    for _, out_planes, num_blocks, stride in _CFG:
+        for i in range(num_blocks):
+            b, key = f"InvertedResidual_{k}", f"layers.{k}"
+            for j in range(3):
+                rows += [_plain_conv((b, f"Conv_{j}"), f"{key}.conv{j + 1}"),
+                         *_bn_rows((b, f"BatchNorm_{j}"), f"{key}.bn{j + 1}")]
+            if (stride if i == 0 else 1) == 1 and cin != out_planes:
+                rows += [_plain_conv((b, "Conv_3"), f"{key}.shortcut.0"),
+                         *_bn_rows((b, "BatchNorm_3"), f"{key}.shortcut.1")]
+            k, cin = k + 1, out_planes
+    rows += [_plain_conv(("Conv_1",), "conv2"), *_bn_rows(("BatchNorm_1",), "bn2")]
+    return rows + _dense_rows(("net", "Dense_0"), "linear")
+
+
+def _present(rows: Sequence[Row], template: Tree) -> List[Row]:
+    """The rows whose tree (``net`` or ``batch_stats``) ``template`` holds."""
+    return [r for r in rows if r[0][0] in template]
+
+
+def resnet_state_dict(tree: Tree, num_blocks: Sequence[int] = (2, 2, 2, 2)
+                      ) -> Dict[str, torch.Tensor]:
+    """State_dict of ResNet (buffers included) from the JAX Classifier's
+    ``{"net", "batch_stats"}``."""
+    return from_jax(tree, resnet_rows(num_blocks))
+
+
+def resnet_jax_layout(sd: Mapping[str, torch.Tensor], template: Tree,
+                      num_blocks: Sequence[int] = (2, 2, 2, 2)) -> Dict:
+    """JAX's ``{"net"[, "batch_stats"]}`` of ``template`` from the port
+    state_dict ``sd`` (parameters and buffers, or gradients)."""
+    return to_jax(sd, template, _present(resnet_rows(num_blocks), template))
+
+
+def mobilenet_state_dict(tree: Tree) -> Dict[str, torch.Tensor]:
+    """State_dict of MobileNetV2 from the JAX Classifier's ``{"net",
+    "batch_stats"}``."""
+    return from_jax(tree, mobilenet_rows())
+
+
+def mobilenet_jax_layout(sd: Mapping[str, torch.Tensor], template: Tree) -> Dict:
+    """JAX's ``{"net"[, "batch_stats"]}`` of ``template`` from ``sd``."""
+    return to_jax(sd, template, _present(mobilenet_rows(), template))
+
+
+ARCH_BLOCKS = {"resnet18": (2, 2, 2, 2), "resnet34": (3, 4, 6, 3)}
+
+
+def classifier_rows(arch: str) -> List[Row]:
+    """The rows of the Classifier's ``arch`` (``algorithms/classifier.py``)."""
+    return mobilenet_rows() if arch == "mobilenet_v2" else resnet_rows(ARCH_BLOCKS[arch])
+
+
+def classifier_state_dict(tree: Tree, arch: str = "resnet18") -> Dict[str, torch.Tensor]:
+    """State_dict of the Classifier's module from its JAX params."""
+    return from_jax(tree, classifier_rows(arch))
+
+
+def classifier_jax_layout(sd: Mapping[str, torch.Tensor], template: Tree,
+                          arch: str = "resnet18") -> Dict:
+    """The JAX Classifier's params tree of ``template`` from ``sd``."""
+    return to_jax(sd, template, _present(classifier_rows(arch), template))
+
+
+def common_rows(name: str, params: Tree) -> List[Row]:
+    """Rows of a ``models/common.py`` module's JAX tree (``name``:
+    ``SimpleMlp``, ``CnnEncoder``, ``CnnDecoder`` or ``CustomizableCnn``)
+    against the port's: ``Dense_i`` -> ``layers.i`` (the MLP), ``Conv_i`` ->
+    ``convs.i``, ``ConvTranspose_i`` -> ``convs.i`` (flipped), ``Dense_0`` ->
+    ``dense``."""
+    count = lambda prefix: sum(k.startswith(prefix) for k in params)
+    if name == "SimpleMlp":
+        return [r for i in range(count("Dense_")) for r in _dense_rows((f"Dense_{i}",),
+                                                                       f"layers.{i}")]
+    conv = "ConvTranspose" if name == "CnnDecoder" else "Conv"
+    rows = [r for i in range(count(conv + "_")) for r in (
+        ((f"{conv}_{i}", "kernel"), f"convs.{i}.weight",
+         "convT" if conv == "ConvTranspose" else "conv"),
+        ((f"{conv}_{i}", "bias"), f"convs.{i}.bias", "vec"))]
+    return rows + (_dense_rows(("Dense_0",), "dense") if "Dense_0" in params else [])
+
+
+def common_state_dict(name: str, params: Tree) -> Dict[str, torch.Tensor]:
+    """State_dict of a ``models/common.py`` module from its JAX params."""
+    return from_jax(params, common_rows(name, params))
+
+
+def common_jax_layout(name: str, sd: Mapping[str, torch.Tensor], template: Tree) -> Dict:
+    """JAX's tree of ``template`` from the port state_dict ``sd``."""
+    return to_jax(sd, template, common_rows(name, template))
+
+
 def _get(tree: Tree, path: Tuple[str, ...]):
     for k in path:
         tree = tree[k]
@@ -391,7 +537,10 @@ def autoencoder_jax_layout(sd: Mapping[str, torch.Tensor], template: Tree,
             for name in ("model_enc", "model_dec")}
 
 
-__all__ = ["autoencoder_jax_layout", "autoencoder_state_dict", "filter_codec_rows",
+__all__ = ["autoencoder_jax_layout", "autoencoder_state_dict", "classifier_jax_layout",
+           "classifier_rows", "classifier_state_dict", "common_jax_layout", "common_rows",
+           "common_state_dict", "filter_codec_rows", "mobilenet_jax_layout", "mobilenet_rows",
+           "mobilenet_state_dict", "resnet_jax_layout", "resnet_rows", "resnet_state_dict",
            "flow_completer_jax_layout", "flow_completer_state_dict",
            "flow_diffuser_state_dict", "flow_learner_jax_layout", "flow_learner_state_dict",
            "from_jax", "jax_layout", "linear_attention_rows", "params_from_jax", "pwc_jax_layout",

@@ -1,6 +1,6 @@
 """The port stands alone: no module of it, and neither of the scripts that
 run it on the card (chip_smoke.py, chip_train_spread.py), imports JAX,
-flax, yaml, cv2, PIL or the JAX package.  And its flagship config holds the
+flax, yaml, cv2, PIL, scipy or the JAX package.  And its flagship config holds the
 values that the JAX config composes."""
 
 import ast
@@ -15,7 +15,7 @@ from opticalflowdiffusion_tpu_torch.config import (
 )
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "yaml", "opticalflowdiffusion_tpu", "cv2", "PIL"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "yaml", "opticalflowdiffusion_tpu", "cv2", "PIL", "scipy"}
 PORT_FILES = sorted((ROOT / "opticalflowdiffusion_tpu_torch").rglob("*.py")) + [
     ROOT / name for name in ("chip_smoke.py", "chip_train_spread.py")
 ]
@@ -93,6 +93,42 @@ def test_raft_modules_are_checked():
                 "utils/weights.py", "train.py"):
         assert f"opticalflowdiffusion_tpu_torch/{mod}" in names, mod
     assert (ROOT / "opticalflowdiffusion_tpu_torch" / "kernels" / "corr_lookup.cu").exists()
+
+
+def test_classification_modules_are_checked():
+    """The classification family's modules, the Frechet metric, the common
+    models, EMA and the standalone trainer are among the files checked
+    above, and the random-conv bank they read is in the package."""
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for mod in ("models/resnet.py", "models/mobilenet.py", "models/common.py", "models/ema.py",
+                "algorithms/classifier.py", "experiments/classification.py",
+                "data/cifar10.py", "data/mnist.py", "training/classifier_pretrain.py",
+                "training/standalone.py", "utils/fid.py"):
+        assert f"opticalflowdiffusion_tpu_torch/{mod}" in names, mod
+    assert (ROOT / "opticalflowdiffusion_tpu_torch" / "utils" / "randconv_seed0_dim64.npz").exists()
+
+
+def test_classification_configs_match_jax_compose():
+    """``algorithm/classifier.yaml``, ``experiment/classification.yaml`` over
+    ``base.yaml`` and ``dataset/cifar10.yaml`` hold JAX's composed values."""
+    from opticalflowdiffusion_tpu_torch.config import CIFAR10, CLASSIFICATION, CLASSIFIER
+
+    cfg = compose(["experiment=classification", "algorithm=classifier", "dataset=cifar10"])
+    algo, exp, data = cfg.algorithm, cfg.experiment, cfg.dataset
+    for key in ("arch", "num_class", "in_channels", "lr"):
+        assert getattr(CLASSIFIER, key) == algo[key], key
+    assert CLASSIFIER.weight_decay == algo.get("weight_decay", 0.0)
+    assert CLASSIFICATION.batch_size == exp.training.data.batch_size
+    assert CLASSIFICATION.clipping == exp.training.get("clipping")
+    assert CLASSIFICATION.check_interval == exp.validation.check_interval
+    assert isinstance(CLASSIFICATION.check_interval, float)
+    assert CLASSIFICATION.limit_batch == exp.validation.limit_batch
+    assert CLASSIFICATION.val_batch_size == exp.validation.data.batch_size
+    assert CLASSIFICATION.val_shuffle == exp.validation.data.shuffle
+    assert CLASSIFICATION.every_n_train_steps == exp.training.checkpointing.every_n_train_steps
+    assert CLASSIFICATION.accumulate_grad_batches == exp.training.optim.accumulate_grad_batches
+    assert CLASSIFICATION.log_every == cfg.runtime.log_every
+    assert CIFAR10.name == data.name and CIFAR10.root == data.root
 
 
 def test_taichi_config_matches_jax_compose():

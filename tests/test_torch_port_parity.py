@@ -3,7 +3,8 @@ writer it uses (``utils/visualization.py``), on the CPU: ``_w1``;
 ``_eval`` against JAX's ``_eval`` on the same stub validation step (fixed
 numpy metrics and artifacts, so no model runs); a tiny ``run_parity``
 (2 steps, 8x8 frames, the ``joint`` and ``learner`` stages) whose JSON
-carries JAX's keys per stage, less the Frechet ones; the recorded JAX bars
+carries JAX's keys per stage (the Frechet ones under the port's feature
+source); the recorded JAX bars
 against ``parity/parity_r05.json``; the zlib PNG against the one JAX
 writes with PIL, both decoded by PIL; the data of the latent stage's
 AE pretraining against JAX's; and JAX's own parity Autoencoder
@@ -124,21 +125,34 @@ def _without_frechet(keys):
     return {k for k in keys if not k.startswith(("frechet_", "render_"))}
 
 
+def _frechet_from(keys, src):
+    """JAX's Frechet keys (``frechet_classifier*``) with the port's feature
+    source: the random-conv bank here, where ``classifier-feat`` is JAX's
+    orbax checkpoint, which the port does not read."""
+    return {k.replace("frechet_classifier", f"frechet_{src}") for k in keys}
+
+
 def test_tiny_run_parity_on_cpu(tmp_path):
     """Two steps each of the joint and learner stages at 8x8 on the CPU: the
-    JSON has JAX's keys per stage and in init/final (less the Frechet
-    ones), the bars, the learner's oracles and its images."""
+    JSON has JAX's keys per stage and in init/final (the joint stage's final
+    Frechet rows under the random-conv source, which the port falls back to
+    here), the bars, the learner's oracles and its images.  Validation
+    batches of 4 give the Frechet floor's halves 2 images each (a covariance
+    needs two)."""
     res = parity.run_parity(
         out_dir=str(tmp_path), diffuser_steps=2, learner_steps=2, batch=2, image_size=8,
         dataset_size=32, sampling_timesteps=2, stages=("joint", "learner"), device="cpu",
-        val_batch=2, val_batches=1, init_batches=1, levels=(1, 2), unet_dim=8, log_every=1)
+        val_batch=4, val_batches=1, init_batches=1, levels=(1, 2), unet_dim=8, log_every=1)
     saved = json.loads((tmp_path / "parity.json").read_text())
     assert saved.keys() == res.keys() == {"device", "n_devices", "bars", "flow_diffuser",
                                           "flow_learner"}
     for key in ("flow_diffuser", "flow_learner"):
         assert saved[key].keys() == R05[key].keys(), key
         for phase in ("init", "final"):
-            assert saved[key][phase].keys() == _without_frechet(R05[key][phase].keys()), key
+            want = (_frechet_from(R05[key][phase].keys(), "randconv")
+                    if (key, phase) == ("flow_diffuser", "final")
+                    else _without_frechet(R05[key][phase].keys()))
+            assert saved[key][phase].keys() == want, (key, phase)
             assert all(np.isfinite(v) or k.startswith("dist_w1_") for k, v in
                        saved[key][phase].items()), key
         assert saved[key]["steps"] == 2 and [s for s, _ in saved[key]["loss_curve"]] == [1, 2]

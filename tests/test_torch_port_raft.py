@@ -318,11 +318,31 @@ def test_filter_mode_raises_as_jax(radius):
         praft.RAFT(radius=radius, iters=1, corr_levels=2)(_nchw(x), _nchw(x))
 
 
-def test_shallow_grid_raises():
-    """A 32x32 frame's 4 x 4 grid holds 3 levels; JAX shrinks its motion
-    encoder there, the port's widths are fixed and it raises."""
+def test_shallow_grid_matches_jax():
+    """C14: a 32x32 frame's 4 x 4 grid holds 3 levels; JAX's init sizes its
+    motion encoder for them (3 x 81 channels), and the port's RAFT built for
+    that image size gives JAX's flow through ``raft_rows``.  A RAFT whose
+    encoder was built for 4 levels raises on that grid, naming
+    ``image_size``."""
+    rng = np.random.default_rng(3)
+    f1 = rng.random((2, 32, 32, 3)).astype(np.float32)
+    f2 = np.roll(f1, (1, -2), axis=(1, 2))
+    jm = jraft.RAFT(iters=2, corr_levels=4)
+    params = jax.device_get(jm.init(jax.random.PRNGKey(2), f1, f2)["params"])
+    want = jax.jit(jm.apply)({"params": params}, f1, f2)
+    sd = raft_state_dict(params)
+    assert sd["update_block.encoder.convc1.weight"].shape[1] == 3 * 81
+    assert praft.grid_levels(32) == praft.grid_levels((32, 40)) == 3
+    net = praft.RAFT(iters=2, corr_levels=4, image_size=32)
+    net.load_state_dict(sd)
+    with torch.no_grad():
+        got = net(_nchw(f1), _nchw(f2))
+    assert len(got) == len(want) == 2
+    for i, (g, w) in enumerate(zip(got, want)):
+        _close(_nhwc(g), w, msg=f"prediction {i}")
+    assert float(np.abs(np.asarray(want[-1])).max()) > 1e-3
     x = torch.zeros(1, 3, 32, 32)
-    with pytest.raises(ValueError, match="pyramid levels"):
+    with pytest.raises(ValueError, match="image_size"):
         praft.RAFT(iters=1, corr_levels=4)(x, x)
 
 
